@@ -1,0 +1,297 @@
+"""CUDA streaming reduction kernels — the accelerated op component.
+
+Counterpart of ``ompi_release_tpu/ops/pallas_op.py``. The reference's
+reduction hot loop is a C elementwise loop per (op x dtype)
+(``ompi/mca/op/base/op_base_functions.c``); its ``op`` MCA framework
+exists so accelerated components can override those loops. This is that
+component for an NVIDIA H100: two hand-written streaming kernels in
+``csrc/stream_ops.cu``, built for ``sm_90a`` with ``nvcc`` at first use
+into ``ompi_release_tpu_torch/build/`` and loaded with ``ctypes``:
+
+- ``stream_axpy``: ``out = acc*c + a``; with ``c == 1`` a plain add, the
+  SUM combiner (``sum_``, the ``_pallas_sum_fn`` role) — 3 streams;
+- ``stream_scale``: ``out = x*c`` — 2 streams, the copy-rate yardstick.
+
+Each kernel's wrapper launches it for CUDA tensors and takes its plain
+PyTorch twin (``_plain_*``, same arithmetic: f32 math, bf16 widened and
+rounded once) only for CPU tensors. There is no fallback: a CUDA tensor
+the kernel cannot take raises, and so does a missing ``nvcc``. Wrappers
+allocate the output with ``torch.empty_like`` and never write in place
+(no aliasing, unlike the Pallas kernels' input/output alias). Each
+wrapper counts its kernel launches in ``LAUNCHES``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Optional
+
+import torch
+
+from ..mca import component as mca_component
+from ..mca import var as mca_var
+from ..utils.errors import ErrorCode, MPIError
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "stream_ops.cu")
+BUILD_DIR = os.path.join(_PKG_DIR, "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: kernel launches per wrapper (``sum_``, ``axpy``, ``scale``), bumped
+#: only where the wrapper launches its kernel
+LAUNCHES: Dict[str, int] = {"sum": 0, "axpy": 0, "scale": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc"), shutil.which("nvcc")]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise MPIError(ErrorCode.ERR_NOT_AVAILABLE,
+                   "nvcc not found (set CUDA_HOME): the CUDA streaming "
+                   "kernels are built from csrc/stream_ops.cu at first use")
+
+
+def build() -> str:
+    """Compile ``csrc/stream_ops.cu`` into a shared library named by the
+    source's hash (a changed source rebuilds; an unchanged one is
+    reused) and return its path."""
+    with open(SOURCE, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()
+                                ).hexdigest()[:12]
+    out = os.path.join(BUILD_DIR, f"libstream_ops-{digest}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise MPIError(ErrorCode.ERR_OTHER,
+                       f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                       f"{res.stdout}{res.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return out
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            vp = ctypes.c_void_p
+            lib.stream_axpy.argtypes = [ctypes.c_int, vp, vp, vp,
+                                        ctypes.c_float, ctypes.c_int,
+                                        ctypes.c_longlong, vp]
+            lib.stream_axpy.restype = ctypes.c_int
+            lib.stream_scale.argtypes = [ctypes.c_int, vp, vp,
+                                         ctypes.c_float, ctypes.c_longlong,
+                                         vp]
+            lib.stream_scale.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def _check(name: str, *ts: torch.Tensor) -> None:
+    t0 = ts[0]
+    for t in ts:
+        if t.device != t0.device or t.dtype != t0.dtype \
+                or t.shape != t0.shape:
+            raise MPIError(ErrorCode.ERR_ARG,
+                           f"{name}: operands differ in device, dtype or "
+                           f"shape ({t0.device}/{t0.dtype}/{tuple(t0.shape)}"
+                           f" vs {t.device}/{t.dtype}/{tuple(t.shape)})")
+        if not t.is_contiguous():
+            raise MPIError(ErrorCode.ERR_ARG,
+                           f"{name}: the kernel takes contiguous tensors")
+    if t0.dtype not in _DTYPE_CODE:
+        raise MPIError(ErrorCode.ERR_TYPE,
+                       f"{name}: the kernel takes float32/bfloat16, got "
+                       f"{t0.dtype}")
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err != 0:
+        raise MPIError(ErrorCode.ERR_OTHER,
+                       f"{name} launch failed: CUDA error {err}")
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twins (the CPU path; the card compares the kernels to them)
+# ---------------------------------------------------------------------------
+
+def _plain_axpy(a: torch.Tensor, acc: torch.Tensor, c: float) -> torch.Tensor:
+    if a.dtype is torch.bfloat16:
+        return (acc.float() * c + a.float()).to(torch.bfloat16)
+    return acc * c + a
+
+
+def _plain_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.dtype is torch.bfloat16:
+        return (b.float() + a.float()).to(torch.bfloat16)
+    return b + a
+
+
+def _plain_scale(x: torch.Tensor, c: float) -> torch.Tensor:
+    if x.dtype is torch.bfloat16:
+        return (x.float() * c).to(torch.bfloat16)
+    return x * c
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _launch_axpy(a, acc, c: float, plain_add: bool,
+                 wrapper: str) -> torch.Tensor:
+    _check("stream_axpy", a, acc)
+    out = torch.empty_like(acc)
+    n = a.numel()
+    if n == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.stream_axpy(_DTYPE_CODE[a.dtype], a.data_ptr(),
+                              acc.data_ptr(), out.data_ptr(), float(c),
+                              int(plain_add), n, stream)
+    _raise_on("stream_axpy", err)
+    LAUNCHES[wrapper] += 1
+    return out
+
+
+def axpy(a: torch.Tensor, acc: torch.Tensor, c: float = 1.0) -> torch.Tensor:
+    """``acc*c + a`` (the AXPY hot loop); equal-shape f32/bf16 tensors."""
+    if a.device.type == "cpu":
+        return _plain_axpy(a, acc, c)
+    return _launch_axpy(a, acc, c, plain_add=False, wrapper="axpy")
+
+
+def sum_(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``b + a``: the SUM combiner (``_pallas_sum_fn`` role) — the axpy
+    kernel's ``c == 1`` path, one IEEE add per element."""
+    if a.device.type == "cpu":
+        return _plain_sum(a, b)
+    return _launch_axpy(a, b, 1.0, plain_add=True, wrapper="sum")
+
+
+def scale(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x*c`` streaming (read + write: the copy-rate kernel)."""
+    if x.device.type == "cpu":
+        return _plain_scale(x, c)
+    _check("stream_scale", x)
+    out = torch.empty_like(x)
+    n = x.numel()
+    if n == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.stream_scale(_DTYPE_CODE[x.dtype], x.data_ptr(),
+                               out.data_ptr(), float(c), n, stream)
+    _raise_on("stream_scale", err)
+    LAUNCHES["scale"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# op-framework component
+# ---------------------------------------------------------------------------
+
+def _cuda_sum_fn(a, b):
+    """SUM combiner of the ``sum[cuda]`` op: the collectives' local
+    reduction step. Operands are made contiguous first (the role of the
+    Pallas kernel's flatten/pad prologue); equal shapes only."""
+    return sum_(a.contiguous(), b.contiguous())
+
+
+_cuda_sum_op = None
+
+
+def make_cuda_sum():
+    # ONE Op instance for the component's lifetime: program caches key
+    # collectives by the op OBJECT, so a fresh Op per lookup would miss
+    # the cache on every resolved call
+    global _cuda_sum_op
+    if _cuda_sum_op is None:
+        from .op import Op
+
+        _cuda_sum_op = Op("sum[cuda]", _cuda_sum_fn, commutative=True,
+                          identity=lambda d: 0)
+    return _cuda_sum_op
+
+
+class CudaOpComponent(mca_component.Component):
+    """Claims large contiguous f32/bf16 SUM reductions; everything else
+    falls through to the torch component (counterpart of
+    ``PallasOpComponent``, same claim rule and default threshold)."""
+
+    NAME = "cuda"
+    PRIORITY = 20  # outranks torch (10): queried first, claims narrowly
+
+    def register_vars(self) -> None:
+        mca_var.register(
+            "op_cuda_threshold", "size", 4 * 1024 * 1024,
+            "Minimum reduction size in bytes for the CUDA streaming SUM "
+            "kernel to claim the op",
+        )
+
+    def lookup(self, name: str, dtype=None, nbytes: int = 0):
+        if name != "sum" or dtype not in _DTYPE_CODE:
+            return None
+        if nbytes < int(mca_var.get("op_cuda_threshold", 4 * 1024 * 1024)):
+            return None
+        return make_cuda_sum()
+
+
+# ---------------------------------------------------------------------------
+# bench loops (pallas_op.make_axpy_loop / make_scale_loop counterparts)
+# ---------------------------------------------------------------------------
+
+def make_axpy_loop(rows: int, cols: int, c: float = 0.999,
+                   dtype=torch.float32):
+    """K launches of the axpy kernel over a (rows, cols) accumulator
+    (per-iteration traffic 3 x rows x cols x itemsize); returns the
+    ``acc[0, 0] + acc[-1, -1]`` checksum. Each launch is opaque, so no
+    algebraic folding across iterations can shortcut the traffic."""
+
+    def loop(a: torch.Tensor, k: int) -> torch.Tensor:
+        acc = torch.zeros((rows, cols), dtype=dtype, device=a.device)
+        for _ in range(k):
+            acc = axpy(a, acc, c)
+        return acc[0, 0] + acc[-1, -1]
+
+    return loop
+
+
+def make_scale_loop(rows: int, cols: int, c: float = 1.0001,
+                    dtype=torch.float32):
+    """K launches of the 2-stream scale kernel (read + write per
+    iteration: the copy-rate yardstick); same checksum."""
+
+    def loop(a: torch.Tensor, k: int) -> torch.Tensor:
+        if a.shape != (rows, cols) or a.dtype != dtype:
+            raise MPIError(ErrorCode.ERR_ARG,
+                           f"scale loop built for {(rows, cols)} {dtype}")
+        acc = a
+        for _ in range(k):
+            acc = scale(acc, c)
+        return acc[0, 0] + acc[-1, -1]
+
+    return loop

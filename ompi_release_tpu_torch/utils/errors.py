@@ -1,0 +1,101 @@
+"""MPI-style error codes and error handlers (the port's own copy of
+``ompi_release_tpu/utils/errors.py``; the port imports nothing from the
+JAX package).
+
+Analogue of ``ompi/errhandler/`` + the MPI error classes: operations
+raise :class:`MPIError` carrying a standard error class; communicators
+carry an :class:`Errhandler` deciding whether errors abort the job
+(``MPI_ERRORS_ARE_FATAL``, the MPI default) or propagate to the caller
+(``MPI_ERRORS_RETURN``).
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Callable, Optional
+
+
+class ErrorCode(enum.IntEnum):
+    """Subset of the MPI error classes (``mpi.h`` MPI_ERR_*)."""
+
+    SUCCESS = 0
+    ERR_BUFFER = 1
+    ERR_COUNT = 2
+    ERR_TYPE = 3
+    ERR_TAG = 4
+    ERR_COMM = 5
+    ERR_RANK = 6
+    ERR_REQUEST = 7
+    ERR_ROOT = 8
+    ERR_GROUP = 9
+    ERR_OP = 10
+    ERR_TOPOLOGY = 11
+    ERR_DIMS = 12
+    ERR_ARG = 13
+    ERR_UNKNOWN = 14
+    ERR_TRUNCATE = 15
+    ERR_OTHER = 16
+    ERR_INTERN = 17
+    ERR_IN_STATUS = 18
+    ERR_PENDING = 19
+    ERR_WIN = 45
+    ERR_RMA_SYNC = 50
+    ERR_RMA_SHARED = 71  # MPI_ERR_RMA_SHARED: shared-window constraint
+    ERR_BASE = 46
+    ERR_DISP = 52
+    ERR_IO = 32
+    ERR_FILE = 27
+    ERR_NO_MEM = 34
+    ERR_NAME = 33  # MPI_ERR_NAME: service name not published
+    ERR_PORT = 38  # MPI_ERR_PORT: invalid port (connect/accept)
+    ERR_SPAWN = 42  # MPI_ERR_SPAWN
+    ERR_NOT_AVAILABLE = 100
+    ERR_UNREACH = 101  # OMPI_ERR_UNREACH: no transport reaches the peer
+    # ULFM fault-tolerance classes (MPIX_ERR_* of the MPI 4.x FT
+    # chapter): a wait on a peer the job epoch marks dead completes in
+    # error instead of hanging, and operations on a revoked
+    # communicator are interrupted with ERR_REVOKED
+    ERR_PROC_FAILED = 75   # MPIX_ERR_PROC_FAILED
+    ERR_REVOKED = 76       # MPIX_ERR_REVOKED
+    # collective contract violation (obs/sentinel.py inline mode): a
+    # peer rank's call signature — family/op/dtype/count/root at the
+    # same per-comm posting seq — diverged from this rank's. MPI has
+    # no class for this (it is erroneous-program territory MUST-style
+    # tools diagnose); raising it typed within the round beats the
+    # alternative, an unexplained hang
+    ERR_COLL_MISMATCH = 77
+
+
+class MPIError(RuntimeError):
+    def __init__(self, code: ErrorCode, message: str = "") -> None:
+        super().__init__(f"{code.name}: {message}" if message else code.name)
+        self.code = code
+        self.message = message
+
+
+class Errhandler:
+    """Error handler attached to communicators/windows/files."""
+
+    def __init__(self, fn: Optional[Callable[[object, MPIError], None]] = None,
+                 name: str = "user") -> None:
+        self._fn = fn
+        self.name = name
+
+    def invoke(self, obj: object, err: MPIError) -> None:
+        if self._fn is None:
+            raise err
+        self._fn(obj, err)
+
+
+def _fatal(obj: object, err: MPIError) -> None:
+    # the reference aborts the whole job; we raise SystemExit to mirror
+    # MPI_Abort semantics without killing the test runner's interpreter
+    raise SystemExit(f"MPI error (ERRORS_ARE_FATAL) on {obj}: {err}")
+
+
+def _return(obj: object, err: MPIError) -> None:
+    raise err
+
+
+ERRORS_ARE_FATAL = Errhandler(_fatal, name="ERRORS_ARE_FATAL")
+ERRORS_RETURN = Errhandler(_return, name="ERRORS_RETURN")
