@@ -2,25 +2,37 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU.
 
 Run from the repository root on a machine with a card:
-``python3 chip_smoke.py``. It builds the CUDA streaming kernels from
+``python3 chip_smoke.py``. It builds the CUDA kernels from
 ``ompi_release_tpu_torch/csrc`` with ``nvcc``, then:
 
 1. prints the card (``nvidia-smi`` name and power limit) and the build
    time;
-2. holds each kernel against its plain PyTorch twin on the card (sizes
-   1, 4097, 2^26+3 and a view at element offset 1; f32 and bf16);
-3. drives the main path — ``init()`` with 8 virtual ranks on ``cuda:0``,
-   a tuned communicator, allreduce f32 SUM from 8 B to 256 MiB per rank,
-   reduce_scatter_block, bcast, allgather, alltoall, the fused allreduce
-   on WORLD and the bench loops — with every launch counter set to 0
-   just before and read just after; then checks every result bitwise
-   against the same calls with ``--mca op ^cuda`` (the plain add on the
-   card) and against closed forms;
+2. holds each kernel against its plain PyTorch twin on the card: the
+   streaming kernels at sizes 1, 4097, 2^26+3 and a view at element
+   offset 1 (f32 and bf16); the transpose bitwise at (8192, 8192) int32,
+   (4097, 1000) f32 and (1, 1); the chain hop bitwise against ``x + 1``;
+3. drives the main path, each slice's part with every launch counter
+   set to 0 just before and read just after:
+   - slice 1: ``init()`` with 8 virtual ranks on ``cuda:0``, a tuned
+     communicator, allreduce f32 SUM from 8 B to 256 MiB per rank,
+     reduce_scatter_block, bcast, allgather, alltoall, the fused
+     allreduce on WORLD and the axpy/scale bench loops; every result is
+     checked bitwise against the same calls with ``--mca op ^cuda``
+     (the plain add on the card) and against closed forms;
+   - slice 2: the ported ring example (ring over the first 4 of the 8
+     ranks), a 256 MiB f32 send/recv from rank 0 to rank 5 (pipelined
+     protocol), sendrecv/ring_shift/halo_exchange on 8 ranks, and the
+     transpose and chain loops (eager and graph-replayed); each checked
+     against its closed form;
 4. times the kernels (CUDA events, median of 7) at the main path's
-   largest shape beside their bound, their plain twins and one PyTorch
-   library call, and the tuned allreduce per size (time and bus
-   bandwidth 2(n-1)/n * bytes / t); a torch.profiler window per size
-   says where the allreduce's device time goes.
+   shapes beside their bound, their plain twins and one PyTorch library
+   call (the chain hop eager and replayed from a CUDA graph), and the
+   tuned allreduce per size (time and bus bandwidth 2(n-1)/n * bytes /
+   t); a torch.profiler window per size says where the allreduce's
+   device time goes;
+5. runs the port's bench suite (``ompi_release_tpu_torch.bench``, the
+   five BASELINE configs) in-process and prints its lines, the headline
+   ``op_sum_256MiB_f32_hbm_bw`` last among them.
 
 Any mismatch raises (exit code != 0) before the last line. The last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and
@@ -46,6 +58,13 @@ KERNELS = {
     "axpy": ("ompi_release_tpu/ops/pallas_op.py:93", 3),   # axpy
     "scale": ("ompi_release_tpu/ops/pallas_op.py:105", 2),  # scale
 }
+#: the transpose (make_transpose_loop) and chain (make_chain_loop)
+#: pallas_calls
+TRANSPOSE_REPLACES = "ompi_release_tpu/ops/pallas_op.py:300"
+CHAIN_REPLACES = "ompi_release_tpu/ops/pallas_op.py:336"
+TRANSPOSE_N = 8192  # alltoall_i32_torus's (n, n) int32
+P2P_BYTES = 256 * MIB
+HOPS_TIMED = 1000  # dependent chain hops per timing window
 
 
 def log(msg):
@@ -125,9 +144,21 @@ def phase_kernels(cuda_op, torch, dev):
                             cuda_op._plain_scale(a, 1.0001), dtype),
                   f"scale kernel != plain ({what})")
             del base, a, b
+    for shape, dtype in (((TRANSPOSE_N, TRANSPOSE_N), torch.int32),
+                         ((4097, 1000), torch.float32), ((1, 1), torch.float32)):
+        g = torch.Generator(device=dev).manual_seed(shape[0])
+        x = torch.randint(-2**31, 2**31 - 1, shape, generator=g, device=dev,
+                          dtype=torch.int32).view(dtype)  # every bit pattern
+        check(bits_equal(cuda_op.transpose(x), cuda_op._plain_transpose(x)),
+              f"transpose kernel != x.t().contiguous() ({shape} {dtype})")
+        del x
+    x = torch.randn(cuda_op.CHAIN_TILE, device=dev)
+    check(bits_equal(cuda_op.chain_hop(x), cuda_op._plain_chain_hop(x)),
+          "chain hop kernel != x + 1")
     torch.cuda.synchronize()
     log("phase 2: kernels match their plain twins (f32/bf16; n=1, 4097, "
-        "2^26+3, offset 1)")
+        "2^26+3, offset 1; transpose (8192, 8192) int32, (4097, 1000) f32, "
+        "(1, 1) bitwise; chain hop bitwise)")
 
 
 def drive_main_path(mpi, tmvar, torch, dev):
@@ -175,6 +206,82 @@ def drive_bench_loops(cuda_op, torch, dev):
     scale_sum = cuda_op.make_scale_loop(rows, cols)(a, 4)
     torch.cuda.synchronize()
     return a, float(axpy_sum), float(scale_sum)
+
+
+def drive_p2p_path(world, cuda_op, torch, dev):
+    """Slice 2's path on the WORLD of 8 virtual ranks: the ring example,
+    a pipelined 256 MiB send, the static p2p schedules and the
+    transpose/chain loops. Returns what the checks need."""
+    from ompi_release_tpu_torch.examples import ring_tpu
+    from ompi_release_tpu_torch.mca import pvar as tpvar
+    from ompi_release_tpu_torch.p2p import spmd as p2p_spmd
+
+    out = {"ring": ring_tpu.ring(world)}
+    g = torch.Generator(device=dev).manual_seed(5)
+    pipelined = tpvar.PVARS.lookup("pml_pipelined_sends")
+    before = pipelined.read()
+    payload = torch.randn(P2P_BYTES // 4, generator=g, device=dev)
+    world.send(payload, dest=5, tag=42, rank=0)
+    got, st = world.recv(source=0, tag=42, rank=5)
+    out["send"] = (payload, got, st, pipelined.read() - before)
+    x = torch.randn(N_RANKS, 4096, generator=g, device=dev)
+    out["static"] = (x, p2p_spmd.ring_shift(x, 3),
+                     p2p_spmd.sendrecv(x, [(0, 7), (2, 1)]),
+                     p2p_spmd.halo_exchange(x))
+    out["sendrecv"] = world.sendrecv(
+        [x[r] for r in range(N_RANKS)],
+        [(r + 1) % N_RANKS for r in range(N_RANKS)], sendtag=9,
+        sources=[(r - 1) % N_RANKS for r in range(N_RANKS)], recvtag=9)
+    n = TRANSPOSE_N
+    a = torch.randint(-2**20, 2**20, (n, n), generator=g, device=dev,
+                      dtype=torch.int32)
+    t_loop, _ = cuda_op.make_transpose_loop(n)
+    af = a[:8, :128].float().contiguous()
+    k_graph = 2 * cuda_op.GRAPH_BLOCK + 3
+    out["loops"] = (a, int(t_loop(a, 2)), af,
+                    float(cuda_op.make_chain_loop(4)(af, 25)),
+                    float(cuda_op.make_chain_loop(4, graph=True)(af, k_graph)),
+                    k_graph)
+    torch.cuda.synchronize()
+    return out
+
+
+def check_p2p_path(torch, out):
+    passes, last = out["ring"]
+    n, laps = 4, 3  # ring_tpu: the first 4 ranks, LAPS laps
+    check((passes, last) == ((n - 1) + laps * n, 0),
+          f"ring example: {passes} passes, final {last}")
+    payload, got, st, pipelined = out["send"]
+    check(bits_equal(got, payload), "256 MiB send/recv != payload")
+    check((st.source, st.tag, st.count) == (0, 42, payload.numel()),
+          f"256 MiB recv status {st}")
+    check(pipelined == 1, f"256 MiB send took {pipelined} pipelined moves")
+    x, shifted, sparse, (from_left, from_right) = out["static"]
+    idx = lambda rows: torch.tensor(rows, device=x.device)  # noqa: E731
+    check(bits_equal(shifted, x[idx([(r - 3) % N_RANKS
+                                     for r in range(N_RANKS)])]),
+          "ring_shift != x[(r - 3) % n]")
+    want = torch.zeros_like(x)
+    want[7], want[1] = x[0], x[2]
+    check(bits_equal(sparse, want), "sendrecv schedule != its closed form")
+    want_l, want_r = torch.zeros_like(x), torch.zeros_like(x)
+    want_l[1:], want_r[:-1] = x[:-1], x[1:]
+    check(bits_equal(from_left, want_l) and bits_equal(from_right, want_r),
+          "halo_exchange != shifted rows with zero boundaries")
+    values, statuses = out["sendrecv"]
+    for r in range(N_RANKS):
+        check(bits_equal(values[r], x[(r - 1) % N_RANKS])
+              and statuses[r].source == (r - 1) % N_RANKS,
+              f"PML sendrecv at rank {r}")
+    a, t_sum, af, eager_sum, graph_sum, k_graph = out["loops"]
+    check(t_sum == int(a[0, 0]) + int(a[-1, -1]),
+          "transpose loop checksum != a[0, 0] + a[-1, -1]")
+    base = float(af[0, 0]) + float(af[-1, -1])
+    check(eager_sum == base + 2 * 4 * 25, "eager chain loop checksum")
+    check(graph_sum == base + 2 * 4 * k_graph, "graph chain loop checksum")
+    log("phase 3: ring example (15 passes, final 0), pipelined 256 MiB "
+        "send, static schedules, PML sendrecv and the transpose/chain "
+        "loop checksums match their closed forms")
 
 
 def check_main_path(tmvar, torch, runs, bench):
@@ -258,7 +365,89 @@ def time_kernels(cuda_op, torch, dev, launches):
             "bound_by": "bytes", "library_ms": time_ms(lib, inner=10),
             "shape": [numel], "dtype": "float32",
         })
+    rows.append(time_transpose(cuda_op, torch, dev, launches["transpose"]))
+    rows.append(time_chain(cuda_op, torch, dev, launches["chain"]))
     return rows
+
+
+def time_transpose(cuda_op, torch, dev, launches):
+    """The transpose at alltoall_i32_torus's (8192, 8192) int32."""
+    n = TRANSPOSE_N
+    x = torch.randint(-2**31, 2**31 - 1, (n, n), device=dev,
+                      dtype=torch.int32)
+    err = float((cuda_op.transpose(x).double()
+                 - cuda_op._plain_transpose(x).double()).abs().max())
+    return {
+        "name": "tile_transpose_32", "route": "cuda", "source": SOURCE,
+        "replaces": TRANSPOSE_REPLACES, "launches": launches,
+        "max_abs_err": err,
+        "ms": time_ms(lambda: cuda_op.transpose(x), inner=10),
+        "plain_ms": time_ms(lambda: cuda_op._plain_transpose(x), inner=10),
+        "bound_ms": 2 * n * n * 4 / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": time_ms(lambda: x.t().contiguous(), inner=10),
+        "shape": [n, n], "dtype": "int32",
+    }
+
+
+def hop_ms(torch, hop, x, graph):
+    """ms per hop over HOPS_TIMED dependent hops, launched from Python
+    (eager) or replayed from one CUDA graph holding all of them."""
+    def chain():
+        y = x
+        for _ in range(HOPS_TIMED):
+            y = hop(y)
+        return y
+
+    if not graph:
+        return time_ms(chain) / HOPS_TIMED
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        chain()
+    return time_ms(g.replay) / HOPS_TIMED
+
+
+def time_chain(cuda_op, torch, dev, launches):
+    """The chain hop on its (8, 128) f32 tile, eager and in a graph,
+    beside torch.add(x, 1) timed the same two ways."""
+    x = torch.randn(cuda_op.CHAIN_TILE, device=dev)
+    err = float((cuda_op.chain_hop(x) - cuda_op._plain_chain_hop(x))
+                .abs().max())
+    lib = lambda y: torch.add(y, 1)  # noqa: E731
+    return {
+        "name": "chain_add_one", "route": "cuda", "source": SOURCE,
+        "replaces": CHAIN_REPLACES, "launches": launches,
+        "max_abs_err": err,
+        "ms": hop_ms(torch, cuda_op.chain_hop, x, graph=False),
+        "ms_graph": hop_ms(torch, cuda_op.chain_hop, x, graph=True),
+        "plain_ms": hop_ms(torch, cuda_op._plain_chain_hop, x, graph=False),
+        "bound_ms": 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": hop_ms(torch, lib, x, graph=False),
+        "library_ms_graph": hop_ms(torch, lib, x, graph=True),
+        "shape": list(cuda_op.CHAIN_TILE), "dtype": "float32",
+        "per": "hop",
+    }
+
+
+def run_bench(torch, dev):
+    """Phase 5: the port's bench suite in-process, headline last."""
+    from ompi_release_tpu_torch import bench as tbench
+
+    t0 = time.perf_counter()
+    lines, headline = tbench.run_suite(dev)
+    for ln in lines + [headline]:
+        check(ln["device"] == torch.cuda.get_device_name(dev),
+              f"bench line without the card's name: {ln}")
+        log(json.dumps(ln))
+    check(headline["metric"] == "op_sum_256MiB_f32_hbm_bw",
+          f"bench headline {headline['metric']}")
+    log(f"phase 5: bench suite took {time.perf_counter() - t0:.1f} s")
 
 
 def time_allreduce(tuned, torch, dev):
@@ -336,13 +525,26 @@ def main():
     world, tuned, runs = drive_main_path(mpi, tmvar, torch, dev)
     bench = drive_bench_loops(cuda_op, torch, dev)
     torch.cuda.synchronize()
-    launches = dict(cuda_op.LAUNCHES)
+    launches = {name: cuda_op.LAUNCHES[name] for name in KERNELS}
     log(f"phase 3: main-path launches {launches}")
     for name, count in launches.items():
         check(count > 0, f"kernel wrapper {name} launched no time on the "
                          "main path")
     check_main_path(tmvar, torch, runs, bench)
     del runs, bench
+    torch.cuda.empty_cache()
+
+    cuda_op.reset_launches()
+    p2p = drive_p2p_path(world, cuda_op, torch, dev)
+    torch.cuda.synchronize()
+    launches_p2p = dict(cuda_op.LAUNCHES)
+    log(f"phase 3: slice-2 path launches {launches_p2p}")
+    for name in ("transpose", "chain"):
+        check(launches_p2p[name] > 0, f"kernel wrapper {name} launched no "
+                                      "time on the main path")
+        launches[name] = launches_p2p[name]
+    check_p2p_path(torch, p2p)
+    del p2p
     torch.cuda.empty_cache()
 
     rows = time_kernels(cuda_op, torch, dev, launches)
@@ -352,6 +554,8 @@ def main():
         " GiB")
     tuned.free()
     mpi.finalize()
+    torch.cuda.empty_cache()
+    run_bench(torch, dev)
     log(card_line())
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,11 @@ device — and return the same layout. All of a communicator's rows live
 on one device: the device of its first rank (virtual ranks share it).
 
 Ported so far: WORLD/SELF, dup/create/split/free, attributes,
-errhandlers and the blocking collectives, which call the installed
-``c_coll`` table directly. Point-to-point, nonblocking and persistent
-collectives and the fault-tolerance hooks come with later slices.
+errhandlers, the blocking collectives, which call the installed
+``c_coll`` table directly, and point-to-point through the per-comm PML
+engine (driver mode: the acting rank is the keyword ``rank=``).
+Nonblocking and persistent collectives and the fault-tolerance hooks
+come with later slices.
 
 CID allocation: under a single controller the reference's agreement
 (``comm_cid.c``) reduces to a deterministic monotone counter.
@@ -255,6 +257,92 @@ class Communicator:
 
     def barrier(self) -> None:
         self._coll("barrier")(self)
+
+    # -- point-to-point (dispatched through the selected PML engine) -------
+    @property
+    def pml(self):
+        """Per-comm PML engine, installed on first use
+        (mca_pml_base_select analogue)."""
+        eng = getattr(self, "_pml", None)
+        if eng is None:
+            self._check_alive()
+            from ..p2p import pml as pml_mod
+
+            eng = pml_mod.comm_select(self)
+            self._pml = eng
+        return eng
+
+    def isend(self, data, dest: int, tag: int = 0, *, rank: int, **kw):
+        """Nonblocking send issued by ``rank`` (driver mode: the acting
+        rank is explicit because one controller plays every rank)."""
+        self._check_alive()
+        return self.pml.isend(data, dest, tag, src=rank, **kw)
+
+    def send(self, data, dest: int, tag: int = 0, *, rank: int, **kw):
+        self._check_alive()
+        return self.pml.send(data, dest, tag, src=rank, **kw)
+
+    def irecv(self, source: int = -1, tag: int = -1, *, rank: int):
+        self._check_alive()
+        return self.pml.irecv(source, tag, dst=rank)
+
+    def recv(self, source: int = -1, tag: int = -1, *, rank: int):
+        self._check_alive()
+        return self.pml.recv(source, tag, dst=rank)
+
+    def iprobe(self, source: int = -1, tag: int = -1, *, rank: int):
+        self._check_alive()
+        return self.pml.iprobe(source, tag, dst=rank)
+
+    def improbe(self, source: int = -1, tag: int = -1, *, rank: int):
+        self._check_alive()
+        return self.pml.improbe(source, tag, dst=rank)
+
+    def mrecv(self, message, *, rank: int):
+        self._check_alive()
+        return self.pml.mrecv(message, dst=rank)
+
+    def send_init(self, data, dest: int, tag: int = 0, *, rank: int):
+        self._check_alive()
+        return self.pml.send_init(data, dest, tag, src=rank)
+
+    def recv_init(self, source: int = -1, tag: int = -1, *, rank: int):
+        self._check_alive()
+        return self.pml.recv_init(source, tag, dst=rank)
+
+    def sendrecv(self, sendbufs, dests, sendtag: int = 0,
+                 sources=None, recvtag: int = -1):
+        """MPI_Sendrecv, driver mode: EVERY rank's exchange in one call
+        (like split's per-rank vectors) — all sends post first, then
+        all recvs complete, which is what makes it deadlock-free. A
+        per-rank blocking sendrecv cannot work under a single
+        controller: rank 0's recv would block before rank 1 ever ran.
+
+        sendbufs/dests (and optional sources): sequences of length
+        ``size``. Returns (values, statuses) lists.
+        """
+        self._check_alive()
+        n = self.size
+        if (len(sendbufs) != n or len(dests) != n
+                or (sources is not None and len(sources) != n)):
+            raise MPIError(
+                ErrorCode.ERR_ARG,
+                f"sendrecv needs {n} sendbufs/dests/sources "
+                "(one per rank)",
+            )
+        sreqs = [
+            self.pml.isend(sendbufs[r], dests[r], sendtag, src=r)
+            for r in range(n)
+        ]
+        values, statuses = [], []
+        for r in range(n):
+            src = sources[r] if sources is not None else -1
+            v, st = self.pml.recv(src, recvtag, dst=r)
+            values.append(v)
+            statuses.append(st)
+        for sr in sreqs:
+            sr.wait()
+        return values, statuses
 
     def __repr__(self) -> str:
         return f"Communicator({self.name}, cid={self.cid}, size={self.size})"

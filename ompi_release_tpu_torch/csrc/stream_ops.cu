@@ -27,6 +27,10 @@
 //
 // Kernels allocate nothing and launch on the caller's stream; each C
 // entry returns cudaGetLastError() for the wrapper to check.
+//
+// The bench loops' two other kernels follow the streaming pair at the
+// end of the file (tile_transpose_32, chain_add_one); each has its own
+// note there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -179,5 +183,124 @@ extern "C" int stream_scale(int dtype, const void* x, void* out, float c,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// tile_transpose_32: out (cols, rows) = in (rows, cols) transposed, for
+// 32-bit words (int32 and float32 share it: it moves bits).
+//
+// Replaces the blocked transpose of make_transpose_loop
+// (ompi_release_tpu/ops/pallas_op.py:300, body :297-298), the
+// single-chip analogue of BASELINE config 5's all-pairs alltoall.
+//
+// Bound: bytes. Each call reads and writes the whole array once,
+// 2 x rows x cols x 4 bytes (512 MiB at n = 8192: 0.160 ms at
+// 3.35 TB/s); there is no arithmetic.
+//
+// Design: a naive transpose makes either its reads or its writes
+// strided (one 32-byte sector per 4-byte word). Each block stages one
+// 32x32 tile in shared memory instead: a warp reads 32 consecutive
+// words of an input row and writes 32 consecutive words of an output
+// row, so both directions are coalesced. The tile is padded to 33
+// columns so that reading a tile column (32 words 33 apart) hits 32
+// different banks. Blocks are 32x8 threads, each thread moving 4 rows,
+// so a block holds 4.2 KB of shared memory and many tiles are in
+// flight per SM. The Pallas kernel's VMEM block size (256-1024) has no
+// counterpart: a Hopper block has at most 227 KB of shared memory and
+// the 132 SMs need many small tiles. Edge tiles are masked, so any
+// shape is taken (the Pallas call refused n % block != 0). Tile rows
+// beyond gridDim.y (more than 65535 x 32 rows) are covered by a
+// grid-stride loop.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kTile = 32;
+constexpr int kTileRows = 8;  // threads per tile column: 4 rows each
+
+__global__ void __launch_bounds__(kTile * kTileRows)
+    transpose32_kernel(const uint32_t* __restrict__ in,
+                       uint32_t* __restrict__ out, int64_t rows,
+                       int64_t cols) {
+  __shared__ uint32_t tile[kTile][kTile + 1];
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int64_t c0 = (int64_t)blockIdx.x * kTile;  // input column origin
+  const int64_t tiles_y = (rows + kTile - 1) / kTile;
+  for (int64_t by = blockIdx.y; by < tiles_y; by += gridDim.y) {
+    const int64_t r0 = by * kTile;  // input row origin
+    const int64_t c = c0 + tx;
+#pragma unroll
+    for (int j = 0; j < kTile; j += kTileRows) {
+      const int64_t r = r0 + ty + j;
+      if (r < rows && c < cols) tile[ty + j][tx] = in[r * cols + c];
+    }
+    __syncthreads();
+    // output row = input column, output column = input row
+    const int64_t oc = r0 + tx;
+#pragma unroll
+    for (int j = 0; j < kTile; j += kTileRows) {
+      const int64_t orow = c0 + ty + j;
+      if (orow < cols && oc < rows) out[orow * rows + oc] = tile[tx][ty + j];
+    }
+    __syncthreads();  // the tile is refilled on the next pass
+  }
+}
+
+// ---------------------------------------------------------------------------
+// chain_add_one: out = x + 1 on one (8, 128) float32 tile (1,024 values).
+//
+// Replaces the body of make_chain_loop
+// (ompi_release_tpu/ops/pallas_op.py:336, body :333-334), the
+// single-chip analogue of BASELINE config 1's token ring: each hop is
+// one launch that depends on the previous one.
+//
+// Bound: launch latency. The bytes bound is 8 KiB per hop (4 KiB read,
+// 4 KiB written: about 2.4 ns at 3.35 TB/s), far below what a launch
+// costs, so the kernel is as small as a launch can be: one block of 256
+// threads, each loading one float4 and storing it plus 1 (__fadd_rn:
+// one IEEE add, as x + 1 in PyTorch). Its per-hop time is reported
+// eager (one launch from Python per hop) and replayed from a CUDA graph
+// (the analogue of the TPU's single compiled fori_loop).
+// ---------------------------------------------------------------------------
+
+constexpr int kChainThreads = 256;  // x 4 floats = one (8, 128) tile
+
+__global__ void __launch_bounds__(kChainThreads)
+    chain_add_one_kernel(const float4* x, float4* out) {
+  const int i = threadIdx.x;
+  float4 v = x[i];
+  v.x = __fadd_rn(v.x, 1.0f);
+  v.y = __fadd_rn(v.y, 1.0f);
+  v.z = __fadd_rn(v.z, 1.0f);
+  v.w = __fadd_rn(v.w, 1.0f);
+  out[i] = v;
+}
+
+}  // namespace
+
+// in and out must not overlap. Returns cudaGetLastError().
+extern "C" int tile_transpose_32(const void* in, void* out, long long rows,
+                                 long long cols, void* stream) {
+  if (rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t tiles_x = (cols + kTile - 1) / kTile;
+  const int64_t tiles_y = (rows + kTile - 1) / kTile;
+  if (tiles_x > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles_x,
+                  (unsigned)(tiles_y < 65535 ? tiles_y : 65535));
+  const dim3 block(kTile, kTileRows);
+  transpose32_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), rows,
+      cols);
+  return (int)cudaGetLastError();
+}
+
+// x and out: 1,024 float32 values each, 16-byte aligned; they may be
+// the same buffer (each thread reads its float4 before writing it).
+extern "C" int chain_add_one(const void* x, void* out, void* stream) {
+  chain_add_one_kernel<<<1, kChainThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<float4*>(out));
   return (int)cudaGetLastError();
 }

@@ -1,16 +1,21 @@
-"""CUDA streaming reduction kernels — the accelerated op component.
+"""CUDA kernels of the op component and the bench loops.
 
 Counterpart of ``ompi_release_tpu/ops/pallas_op.py``. The reference's
 reduction hot loop is a C elementwise loop per (op x dtype)
 (``ompi/mca/op/base/op_base_functions.c``); its ``op`` MCA framework
 exists so accelerated components can override those loops. This is that
-component for an NVIDIA H100: two hand-written streaming kernels in
-``csrc/stream_ops.cu``, built for ``sm_90a`` with ``nvcc`` at first use
-into ``ompi_release_tpu_torch/build/`` and loaded with ``ctypes``:
+component for an NVIDIA H100, plus the kernels of the bench loops: four
+hand-written kernels in ``csrc/stream_ops.cu``, built for ``sm_90a``
+with ``nvcc`` at first use into ``ompi_release_tpu_torch/build/`` and
+loaded with ``ctypes``:
 
 - ``stream_axpy``: ``out = acc*c + a``; with ``c == 1`` a plain add, the
   SUM combiner (``sum_``, the ``_pallas_sum_fn`` role) — 3 streams;
-- ``stream_scale``: ``out = x*c`` — 2 streams, the copy-rate yardstick.
+- ``stream_scale``: ``out = x*c`` — 2 streams, the copy-rate yardstick;
+- ``tile_transpose_32``: the (rows, cols) -> (cols, rows) transpose of
+  32-bit words (``transpose``, the ``make_transpose_loop`` body);
+- ``chain_add_one``: ``x + 1`` on one (8, 128) f32 tile (``chain_hop``,
+  the ``make_chain_loop`` body).
 
 Each kernel's wrapper launches it for CUDA tensors and takes its plain
 PyTorch twin (``_plain_*``, same arithmetic: f32 math, bf16 widened and
@@ -43,9 +48,12 @@ BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-#: kernel launches per wrapper (``sum_``, ``axpy``, ``scale``), bumped
-#: only where the wrapper launches its kernel
-LAUNCHES: Dict[str, int] = {"sum": 0, "axpy": 0, "scale": 0}
+#: kernel launches per wrapper (``sum_``, ``axpy``, ``scale``,
+#: ``transpose``, ``chain_hop``), bumped only where the wrapper launches
+#: its kernel (a launch captured into a CUDA graph counts once, at
+#: capture; replays do not pass through the wrapper)
+LAUNCHES: Dict[str, int] = {"sum": 0, "axpy": 0, "scale": 0,
+                            "transpose": 0, "chain": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
@@ -104,6 +112,11 @@ def _load() -> ctypes.CDLL:
                                          ctypes.c_float, ctypes.c_longlong,
                                          vp]
             lib.stream_scale.restype = ctypes.c_int
+            lib.tile_transpose_32.argtypes = [vp, vp, ctypes.c_longlong,
+                                              ctypes.c_longlong, vp]
+            lib.tile_transpose_32.restype = ctypes.c_int
+            lib.chain_add_one.argtypes = [vp, vp, vp]
+            lib.chain_add_one.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -152,6 +165,14 @@ def _plain_scale(x: torch.Tensor, c: float) -> torch.Tensor:
     if x.dtype is torch.bfloat16:
         return (x.float() * c).to(torch.bfloat16)
     return x * c
+
+
+def _plain_transpose(x: torch.Tensor) -> torch.Tensor:
+    return x.t().contiguous()
+
+
+def _plain_chain_hop(x: torch.Tensor) -> torch.Tensor:
+    return x + 1
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +228,62 @@ def scale(x: torch.Tensor, c: float) -> torch.Tensor:
                                out.data_ptr(), float(c), n, stream)
     _raise_on("stream_scale", err)
     LAUNCHES["scale"] += 1
+    return out
+
+
+#: element types the transpose kernel moves as 32-bit words
+_WORD32 = (torch.int32, torch.float32)
+#: the chain kernel's one tile (pallas_op.make_chain_loop's block)
+CHAIN_TILE = (8, 128)
+
+
+def transpose(x: torch.Tensor) -> torch.Tensor:
+    """``x.T`` as a new contiguous tensor: a 2-D int32/float32 tensor
+    (rows, cols) -> (cols, rows). Any shape; the kernel masks the
+    ragged edge tiles."""
+    if x.dim() != 2 or x.dtype not in _WORD32:
+        raise MPIError(ErrorCode.ERR_TYPE,
+                       f"transpose: the kernel takes a 2-D int32/float32 "
+                       f"tensor, got {tuple(x.shape)} {x.dtype}")
+    if x.device.type == "cpu":
+        return _plain_transpose(x)
+    if not x.is_contiguous():
+        raise MPIError(ErrorCode.ERR_ARG,
+                       "transpose: the kernel takes contiguous tensors")
+    rows, cols = x.shape
+    out = torch.empty((cols, rows), dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return out
+    lib = _load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.tile_transpose_32(x.data_ptr(), out.data_ptr(), rows,
+                                    cols, stream)
+    _raise_on("tile_transpose_32", err)
+    LAUNCHES["transpose"] += 1
+    return out
+
+
+def chain_hop(x: torch.Tensor) -> torch.Tensor:
+    """``x + 1`` on one contiguous (8, 128) float32 tile: one hop of the
+    ring analogue (one launch, dependent on the previous hop)."""
+    if tuple(x.shape) != CHAIN_TILE or x.dtype is not torch.float32:
+        raise MPIError(ErrorCode.ERR_TYPE,
+                       f"chain_hop: the kernel takes one {CHAIN_TILE} "
+                       f"float32 tile, got {tuple(x.shape)} {x.dtype}")
+    if x.device.type == "cpu":
+        return _plain_chain_hop(x)
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise MPIError(ErrorCode.ERR_ARG,
+                       "chain_hop: the kernel takes a contiguous, 16-byte "
+                       "aligned tile")
+    out = torch.empty_like(x)
+    lib = _load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.chain_add_one(x.data_ptr(), out.data_ptr(), stream)
+    _raise_on("chain_add_one", err)
+    LAUNCHES["chain"] += 1
     return out
 
 
@@ -292,6 +369,84 @@ def make_scale_loop(rows: int, cols: int, c: float = 1.0001,
         acc = a
         for _ in range(k):
             acc = scale(acc, c)
+        return acc[0, 0] + acc[-1, -1]
+
+    return loop
+
+
+def make_transpose_loop(n: int, dtype=torch.int32):
+    """``(loop, call)`` over an (n, n) transpose: ``call`` is one
+    :func:`transpose`; ``loop(a, k)`` applies it TWICE per iteration, so
+    callers count ``4 * n * n * itemsize`` bytes per iteration as
+    bench.py does. The JAX loop double-applies so that XLA does not copy
+    the loop carry (``pallas_op.py:275-290``); here it only keeps the
+    byte count and the checksum: T(T(a)) = a, so ``acc[0, 0] +
+    acc[-1, -1]`` equals ``a[0, 0] + a[-1, -1]`` for every k."""
+
+    def loop(a: torch.Tensor, k: int) -> torch.Tensor:
+        if a.shape != (n, n) or a.dtype != dtype:
+            raise MPIError(ErrorCode.ERR_ARG,
+                           f"transpose loop built for {(n, n)} {dtype}")
+        acc = a
+        for _ in range(k):
+            acc = transpose(transpose(acc))
+        return acc[0, 0] + acc[-1, -1]
+
+    return loop, transpose
+
+
+#: iterations one captured graph holds (make_chain_loop(graph=True)):
+#: a whole K_hi (~10^5 iterations) would be a graph that is slow to
+#: instantiate, so a fixed block is captured once and replayed
+GRAPH_BLOCK = 256
+
+
+def make_chain_loop(hops: int = 4, graph: bool = False):
+    """``loop(a, k)``: ``k * hops`` serially dependent :func:`chain_hop`
+    launches on an (8, 128) f32 tile — the single-chip analogue of
+    ring_c.c's token ring; slope / hops is the per-hop latency. Returns
+    ``acc[0, 0] + acc[-1, -1]``, which is ``a[0, 0] + a[-1, -1] +
+    2 * hops * k`` (exact in f32 while below 2^24).
+
+    ``graph=False`` launches every hop from Python (what a Python caller
+    pays). ``graph=True`` captures ``GRAPH_BLOCK`` iterations once per
+    device with ``torch.cuda.graph`` and replays it ``k // GRAPH_BLOCK``
+    times, the remaining iterations eager: the analogue of the JAX
+    loop's single compiled ``fori_loop``. It needs a CUDA tensor."""
+    graphs: Dict[torch.device, tuple] = {}
+
+    def eager(acc: torch.Tensor, k: int) -> torch.Tensor:
+        for _ in range(k * hops):
+            acc = chain_hop(acc)
+        return acc
+
+    def capture(a: torch.Tensor) -> tuple:
+        static = a.clone()
+        side = torch.cuda.Stream(a.device)
+        side.wait_stream(torch.cuda.current_stream(a.device))
+        with torch.cuda.stream(side):  # warm up (loads the kernel) off
+            eager(static, 1)           # the capture, as torch requires
+        torch.cuda.current_stream(a.device).wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            static.copy_(eager(static, GRAPH_BLOCK))  # out feeds the next
+        return g, static                              # replay's input
+
+    def loop(a: torch.Tensor, k: int) -> torch.Tensor:
+        if not graph:
+            acc = eager(a, k)
+            return acc[0, 0] + acc[-1, -1]
+        if a.device.type != "cuda":
+            raise MPIError(ErrorCode.ERR_NOT_AVAILABLE,
+                           "make_chain_loop(graph=True) replays a CUDA "
+                           f"graph: it needs a CUDA tensor, got {a.device}")
+        if a.device not in graphs:
+            graphs[a.device] = capture(a)
+        g, static = graphs[a.device]
+        static.copy_(a)
+        for _ in range(k // GRAPH_BLOCK):
+            g.replay()
+        acc = eager(static, k % GRAPH_BLOCK)
         return acc[0, 0] + acc[-1, -1]
 
     return loop

@@ -104,7 +104,10 @@ def test_cpu_tensors_never_count_launches():
     cuda_op.sum_(a, a)
     cuda_op.axpy(a, a, 2.0)
     cuda_op.scale(a, 2.0)
-    assert cuda_op.LAUNCHES == {"sum": 0, "axpy": 0, "scale": 0}
+    cuda_op.transpose(a.view(10, 10))
+    cuda_op.chain_hop(torch.ones(cuda_op.CHAIN_TILE))
+    assert cuda_op.LAUNCHES == {"sum": 0, "axpy": 0, "scale": 0,
+                                "transpose": 0, "chain": 0}
 
 
 def test_bench_loops_match_pallas_loops():
