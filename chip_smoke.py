@@ -16,6 +16,12 @@ Run from the repository root on a machine with a card:
    D in {8, 64, 128}, f32 and bf16, and at the model's (64, 2048, 64)
    bf16 causal (out f32 rtol/atol 2e-5, bf16 within one bf16 ulp plus
    2e-5, lse atol 1e-5: both compute in f32 in another summation order);
+   the flash-attention backward kernels (dq, and dk/dv) each against its
+   own plain twin, causal and not, S in {1, 100, 129, 256}, D in {8, 64,
+   128}, f32 and bf16, and the whole backward at the model's shape, run
+   twice and bitwise equal (f32 rtol/atol 2e-4, the JAX suite's grad
+   tolerance; bf16 within one bf16 ulp plus 2e-4: each gradient is an
+   f32 sum of up to S products in another order on each side);
 3. drives the main path, each slice's part with every launch counter
    set to 0 just before and read just after:
    - slice 1: ``init()`` with 8 virtual ranks on ``cuda:0``, a tuned
@@ -37,19 +43,32 @@ Run from the repository root on a machine with a card:
      finite and within 1.0 of ln(32000), and the first batch must give
      the same loss through ring attention (bf16 rel 1e-2; in f32 rel
      1e-4, f32 products in full f32: TF32 off);
+   - slice 4: the TpuLM train step at full width (a fresh
+     ``TpuLM(ModelConfig())`` from seed 0, ``adamw(1e-3)``) for 4 steps
+     on one fixed (8, 2048) batch: ``flash_fwd``, ``flash_bwd_dq`` and
+     ``flash_bwd_dkv`` must each launch 8 layers x 4 steps = 32 times,
+     every loss must be finite and the last below the first; then, from
+     the state those steps left, one step's loss and gradients through
+     the kernels (``"flash"``) against plain autograd through ring
+     attention (``"ring"``): loss rel 1e-2, every parameter's gradient
+     within a relative L2 error of 3e-2 (bf16);
 4. times the kernels (CUDA events, median of 7) at the main path's
    shapes beside their bound, their plain twins and one PyTorch library
    call (the chain hop eager and replayed from a CUDA graph; the flash
-   forward beside ``scaled_dot_product_attention``, timed only), and the
-   tuned allreduce per size (time and bus bandwidth 2(n-1)/n * bytes /
-   t); a torch.profiler window per size says where the allreduce's
-   device time goes, and one over an eval batch where the forward's
-   goes; the forward's ms per batch, tokens/s and peak memory;
+   forward beside ``scaled_dot_product_attention``, the two backward
+   kernels beside SDPA's backward, timed only), and the tuned allreduce
+   per size (time and bus bandwidth 2(n-1)/n * bytes / t); a
+   torch.profiler window per size says where the allreduce's device time
+   goes, one over an eval batch where the forward's goes and one over a
+   train step where the step's goes (busy share, top kernels, host
+   gaps); the forward's ms per batch and the train step's ms per step,
+   tokens/s and peak memory;
 5. runs the port's bench suite (``ompi_release_tpu_torch.bench``, the
    five BASELINE configs) in-process and prints its lines, the headline
    ``op_sum_256MiB_f32_hbm_bw`` last among them.
 
-Any mismatch raises (exit code != 0) before the last line. The last
+Any mismatch or failure raises (exit code != 0) before the last line;
+no phase's failure is caught. The last
 line is ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and
 prints no result.
 """
@@ -74,6 +93,13 @@ FLASH_SOURCE = "ompi_release_tpu_torch/csrc/flash_attn.cu"
 FLASH_REPLACES = "ompi_release_tpu/ops/pallas_attention.py:114"
 #: the main path's flash call: (B * H, S, D) bf16 causal
 FLASH_SHAPE = (64, 2048, 64)
+FLASH_BWD_SOURCE = "ompi_release_tpu_torch/csrc/flash_attn_bwd.cu"
+#: the two backward pallas_calls of _flash_backward (bodies
+#: _bwd_dq_kernel :140 and _bwd_dkv_kernel :185)
+DQ_REPLACES = "ompi_release_tpu/ops/pallas_attention.py:264"
+DKV_REPLACES = "ompi_release_tpu/ops/pallas_attention.py:283"
+TRAIN_STEPS = 4  # slice 4's window: train steps on one fixed batch
+SDPA_BWD_CALLS = 5  # SDPA backward calls in its profiler window
 KERNELS = {
     # wrapper -> (TPU kernel it replaces, streams moved per element); all
     # three Pallas bodies launch through _blocked_call's pallas_call
@@ -221,8 +247,10 @@ def ptxas_report(cuda_op, lib):
                             "spill_stores_loads_bytes": spill}))
             kernel, spill = None, None
     load = cuda_op._load()
-    log(json.dumps({"flash_fwd_dynamic_smem_bytes": {
-        d: int(load.flash_fwd_smem_bytes(d)) for d in (8, 64, 128)}}))
+    log(json.dumps({"flash_dynamic_smem_bytes": {
+        name: {d: int(getattr(load, f"{name}_smem_bytes")(d))
+               for d in (8, 64, 128)}
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}}))
 
 
 def flash_close(torch, got, want, got_lse, want_lse):
@@ -272,6 +300,78 @@ def phase_flash(fa, torch, dev):
     log(f"phase 2: flash_fwd matches its plain twin on {n_cases} cases "
         f"(causal and not; S 1, 100, 129, 2048; D 8, 64, 128; f32, bf16) "
         f"and at {FLASH_SHAPE} bf16 causal")
+
+
+def grads_close(torch, got, want):
+    """f32 rtol/atol 2e-4; bf16 within one bf16 ulp plus 2e-4."""
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        if a.dtype is torch.float32:
+            ok = bool(torch.allclose(a, b, rtol=2e-4, atol=2e-4))
+        else:
+            ok = ulp_close(a, b, a.dtype, atol=2e-4)
+        if not ok:
+            return False
+    return True
+
+
+def bwd_pair(fa, q, k, v, do, causal):
+    """(kernels, plain twins) of the backward at q, k, v with cotangent
+    do: each kernel against its own twin, on the same lse and delta."""
+    out, lse = fa.flash_forward(q, k, v, causal)
+    args = (q, k, v, lse, do, fa._delta(out, do), causal)
+    return ((fa._bwd_dq_kernel(*args), *fa._bwd_dkv_kernel(*args)),
+            (fa._plain_bwd_dq(*args), *fa._plain_bwd_dkv(*args)))
+
+
+def phase_flash_bwd(fa, torch, dev):
+    """The two backward kernels against their plain twins at the
+    contract's cases, and the whole backward at the model's shape, run
+    twice: bitwise equal."""
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            for s in (1, 100, 129, 256):
+                for d in (8, 64, 128):
+                    g = torch.Generator(device=dev).manual_seed(s * 1000 + d)
+                    q, k, v, do = (torch.randn(3, s, d, generator=g,
+                                               device=dev).to(dtype)
+                                   for _ in range(4))
+                    got, want = bwd_pair(fa, q, k, v, do, causal)
+                    check(grads_close(torch, got, want),
+                          f"flash backward kernels != plain twins ({dtype} "
+                          f"causal={causal} S={s} D={d})")
+                    n_cases += 1
+    g = torch.Generator(device=dev).manual_seed(65)
+    q, k, v, do = (torch.randn(*FLASH_SHAPE, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    got, want = bwd_pair(fa, q, k, v, do, True)
+    check(grads_close(torch, got, want), "flash backward kernels != plain "
+          f"twins at the model's {FLASH_SHAPE} bf16 causal")
+    out, lse = fa.flash_forward(q, k, v, True)
+    first = fa.flash_backward(q, k, v, out, lse, do, True)
+    again = fa.flash_backward(q, k, v, out, lse, do, True)
+    check(all(bits_equal(a, b) for a, b in zip(first, again)),
+          "two runs of the flash backward differ")
+    check(all(bits_equal(a, b) for a, b in zip(first, got)),
+          "flash_backward != its two kernels")
+    stats = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        diff = (a.float() - b.float()).abs()
+        beyond = diff > bf16_ulp(b.float())
+        stats[name] = {
+            "max_abs_err": float(diff.max()),
+            "max_abs_value": float(b.float().abs().max()),
+            "beyond_one_ulp": int(beyond.sum()),
+            "max_abs_value_there": float(b.float().abs()[beyond].max())
+            if bool(beyond.any()) else None}
+    log(json.dumps({"flash_bwd_bf16_model_shape": stats}))
+    torch.cuda.synchronize()
+    log(f"phase 2: flash_bwd_dq and flash_bwd_dkv match their plain twins "
+        f"on {n_cases} cases (causal and not; S 1, 100, 129, 256; D 8, 64, "
+        f"128; f32, bf16) and at {FLASH_SHAPE} bf16 causal; two runs of "
+        "the backward are bitwise equal")
 
 
 def drive_main_path(mpi, tmvar, torch, dev):
@@ -454,6 +554,69 @@ def check_model_path(torch, model, evals, flash_launches):
         "ln(32000); flash == ring (bf16 rel 1e-2, f32 rel 1e-4)")
 
 
+def drive_train_path():
+    """Slice 4's path: the full-width TpuLM train step, TRAIN_STEPS steps
+    of ``TpuLM.train_step`` (``adamw(1e-3)``, ``attn_impl="auto"``) on
+    one fixed (8, 2048) batch, bf16, on cuda:0. Returns the model and the
+    (loss, ms) of each step."""
+    from ompi_release_tpu_torch import entry as tentry
+    from ompi_release_tpu_torch.models.transformer import ModelConfig, TpuLM
+
+    model = TpuLM(ModelConfig(), seed=0)
+    return model, tentry.run_train(model, TRAIN_STEPS)
+
+
+def check_train_path(torch, model, steps, launches):
+    """The launches and losses of the window, then one step's loss and
+    gradients from the state it left, through the kernels and through
+    ring attention."""
+    import dataclasses
+    import math
+
+    from ompi_release_tpu_torch import entry as tentry
+    from ompi_release_tpu_torch.models.transformer import forward_loss
+    from ompi_release_tpu_torch.optim import leaves
+
+    cfg = model.cfg
+    want = cfg.n_layers * TRAIN_STEPS
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[name] == want,
+              f"{name} launched {launches[name]} times over {TRAIN_STEPS} "
+              f"train steps of {cfg.n_layers} layers, not {want}")
+    losses = [loss for loss, _ in steps]
+    check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    tokens, targets = tentry._batch(cfg, tentry.EVAL_BATCH, tentry.EVAL_SEQ)
+    tok = torch.as_tensor(tokens, device=model.device)
+    tgt = torch.as_tensor(targets, device=model.device)
+    params = model.params()
+    names = [n for n in sorted(params) if n != "layers"]
+    names = sorted(names + [f"layers/{n}" for n in params["layers"]])
+    ts = leaves(params)
+    got = {}
+    for impl in ("flash", "ring"):
+        loss = forward_loss(dataclasses.replace(cfg, attn_impl=impl), params,
+                            tok, tgt)
+        got[impl] = (float(loss.detach()), torch.autograd.grad(loss, ts))
+        del loss
+        torch.cuda.empty_cache()
+    (lf, gf), (lr, gr) = got["flash"], got["ring"]
+    check(abs(lf - lr) <= 1e-2 * abs(lr),
+          f"train-step loss: flash {lf} vs ring {lr} (rel 1e-2)")
+    rel = {n: float((a.float() - b.float()).norm() / b.float().norm())
+           for n, a, b in zip(names, gf, gr)}
+    for n, r in rel.items():
+        check(r <= 3e-2, f"gradient of {n}: flash vs ring relative L2 "
+                         f"error {r} > 3e-2")
+    torch.cuda.synchronize()
+    log(json.dumps({"train_losses": losses, "flash_vs_ring_loss": [lf, lr],
+                    "grad_rel_l2_flash_vs_ring": rel}))
+    log(f"phase 3: slice-4 train step: {launches['flash_fwd']} / "
+        f"{launches['flash_bwd_dq']} / {launches['flash_bwd_dkv']} flash "
+        f"fwd / dq / dkv launches over {TRAIN_STEPS} steps; losses finite and "
+        "falling; flash == ring (loss rel 1e-2, gradients rel L2 3e-2)")
+
+
 def check_main_path(tmvar, torch, runs, bench):
     n = N_RANKS
     for comm, method, x, kw, out in runs:
@@ -594,6 +757,73 @@ def time_flash(fa, torch, dev, launches):
     }
 
 
+def time_flash_bwd(fa, torch, dev, launches):
+    """The two backward kernels at the main path's (B*H, S, D) = (64,
+    2048, 64) bf16 causal, each beside its own plain twin, and SDPA's
+    backward on the same tensors viewed (8, 8, 2048, 64) (dq, dk and dv
+    at once, so it stands in both rows; timed alone with its graph
+    retained, its device time from a profiler window). Bound: dq does three (S, S, D) products and dk/dv four, at
+    2*N*D*S(S+1)/2 flops each, over the bf16 tensor-core peak, against
+    q, k, v, dO, lse, delta read and the outputs written once over the HBM
+    rate; the f32 CUDA-core floor of the same flops beside it."""
+    n, s, d = FLASH_SHAPE
+    g = torch.Generator(device=dev).manual_seed(98)
+    q, k, v, do = (torch.randn(n, s, d, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    out, lse = fa.flash_forward(q, k, v, True)
+    args = (q, k, v, lse, do, fa._delta(out, do), True)
+    q4, k4, v4 = (t.view(8, n // 8, s, d).detach().requires_grad_()
+                  for t in (q, k, v))
+    o4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4,
+                                                           is_causal=True)
+    g4 = do.view(8, n // 8, s, d)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o4, (q4, k4, v4), g4, retain_graph=True)
+
+    # autograd's host time per call is about the device's, so CUDA events
+    # around the call read host time too: take the kernels' summed device
+    # time from a profiler window instead
+    for _ in range(2):
+        sdpa_bwd()
+    torch.cuda.synchronize()
+    prof = profile_window(torch, sdpa_bwd, SDPA_BWD_CALLS)
+    library_ms = prof["device_busy_ms"] / SDPA_BWD_CALLS
+    check(library_ms > 0, f"no device time in SDPA's backward window {prof}")
+    log(json.dumps({"profile_sdpa_backward": True, **prof}))
+    product = 2 * n * d * s * (s + 1) / 2
+    tensor_bytes = n * s * d * 2
+    rows = []
+    for name, kern, plain, replaces, products, outs in (
+            ("flash_bwd_dq", fa._bwd_dq_kernel, fa._plain_bwd_dq,
+             DQ_REPLACES, 3, 1),
+            ("flash_bwd_dkv", fa._bwd_dkv_kernel, fa._plain_bwd_dkv,
+             DKV_REPLACES, 4, 2)):
+        got, want = kern(*args), plain(*args)
+        if outs == 1:
+            got, want = (got,), (want,)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        flops = products * product
+        nbytes = (4 + outs) * tensor_bytes + 2 * n * s * 4
+        rows.append({
+            "name": name, "route": "cuda", "source": FLASH_BWD_SOURCE,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err,
+            "ms": time_ms(lambda: kern(*args), inner=5),
+            "plain_ms": time_ms(lambda: plain(*args), reps=5),
+            "bound_ms": max(flops / BF16_FLOPS,
+                            nbytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_by": "operations" if flops / BF16_FLOPS
+            > nbytes / HBM_BYTES_PER_S else "bytes",
+            "library_ms": library_ms,
+            "library": "SDPA backward (dq, dk, dv at once)",
+            "cuda_core_floor_ms": flops / F32_CUDA_CORE_FLOPS * 1e3,
+            "shape": list(FLASH_SHAPE), "dtype": "bfloat16", "causal": True,
+        })
+    return rows
+
+
 def hop_ms(torch, hop, x, graph):
     """ms per hop over HOPS_TIMED dependent hops, launched from Python
     (eager) or replayed from one CUDA graph holding all of them."""
@@ -692,19 +922,15 @@ def profile_window(torch, fn, calls):
 
 def profile_allreduce(tuned, torch, dev):
     """Where the tuned allreduce's time goes: one profiler window of 3
-    calls per size. A profiler failure is reported, not fatal: the
-    numbers are diagnostic."""
+    calls per size."""
     g = torch.Generator(device=dev).manual_seed(11)
     for nbytes in (4 * MIB, 256 * MIB):
         x = torch.randn(N_RANKS, nbytes // 4, generator=g, device=dev)
         tuned.allreduce(x)
         torch.cuda.synchronize()
-        try:
-            log(json.dumps({"profile_tuned_allreduce_bytes_per_rank": nbytes,
-                            **profile_window(torch, lambda: tuned.allreduce(x),
-                                             3)}))
-        except Exception as exc:  # diagnostic only: report and go on
-            log(f"profile at {nbytes} B per rank failed: {exc!r}")
+        log(json.dumps({"profile_tuned_allreduce_bytes_per_rank": nbytes,
+                        **profile_window(torch, lambda: tuned.allreduce(x),
+                                         3)}))
         del x
 
 
@@ -727,11 +953,40 @@ def time_model(torch, model):
     tok, tgt = tentry._batch(model.cfg, tentry.EVAL_BATCH, tentry.EVAL_SEQ)
     tok = torch.as_tensor(tok, device=model.device)
     tgt = torch.as_tensor(tgt, device=model.device)
-    try:
-        log(json.dumps({"profile_tpulm_eval_batch": True,
-                        **profile_window(torch, lambda: model(tok, tgt), 1)}))
-    except Exception as exc:  # diagnostic only: report and go on
-        log(f"profile of the eval batch failed: {exc!r}")
+    log(json.dumps({"profile_tpulm_eval_batch": True,
+                    **profile_window(torch, lambda: model(tok, tgt), 1)}))
+
+
+def time_train(torch, model):
+    """The train step's ms per step and tokens/s (host clock to a
+    synchronize; median of 3 steps after the slice-4 window warmed it),
+    the peak device memory over those steps, and one profiler window
+    over one step: busy share, top kernels and host gaps (window minus
+    device busy time)."""
+    from ompi_release_tpu_torch import entry as tentry
+
+    torch.cuda.reset_peak_memory_stats()
+    steps = tentry.run_train(model, 3, seed=10)
+    ms = statistics.median(m for _, m in steps)
+    tokens = tentry.EVAL_BATCH * tentry.EVAL_SEQ
+    log(json.dumps({"tpulm_train_ms_per_step": ms,
+                    "ms_each": [m for _, m in steps],
+                    "losses": [loss for loss, _ in steps],
+                    "tokens_per_s": tokens / (ms * 1e-3),
+                    "batch": [tentry.EVAL_BATCH, tentry.EVAL_SEQ],
+                    "optimizer": [type(model.opt_state).__name__, {
+                        k: model.opt_state.defaults[k]
+                        for k in ("lr", "betas", "eps", "weight_decay")}],
+                    "peak_device_memory_GiB":
+                        torch.cuda.max_memory_allocated() / 2**30}))
+    tok, tgt = tentry._batch(model.cfg, tentry.EVAL_BATCH, tentry.EVAL_SEQ,
+                             seed=10)
+    tok = torch.as_tensor(tok, device=model.device)
+    tgt = torch.as_tensor(tgt, device=model.device)
+    prof = profile_window(torch, lambda: model.train_step(tok, tgt), 1)
+    gap_ms = prof["window_ms"] - prof["device_busy_ms"]
+    log(json.dumps({"profile_tpulm_train_step": True, **prof,
+                    "host_gap_ms": gap_ms}))
 
 
 def main():
@@ -750,6 +1005,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     log(f"card: {card_line()}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"allow_tf32 matmul {torch.backends.cuda.matmul.allow_tf32} "
@@ -762,6 +1018,7 @@ def main():
 
     phase_kernels(cuda_op, torch, dev)
     phase_flash(fa, torch, dev)
+    phase_flash_bwd(fa, torch, dev)
 
     cuda_op.reset_launches()
     world, tuned, runs = drive_main_path(mpi, tmvar, torch, dev)
@@ -798,18 +1055,37 @@ def main():
     check_model_path(torch, model, evals, launches["flash_fwd"])
     torch.cuda.empty_cache()
 
+    cuda_op.reset_launches()
+    train_model, steps = drive_train_path()
+    torch.cuda.synchronize()
+    launches_train = dict(cuda_op.LAUNCHES)
+    log(f"phase 3: slice-4 path launches {launches_train}")
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        launches[name] = launches_train[name]
+    # flash_fwd runs on both model paths: its row counts both windows
+    fwd_by_path = {"eval": launches["flash_fwd"],
+                   "train": launches_train["flash_fwd"]}
+    launches["flash_fwd"] = sum(fwd_by_path.values())
+    check_train_path(torch, train_model, steps, launches_train)
+    torch.cuda.empty_cache()
+
     rows = time_kernels(cuda_op, torch, dev, launches)
-    rows.append(time_flash(fa, torch, dev, launches["flash_fwd"]))
+    rows.append(dict(time_flash(fa, torch, dev, launches["flash_fwd"]),
+                     launches_by_path=fwd_by_path))
+    rows.extend(time_flash_bwd(fa, torch, dev, launches))
     time_allreduce(tuned, torch, dev)
     profile_allreduce(tuned, torch, dev)
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB")
     time_model(torch, model)
-    del model
+    time_train(torch, train_model)
+    del model, train_model
     tuned.free()
     mpi.finalize()
     torch.cuda.empty_cache()
     run_bench(torch, dev)
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
-"""The flagship model (``transformer.TpuLM``), eval forward on one card.
+"""The flagship model (``transformer.TpuLM``): eval forward and train
+step on one card.
 
 Counterpart of ``ompi_release_tpu/models``; the MLP-Mixer and the
-switch-MoE TpuLM come with ROADMAP slice 3 item 15, the train step with
-the training slice.
+switch-MoE TpuLM come with ROADMAP slice 3 item 15.
 """
 
 from .transformer import (  # noqa: F401
     ModelConfig, TpuLM, forward_loss, init_params, make_forward,
-    param_shapes, params_from_jax,
+    make_train_step, param_shapes, params_from_jax,
 )

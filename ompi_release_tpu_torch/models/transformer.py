@@ -1,9 +1,9 @@
-"""TpuLM — the flagship decoder-only transformer, eval forward on one
-card.
+"""TpuLM — the flagship decoder-only transformer on one card: the eval
+forward and the train step.
 
-Counterpart of the forward half of ``ompi_release_tpu/models/
-transformer.py``: the same configuration, parameter layout, layers and
-loss, with every mesh axis of size 1 (``parallel.mesh_axes``). The path
+Counterpart of ``ompi_release_tpu/models/transformer.py``: the same
+configuration, parameter layout, layers, loss and train step, with every
+mesh axis of size 1 (``parallel.mesh_axes``). The path
 is tokens -> embedding -> n_layers blocks (RMSNorm, RoPE, q/k/v,
 causal attention, output projection, tanh-GELU MLP) -> final RMSNorm ->
 tied-embedding cross-entropy -> mean loss.
@@ -16,8 +16,10 @@ as JAX picks the Pallas kernel on a TPU and ring elsewhere.
 
 Parameters are a dict of tensors shaped as the JAX pytree, per-layer
 weights stacked on a leading ``n_layers`` axis; ``params_from_jax``
-carries a JAX pytree (as numpy arrays) over. The switch-MoE FFN
-(``n_experts > 0``), the train step and axes > 1 are later slices.
+carries a JAX pytree (as numpy arrays) over. The gradient is autograd's
+through the same forward, with ``flash_attention``'s backward the flash
+backward kernels (their plain twins on the CPU). The switch-MoE FFN
+(``n_experts > 0``) and axes > 1 are later slices.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import flash_attention
+from ..optim import adamw
 from ..parallel import cp, pp as pp_mod, tp as tp_mod
 from ..parallel.mesh_axes import ParallelMesh, build_parallel_mesh
 from ..utils.errors import ErrorCode, MPIError
@@ -50,7 +53,7 @@ class ModelConfig:
     n_experts: int = 0  # 0 = dense FFN; >0 = switch-MoE (not ported yet)
     capacity_factor: float = 1.25  # read by the MoE layer (not ported yet)
     microbatches: int = 1  # microbatch count of the pp schedule
-    remat: bool = False  # backward-only memory trade: no effect on eval
+    remat: bool = False  # checkpoint the trunk: recompute in the backward
     dtype: Any = torch.bfloat16
     rope_base: float = 10000.0
     # "auto" = the CUDA flash kernel on a card, ring attention elsewhere;
@@ -250,7 +253,8 @@ def forward_loss(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     emb = tp_mod.vocab_parallel_embedding(tokens,
                                           params["embed"]).to(cfg.dtype)
     x_mb = emb.reshape(m, b // m, s, cfg.d_model)
-    y = pp_mod.pipeline(partial(_trunk, cfg), params["layers"], x_mb)
+    y = pp_mod.pipeline(partial(_trunk, cfg), params["layers"], x_mb,
+                        remat=cfg.remat)
     h = _rmsnorm(y.reshape(b, s, cfg.d_model), params["ln_f"])
     nll = tp_mod.vocab_parallel_xent(h.float(), params["embed"].float(),
                                      targets)
@@ -274,11 +278,40 @@ def make_forward(cfg: ModelConfig, mesh: ParallelMesh):
     return fn
 
 
+def make_train_step(cfg: ModelConfig, mesh: ParallelMesh):
+    """The full train step on ``mesh``'s device (``transformer.py:
+    325-344``): ``step(params, opt_state, tokens, targets) -> (params,
+    opt_state, loss)`` with ``opt_state = optimizer(params)``, a
+    ``torch.optim.Optimizer`` from ``optim.sgd`` / ``optim.adamw`` (the
+    optax counterparts). It takes the loss, its gradient by
+    ``loss.backward()`` and one ``opt_state.step()``. Two differences
+    from JAX: the update rule rides in the state, so the factory takes
+    no optimizer; and the port updates the parameter tensors (and the
+    state) in place, returning the same objects where JAX returns new
+    pytrees. ``loss`` is the detached pre-update loss."""
+    cfg.validate(mesh)
+    dev = mesh.device
+
+    def step(params: Dict, opt_state, tokens, targets):
+        opt_state.zero_grad(set_to_none=True)
+        loss = forward_loss(cfg, params, torch.as_tensor(tokens, device=dev),
+                            torch.as_tensor(targets, device=dev))
+        loss.backward()
+        opt_state.step()
+        return params, opt_state, loss.detach()
+
+    return step
+
+
 class TpuLM(nn.Module):
     """The model on one device: parameters (random from ``seed`` unless
-    given) and the eval forward. ``device`` defaults to ``cuda:0``;
-    without CUDA it raises ``ERR_NOT_AVAILABLE`` unless the caller asks
-    for ``device="cpu"``, as ``init()`` does."""
+    given), the eval forward and the train step. ``device`` defaults to
+    ``cuda:0``; without CUDA it raises ``ERR_NOT_AVAILABLE`` unless the
+    caller asks for ``device="cpu"``, as ``init()`` does. The parameters
+    are frozen until the first :meth:`train_step`, which makes them
+    trainable and builds the state of ``optim.adamw(1e-3)`` (the
+    optimizer of ``__graft_entry__._dryrun_one``); another optimizer goes
+    through :func:`make_train_step`."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[Dict] = None, *,
                  device=None, seed: int = 0):
@@ -301,6 +334,8 @@ class TpuLM(nn.Module):
         self.top = frozen({n: t for n, t in params.items()
                            if n != "layers"})
         self._fwd = make_forward(cfg, self.mesh)
+        self._step = make_train_step(cfg, self.mesh)
+        self.opt_state = None
 
     def params(self) -> Dict:
         """The parameter dict ``make_forward``'s function takes."""
@@ -310,3 +345,12 @@ class TpuLM(nn.Module):
 
     def forward(self, tokens, targets) -> torch.Tensor:
         return self._fwd(self.params(), tokens, targets)
+
+    def train_step(self, tokens, targets) -> torch.Tensor:
+        """One optimizer step on (B, S) tokens/targets; returns the
+        pre-update loss (detached)."""
+        if self.opt_state is None:
+            self.opt_state = adamw(1e-3)(self.params())
+        _, _, loss = self._step(self.params(), self.opt_state, tokens,
+                                targets)
+        return loss

@@ -6,10 +6,10 @@ reduction hot loop is a C elementwise loop per (op x dtype)
 exists so accelerated components can override those loops. This is that
 component for an NVIDIA H100, plus the kernels of the bench loops: four
 hand-written kernels in ``csrc/stream_ops.cu``. :func:`build` compiles
-every ``csrc/*.cu`` (these four and the flash-attention forward of
-``ops/flash_attention.py``) for ``sm_90a`` with ``nvcc`` at first use
-into one library under ``ompi_release_tpu_torch/build/``, loaded with
-``ctypes``:
+every ``csrc/*.cu`` (these four and the flash-attention forward and
+backward kernels of ``ops/flash_attention.py``) for ``sm_90a`` with
+``nvcc`` at first use into one library under
+``ompi_release_tpu_torch/build/``, loaded with ``ctypes``:
 
 - ``stream_axpy``: ``out = acc*c + a``; with ``c == 1`` a plain add, the
   SUM combiner (``sum_``, the ``_pallas_sum_fn`` role) — 3 streams;
@@ -55,12 +55,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel launches per wrapper (``sum_``, ``axpy``, ``scale``,
-#: ``transpose``, ``chain_hop`` here; ``flash_forward`` in
-#: ``flash_attention.py``), bumped only where the wrapper launches its
-#: kernel (a launch captured into a CUDA graph counts once, at capture;
-#: replays do not pass through the wrapper)
+#: ``transpose``, ``chain_hop`` here; ``flash_forward`` and
+#: ``flash_backward``'s two kernels in ``flash_attention.py``), bumped only
+#: where the wrapper launches its kernel (a launch captured into a CUDA
+#: graph counts once, at capture; replays do not pass through the wrapper)
 LAUNCHES: Dict[str, int] = {"sum": 0, "axpy": 0, "scale": 0,
-                            "transpose": 0, "chain": 0, "flash_fwd": 0}
+                            "transpose": 0, "chain": 0, "flash_fwd": 0,
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _lib: Optional[ctypes.CDLL] = None
@@ -166,8 +167,20 @@ def _load() -> ctypes.CDLL:
                                       ctypes.c_int, ctypes.c_float,
                                       ctypes.c_int, vp]
             lib.flash_fwd.restype = ctypes.c_int
-            lib.flash_fwd_smem_bytes.argtypes = [ctypes.c_int]
-            lib.flash_fwd_smem_bytes.restype = ctypes.c_longlong
+            lib.flash_bwd_dq.argtypes = [ctypes.c_int, vp, vp, vp, vp, vp,
+                                         vp, vp, ctypes.c_longlong,
+                                         ctypes.c_longlong, ctypes.c_int,
+                                         ctypes.c_float, ctypes.c_int, vp]
+            lib.flash_bwd_dq.restype = ctypes.c_int
+            lib.flash_bwd_dkv.argtypes = [ctypes.c_int, vp, vp, vp, vp, vp,
+                                          vp, vp, vp, ctypes.c_longlong,
+                                          ctypes.c_longlong, ctypes.c_int,
+                                          ctypes.c_float, ctypes.c_int, vp]
+            lib.flash_bwd_dkv.restype = ctypes.c_int
+            for fn in ("flash_fwd_smem_bytes", "flash_bwd_dq_smem_bytes",
+                       "flash_bwd_dkv_smem_bytes"):
+                getattr(lib, fn).argtypes = [ctypes.c_int]
+                getattr(lib, fn).restype = ctypes.c_longlong
             _lib = lib
         return _lib
 

@@ -47,10 +47,12 @@ def vocab_parallel_xent(h: torch.Tensor, table_shard: torch.Tensor,
                         targets: torch.Tensor) -> torch.Tensor:
     """Per-token ``-log p(target)`` of the tied-embedding LM head:
     ``m + log(sum(exp(logits - m))) - logits[target]`` over f32 logits
-    (h and table f32); a target outside [0, V) contributes a zero
-    target logit."""
+    (h and table f32), with ``m`` the row max carrying no gradient; a
+    target outside [0, V) contributes a zero target logit."""
     logits = torch.matmul(h, table_shard.t())
-    m = logits.amax(dim=-1)
+    # the max shift is for numerical stability only: no gradient flows
+    # through it (the reference's _pmax_nograd, tp.py:22-33)
+    m = logits.amax(dim=-1).detach()
     se = torch.exp(logits - m[..., None]).sum(dim=-1)
     vshard = table_shard.shape[0]
     in_range = (targets >= 0) & (targets < vshard)

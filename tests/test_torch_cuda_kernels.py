@@ -15,6 +15,12 @@ own, ``tests/test_pallas.py``), bf16 within 1 bf16 ulp plus that atol,
 ``lse`` atol 1e-5; kernel and twin both compute in f32, in another
 summation order, and each rounds its own f32 result to bf16 once: near
 zero the two f32 sums differ by more than a bf16 ulp of the value.
+``flash_bwd_dq`` / ``flash_bwd_dkv``: dq, dk, dv f32 rtol/atol 2e-4 (the
+JAX suite's grad tolerance, ``tests/test_pallas.py:101``), bf16 within
+1 bf16 ulp plus that atol, for the same reason as the forward: each
+gradient is an f32 sum of up to S products taken in another order on
+each side, and each side rounds its own sum once. The backward is
+bitwise deterministic (each output is owned by one block; no atomics).
 """
 
 import pytest
@@ -71,8 +77,13 @@ def test_launches_counted_per_wrapper(dev):
     fa.flash_forward(q, q, q, True)
     fa.flash_attention(q, q, q)
     fa._plain_flash_forward(q, q, q, True)  # the twin launches nothing
+    qg = q.clone().requires_grad_()
+    fa.flash_attention(qg, q, q, True).sum().backward()  # one backward
+    out, lse = fa._plain_flash_forward(q, q, q, True)
+    fa._plain_flash_backward(q, q, q, out, lse, q, True)
     assert cuda_op.LAUNCHES == {"sum": 1, "axpy": 2, "scale": 1,
-                                "transpose": 1, "chain": 1, "flash_fwd": 2}
+                                "transpose": 1, "chain": 1, "flash_fwd": 3,
+                                "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(dev):
@@ -173,5 +184,65 @@ def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     with pytest.raises(MPIError, match="65535"):
         w = torch.empty(65536, 1, 1, device=dev)
         fa.flash_forward(w, w, w, True)
-    with pytest.raises(MPIError, match="training slice"):
-        fa.flash_attention(q.requires_grad_(), q.detach(), q.detach())
+    # under grad the backward runs the kernels and matches the twin
+    qg = q.clone().requires_grad_()
+    out = fa.flash_attention(qg, q, q)
+    (dq,) = torch.autograd.grad(out, qg, torch.ones_like(out))
+    o, lse = fa._plain_flash_forward(q, q, q, False)
+    want = fa._plain_flash_backward(q, q, q, o, lse, torch.ones_like(q),
+                                    False)[0]
+    assert torch.allclose(dq, want, rtol=2e-4, atol=2e-4)
+    with pytest.raises(MPIError, match="contiguous"):
+        fa.flash_backward(q, q, q, o, lse, q.transpose(1, 2).contiguous()
+                          .transpose(1, 2), True)
+    with pytest.raises(MPIError, match="lse"):
+        fa.flash_backward(q, q, q, o, lse.to(torch.bfloat16), q, True)
+
+
+def _bwd_inputs(dev, dtype, shape, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(*shape, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    return q, k, v, do
+
+
+def _grads_close(got, want, dtype):
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        if dtype is torch.float32:
+            assert torch.allclose(a, b, rtol=2e-4, atol=2e-4)
+        else:
+            assert _ulp_ok(a, b, dtype, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1, 100, 129, 256])
+@pytest.mark.parametrize("d", [8, 64, 128])
+def test_flash_bwd_matches_plain_twin(dev, dtype, causal, s, d):
+    q, k, v, do = _bwd_inputs(dev, dtype, (3, s, d), s * 1000 + d)
+    out, lse = fa.flash_forward(q, k, v, causal)
+    got = fa.flash_backward(q, k, v, out, lse, do, causal)
+    want = fa._plain_flash_backward(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    _grads_close(got, want, dtype)
+
+
+def test_flash_bwd_full_width_deterministic_and_batched(dev):
+    """The model's shape, (B, H, S, D) = (8, 8, 2048, 64) bf16 causal,
+    through autograd with the model's transposed cotangent; two runs of
+    the backward are bitwise equal."""
+    q, k, v, do = _bwd_inputs(dev, torch.bfloat16, (8, 8, 2048, 64), 64)
+    out, lse = fa.flash_forward(q, k, v, True)
+    want = fa._plain_flash_backward(
+        *(t.view(64, 2048, 64) for t in (q, k, v, out)), lse.view(64, 2048),
+        do.view(64, 2048, 64), True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    g_t = do.transpose(1, 2).contiguous().transpose(1, 2)  # not contiguous
+    first = torch.autograd.grad(fa.flash_attention(*leaves, True), leaves,
+                                g_t)
+    again = fa.flash_backward(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    _grads_close([t.view(64, 2048, 64) for t in first], want, torch.bfloat16)
+    for a, b in zip(first, again):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))

@@ -348,8 +348,14 @@ def test_not_ported_cases_raise():
 
 def test_flash_wrapper_raises_on_what_the_kernel_does_not_take():
     q = torch.randn(2, 16, 8, requires_grad=True)
-    with pytest.raises(MPIError, match="training slice"):
-        tfa.flash_attention(q, q.detach(), q.detach())
+    # under grad the backward exists: the plain backward twin on the CPU
+    out = tfa.flash_attention(q, q.detach(), q.detach())
+    (dq,) = torch.autograd.grad(out, q, torch.ones_like(out))
+    o, lse = tfa._plain_flash_forward(q.detach(), q.detach(), q.detach(),
+                                      False)
+    want = tfa._plain_flash_backward(q.detach(), q.detach(), q.detach(), o,
+                                     lse, torch.ones_like(o), False)[0]
+    assert torch.equal(dq, want)
     with torch.no_grad():  # grad disabled: the forward runs
         assert tfa.flash_attention(q, q, q).shape == q.shape
     big = torch.randn(2, 16, 129)

@@ -107,9 +107,11 @@ def test_cpu_tensors_never_count_launches():
     cuda_op.transpose(a.view(10, 10))
     cuda_op.chain_hop(torch.ones(cuda_op.CHAIN_TILE))
     q = torch.ones(2, 10, 8)
-    flash_attention.flash_forward(q, q, q, True)
+    out, lse = flash_attention.flash_forward(q, q, q, True)
+    flash_attention.flash_backward(q, q, q, out, lse, q, True)
     assert cuda_op.LAUNCHES == {"sum": 0, "axpy": 0, "scale": 0,
-                                "transpose": 0, "chain": 0, "flash_fwd": 0}
+                                "transpose": 0, "chain": 0, "flash_fwd": 0,
+                                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def test_bench_loops_match_pallas_loops():

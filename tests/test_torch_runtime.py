@@ -96,6 +96,46 @@ def test_importing_every_module_loads_no_jax():
     assert res.stdout.startswith("ok ") and int(res.stdout.split()[1]) > 15
 
 
+def test_train_path_loads_no_jax():
+    """The training slice's modules (the flash backward, the optimizer
+    factories, the train step and ``entry.py``'s train mode) run one step
+    on the CPU with nothing of JAX loaded."""
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "from ompi_release_tpu_torch.entry import train_entry\n"
+        "from ompi_release_tpu_torch.ops import flash_attention as fa\n"
+        "step, args = train_entry(device='cpu')\n"
+        "loss = float(step(*args)[2])\n"
+        "q = torch.randn(2, 9, 8, requires_grad=True)\n"
+        "fa.flash_attention(q, q, q, True).sum().backward()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
+        "                                    'ompi_release_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert q.grad is not None and loss == loss\n"
+        "print('ok', loss)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok ")
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "csrc").glob("*.cu")),
+                         ids=lambda p: p.name)
+def test_cuda_sources_include_only_cuda_headers(path):
+    """The kernels are compiled only on the card, by ``nvcc`` into a
+    plain-C library: no PyTorch header (minutes of build) and nothing
+    but the CUDA runtime and C headers."""
+    includes = [ln.split()[1] for ln in path.read_text().splitlines()
+                if ln.startswith("#include")]
+    assert includes and set(includes) <= {
+        "<cuda_bf16.h>", "<cuda_runtime.h>", "<stdint.h>"}, includes
+    assert 'extern "C"' in path.read_text()
+
+
 # ---------------------------------------------------------------------------
 # device selection
 # ---------------------------------------------------------------------------
