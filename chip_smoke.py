@@ -7,7 +7,9 @@ Run from the repository root on a machine with a card:
 
 1. prints the card (``nvidia-smi`` name and power limit), the build
    time and each kernel's registers, shared memory and spills (ptxas
-   ``-v``, kept by the build);
+   ``-v``, kept by the build), and each flash kernel's tensor-core
+   (``HGMMA``) and atomic instructions from ``cuobjdump -sass``: the two
+   bf16 backward kernels must hold HGMMA and no atomic;
 2. holds each kernel against its plain PyTorch twin on the card: the
    streaming kernels at sizes 1, 4097, 2^26+3 and a view at element
    offset 1 (f32 and bf16); the transpose bitwise at (8192, 8192) int32,
@@ -18,10 +20,15 @@ Run from the repository root on a machine with a card:
    2e-5, lse atol 1e-5: both compute in f32 in another summation order);
    the flash-attention backward kernels (dq, and dk/dv) each against its
    own plain twin, causal and not, S in {1, 100, 129, 256}, D in {8, 64,
-   128}, f32 and bf16, and the whole backward at the model's shape, run
-   twice and bitwise equal (f32 rtol/atol 2e-4, the JAX suite's grad
+   128}, f32 and bf16, the whole backward at the model's shape, run
+   twice and bitwise equal, and at the model's width in 128-wide heads,
+   (32, 2048, 128) bf16 causal (f32 rtol/atol 2e-4, the JAX suite's grad
    tolerance; bf16 within one bf16 ulp plus 2e-4: each gradient is an
-   f32 sum of up to S products in another order on each side);
+   f32 sum of up to S products in another order on each side); then
+   logs, ungated, whether cuBLAS reduces the trunk's bf16 products in
+   bf16 (``column_parallel`` with
+   ``allow_bf16_reduced_precision_reduction`` on and off against the f32
+   product rounded once);
 3. drives the main path, each slice's part with every launch counter
    set to 0 just before and read just after:
    - slice 1: ``init()`` with 8 virtual ranks on ``cuda:0``, a tuned
@@ -94,6 +101,14 @@ FLASH_REPLACES = "ompi_release_tpu/ops/pallas_attention.py:114"
 #: the main path's flash call: (B * H, S, D) bf16 causal
 FLASH_SHAPE = (64, 2048, 64)
 FLASH_BWD_SOURCE = "ompi_release_tpu_torch/csrc/flash_attn_bwd.cu"
+#: the bf16 route of the two backward entries, on the tensor cores (wgmma)
+FLASH_BWD_BF16_SOURCE = "ompi_release_tpu_torch/csrc/flash_attn_bwd_wgmma.cu"
+#: the model's attention at head dim 128 (d_model 512 as 4 x 128 heads)
+FLASH_SHAPE_D128 = (32, 2048, 128)
+#: the trunk's bf16 products, (8 x 2048, d_model) x (d_model, F) and the
+#: FFN's way back (ROADMAP queue 3 item 1)
+TRUNK_PRODUCTS = (((16384, 512), (512, 512)), ((16384, 512), (512, 2048)),
+                  ((16384, 2048), (2048, 512)))
 #: the two backward pallas_calls of _flash_backward (bodies
 #: _bwd_dq_kernel :140 and _bwd_dkv_kernel :185)
 DQ_REPLACES = "ompi_release_tpu/ops/pallas_attention.py:264"
@@ -250,7 +265,86 @@ def ptxas_report(cuda_op, lib):
     log(json.dumps({"flash_dynamic_smem_bytes": {
         name: {d: int(getattr(load, f"{name}_smem_bytes")(d))
                for d in (8, 64, 128)}
-        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}}))
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")}}))
+
+
+def sass_report(cuda_op, lib):
+    """Phase 1: per flash kernel of the built library, its count of
+    tensor-core (``HGMMA``) and atomic (``ATOM*``, ``RED``) instructions
+    from ``cuobjdump -sass``. Each instantiation of the two bf16 backward
+    kernels must hold HGMMA and no atomic. Returns {wrapper: {padded head
+    dim: HGMMA count}} for those two."""
+    import os
+    import re
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    res = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump -sass failed: {res.stderr}")
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"HGMMA": 0, "atomic": 0}
+        elif fn:
+            counts[fn]["HGMMA"] += bool(re.search(r"\bHGMMA\b", line))
+            counts[fn]["atomic"] += bool(re.search(r"\b(ATOM\w*|RED)\b",
+                                                   line))
+    hgmma = {}
+    for name, wrapper in (("flash_bwd_dq_wgmma", "flash_bwd_dq"),
+                          ("flash_bwd_dkv_wgmma", "flash_bwd_dkv")):
+        for dp in (64, 128):
+            found = [c for f, c in counts.items()
+                     if f"{name}ILi{dp}E" in f]
+            check(len(found) == 1, f"{name}<{dp}> not in the library's SASS")
+            check(found[0]["HGMMA"] > 0, f"{name}<{dp}> has no HGMMA")
+            check(found[0]["atomic"] == 0, f"{name}<{dp}> has atomics")
+            hgmma.setdefault(wrapper, {})[dp] = found[0]["HGMMA"]
+    log(json.dumps({"sass_flash_kernels": {
+        f: c for f, c in counts.items() if "flash" in f}}))
+    log(f"phase 1: HGMMA per bf16 backward kernel {hgmma}; no atomics")
+    return hgmma
+
+
+def check_bf16_reduction(torch, dev):
+    """ROADMAP queue 3 item 1: does cuBLAS reduce bf16 products in bf16?
+    ``column_parallel`` at the trunk's shapes with
+    ``allow_bf16_reduced_precision_reduction`` on and off, each against
+    the f32 product rounded once to bf16; logged, not gated."""
+    from ompi_release_tpu_torch.parallel.tp import column_parallel
+
+    flags = torch.backends.cuda.matmul
+    saved = flags.allow_bf16_reduced_precision_reduction
+    g = torch.Generator(device=dev).manual_seed(12)
+    out = []
+    try:
+        for xs, ws in TRUNK_PRODUCTS:
+            x = torch.randn(*xs, generator=g, device=dev).to(torch.bfloat16)
+            w = (torch.randn(*ws, generator=g, device=dev)
+                 * xs[1] ** -0.5).to(torch.bfloat16)
+            want = (x.float() @ w.float()).to(torch.bfloat16).float()
+            row = {"x": list(xs), "w": list(ws)}
+            got = {}
+            for on in (True, False):
+                flags.allow_bf16_reduced_precision_reduction = on
+                got[on] = column_parallel(x, w).float()
+                diff = (got[on] - want).abs()
+                beyond = diff > bf16_ulp(want)
+                row["on" if on else "off"] = {
+                    "max_abs_diff": float(diff.max()),
+                    "elements_differing": int((diff > 0).sum()),
+                    "beyond_one_ulp": int(beyond.sum()),
+                    "max_abs_value_there": float(want.abs()[beyond].max())
+                    if bool(beyond.any()) else None}
+            row["on_equals_off"] = bool(torch.equal(got[True], got[False]))
+            out.append(row)
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = saved
+    log(json.dumps({"bf16_reduced_precision_reduction": out,
+                    "default": saved}))
 
 
 def flash_close(torch, got, want, got_lse, want_lse):
@@ -367,11 +461,20 @@ def phase_flash_bwd(fa, torch, dev):
             "max_abs_value_there": float(b.float().abs()[beyond].max())
             if bool(beyond.any()) else None}
     log(json.dumps({"flash_bwd_bf16_model_shape": stats}))
+    g = torch.Generator(device=dev).manual_seed(66)
+    q, k, v, do = (torch.randn(*FLASH_SHAPE_D128, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    got, want = bwd_pair(fa, q, k, v, do, True)
+    check(grads_close(torch, got, want), "flash backward kernels != plain "
+          f"twins at {FLASH_SHAPE_D128} bf16 causal")
+    log(json.dumps({"flash_bwd_bf16_d128": {
+        name: float((a.float() - b.float()).abs().max())
+        for name, a, b in zip(("dq", "dk", "dv"), got, want)}}))
     torch.cuda.synchronize()
     log(f"phase 2: flash_bwd_dq and flash_bwd_dkv match their plain twins "
         f"on {n_cases} cases (causal and not; S 1, 100, 129, 256; D 8, 64, "
-        f"128; f32, bf16) and at {FLASH_SHAPE} bf16 causal; two runs of "
-        "the backward are bitwise equal")
+        f"128; f32, bf16) and at {FLASH_SHAPE} and {FLASH_SHAPE_D128} bf16 "
+        "causal; two runs of the backward are bitwise equal")
 
 
 def drive_main_path(mpi, tmvar, torch, dev):
@@ -757,7 +860,7 @@ def time_flash(fa, torch, dev, launches):
     }
 
 
-def time_flash_bwd(fa, torch, dev, launches):
+def time_flash_bwd(fa, torch, dev, launches, hgmma):
     """The two backward kernels at the main path's (B*H, S, D) = (64,
     2048, 64) bf16 causal, each beside its own plain twin, and SDPA's
     backward on the same tensors viewed (8, 8, 2048, 64) (dq, dk and dv
@@ -807,7 +910,8 @@ def time_flash_bwd(fa, torch, dev, launches):
         flops = products * product
         nbytes = (4 + outs) * tensor_bytes + 2 * n * s * 4
         rows.append({
-            "name": name, "route": "cuda", "source": FLASH_BWD_SOURCE,
+            "name": name, "route": "cuda", "source": FLASH_BWD_BF16_SOURCE,
+            "f32_route_source": FLASH_BWD_SOURCE,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err,
             "ms": time_ms(lambda: kern(*args), inner=5),
@@ -819,6 +923,7 @@ def time_flash_bwd(fa, torch, dev, launches):
             "library_ms": library_ms,
             "library": "SDPA backward (dq, dk, dv at once)",
             "cuda_core_floor_ms": flops / F32_CUDA_CORE_FLOPS * 1e3,
+            "sass_hgmma": hgmma[name],
             "shape": list(FLASH_SHAPE), "dtype": "bfloat16", "causal": True,
         })
     return rows
@@ -1015,10 +1120,12 @@ def main():
     log(f"phase 1: built {so} in {time.perf_counter() - t0:.2f} s "
         f"from {len(cuda_op.sources())} sources")
     ptxas_report(cuda_op, so)
+    hgmma = sass_report(cuda_op, so)
 
     phase_kernels(cuda_op, torch, dev)
     phase_flash(fa, torch, dev)
     phase_flash_bwd(fa, torch, dev)
+    check_bf16_reduction(torch, dev)
 
     cuda_op.reset_launches()
     world, tuned, runs = drive_main_path(mpi, tmvar, torch, dev)
@@ -1072,7 +1179,7 @@ def main():
     rows = time_kernels(cuda_op, torch, dev, launches)
     rows.append(dict(time_flash(fa, torch, dev, launches["flash_fwd"]),
                      launches_by_path=fwd_by_path))
-    rows.extend(time_flash_bwd(fa, torch, dev, launches))
+    rows.extend(time_flash_bwd(fa, torch, dev, launches, hgmma))
     time_allreduce(tuned, torch, dev)
     profile_allreduce(tuned, torch, dev)
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"

@@ -2,25 +2,30 @@
 // attention, recomputing each probability tile from the forward's saved
 // logsumexp so that no (S, S) tensor is ever written to device memory.
 //
+// The C entries flash_bwd_dq / flash_bwd_dkv below take f32 (dtype 0) and
+// bf16 (dtype 1). This file holds the f32 route, on the CUDA cores; the
+// bf16 route runs on the tensor cores (wgmma) in flash_attn_bwd_wgmma.cu.
+//
 // Replaces the two Pallas kernels of _flash_backward in
 // ompi_release_tpu/ops/pallas_attention.py:
 // - flash_bwd_dq: the pl.pallas_call at :264, body _bwd_dq_kernel (:140-182);
 // - flash_bwd_dkv: the pl.pallas_call at :283, body _bwd_dkv_kernel
 //   (:185-232).
 // Same function: for each of N independent heads, q, k, v, dO (S, D) f32
-// or bf16, the forward's lse (S) f32 and delta = rowsum(dO * O) (S) f32
+// (or bf16), the forward's lse (S) f32 and delta = rowsum(dO * O) (S) f32
 // (computed outside the kernels, as _flash_backward does at :244-246) ->
 //   qs = q * rsqrt(D),  P = where(mask, exp(qs k^T - lse), 0),
 //   dP = dO v^T,        dS = P * (dP - delta),
 //   dq = (dS k) * rsqrt(D),  dk = dS^T qs,  dv = P^T dO,
 // with mask = (q_pos < S) & (k_pos < S) [& (q_pos >= k_pos) when causal],
-// f32 throughout and each output rounded once to the input type.
+// f32 throughout and each output rounded once to the input type (the
+// bf16 route's operands: flash_attn_bwd_wgmma.cu).
 //
 // Bound: operations. At the model's shape (N = 64, S = 2048, D = 64,
 // causal) one (S, S, D) product costs 2 N D S(S+1)/2 = 17.2 GFLOP: dq does
 // three (S, dP, dS k) = 51.6 GFLOP, dk/dv four (S, dP, P^T dO, dS^T qs) =
 // 68.8 GFLOP, against ~85 MB and ~102 MB moved. The bf16 tensor-core bound
-// is 0.052 ms and 0.070 ms; these kernels use the CUDA cores (f32 FMA,
+// is 0.052 ms and 0.070 ms; these f32 kernels use the CUDA cores (f32 FMA,
 // 67 TFLOP/s), whose floor is 0.77 ms and 1.03 ms.
 //
 // Design (simple and exact first; tensor cores, TMA and warp
@@ -28,7 +33,7 @@
 // (flash_attn.cu): 64-row tiles, 256 threads, thread (ty, tx) =
 // (tid / 16, tid % 16) owning 4 rows x columns tx + 16 j, f32 tiles in
 // dynamic shared memory with a +1 column pad (rows a warp reads at once
-// fall in different banks), bf16 widened on load, expf (no fast math).
+// fall in different banks), expf (no fast math).
 // - Two kernels and no atomics. The TPU grid runs in order; Hopper blocks
 //   run in no order. JAX's split is kept: dq is owned by q-tiles and
 //   dk/dv by k-tiles, so no block sums into another's output and the
@@ -58,7 +63,6 @@
 // The kernels allocate nothing and launch on the caller's stream; each C
 // entry returns cudaGetLastError() for the wrapper to check.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,15 +76,8 @@ constexpr int kTStride = kTile + 1;  // the 64 x 65 score-shaped tiles
 __device__ __forceinline__ float load_f(const float* p, int64_t i) {
   return p[i];
 }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
-}
 __device__ __forceinline__ void store_f(float* p, int64_t i, float v) {
   p[i] = v;
-}
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, int64_t i,
-                                        float v) {
-  p[i] = __float2bfloat16_rn(v);
 }
 
 // rows row0 .. row0 + 63 of one head's (S, D) tensor, times mul, into a
@@ -425,7 +422,17 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// Bytes of dynamic shared memory each kernel asks for at head dim D.
+// The bf16 route on the tensor cores (flash_attn_bwd_wgmma.cu).
+int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int n, int S, int D, float scale, int causal,
+                      cudaStream_t stream);
+int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dk, void* dv, int n, int S,
+                       int D, float scale, int causal, cudaStream_t stream);
+
+// Bytes of dynamic shared memory each f32 kernel asks for at head dim D.
 extern "C" long long flash_bwd_dq_smem_bytes(int D) {
   return (long long)dq_smem_bytes(D);
 }
@@ -455,10 +462,8 @@ extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k,
                                          scale, causal, s);
   }
   if (dtype == 1) {
-    return D <= 64 ? launch_dq<__nv_bfloat16, 4>(q, k, v, dout, l, dl, dq, ni,
-                                                 si, D, scale, causal, s)
-                   : launch_dq<__nv_bfloat16, 8>(q, k, v, dout, l, dl, dq, ni,
-                                                 si, D, scale, causal, s);
+    return flash_bwd_dq_bf16(q, k, v, dout, l, dl, dq, ni, si, D, scale,
+                             causal, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -482,12 +487,8 @@ extern "C" int flash_bwd_dkv(int dtype, const void* q, const void* k,
                                           si, D, scale, causal, s);
   }
   if (dtype == 1) {
-    return D <= 64 ? launch_dkv<__nv_bfloat16, 4>(q, k, v, dout, l, dl, dk,
-                                                  dv, ni, si, D, scale,
-                                                  causal, s)
-                   : launch_dkv<__nv_bfloat16, 8>(q, k, v, dout, l, dl, dk,
-                                                  dv, ni, si, D, scale,
-                                                  causal, s);
+    return flash_bwd_dkv_bf16(q, k, v, dout, l, dl, dk, dv, ni, si, D, scale,
+                              causal, s);
   }
   return (int)cudaErrorInvalidValue;
 }

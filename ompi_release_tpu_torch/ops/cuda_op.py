@@ -7,7 +7,8 @@ exists so accelerated components can override those loops. This is that
 component for an NVIDIA H100, plus the kernels of the bench loops: four
 hand-written kernels in ``csrc/stream_ops.cu``. :func:`build` compiles
 every ``csrc/*.cu`` (these four and the flash-attention forward and
-backward kernels of ``ops/flash_attention.py``) for ``sm_90a`` with
+backward kernels of ``ops/flash_attention.py``, the bf16 backward on the
+tensor cores) for ``sm_90a`` with
 ``nvcc`` at first use into one library under
 ``ompi_release_tpu_torch/build/``, loaded with ``ctypes``:
 
@@ -178,7 +179,9 @@ def _load() -> ctypes.CDLL:
                                           ctypes.c_float, ctypes.c_int, vp]
             lib.flash_bwd_dkv.restype = ctypes.c_int
             for fn in ("flash_fwd_smem_bytes", "flash_bwd_dq_smem_bytes",
-                       "flash_bwd_dkv_smem_bytes"):
+                       "flash_bwd_dkv_smem_bytes",
+                       "flash_bwd_dq_bf16_smem_bytes",
+                       "flash_bwd_dkv_bf16_smem_bytes"):
                 getattr(lib, fn).argtypes = [ctypes.c_int]
                 getattr(lib, fn).restype = ctypes.c_longlong
             _lib = lib

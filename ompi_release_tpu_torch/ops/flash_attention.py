@@ -3,9 +3,10 @@ twins and the autograd wiring.
 
 Counterpart of ``ompi_release_tpu/ops/pallas_attention.py``. The kernels
 are ``flash_fwd`` (``csrc/flash_attn.cu``) and ``flash_bwd_dq`` /
-``flash_bwd_dkv`` (``csrc/flash_attn_bwd.cu``), built with the port's
-other kernels by :func:`cuda_op.build` and launched through ``ctypes``;
-each source comment gives its design and bound.
+``flash_bwd_dkv`` (``csrc/flash_attn_bwd.cu``: f32 on the CUDA cores;
+bf16 on the tensor cores, ``csrc/flash_attn_bwd_wgmma.cu``), built with
+the port's other kernels by :func:`cuda_op.build` and launched through
+``ctypes``; each source comment gives its design and bound.
 
 - :func:`_plain_flash_forward` / :func:`_plain_flash_backward`: the
   arithmetic of ``_attn_kernel`` (``pallas_attention.py:38-88``) and of
@@ -35,8 +36,8 @@ from ..utils.errors import ErrorCode, MPIError
 from . import cuda_op
 
 NEG_INF = -1e30
-#: the largest head dim the kernels take (their accumulators are 4 rows x
-#: 128 columns per block of 16 threads)
+#: the largest head dim the kernels take (the f32 kernels' accumulators
+#: hold 128 columns; the bf16 ones pad the head dim to 64 or 128)
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

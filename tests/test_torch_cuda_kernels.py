@@ -19,7 +19,9 @@ zero the two f32 sums differ by more than a bf16 ulp of the value.
 JAX suite's grad tolerance, ``tests/test_pallas.py:101``), bf16 within
 1 bf16 ulp plus that atol, for the same reason as the forward: each
 gradient is an f32 sum of up to S products taken in another order on
-each side, and each side rounds its own sum once. The backward is
+each side, and each side rounds its own sum once (the bf16 kernels feed
+P and dS to the tensor cores as bf16 hi + lo pairs, which keeps them
+within that rule: ``tests/test_torch_flash_split.py``). The backward is
 bitwise deterministic (each output is owned by one block; no atomics).
 """
 
@@ -246,3 +248,37 @@ def test_flash_bwd_full_width_deterministic_and_batched(dev):
     _grads_close([t.view(64, 2048, 64) for t in first], want, torch.bfloat16)
     for a, b in zip(first, again):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_flash_bwd_full_width_d128(dev):
+    """The model's width in 128-wide heads, (B, H, S, D) = (8, 4, 2048,
+    128) bf16 causal: the tensor-core kernels at their wider instance,
+    against the plain twin; two runs bitwise equal."""
+    q, k, v, do = _bwd_inputs(dev, torch.bfloat16, (8, 4, 2048, 128), 128)
+    out, lse = fa.flash_forward(q, k, v, True)
+    got = fa.flash_backward(q, k, v, out, lse, do, True)
+    again = fa.flash_backward(q, k, v, out, lse, do, True)
+    want = fa._plain_flash_backward(
+        *(t.view(32, 2048, 128) for t in (q, k, v, out)), lse.view(32, 2048),
+        do.view(32, 2048, 128), True)
+    torch.cuda.synchronize()
+    _grads_close([t.view(32, 2048, 128) for t in got], want, torch.bfloat16)
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("d,offset", [(20, 0), (72, 0), (64, 1)])
+def test_flash_bwd_bf16_element_loads(dev, d, offset):
+    """The bf16 kernels copy 16-byte rows only when D % 8 == 0 and every
+    operand is 16-byte aligned; a head dim of 20 and views at element
+    offset 1 take their element loads instead, 72 the wider instance."""
+    g = torch.Generator(device=dev).manual_seed(d + offset)
+    n = 2 * 100 * d
+    q, k, v, do = (torch.randn(n + offset, generator=g, device=dev)
+                   .to(torch.bfloat16)[offset:].view(2, 100, d)
+                   for _ in range(4))
+    out, lse = fa.flash_forward(q, k, v, True)
+    got = fa.flash_backward(q, k, v, out, lse, do, True)
+    want = fa._plain_flash_backward(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    _grads_close(got, want, torch.bfloat16)

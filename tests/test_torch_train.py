@@ -17,7 +17,9 @@ with ``params_from_jax``, a (8, 16) batch from numpy. Tolerances:
 - ``adamw(1e-3)``: the losses of 3 steps within rel 1e-4 (AdamW's
   first-step parameters are not compared elementwise: where a gradient
   is near 0, ``m / (sqrt(v) + 1e-8)`` amplifies rounding);
-- bf16: the losses of two ``sgd(0.1)`` steps within rel 3e-2;
+- bf16: the losses of two ``sgd(0.1)`` steps within rel 3e-2, and of 3
+  ``adamw(1e-3)`` steps within rel 1e-4 (the full-width step's
+  optimizer in its working type);
 - ``remat=True`` equals ``remat=False`` bitwise (loss and gradients);
 - the tp repair: ``vocab_parallel_xent``'s gradient against ``jax.grad``
   of the JAX function (f32 rtol/atol 1e-6).
@@ -142,6 +144,17 @@ def test_train_step_grads_match_jax(attn):
 def test_train_step_adamw_losses_match_jax(attn):
     np_params, _, want = _jax_run("f32", "adamw", 3)
     _, got = _port_run(np_params, "f32", "adamw", 3, attn)
+    assert got == pytest.approx(want, rel=1e-4)
+    assert got[2] < got[1] < got[0]
+
+
+@pytest.mark.parametrize("attn", ["ring", "flash"])
+def test_train_step_bf16_adamw_losses_match_jax(attn):
+    """The full-width step's optimizer in its working type: bf16 weights,
+    3 ``adamw(1e-3)`` steps, losses within rel 1e-4 of optax's."""
+    np_params, _, want = _jax_run("bf16", "adamw", 3)
+    params, got = _port_run(np_params, "bf16", "adamw", 3, attn)
+    assert params["layers"]["wq"].dtype == torch.bfloat16
     assert got == pytest.approx(want, rel=1e-4)
     assert got[2] < got[1] < got[0]
 
