@@ -8,16 +8,19 @@ Run from the repository root on a machine with a card:
 1. prints the card (``nvidia-smi`` name and power limit), the build
    time and each kernel's registers, shared memory and spills (ptxas
    ``-v``, kept by the build), and each flash kernel's tensor-core
-   (``HGMMA``) and atomic instructions from ``cuobjdump -sass``: the two
-   bf16 backward kernels must hold HGMMA and no atomic;
+   (``HGMMA``) and atomic instructions from ``cuobjdump -sass``: the
+   bf16 forward and the two bf16 backward kernels must hold HGMMA and no
+   atomic;
 2. holds each kernel against its plain PyTorch twin on the card: the
    streaming kernels at sizes 1, 4097, 2^26+3 and a view at element
    offset 1 (f32 and bf16); the transpose bitwise at (8192, 8192) int32,
    (4097, 1000) f32 and (1, 1); the chain hop bitwise against ``x + 1``;
    the flash-attention forward causal and not, S in {1, 100, 129, 2048},
-   D in {8, 64, 128}, f32 and bf16, and at the model's (64, 2048, 64)
-   bf16 causal (out f32 rtol/atol 2e-5, bf16 within one bf16 ulp plus
-   2e-5, lse atol 1e-5: both compute in f32 in another summation order);
+   D in {8, 64, 128}, f32 and bf16, at the model's (64, 2048, 64) and,
+   in 128-wide heads, (32, 2048, 128) bf16 causal, and with the bf16
+   kernel's element loads (D 20 and 72, a view at element offset 1)
+   (out f32 rtol/atol 2e-5, bf16 within one bf16 ulp plus 2e-5, lse atol
+   1e-5: both compute in f32 in another summation order);
    the flash-attention backward kernels (dq, and dk/dv) each against its
    own plain twin, causal and not, S in {1, 100, 129, 256}, D in {8, 64,
    128}, f32 and bf16, the whole backward at the model's shape, run
@@ -62,8 +65,9 @@ Run from the repository root on a machine with a card:
 4. times the kernels (CUDA events, median of 7) at the main path's
    shapes beside their bound, their plain twins and one PyTorch library
    call (the chain hop eager and replayed from a CUDA graph; the flash
-   forward beside ``scaled_dot_product_attention``, the two backward
-   kernels beside SDPA's backward, timed only), and the tuned allreduce
+   forward beside ``scaled_dot_product_attention``, by CUDA events and
+   by its device time in a profiler window, the two backward kernels
+   beside SDPA's backward, timed only), and the tuned allreduce
    per size (time and bus bandwidth 2(n-1)/n * bytes / t); a
    torch.profiler window per size says where the allreduce's device time
    goes, one over an eval batch where the forward's goes and one over a
@@ -89,13 +93,16 @@ import time
 #: H100 SXM published HBM rate (bytes/s), the denominator of bound_ms
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM published dense peaks (flop/s): bf16 tensor cores, and f32
-#: on the CUDA cores (the flash kernel's floor; it uses no tensor cores)
+#: on the CUDA cores (the flash kernels' floor before the tensor cores)
 BF16_FLOPS = 989e12
 F32_CUDA_CORE_FLOPS = 67e12
 N_RANKS = 8
 MIB = 1 << 20
 SOURCE = "ompi_release_tpu_torch/csrc/stream_ops.cu"
+#: the entry flash_fwd and its f32 route (CUDA cores); its bf16 route on
+#: the tensor cores (wgmma)
 FLASH_SOURCE = "ompi_release_tpu_torch/csrc/flash_attn.cu"
+FLASH_BF16_SOURCE = "ompi_release_tpu_torch/csrc/flash_attn_wgmma.cu"
 #: the forward pallas_call of _flash_forward (body _attn_kernel :38)
 FLASH_REPLACES = "ompi_release_tpu/ops/pallas_attention.py:114"
 #: the main path's flash call: (B * H, S, D) bf16 causal
@@ -115,6 +122,7 @@ DQ_REPLACES = "ompi_release_tpu/ops/pallas_attention.py:264"
 DKV_REPLACES = "ompi_release_tpu/ops/pallas_attention.py:283"
 TRAIN_STEPS = 4  # slice 4's window: train steps on one fixed batch
 SDPA_BWD_CALLS = 5  # SDPA backward calls in its profiler window
+SDPA_FWD_CALLS = 5  # calls per forward profiler window (SDPA, kernel)
 KERNELS = {
     # wrapper -> (TPU kernel it replaces, streams moved per element); all
     # three Pallas bodies launch through _blocked_call's pallas_call
@@ -265,16 +273,17 @@ def ptxas_report(cuda_op, lib):
     log(json.dumps({"flash_dynamic_smem_bytes": {
         name: {d: int(getattr(load, f"{name}_smem_bytes")(d))
                for d in (8, 64, 128)}
-        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                     "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")}}))
+        for name in ("flash_fwd", "flash_fwd_bf16", "flash_bwd_dq",
+                     "flash_bwd_dkv", "flash_bwd_dq_bf16",
+                     "flash_bwd_dkv_bf16")}}))
 
 
 def sass_report(cuda_op, lib):
     """Phase 1: per flash kernel of the built library, its count of
     tensor-core (``HGMMA``) and atomic (``ATOM*``, ``RED``) instructions
-    from ``cuobjdump -sass``. Each instantiation of the two bf16 backward
-    kernels must hold HGMMA and no atomic. Returns {wrapper: {padded head
-    dim: HGMMA count}} for those two."""
+    from ``cuobjdump -sass``. Each instantiation of the bf16 forward and
+    the two bf16 backward kernels must hold HGMMA and no atomic. Returns
+    {wrapper: {padded head dim: HGMMA count}} for those three."""
     import os
     import re
 
@@ -294,7 +303,8 @@ def sass_report(cuda_op, lib):
             counts[fn]["atomic"] += bool(re.search(r"\b(ATOM\w*|RED)\b",
                                                    line))
     hgmma = {}
-    for name, wrapper in (("flash_bwd_dq_wgmma", "flash_bwd_dq"),
+    for name, wrapper in (("flash_fwd_wgmma", "flash_fwd"),
+                          ("flash_bwd_dq_wgmma", "flash_bwd_dq"),
                           ("flash_bwd_dkv_wgmma", "flash_bwd_dkv")):
         for dp in (64, 128):
             found = [c for f, c in counts.items()
@@ -305,7 +315,7 @@ def sass_report(cuda_op, lib):
             hgmma.setdefault(wrapper, {})[dp] = found[0]["HGMMA"]
     log(json.dumps({"sass_flash_kernels": {
         f: c for f, c in counts.items() if "flash" in f}}))
-    log(f"phase 1: HGMMA per bf16 backward kernel {hgmma}; no atomics")
+    log(f"phase 1: HGMMA per bf16 flash kernel {hgmma}; no atomics")
     return hgmma
 
 
@@ -359,8 +369,9 @@ def flash_close(torch, got, want, got_lse, want_lse):
 
 
 def phase_flash(fa, torch, dev):
-    """The flash forward against its plain twin at the contract's cases
-    and at the model's shape."""
+    """The flash forward against its plain twin at the contract's cases,
+    at the model's shape in 64- and 128-wide heads and with the bf16
+    kernel's element loads."""
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (False, True):
@@ -390,10 +401,35 @@ def phase_flash(fa, torch, dev):
         "max_abs_value_there": float(want.float().abs()[beyond].max())
         if bool(beyond.any()) else None,
         "lse_max_abs_err": float((lse - want_lse).abs().max())}}))
+    g = torch.Generator(device=dev).manual_seed(128)
+    q, k, v = (torch.randn(*FLASH_SHAPE_D128, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    out, lse = fa.flash_forward(q, k, v, True)
+    want, want_lse = fa._plain_flash_forward(q, k, v, True)
+    check(flash_close(torch, out, want, lse, want_lse),
+          f"flash_fwd != plain twin at {FLASH_SHAPE_D128} bf16 causal")
+    log(json.dumps({"flash_bf16_d128": {
+        "max_abs_err": float((out.float() - want.float()).abs().max()),
+        "lse_max_abs_err": float((lse - want_lse).abs().max())}}))
+    # 16-byte copies need D % 8 == 0 and 16-byte aligned operands: D 20
+    # and views at element offset 1 take the element loads, 72 the DP 128
+    # instance
+    for d, off in ((20, 0), (72, 0), (64, 1)):
+        g = torch.Generator(device=dev).manual_seed(d + off)
+        n = 2 * 100 * d
+        q, k, v = (torch.randn(n + off, generator=g, device=dev)
+                   .to(torch.bfloat16)[off:].view(2, 100, d)
+                   for _ in range(3))
+        out, lse = fa.flash_forward(q, k, v, True)
+        want, want_lse = fa._plain_flash_forward(q, k, v, True)
+        check(flash_close(torch, out, want, lse, want_lse),
+              f"flash_fwd != plain twin with element loads (D={d} "
+              f"offset={off})")
     torch.cuda.synchronize()
     log(f"phase 2: flash_fwd matches its plain twin on {n_cases} cases "
-        f"(causal and not; S 1, 100, 129, 2048; D 8, 64, 128; f32, bf16) "
-        f"and at {FLASH_SHAPE} bf16 causal")
+        f"(causal and not; S 1, 100, 129, 2048; D 8, 64, 128; f32, bf16), "
+        f"at {FLASH_SHAPE} and {FLASH_SHAPE_D128} bf16 causal and with "
+        "element loads (D 20, 72; offset 1)")
 
 
 def grads_close(torch, got, want):
@@ -826,12 +862,16 @@ def time_transpose(cuda_op, torch, dev, launches):
     }
 
 
-def time_flash(fa, torch, dev, launches):
+def time_flash(fa, torch, dev, launches, hgmma):
     """The flash forward at the main path's (B*H, S, D) = (64, 2048, 64)
     bf16 causal, beside its plain twin and SDPA on the same tensors
-    viewed (8, 8, 2048, 64). Bound: 4*N*D*S(S+1)/2 flops at the bf16
-    tensor-core peak against q, k, v, o and lse moved once at the HBM
-    rate; the f32 CUDA-core floor of the same flops is printed beside it."""
+    viewed (8, 8, 2048, 64): SDPA by CUDA events (``library_ms``) and by
+    its summed device time in a profiler window (``library_device_ms``),
+    the kernel's own window beside it (``device_ms``), so that the factor
+    compares device time with device time. Bound: 4*N*D*S(S+1)/2 flops
+    at the bf16 tensor-core peak against q, k, v, o and lse moved once at
+    the HBM rate (not recounted for the hi/lo split's third product); the
+    f32 CUDA-core floor of the same flops is printed beside it."""
     n, s, d = FLASH_SHAPE
     g = torch.Generator(device=dev).manual_seed(99)
     q, k, v = (torch.randn(n, s, d, generator=g, device=dev)
@@ -843,8 +883,20 @@ def time_flash(fa, torch, dev, launches):
     nbytes = 4 * n * s * d * 2 + n * s * 4
     q4, k4, v4 = (t.view(8, n // 8, s, d) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    device_ms = {}
+    for what, fn in (("sdpa", lambda: sdpa(q4, k4, v4, is_causal=True)),
+                     ("kernel", lambda: fa.flash_forward(q, k, v, True))):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        prof = profile_window(torch, fn, SDPA_FWD_CALLS)
+        device_ms[what] = prof["device_busy_ms"] / SDPA_FWD_CALLS
+        check(device_ms[what] > 0, f"no device time in the {what} forward "
+                                   f"window {prof}")
+        log(json.dumps({f"profile_{what}_forward": True, **prof}))
     return {
-        "name": "flash_fwd", "route": "cuda", "source": FLASH_SOURCE,
+        "name": "flash_fwd", "route": "cuda", "source": FLASH_BF16_SOURCE,
+        "f32_route_source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": launches,
         "max_abs_err": err,
         "ms": time_ms(lambda: fa.flash_forward(q, k, v, True), inner=5),
@@ -855,7 +907,11 @@ def time_flash(fa, torch, dev, launches):
         > nbytes / HBM_BYTES_PER_S else "bytes",
         "library_ms": time_ms(lambda: sdpa(q4, k4, v4, is_causal=True),
                               inner=5),
+        "library": "SDPA is_causal",
+        "device_ms": device_ms["kernel"],
+        "library_device_ms": device_ms["sdpa"],
         "cuda_core_floor_ms": flops / F32_CUDA_CORE_FLOPS * 1e3,
+        "sass_hgmma": hgmma["flash_fwd"],
         "shape": list(FLASH_SHAPE), "dtype": "bfloat16", "causal": True,
     }
 
@@ -1177,7 +1233,8 @@ def main():
     torch.cuda.empty_cache()
 
     rows = time_kernels(cuda_op, torch, dev, launches)
-    rows.append(dict(time_flash(fa, torch, dev, launches["flash_fwd"]),
+    rows.append(dict(time_flash(fa, torch, dev, launches["flash_fwd"],
+                                hgmma),
                      launches_by_path=fwd_by_path))
     rows.extend(time_flash_bwd(fa, torch, dev, launches, hgmma))
     time_allreduce(tuned, torch, dev)

@@ -1,10 +1,14 @@
 // Flash-attention forward for Hopper (sm_90a): online-softmax attention
 // that never writes the (S, S) score matrix to device memory.
 //
+// The C entry flash_fwd below takes f32 (dtype 0) and bf16 (dtype 1).
+// This file holds the f32 route, on the CUDA cores; the bf16 route runs
+// on the tensor cores (wgmma) in flash_attn_wgmma.cu.
+//
 // Replaces the Pallas forward of ompi_release_tpu/ops/pallas_attention.py:
 // the pl.pallas_call of _flash_forward (pallas_attention.py:114), body
 // _attn_kernel (:38-88). Same function: for each of N independent heads,
-// q, k, v (S, D) f32 or bf16 -> o (S, D) in the input type and the per-row
+// q, k, v (S, D) f32 (or bf16) -> o (S, D) in the input type and the per-row
 // logsumexp lse (S) in f32, with q scaled by rsqrt(D), the tail mask
 // k_pos < S, the causal mask q_pos >= k_pos, the -1e30 sentinel, the
 // running max/sum-exp in f32, o = acc / max(l, 1e-30) rounded once and
@@ -17,8 +21,8 @@
 // this kernel uses (67 TFLOP/s f32). The CUDA-core floor at the model's
 // shape (N = 64, S = 2048, D = 64, causal) is about 0.51 ms.
 //
-// Design (simple and exact first; tensor cores, TMA and warp
-// specialisation are later work):
+// Design of the f32 route (simple and exact first; TF32 would miss the
+// f32 gate of 2e-5, so it stays on the CUDA cores):
 // - One block of 256 threads owns BQ = 64 query rows of one head:
 //   grid (ceil(S / 64), N). The TPU kernel's grid (H, S/128) with whole
 //   K/V rows resident in VMEM has no counterpart here: a block has at
@@ -27,8 +31,7 @@
 // - Shared memory, all f32: the pre-scaled Q tile (64 x (D+1)), the K
 //   tile (64 x (D+1)), the V tile (64 x D) and the probability tile P
 //   (64 x 65). The +1 columns put the rows a warp reads at once in
-//   different banks. bf16 is widened with __bfloat162float when a tile
-//   is loaded. That is ~65 KB at D = 64 and ~113 KB at D = 128, above
+//   different banks. That is ~65 KB at D = 64 and ~113 KB at D = 128, above
 //   the 48 KB static limit, so the C entry raises the kernel's dynamic
 //   shared-memory limit with cudaFuncSetAttribute before the launch.
 // - Thread (ty, tx) = (tid / 16, tid % 16) owns rows 4ty..4ty+3 of the
@@ -47,13 +50,11 @@
 // - Edges: rows past S are loaded as zeros and never stored; K/V rows
 //   past S are loaded as zeros and masked (k_pos < S), never read past
 //   the end of the buffers. S = 1, 100 and 129 are ordinary cases.
-// - Arithmetic: f32 throughout, expf/logf, no --use_fast_math; the
-//   result is rounded once to the output type (__float2bfloat16_rn).
+// - Arithmetic: f32 throughout, expf/logf, no --use_fast_math.
 //
 // The kernel allocates nothing and launches on the caller's stream; the
 // C entry returns cudaGetLastError() for the wrapper to check.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -69,15 +70,8 @@ constexpr float kNegInf = -1e30f;  // pallas_attention.NEG_INF
 __device__ __forceinline__ float load_f(const float* p, int64_t i) {
   return p[i];
 }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
-}
 __device__ __forceinline__ void store_f(float* p, int64_t i, float v) {
   p[i] = v;
-}
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, int64_t i,
-                                        float v) {
-  p[i] = __float2bfloat16_rn(v);
 }
 
 // max / sum over the 16 lanes that hold one row (lanes 0-15 or 16-31)
@@ -256,7 +250,12 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// Bytes of dynamic shared memory the kernel asks for at head dim D.
+// The bf16 route on the tensor cores (flash_attn_wgmma.cu).
+int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int n, int S, int D, float scale, int causal,
+                   cudaStream_t stream);
+
+// Bytes of dynamic shared memory the f32 kernel asks for at head dim D.
 extern "C" long long flash_fwd_smem_bytes(int D) {
   return (long long)smem_bytes(D);
 }
@@ -283,10 +282,7 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k,
                                             causal, s);
   }
   if (dtype == 1) {
-    return D <= 64 ? launch_flash<__nv_bfloat16, 4>(q, k, v, o, l, ni, si, D,
-                                                    scale, causal, s)
-                   : launch_flash<__nv_bfloat16, 8>(q, k, v, o, l, ni, si, D,
-                                                    scale, causal, s);
+    return flash_fwd_bf16(q, k, v, o, l, ni, si, D, scale, causal, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -7,10 +7,12 @@ exists so accelerated components can override those loops. This is that
 component for an NVIDIA H100, plus the kernels of the bench loops: four
 hand-written kernels in ``csrc/stream_ops.cu``. :func:`build` compiles
 every ``csrc/*.cu`` (these four and the flash-attention forward and
-backward kernels of ``ops/flash_attention.py``, the bf16 backward on the
-tensor cores) for ``sm_90a`` with
+backward kernels of ``ops/flash_attention.py``, whose bf16 routes run on
+the tensor cores and share ``csrc/wgmma_sm90.cuh``) for ``sm_90a`` with
 ``nvcc`` at first use into one library under
-``ompi_release_tpu_torch/build/``, loaded with ``ctypes``:
+``ompi_release_tpu_torch/build/``, loaded with ``ctypes``. The library is
+named by :func:`library_name`, a hash of every ``csrc/*.cu`` and
+``csrc/*.cuh``: an edit to a header rebuilds it too.
 
 - ``stream_axpy``: ``out = acc*c + a``; with ``c == 1`` a plain add, the
   SUM combiner (``sum_``, the ``_pallas_sum_fn`` role) — 3 streams;
@@ -86,23 +88,36 @@ def _nvcc() -> str:
 
 
 def sources() -> List[str]:
-    """Every CUDA source of the port (``csrc/*.cu``), sorted."""
+    """Every CUDA source of the port (``csrc/*.cu``), sorted: what
+    :func:`build` compiles."""
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def headers() -> List[str]:
+    """Every header the sources may include (``csrc/*.cuh``), sorted."""
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def library_name() -> str:
+    """``libport_kernels-<hash>.so``: the hash of the flags and of every
+    source and header (names and contents), so a change to any of them,
+    or a file added or removed, names another library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources() + headers():
+        with open(path, "rb") as fh:
+            h.update(os.path.basename(path).encode() + b"\0" + fh.read())
+    return f"libport_kernels-{h.hexdigest()[:12]}.so"
 
 
 def build() -> str:
     """Compile every ``csrc/*.cu`` into one shared library and return
-    its path. The library is named by the hash of all sources (names and
-    contents) and flags, so a change to any source rebuilds and a source
-    added or removed is never missing from, or stale in, the library; an
-    unchanged set is reused. One ``nvcc -c`` per source runs in parallel,
-    then one link; ptxas's report goes to :func:`ptxas_log_path`."""
+    its path. The library is named by :func:`library_name`, so a change
+    to any source or header rebuilds and a source added or removed is
+    never missing from, or stale in, the library; an unchanged set is
+    reused. One ``nvcc -c`` per source runs in parallel, then one link;
+    ptxas's report goes to :func:`ptxas_log_path`."""
     srcs = sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
-        with open(src, "rb") as fh:
-            h.update(os.path.basename(src).encode() + b"\0" + fh.read())
-    out = os.path.join(BUILD_DIR, f"libport_kernels-{h.hexdigest()[:12]}.so")
+    out = os.path.join(BUILD_DIR, library_name())
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -178,7 +193,8 @@ def _load() -> ctypes.CDLL:
                                           ctypes.c_longlong, ctypes.c_int,
                                           ctypes.c_float, ctypes.c_int, vp]
             lib.flash_bwd_dkv.restype = ctypes.c_int
-            for fn in ("flash_fwd_smem_bytes", "flash_bwd_dq_smem_bytes",
+            for fn in ("flash_fwd_smem_bytes", "flash_fwd_bf16_smem_bytes",
+                       "flash_bwd_dq_smem_bytes",
                        "flash_bwd_dkv_smem_bytes",
                        "flash_bwd_dq_bf16_smem_bytes",
                        "flash_bwd_dkv_bf16_smem_bytes"):

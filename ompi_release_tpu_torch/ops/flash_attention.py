@@ -2,7 +2,8 @@
 twins and the autograd wiring.
 
 Counterpart of ``ompi_release_tpu/ops/pallas_attention.py``. The kernels
-are ``flash_fwd`` (``csrc/flash_attn.cu``) and ``flash_bwd_dq`` /
+are ``flash_fwd`` (``csrc/flash_attn.cu``: f32 on the CUDA cores; bf16
+on the tensor cores, ``csrc/flash_attn_wgmma.cu``) and ``flash_bwd_dq`` /
 ``flash_bwd_dkv`` (``csrc/flash_attn_bwd.cu``: f32 on the CUDA cores;
 bf16 on the tensor cores, ``csrc/flash_attn_bwd_wgmma.cu``), built with
 the port's other kernels by :func:`cuda_op.build` and launched through

@@ -14,7 +14,9 @@ IEEE add). ``flash_fwd``: ``out`` f32 rtol/atol 2e-5 (the JAX suite's
 own, ``tests/test_pallas.py``), bf16 within 1 bf16 ulp plus that atol,
 ``lse`` atol 1e-5; kernel and twin both compute in f32, in another
 summation order, and each rounds its own f32 result to bf16 once: near
-zero the two f32 sums differ by more than a bf16 ulp of the value.
+zero the two f32 sums differ by more than a bf16 ulp of the value (the
+bf16 kernel feeds P to the tensor cores as a bf16 hi + lo pair, which
+keeps it within that rule: ``tests/test_torch_flash_split.py``).
 ``flash_bwd_dq`` / ``flash_bwd_dkv``: dq, dk, dv f32 rtol/atol 2e-4 (the
 JAX suite's grad tolerance, ``tests/test_pallas.py:101``), bf16 within
 1 bf16 ulp plus that atol, for the same reason as the forward: each
@@ -168,6 +170,39 @@ def test_flash_fwd_full_width_and_batched_layout(dev):
     assert out.shape == q.shape and lse.shape == (8, 8, 2048)
     assert _ulp_ok(out.view(64, 2048, 64), want, torch.bfloat16, atol=2e-5)
     assert torch.allclose(lse.view(64, 2048), want_lse, rtol=0, atol=1e-5)
+
+
+def test_flash_fwd_full_width_d128(dev):
+    """The model's width in 128-wide heads, (B, H, S, D) = (8, 4, 2048,
+    128) bf16 causal: the tensor-core forward at its wider instance,
+    against the plain twin."""
+    g = torch.Generator(device=dev).manual_seed(128)
+    q, k, v = (torch.randn(8, 4, 2048, 128, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    out, lse = fa.flash_forward(q, k, v, True)
+    want, want_lse = fa._plain_flash_forward(
+        *(t.view(32, 2048, 128) for t in (q, k, v)), True)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and lse.shape == (8, 4, 2048)
+    assert _ulp_ok(out.view(32, 2048, 128), want, torch.bfloat16, atol=2e-5)
+    assert torch.allclose(lse.view(32, 2048), want_lse, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("d,offset", [(20, 0), (72, 0), (64, 1)])
+def test_flash_fwd_bf16_element_loads(dev, d, offset):
+    """The bf16 forward copies 16-byte rows only when D % 8 == 0 and q,
+    k, v are 16-byte aligned; a head dim of 20 and views at element
+    offset 1 take its element loads instead, 72 the wider instance."""
+    g = torch.Generator(device=dev).manual_seed(d + offset)
+    n = 2 * 100 * d
+    q, k, v = (torch.randn(n + offset, generator=g, device=dev)
+               .to(torch.bfloat16)[offset:].view(2, 100, d)
+               for _ in range(3))
+    out, lse = fa.flash_forward(q, k, v, True)
+    want, want_lse = fa._plain_flash_forward(q, k, v, True)
+    torch.cuda.synchronize()
+    assert _ulp_ok(out, want, torch.bfloat16, atol=2e-5)
+    assert torch.allclose(lse, want_lse, rtol=0, atol=1e-5)
 
 
 def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(dev):

@@ -17,6 +17,8 @@ does. Tolerances, stated per kernel:
 - scale f32: rtol=1e-6 (one rounded multiply: expected bitwise).
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -285,3 +287,21 @@ def test_build_compiles_and_hashes_every_source(tmp_path, monkeypatch):
     assert sorted(p.name for p in build.iterdir()
                   if p.suffix == ".so") == sorted(
         p.rsplit("/", 1)[-1] for p in (first, second, third))
+
+
+def test_library_name_hashes_the_headers(tmp_path, monkeypatch):
+    """The library's name covers ``csrc/*.cuh`` beside ``csrc/*.cu``: in
+    a copy of the port's sources, an edit to the shared wgmma header
+    alone names another library, though the compiled sources are the
+    same files."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_op.CSRC_DIR, csrc)
+    monkeypatch.setattr(cuda_op, "CSRC_DIR", str(csrc))
+    header = csrc / "wgmma_sm90.cuh"
+    assert str(header) in cuda_op.headers()
+    assert str(header) not in cuda_op.sources()  # never compiled alone
+    srcs, first = cuda_op.sources(), cuda_op.library_name()
+    assert cuda_op.library_name() == first  # pure: same files, same name
+    header.write_text(header.read_text() + "// edited\n")
+    assert cuda_op.sources() == srcs
+    assert cuda_op.library_name() != first

@@ -128,11 +128,20 @@ def test_train_path_loads_no_jax():
 def test_cuda_sources_include_only_cuda_headers(path):
     """The kernels are compiled only on the card, by ``nvcc`` into a
     plain-C library: no PyTorch header (minutes of build) and nothing
-    but the CUDA runtime and C headers."""
-    includes = [ln.split()[1] for ln in path.read_text().splitlines()
+    but the CUDA runtime and C headers, or a ``csrc/*.cuh`` header of the
+    port (the shared wgmma pieces) held to the same rule."""
+    def includes(p):
+        return [ln.split()[1] for ln in p.read_text().splitlines()
                 if ln.startswith("#include")]
-    assert includes and set(includes) <= {
-        "<cuda_bf16.h>", "<cuda_runtime.h>", "<stdint.h>"}, includes
+
+    allowed = {"<cuda_bf16.h>", "<cuda_runtime.h>", "<stdint.h>"}
+    found = includes(path)
+    local = {inc for inc in found if inc.startswith('"')}
+    for inc in local:
+        header = path.parent / inc.strip('"')
+        assert header.suffix == ".cuh" and header.exists(), inc
+        assert set(includes(header)) <= allowed, (inc, includes(header))
+    assert found and set(found) - local <= allowed, found
     assert 'extern "C"' in path.read_text()
 
 
