@@ -13,8 +13,10 @@ Run from the repository root on a machine with a card:
    atomic;
 2. holds each kernel against its plain PyTorch twin on the card: the
    streaming kernels at sizes 1, 4097, 2^26+3 and a view at element
-   offset 1 (f32 and bf16); the transpose bitwise at (8192, 8192) int32,
-   (4097, 1000) f32 and (1, 1); the chain hop bitwise against ``x + 1``;
+   offset 1 (f32 and bf16; sum and scale bitwise), the scale kernel
+   also bitwise around its vector, its block and a grid of many blocks
+   (``cuda_op.scale_boundary_sizes``), aligned and at offset 1; the transpose bitwise at (8192, 8192) int32, (4097, 1000)
+   f32 and (1, 1); the chain hop bitwise against ``x + 1``;
    the flash-attention forward causal and not, S in {1, 100, 129, 2048},
    D in {8, 64, 128}, f32 and bf16, at the model's (64, 2048, 64) and,
    in 128-wide heads, (32, 2048, 128) bf16 causal, and with the bf16
@@ -64,16 +66,20 @@ Run from the repository root on a machine with a card:
      within a relative L2 error of 3e-2 (bf16);
 4. times the kernels (CUDA events, median of 7) at the main path's
    shapes beside their bound, their plain twins and one PyTorch library
-   call (the chain hop eager and replayed from a CUDA graph; the flash
-   forward beside ``scaled_dot_product_attention``, by CUDA events and
-   by its device time in a profiler window, the two backward kernels
-   beside SDPA's backward, timed only), and the tuned allreduce
-   per size (time and bus bandwidth 2(n-1)/n * bytes / t); a
-   torch.profiler window per size says where the allreduce's device time
-   goes, one over an eval batch where the forward's goes and one over a
-   train step where the step's goes (busy share, top kernels, host
-   gaps); the forward's ms per batch and the train step's ms per step,
-   tokens/s and peak memory;
+   call, the streaming kernels, the transpose and the eager chain hop in
+   turns with their twins and library calls (the chain hop eager and
+   replayed from a CUDA graph; the flash forward beside
+   ``scaled_dot_product_attention``, by CUDA events and by its device
+   time in a profiler window, the two backward kernels beside SDPA's
+   backward, timed only; the scale kernel also in bf16 at the same
+   bytes), every wrapper's host µs per launch beside
+   ``torch.add(x, 1)``'s (10,000 back-to-back calls at small shapes),
+   and the tuned allreduce per size (time and bus bandwidth 2(n-1)/n *
+   bytes / t); a torch.profiler window per size says where the
+   allreduce's device time goes, one over an eval batch where the
+   forward's goes and one over a train step where the step's goes (busy
+   share, top kernels, host gaps); the forward's ms per batch and the
+   train step's ms per step, tokens/s and peak memory;
 5. runs the port's bench suite (``ompi_release_tpu_torch.bench``, the
    five BASELINE configs) in-process and prints its lines, the headline
    ``op_sum_256MiB_f32_hbm_bw`` last among them.
@@ -138,6 +144,7 @@ CHAIN_REPLACES = "ompi_release_tpu/ops/pallas_op.py:336"
 TRANSPOSE_N = 8192  # alltoall_i32_torus's (n, n) int32
 P2P_BYTES = 256 * MIB
 HOPS_TIMED = 1000  # dependent chain hops per timing window
+HOST_CALLS = 10000  # back-to-back calls per host-time window
 
 
 def log(msg):
@@ -207,6 +214,31 @@ def time_ms(fn, reps=7, inner=1, warmup=2):
     return statistics.median(times)
 
 
+def turns_ms(fns, reps=7, inner=1):
+    """{name: median ms per call} of each function of ``fns``: one
+    CUDA-event window of ``inner`` calls per function per round, the
+    functions taken in turns (the order reversed every other round, after
+    a warm-up round) so that a drift of the card's or the host's speed
+    falls on all of them alike."""
+    import torch
+
+    times = {name: [] for name in fns}
+    for r in range(reps + 1):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            if r == 0:
+                fns[name]()
+                continue
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            for _ in range(inner):
+                fns[name]()
+            t1.record()
+            t1.synchronize()
+            times[name].append(t0.elapsed_time(t1) / inner)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def phase_kernels(cuda_op, torch, dev):
     """Each kernel against its plain twin at the contract's sizes."""
     for dtype in (torch.float32, torch.bfloat16):
@@ -220,10 +252,21 @@ def phase_kernels(cuda_op, torch, dev):
             check(ulp_close(cuda_op.axpy(a, b, 0.999),
                             cuda_op._plain_axpy(a, b, 0.999), dtype),
                   f"axpy kernel != plain ({what})")
-            check(ulp_close(cuda_op.scale(a, 1.0001),
-                            cuda_op._plain_scale(a, 1.0001), dtype),
-                  f"scale kernel != plain ({what})")
+            check(bits_equal(cuda_op.scale(a, 1.0001),
+                             cuda_op._plain_scale(a, 1.0001)),
+                  f"scale kernel != plain, bitwise ({what})")
             del base, a, b
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        for n in cuda_op.scale_boundary_sizes(itemsize):
+            for off in (0, 1):
+                g = torch.Generator(device=dev).manual_seed(n + off)
+                x = torch.randn(n + off, generator=g, device=dev).to(
+                    dtype)[off:]
+                check(bits_equal(cuda_op.scale(x, 1.0001),
+                                 cuda_op._plain_scale(x, 1.0001)),
+                      f"scale kernel != plain, bitwise ({dtype} n={n} "
+                      f"offset={off})")
+                del x
     for shape, dtype in (((TRANSPOSE_N, TRANSPOSE_N), torch.int32),
                          ((4097, 1000), torch.float32), ((1, 1), torch.float32)):
         g = torch.Generator(device=dev).manual_seed(shape[0])
@@ -237,8 +280,10 @@ def phase_kernels(cuda_op, torch, dev):
           "chain hop kernel != x + 1")
     torch.cuda.synchronize()
     log("phase 2: kernels match their plain twins (f32/bf16; n=1, 4097, "
-        "2^26+3, offset 1; transpose (8192, 8192) int32, (4097, 1000) f32, "
-        "(1, 1) bitwise; chain hop bitwise)")
+        "2^26+3, offset 1; scale bitwise, also around its vector, its block "
+        "and a grid of many blocks, aligned and offset 1; transpose "
+        "(8192, 8192) int32, (4097, 1000) f32, (1, 1) bitwise; chain hop "
+        "bitwise)")
 
 
 def ptxas_report(cuda_op, lib):
@@ -827,15 +872,25 @@ def time_kernels(cuda_op, torch, dev, launches):
     for name, (kern, plain, lib) in cases.items():
         replaces, streams = KERNELS[name]
         err = float((kern().float() - plain().float()).abs().max())
+        ms = turns_ms({"ms": kern, "plain_ms": plain, "library_ms": lib},
+                      inner=10)
+        extra = {}
+        if name == "scale":  # bf16 at the same bytes: 2^27 elements
+            h = torch.randn(2 * numel, generator=g, device=dev).to(
+                torch.bfloat16)
+            bf16 = turns_ms({"ms_bf16": lambda: cuda_op.scale(h, 1.0001),
+                             "library_ms_bf16": lambda: torch.mul(h, 1.0001)},
+                            inner=10)
+            extra = bf16
+            del h
         rows.append({
             "name": f"stream_{'scale' if name == 'scale' else 'axpy'}"
                     f"[{name}]",
             "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err,
-            "ms": time_ms(kern, inner=10), "plain_ms": time_ms(plain, inner=10),
+            "launches": launches[name], "max_abs_err": err, **ms,
             "bound_ms": streams * numel * 4 / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": time_ms(lib, inner=10),
-            "shape": [numel], "dtype": "float32",
+            "bound_by": "bytes", "shape": [numel], "dtype": "float32",
+            **extra,
         })
     rows.append(time_transpose(cuda_op, torch, dev, launches["transpose"]))
     rows.append(time_chain(cuda_op, torch, dev, launches["chain"]))
@@ -849,16 +904,15 @@ def time_transpose(cuda_op, torch, dev, launches):
                       dtype=torch.int32)
     err = float((cuda_op.transpose(x).double()
                  - cuda_op._plain_transpose(x).double()).abs().max())
+    ms = turns_ms({"ms": lambda: cuda_op.transpose(x),
+                   "plain_ms": lambda: cuda_op._plain_transpose(x),
+                   "library_ms": lambda: x.t().contiguous()}, inner=10)
     return {
         "name": "tile_transpose_32", "route": "cuda", "source": SOURCE,
         "replaces": TRANSPOSE_REPLACES, "launches": launches,
-        "max_abs_err": err,
-        "ms": time_ms(lambda: cuda_op.transpose(x), inner=10),
-        "plain_ms": time_ms(lambda: cuda_op._plain_transpose(x), inner=10),
+        "max_abs_err": err, **ms,
         "bound_ms": 2 * n * n * 4 / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
-        "library_ms": time_ms(lambda: x.t().contiguous(), inner=10),
-        "shape": [n, n], "dtype": "int32",
+        "bound_by": "bytes", "shape": [n, n], "dtype": "int32",
     }
 
 
@@ -985,17 +1039,29 @@ def time_flash_bwd(fa, torch, dev, launches, hgmma):
     return rows
 
 
-def hop_ms(torch, hop, x, graph):
-    """ms per hop over HOPS_TIMED dependent hops, launched from Python
-    (eager) or replayed from one CUDA graph holding all of them."""
+def eager_hops_ms(hops, x):
+    """{name: ms per hop} over HOPS_TIMED dependent hops launched from
+    Python, for each hop function of ``hops``, taken in turns."""
+    def chain(hop):
+        def run():
+            y = x
+            for _ in range(HOPS_TIMED):
+                y = hop(y)
+        return run
+
+    ms = turns_ms({name: chain(hop) for name, hop in hops.items()})
+    return {name: t / HOPS_TIMED for name, t in ms.items()}
+
+
+def graph_hop_ms(torch, hop, x):
+    """ms per hop over HOPS_TIMED dependent hops replayed from one CUDA
+    graph holding all of them."""
     def chain():
         y = x
         for _ in range(HOPS_TIMED):
             y = hop(y)
         return y
 
-    if not graph:
-        return time_ms(chain) / HOPS_TIMED
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -1008,26 +1074,73 @@ def hop_ms(torch, hop, x, graph):
 
 
 def time_chain(cuda_op, torch, dev, launches):
-    """The chain hop on its (8, 128) f32 tile, eager and in a graph,
-    beside torch.add(x, 1) timed the same two ways."""
+    """The chain hop on its (8, 128) f32 tile, eager (in turns with its
+    plain twin and torch.add(x, 1)) and in a graph, beside
+    torch.add(x, 1) timed the same two ways."""
     x = torch.randn(cuda_op.CHAIN_TILE, device=dev)
     err = float((cuda_op.chain_hop(x) - cuda_op._plain_chain_hop(x))
                 .abs().max())
     lib = lambda y: torch.add(y, 1)  # noqa: E731
+    eager = eager_hops_ms({"kernel": cuda_op.chain_hop, "library": lib,
+                           "plain": cuda_op._plain_chain_hop}, x)
     return {
         "name": "chain_add_one", "route": "cuda", "source": SOURCE,
         "replaces": CHAIN_REPLACES, "launches": launches,
         "max_abs_err": err,
-        "ms": hop_ms(torch, cuda_op.chain_hop, x, graph=False),
-        "ms_graph": hop_ms(torch, cuda_op.chain_hop, x, graph=True),
-        "plain_ms": hop_ms(torch, cuda_op._plain_chain_hop, x, graph=False),
+        "ms": eager["kernel"],
+        "ms_graph": graph_hop_ms(torch, cuda_op.chain_hop, x),
+        "plain_ms": eager["plain"],
         "bound_ms": 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
-        "library_ms": hop_ms(torch, lib, x, graph=False),
-        "library_ms_graph": hop_ms(torch, lib, x, graph=True),
+        "library_ms": eager["library"],
+        "library_ms_graph": graph_hop_ms(torch, lib, x),
         "shape": list(cuda_op.CHAIN_TILE), "dtype": "float32",
         "per": "hop",
     }
+
+
+def host_launch_us(cuda_op, fa, torch, dev):
+    """Host µs per launch of every wrapper: ``time.perf_counter`` over
+    HOST_CALLS back-to-back calls with no synchronize, at small shapes
+    (the device finishes each launch before the host issues the next, so
+    the host bounds the rate), beside ``torch.add(x, 1)`` on the chain's
+    tile timed the same way. Median of 3 rounds, in turns (the order
+    reversed every other round)."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn(4096, generator=g, device=dev)
+    tile = torch.randn(cuda_op.CHAIN_TILE, generator=g, device=dev)
+    t = torch.randint(-2**31, 2**31 - 1, (64, 64), generator=g, device=dev,
+                      dtype=torch.int32)
+    q = torch.randn(1, 64, 64, generator=g, device=dev).to(torch.bfloat16)
+    out, lse = fa.flash_forward(q, q, q, True)
+    args = (q, q, q, lse, q, fa._delta(out, q), True)
+    cases = {  # the chain hop beside torch.add on the same tile
+        "torch.add(x, 1)": lambda: torch.add(tile, 1),
+        "chain": lambda: cuda_op.chain_hop(tile),
+        "sum": lambda: cuda_op.sum_(x, x),
+        "axpy": lambda: cuda_op.axpy(x, x, 0.999),
+        "scale": lambda: cuda_op.scale(x, 1.0001),
+        "transpose": lambda: cuda_op.transpose(t),
+        "flash_fwd": lambda: fa.flash_forward(q, q, q, True),
+        "flash_bwd_dq": lambda: fa._bwd_dq_kernel(*args),
+        "flash_bwd_dkv": lambda: fa._bwd_dkv_kernel(*args),
+    }
+    rounds = {name: [] for name in cases}
+    for r in range(3):  # reversed every other round
+        for name in (list(cases) if r % 2 == 0 else list(cases)[::-1]):
+            fn = cases[name]
+            for _ in range(100):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            rounds[name].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+            torch.cuda.synchronize()
+    us = {name: statistics.median(r) for name, r in rounds.items()}
+    log(json.dumps({"host_us_per_launch": us, "rounds": rounds,
+                    "calls": HOST_CALLS}))
+    return us
 
 
 def run_bench(torch, dev):
@@ -1237,6 +1350,13 @@ def main():
                                 hgmma),
                      launches_by_path=fwd_by_path))
     rows.extend(time_flash_bwd(fa, torch, dev, launches, hgmma))
+    host_us = host_launch_us(cuda_op, fa, torch, dev)
+    for row in rows:  # named stream_axpy[sum], ..., chain_add_one, flash_*
+        key = {"tile_transpose_32": "transpose", "chain_add_one": "chain"}.get(
+            row["name"], row["name"].split("[")[-1].rstrip("]"))
+        row["host_us_per_launch"] = host_us[key]
+        if key == "chain":
+            row["add_host_us_per_launch"] = host_us["torch.add(x, 1)"]
     time_allreduce(tuned, torch, dev)
     profile_allreduce(tuned, torch, dev)
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"

@@ -13,12 +13,13 @@
 // arithmetic (one or two flops per element) is far below the card's
 // compute rate.
 //
-// Design: one grid-stride loop. When every pointer is 16-byte aligned
-// the body moves 16 bytes per thread per load (4 f32 or 8 bf16 values);
-// the remainder of the vectorised range and every element of a
-// misaligned call (a view at an odd element offset) go through a scalar
-// loop, so the ragged tail is always covered (the Pallas kernel instead
-// refused a truncated grid and padded to whole blocks).
+// stream_axpy's design: one grid-stride loop. When every pointer is
+// 16-byte aligned the body moves 16 bytes per thread per load (4 f32 or
+// 8 bf16 values); the remainder of the vectorised range and every
+// element of a misaligned call (a view at an odd element offset) go
+// through a scalar loop, so the ragged tail is always covered (the
+// Pallas kernel instead refused a truncated grid and padded to whole
+// blocks). stream_scale has its own design and note below.
 //
 // Rounding: arithmetic is in f32 with explicit __fmul_rn/__fadd_rn so
 // nvcc cannot contract acc*c + a into an FMA; bf16 values are widened
@@ -39,7 +40,9 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;  // 16 resident blocks per SM
+// 16 blocks per SM of an H100: 256-thread blocks fit only 8 to an SM
+// (2,048 threads), so a grid this large runs as two waves
+constexpr int kMaxBlocks = 132 * 16;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -90,33 +93,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out = x*c
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    scale_kernel(const T* __restrict__ x, T* __restrict__ out, float c,
-                 int64_t n, int vec) {
-  constexpr int K = 16 / sizeof(T);
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t nvec = vec ? n / K : 0;
-  const uint4* x4 = reinterpret_cast<const uint4*>(x);
-  uint4* out4 = reinterpret_cast<uint4*>(out);
-  for (int64_t i = tid; i < nvec; i += stride) {
-    uint4 vx = x4[i];
-    uint4 vo;
-    const T* px = reinterpret_cast<const T*>(&vx);
-    T* po = reinterpret_cast<T*>(&vo);
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      po[j] = from_f<T>(__fmul_rn(to_f(px[j]), c));
-    }
-    out4[i] = vo;
-  }
-  for (int64_t i = nvec * K + tid; i < n; i += stride) {
-    out[i] = from_f<T>(__fmul_rn(to_f(x[i]), c));
-  }
-}
-
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
@@ -146,16 +122,6 @@ void launch_axpy(const void* a, const void* acc, void* out, float c,
   }
 }
 
-template <typename T>
-void launch_scale(const void* x, void* out, float c, int64_t n,
-                  cudaStream_t stream) {
-  const int vec = aligned16(x) && aligned16(out);
-  const int64_t K = 16 / sizeof(T);
-  const int grid = grid_for(vec ? n / K + n % K : n);
-  scale_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), c, n, vec);
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError().
@@ -173,6 +139,101 @@ extern "C" int stream_axpy(int dtype, const void* a, const void* acc,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// stream_scale: out = x*c, one 16-byte vector per thread on a grid sized
+// to the work.
+//
+// Replaces the body scale (ompi_release_tpu/ops/pallas_op.py:105) of
+// _blocked_call's pallas_call, looped by make_scale_loop (:244): the
+// bench's copy-rate yardstick.
+//
+// Bound: bytes. 2 x n x itemsize moved (x read once, out written once):
+// 0.160 ms for 2^26 f32 at 3.35 TB/s.
+//
+// Design, with times on an H100 80GB HBM3 at 700 W (PERF.md): the
+// first design was stream_axpy's grid-stride loop, capped at
+// kMaxBlocks: each thread walked ~31 vectors with one load in flight,
+// in two waves of blocks, at 80 % of the bound. Two redesigns were
+// built and timed against torch.mul and this kernel, and were not kept:
+// - a persistent grid that streams 16 KB chunks through a ring of
+//   stages in shared memory with Hopper's bulk asynchronous copies
+//   (csrc/bulk_copy_sm90.cuh): about 5 % slower than torch.mul;
+// - a grid sized to the work, each thread issuing four independent
+//   16-byte loads with the streaming hint (__ldcs / __stcs): within 1 %
+//   of torch.mul, on either side, as is this kernel.
+// What ships is the plainest of these: one 16-byte vector per thread,
+// plain loads and stores, on a grid sized to the work (2^26 f32 launch
+// 65,536 blocks of 256 threads). Every SM has its 8 resident blocks'
+// loads in flight at once, and a block that finishes frees its slot for
+// the next; the cap and the second wave are what held the first design
+// back, not the loads in flight per thread. It ties torch.mul: the two
+// trade places by under 1 % between runs.
+//
+// When x and out are both 16-byte aligned the kernel moves vectors of 4
+// f32 or 8 bf16 values, and the last n % (16 / itemsize) elements are
+// done by block 0's first threads; otherwise (a view at an odd element
+// offset) every thread does one element. Either way every element is
+// written exactly once. scale_plan computes this partition;
+// cuda_op.scale_plan is its copy for the host's tests.
+//
+// Rounding: each element is widened to f32, multiplied once by c
+// (__fmul_rn) and rounded once (bf16: __float2bfloat16_rn), in the
+// vectors and the scalar elements alike.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct ScalePlan {
+  int64_t unit;   // elements per thread: 16 / itemsize, or 1 (misaligned)
+  int64_t units;  // threads with a unit of work
+  int64_t grid;   // blocks
+};
+
+ScalePlan scale_plan(int64_t n, int64_t itemsize, uintptr_t x,
+                     uintptr_t out) {
+  const int64_t unit = ((x | out) & 15u) == 0 ? 16 / itemsize : 1;
+  const int64_t units = n / unit;
+  const int64_t grid = (units + kThreads - 1) / kThreads;
+  return {unit, units, grid < 1 ? 1 : grid};
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    scale_kernel(const T* __restrict__ x, T* __restrict__ out, float c,
+                 int64_t n, int64_t units, int vec) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (!vec) {
+    if (i < n) out[i] = from_f<T>(__fmul_rn(to_f(x[i]), c));
+    return;
+  }
+  constexpr int K = 16 / sizeof(T);
+  if (i < units) {
+    uint4 v = reinterpret_cast<const uint4*>(x)[i];
+    T* e = reinterpret_cast<T*>(&v);
+#pragma unroll
+    for (int j = 0; j < K; ++j) e[j] = from_f<T>(__fmul_rn(to_f(e[j]), c));
+    reinterpret_cast<uint4*>(out)[i] = v;
+  }
+  const int64_t tail = n - units * K;  // fewer than K elements
+  if (blockIdx.x == 0 && threadIdx.x < tail) {
+    const int64_t j = units * K + threadIdx.x;
+    out[j] = from_f<T>(__fmul_rn(to_f(x[j]), c));
+  }
+}
+
+template <typename T>
+void launch_scale(const void* x, void* out, float c, int64_t n,
+                  cudaStream_t stream) {
+  const ScalePlan p = scale_plan(n, sizeof(T), reinterpret_cast<uintptr_t>(x),
+                                 reinterpret_cast<uintptr_t>(out));
+  scale_kernel<T><<<(unsigned)p.grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), c, n, p.units,
+      p.unit > 1);
+}
+
+}  // namespace
+
+// out = x*c; x and out must not overlap. Returns cudaGetLastError().
 extern "C" int stream_scale(int dtype, const void* x, void* out, float c,
                             long long n, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -263,6 +324,18 @@ __global__ void __launch_bounds__(kTile * kTileRows)
 // one IEEE add, as x + 1 in PyTorch). Its per-hop time is reported
 // eager (one launch from Python per hop) and replayed from a CUDA graph
 // (the analogue of the TPU's single compiled fori_loop).
+//
+// Replayed from a graph a hop costs what the device takes to start a
+// dependent kernel (about 1.1 us, the same as torch.add(x, 1)). Eager,
+// the host is the bound: each hop is one Python call, and a device
+// guard, a torch.cuda.Stream object built to read its handle, a lock
+// around the library and the ctypes call cost more than the launch
+// itself. The wrapper therefore launches through one light path
+// (cuda_op._launch): the loaded library is read without the lock, the
+// raw stream handle comes straight from PyTorch on every call (never
+// cached, so a capture on a side stream stays on that stream), and the
+// device guard is taken only when the tile's device is not the current
+// one. The body stays as it is: the device work is not what bounds it.
 // ---------------------------------------------------------------------------
 
 constexpr int kChainThreads = 256;  // x 4 floats = one (8, 128) tile

@@ -16,7 +16,9 @@ named by :func:`library_name`, a hash of every ``csrc/*.cu`` and
 
 - ``stream_axpy``: ``out = acc*c + a``; with ``c == 1`` a plain add, the
   SUM combiner (``sum_``, the ``_pallas_sum_fn`` role) — 3 streams;
-- ``stream_scale``: ``out = x*c`` — 2 streams, the copy-rate yardstick;
+- ``stream_scale``: ``out = x*c`` — 2 streams, the copy-rate yardstick:
+  one 16-byte vector per thread on a grid sized to the work
+  (:func:`scale_plan` is its partition);
 - ``tile_transpose_32``: the (rows, cols) -> (cols, rows) transpose of
   32-bit words (``transpose``, the ``make_transpose_loop`` body);
 - ``chain_add_one``: ``x + 1`` on one (8, 128) f32 tile (``chain_hop``,
@@ -27,8 +29,11 @@ PyTorch twin (``_plain_*``, same arithmetic: f32 math, bf16 widened and
 rounded once) only for CPU tensors. There is no fallback: a CUDA tensor
 the kernel cannot take raises, and so does a missing ``nvcc``. Wrappers
 allocate the output with ``torch.empty_like`` and never write in place
-(no aliasing, unlike the Pallas kernels' input/output alias). Each
-wrapper counts its kernel launches in ``LAUNCHES``.
+(no aliasing, unlike the Pallas kernels' input/output alias). Every
+wrapper, the flash ones included, launches through :func:`_launch`, which
+does per call only what the call needs (the host time of one hop of the
+chain is its whole cost), checks the C entry's return code and counts
+the launch in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -67,8 +72,15 @@ LAUNCHES: Dict[str, int] = {"sum": 0, "axpy": 0, "scale": 0,
                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_lib: Optional[ctypes.CDLL] = None
+_F32 = torch.float32
+_lib: Optional[ctypes.PyDLL] = None
 _lib_lock = threading.Lock()
+#: what every launch needs: the library, torch's current CUDA device and
+#: the raw handle of a device's current stream (the two lookups exist
+#: only in CUDA builds of torch: taken at the first launch, never at
+#: import)
+_launcher: Optional[Tuple[ctypes.PyDLL, Callable[[], int],
+                          Callable[[int], int]]] = None
 
 
 def reset_launches() -> None:
@@ -159,11 +171,20 @@ def ptxas_log_path(lib: str) -> str:
     return lib[:-len(".so")] + ".ptxas.txt"
 
 
-def _load() -> ctypes.CDLL:
+def _load() -> ctypes.PyDLL:
+    """The kernels' library, built and bound at the first call. Once it
+    is loaded it is returned without the lock; the lock only keeps two
+    first calls from loading it twice. Its entries keep the GIL (a
+    ``PyDLL``): each returns as soon as its kernel is queued, as
+    PyTorch's own launches do, so releasing the GIL would only add the
+    cost of taking it back."""
     global _lib
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            lib = ctypes.PyDLL(build())
             vp = ctypes.c_void_p
             lib.stream_axpy.argtypes = [ctypes.c_int, vp, vp, vp,
                                         ctypes.c_float, ctypes.c_int,
@@ -207,7 +228,7 @@ def _load() -> ctypes.CDLL:
 def _check(name: str, *ts: torch.Tensor) -> None:
     t0 = ts[0]
     for t in ts:
-        if t.device != t0.device or t.dtype != t0.dtype \
+        if t.get_device() != t0.get_device() or t.dtype != t0.dtype \
                 or t.shape != t0.shape:
             raise MPIError(ErrorCode.ERR_ARG,
                            f"{name}: operands differ in device, dtype or "
@@ -222,10 +243,36 @@ def _check(name: str, *ts: torch.Tensor) -> None:
                        f"{t0.dtype}")
 
 
-def _raise_on(name: str, err: int) -> None:
-    if err != 0:
+def _launch_state() -> Tuple[ctypes.PyDLL, Callable[[], int],
+                             Callable[[int], int]]:
+    global _launcher
+    if _launcher is None:
+        _launcher = (_load(), torch._C._cuda_getDevice,
+                     torch._C._cuda_getCurrentRawStream)
+    return _launcher
+
+
+def _launch(kernel: str, counter: str, device: int, *args) -> None:
+    """Launch the library's C entry ``kernel`` on ``args`` and the raw
+    handle of CUDA device ``device``'s current stream, then count it in
+    ``LAUNCHES[counter]``. Per call it reads the stream handle afresh
+    (a launch inside ``torch.cuda.stream(side)`` or a graph capture goes
+    to that stream), takes the device guard only when ``device`` is not
+    the current device, and raises ``MPIError`` naming the kernel on a
+    non-zero return, before counting."""
+    if device < 0:
+        raise MPIError(ErrorCode.ERR_ARG,
+                       f"{kernel}: the kernel takes CUDA tensors")
+    lib, current_device, raw_stream = _launcher or _launch_state()
+    if current_device() == device:
+        err = getattr(lib, kernel)(*args, raw_stream(device))
+    else:
+        with torch.cuda.device(device):
+            err = getattr(lib, kernel)(*args, raw_stream(device))
+    if err:
         raise MPIError(ErrorCode.ERR_OTHER,
-                       f"{name} launch failed: CUDA error {err}")
+                       f"{kernel} launch failed: CUDA error {err}")
+    LAUNCHES[counter] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -269,20 +316,15 @@ def _launch_axpy(a, acc, c: float, plain_add: bool,
     n = a.numel()
     if n == 0:
         return out
-    lib = _load()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.stream_axpy(_DTYPE_CODE[a.dtype], a.data_ptr(),
-                              acc.data_ptr(), out.data_ptr(), float(c),
-                              int(plain_add), n, stream)
-    _raise_on("stream_axpy", err)
-    LAUNCHES[wrapper] += 1
+    _launch("stream_axpy", wrapper, a.get_device(), _DTYPE_CODE[a.dtype],
+            a.data_ptr(), acc.data_ptr(), out.data_ptr(), float(c),
+            int(plain_add), n)
     return out
 
 
 def axpy(a: torch.Tensor, acc: torch.Tensor, c: float = 1.0) -> torch.Tensor:
     """``acc*c + a`` (the AXPY hot loop); equal-shape f32/bf16 tensors."""
-    if a.device.type == "cpu":
+    if a.is_cpu:
         return _plain_axpy(a, acc, c)
     return _launch_axpy(a, acc, c, plain_add=False, wrapper="axpy")
 
@@ -290,27 +332,54 @@ def axpy(a: torch.Tensor, acc: torch.Tensor, c: float = 1.0) -> torch.Tensor:
 def sum_(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``b + a``: the SUM combiner (``_pallas_sum_fn`` role) — the axpy
     kernel's ``c == 1`` path, one IEEE add per element."""
-    if a.device.type == "cpu":
+    if a.is_cpu:
         return _plain_sum(a, b)
     return _launch_axpy(a, b, 1.0, plain_add=True, wrapper="sum")
 
 
+#: threads per block of the streaming kernels (``csrc/stream_ops.cu``)
+STREAM_THREADS = 256
+
+
+def scale_plan(n: int, itemsize: int, x_addr: int,
+               out_addr: int) -> Tuple[int, int, int]:
+    """``(unit, units, grid)``: how ``stream_scale`` splits ``n``
+    elements between ``x_addr`` and ``out_addr`` (a copy of the C
+    ``scale_plan`` in ``csrc/stream_ops.cu``, for the host's tests of
+    the partition). Thread ``i`` of the ``grid``
+    blocks of ``STREAM_THREADS`` does elements ``[i * unit, (i + 1) *
+    unit)`` if ``i < units``: one 16-byte vector (``unit = 16 //
+    itemsize``) when both addresses are 16-byte aligned, else one element
+    (``unit = 1``). The ``n - units * unit`` elements after the last
+    whole vector (fewer than ``unit``) go to block 0's first threads."""
+    unit = 16 // itemsize if (x_addr | out_addr) % 16 == 0 else 1
+    units = n // unit
+    return unit, units, max(-(-units // STREAM_THREADS), 1)
+
+
+def scale_boundary_sizes(itemsize: int) -> List[int]:
+    """Sizes at the edges of :func:`scale_plan`'s partition: one vector
+    (``16 // itemsize`` elements), one block of vectors and a grid of
+    4,097 blocks (several waves on an H100), each minus one, exact and
+    plus one, and the grid with the longest tail after its last vector."""
+    vec = 16 // itemsize
+    block = STREAM_THREADS * vec
+    grid = 4097 * block
+    return [vec - 1, vec, vec + 1, block - 1, block, block + 1,
+            grid - 1, grid, grid + 1, grid + vec - 1]
+
+
 def scale(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x*c`` streaming (read + write: the copy-rate kernel)."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return _plain_scale(x, c)
     _check("stream_scale", x)
     out = torch.empty_like(x)
     n = x.numel()
     if n == 0:
         return out
-    lib = _load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.stream_scale(_DTYPE_CODE[x.dtype], x.data_ptr(),
-                               out.data_ptr(), float(c), n, stream)
-    _raise_on("stream_scale", err)
-    LAUNCHES["scale"] += 1
+    _launch("stream_scale", "scale", x.get_device(), _DTYPE_CODE[x.dtype],
+            x.data_ptr(), out.data_ptr(), float(c), n)
     return out
 
 
@@ -328,7 +397,7 @@ def transpose(x: torch.Tensor) -> torch.Tensor:
         raise MPIError(ErrorCode.ERR_TYPE,
                        f"transpose: the kernel takes a 2-D int32/float32 "
                        f"tensor, got {tuple(x.shape)} {x.dtype}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return _plain_transpose(x)
     if not x.is_contiguous():
         raise MPIError(ErrorCode.ERR_ARG,
@@ -337,36 +406,27 @@ def transpose(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((cols, rows), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return out
-    lib = _load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tile_transpose_32(x.data_ptr(), out.data_ptr(), rows,
-                                    cols, stream)
-    _raise_on("tile_transpose_32", err)
-    LAUNCHES["transpose"] += 1
+    _launch("tile_transpose_32", "transpose", x.get_device(), x.data_ptr(),
+            out.data_ptr(), rows, cols)
     return out
 
 
 def chain_hop(x: torch.Tensor) -> torch.Tensor:
     """``x + 1`` on one contiguous (8, 128) float32 tile: one hop of the
     ring analogue (one launch, dependent on the previous hop)."""
-    if tuple(x.shape) != CHAIN_TILE or x.dtype is not torch.float32:
+    if x.shape != CHAIN_TILE or x.dtype is not _F32:
         raise MPIError(ErrorCode.ERR_TYPE,
                        f"chain_hop: the kernel takes one {CHAIN_TILE} "
                        f"float32 tile, got {tuple(x.shape)} {x.dtype}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return _plain_chain_hop(x)
-    if not x.is_contiguous() or x.data_ptr() % 16:
+    ptr = x.data_ptr()
+    if ptr % 16 or not x.is_contiguous():
         raise MPIError(ErrorCode.ERR_ARG,
                        "chain_hop: the kernel takes a contiguous, 16-byte "
                        "aligned tile")
     out = torch.empty_like(x)
-    lib = _load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.chain_add_one(x.data_ptr(), out.data_ptr(), stream)
-    _raise_on("chain_add_one", err)
-    LAUNCHES["chain"] += 1
+    _launch("chain_add_one", "chain", x.get_device(), ptr, out.data_ptr())
     return out
 
 

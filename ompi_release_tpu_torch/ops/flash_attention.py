@@ -28,6 +28,7 @@ What a kernel does not take raises; nothing falls back.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -45,8 +46,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def _scale(d: int) -> torch.Tensor:
     """rsqrt(D) in f32, as the Pallas kernels compute it; the kernels are
-    handed this same value."""
+    handed this same value (:func:`_scale_arg`)."""
     return torch.rsqrt(torch.tensor(float(d), dtype=torch.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _scale_arg(d: int) -> float:
+    """:func:`_scale` as the float the kernels take: one CPU op per head
+    dim, not one per launch."""
+    return float(_scale(d))
 
 
 def _plain_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -232,7 +240,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return torch.empty_like(q), torch.empty(
             *lead, s, dtype=torch.float32, device=q.device)
-    if q.device.type == "cpu":
+    if q.is_cpu:
         out, lse = _plain_flash_forward(q.reshape(-1, s, d),
                                         k.reshape(-1, s, d),
                                         v.reshape(-1, s, d), causal)
@@ -240,15 +248,10 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n = _check_launch("flash_forward", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(*lead, s, dtype=torch.float32, device=q.device)
-    lib = cuda_op._load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_fwd(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                            v.data_ptr(), out.data_ptr(), lse.data_ptr(), n,
-                            s, d, float(_scale(d)), int(bool(causal)),
-                            stream)
-    cuda_op._raise_on("flash_fwd", err)
-    cuda_op.LAUNCHES["flash_fwd"] += 1
+    cuda_op._launch("flash_fwd", "flash_fwd", q.get_device(),
+                    _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), out.data_ptr(), lse.data_ptr(), n, s, d,
+                    _scale_arg(d), int(bool(causal)))
     return out, lse
 
 
@@ -271,7 +274,7 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        f"{lse.device}")
     if q.numel() == 0:
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if q.device.type == "cpu":
+    if q.is_cpu:
         grads = _plain_flash_backward(
             *(t.reshape(-1, s, d) for t in (q, k, v, out)),
             lse.reshape(-1, s), g.reshape(-1, s, d), causal)
@@ -286,14 +289,9 @@ def _bwd_launch(name: str, outs, q, k, v, lse, g, delta, causal) -> None:
     """One launch of backward kernel ``name`` on checked CUDA tensors."""
     s, d = q.shape[-2:]
     ptrs = [t.data_ptr() for t in (q, k, v, g, lse, delta, *outs)]
-    lib = cuda_op._load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, name)(_DTYPE_CODE[q.dtype], *ptrs,
-                                 q.numel() // (s * d), s, d,
-                                 float(_scale(d)), int(bool(causal)), stream)
-    cuda_op._raise_on(name, err)
-    cuda_op.LAUNCHES[name] += 1
+    cuda_op._launch(name, name, q.get_device(), _DTYPE_CODE[q.dtype], *ptrs,
+                    q.numel() // (s * d), s, d, _scale_arg(d),
+                    int(bool(causal)))
 
 
 def _bwd_dq_kernel(q, k, v, lse, g, delta, causal) -> torch.Tensor:

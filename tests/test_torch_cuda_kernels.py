@@ -5,7 +5,9 @@ one (the decision is taken inside the fixture, never at import).
 Run on a machine with the card:
 ``python -m pytest tests/test_torch_cuda_kernels.py -q``.
 
-Tolerances: ``sum`` bitwise (one IEEE add per element in both);
+Tolerances: ``sum`` and ``scale`` bitwise (one IEEE add, or one
+multiply, per element rounded once in both; ``scale`` also at the sizes
+around its vector, its block and the bulk ring's chunk);
 ``axpy`` f32 rtol=1e-6 (the kernel multiplies and adds with explicit
 round-to-nearest intrinsics, so it is in fact expected bitwise); bf16
 within 1 bf16 ulp (both widen to f32 and round once: expected bitwise);
@@ -136,6 +138,63 @@ def test_chain_hop_and_loops(dev):
     t_loop, _ = cuda_op.make_transpose_loop(256)
     b = torch.arange(256 * 256, device=dev, dtype=torch.int32).view(256, 256)
     assert int(t_loop(b, 3)) == 256 * 256 - 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", range(10))
+@pytest.mark.parametrize("offset", [0, 1])
+def test_scale_bitwise_at_design_boundaries(dev, dtype, which, offset):
+    """The scale kernel against its twin, bitwise (both are one f32
+    multiply rounded once), at the sizes around its vector, its block and
+    a grid of many blocks (``cuda_op.scale_boundary_sizes``). Offset 1
+    puts x off the 16-byte grid (one element per thread)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    n = cuda_op.scale_boundary_sizes(itemsize)[which]
+    g = torch.Generator(device=dev).manual_seed(n + offset)
+    x = torch.randn(n + offset, generator=g, device=dev).to(dtype)[offset:]
+    got, want = cuda_op.scale(x, 1.0001), cuda_op._plain_scale(x, 1.0001)
+    torch.cuda.synchronize()
+    view = torch.int32 if dtype is torch.float32 else torch.int16
+    assert torch.equal(got.view(view), want.view(view))
+
+
+def _captured(fn):
+    """``fn()`` run eagerly inside ``torch.cuda.stream(side)``, then
+    captured into a CUDA graph (which captures on a side stream of its
+    own) and replayed: (eager result, replayed result)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return eager, replayed
+
+
+@pytest.mark.parametrize("wrapper", ["sum", "scale", "chain", "transpose",
+                                     "flash_fwd"])
+def test_wrappers_launch_on_the_current_side_stream(dev, wrapper):
+    """Each wrapper launches on the stream current at the call: on a
+    side stream, and into a graph under capture (a launch on any other
+    stream would break the capture); the replay gives the same bits."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(1 << 20, generator=g, device=dev)
+    q = torch.randn(2, 100, 64, generator=g, device=dev).to(torch.bfloat16)
+    fn = {"sum": lambda: cuda_op.sum_(x, x),
+          "scale": lambda: cuda_op.scale(x, 1.0001),
+          "chain": lambda: cuda_op.chain_hop(x[:1024].view(
+              cuda_op.CHAIN_TILE)),
+          "transpose": lambda: cuda_op.transpose(x.view(1024, 1024)),
+          "flash_fwd": lambda: fa.flash_forward(q, q, q, True)[0]}[wrapper]
+    cuda_op.reset_launches()
+    eager, replayed = _captured(fn)
+    assert sum(cuda_op.LAUNCHES.values()) == 2  # eager + capture
+    view = torch.int16 if eager.dtype is torch.bfloat16 else torch.int32
+    assert torch.equal(eager.view(view), replayed.view(view))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
