@@ -12,11 +12,12 @@ Run from the repository root on a machine with a card:
    bf16 forward and the two bf16 backward kernels must hold HGMMA and no
    atomic;
 2. holds each kernel against its plain PyTorch twin on the card: the
-   streaming kernels at sizes 1, 4097, 2^26+3 and a view at element
-   offset 1 (f32 and bf16; sum and scale bitwise), the scale kernel
-   also bitwise around its vector, its block and a grid of many blocks
-   (``cuda_op.scale_boundary_sizes``), aligned and at offset 1; the transpose bitwise at (8192, 8192) int32, (4097, 1000)
-   f32 and (1, 1); the chain hop bitwise against ``x + 1``;
+   streaming kernels (sum, axpy, scale) bitwise, f32 and bf16, at sizes
+   1, 4097, 2^26+3 and a view at element offset 1, and around their one
+   partition's vector, its block and a grid of many blocks
+   (``cuda_op.stream_boundary_sizes``), aligned and at offset 1; the
+   transpose bitwise at (8192, 8192) int32, (4097, 1000) f32 and (1, 1);
+   the chain hop bitwise against ``x + 1``;
    the flash-attention forward causal and not, S in {1, 100, 129, 2048},
    D in {8, 64, 128}, f32 and bf16, at the model's (64, 2048, 64) and,
    in 128-wide heads, (32, 2048, 128) bf16 causal, and with the bf16
@@ -71,8 +72,9 @@ Run from the repository root on a machine with a card:
    replayed from a CUDA graph; the flash forward beside
    ``scaled_dot_product_attention``, by CUDA events and by its device
    time in a profiler window, the two backward kernels beside SDPA's
-   backward, timed only; the scale kernel also in bf16 at the same
-   bytes), every wrapper's host µs per launch beside
+   backward, timed only; the three streaming rows also in bf16 at the
+   same bytes, the SUM also at 2^20, 2^22 and 2^24 f32 elements beside
+   ``torch.add``), every wrapper's host µs per launch beside
    ``torch.add(x, 1)``'s (10,000 back-to-back calls at small shapes),
    and the tuned allreduce per size (time and bus bandwidth 2(n-1)/n *
    bytes / t); a torch.profiler window per size says where the
@@ -145,6 +147,10 @@ TRANSPOSE_N = 8192  # alltoall_i32_torus's (n, n) int32
 P2P_BYTES = 256 * MIB
 HOPS_TIMED = 1000  # dependent chain hops per timing window
 HOST_CALLS = 10000  # back-to-back calls per host-time window
+#: the SUM's smaller operand sizes on the main path (f32 elements): one
+#: below the streaming kernels' old capped grid (2,162,688) and two above
+SUM_SIZES = (1 << 20, 1 << 22, 1 << 24)
+GRAPH_CALLS = 10  # calls per window (eager) or per captured graph
 
 
 def log(msg):
@@ -239,6 +245,19 @@ def turns_ms(fns, reps=7, inner=1):
     return {name: statistics.median(t) for name, t in times.items()}
 
 
+def streaming_bitwise(cuda_op, a, b, what):
+    """``sum_``, ``axpy`` and ``scale`` on ``a`` (and ``b``) against their
+    plain twins, bitwise: the same f32 operations rounded once."""
+    for name, got, want in (
+            ("sum", cuda_op.sum_(a, b), cuda_op._plain_sum(a, b)),
+            ("axpy", cuda_op.axpy(a, b, 0.999),
+             cuda_op._plain_axpy(a, b, 0.999)),
+            ("scale", cuda_op.scale(a, 1.0001),
+             cuda_op._plain_scale(a, 1.0001))):
+        check(bits_equal(got, want),
+              f"{name} kernel != plain, bitwise ({what})")
+
+
 def phase_kernels(cuda_op, torch, dev):
     """Each kernel against its plain twin at the contract's sizes."""
     for dtype in (torch.float32, torch.bfloat16):
@@ -247,26 +266,17 @@ def phase_kernels(cuda_op, torch, dev):
             base = torch.randn(2, n + off, generator=g, device=dev).to(dtype)
             a, b = base[0, off:], base[1, off:]
             what = f"{dtype} n={n} offset={off}"
-            check(bits_equal(cuda_op.sum_(a, b), cuda_op._plain_sum(a, b)),
-                  f"sum kernel != plain add ({what})")
-            check(ulp_close(cuda_op.axpy(a, b, 0.999),
-                            cuda_op._plain_axpy(a, b, 0.999), dtype),
-                  f"axpy kernel != plain ({what})")
-            check(bits_equal(cuda_op.scale(a, 1.0001),
-                             cuda_op._plain_scale(a, 1.0001)),
-                  f"scale kernel != plain, bitwise ({what})")
+            streaming_bitwise(cuda_op, a, b, what)
             del base, a, b
         itemsize = torch.empty((), dtype=dtype).element_size()
-        for n in cuda_op.scale_boundary_sizes(itemsize):
+        for n in cuda_op.stream_boundary_sizes(itemsize):
             for off in (0, 1):
                 g = torch.Generator(device=dev).manual_seed(n + off)
-                x = torch.randn(n + off, generator=g, device=dev).to(
-                    dtype)[off:]
-                check(bits_equal(cuda_op.scale(x, 1.0001),
-                                 cuda_op._plain_scale(x, 1.0001)),
-                      f"scale kernel != plain, bitwise ({dtype} n={n} "
-                      f"offset={off})")
-                del x
+                base = torch.randn(2, n + off, generator=g, device=dev).to(
+                    dtype)
+                streaming_bitwise(cuda_op, base[0, off:], base[1, off:],
+                                  f"{dtype} n={n} offset={off}")
+                del base
     for shape, dtype in (((TRANSPOSE_N, TRANSPOSE_N), torch.int32),
                          ((4097, 1000), torch.float32), ((1, 1), torch.float32)):
         g = torch.Generator(device=dev).manual_seed(shape[0])
@@ -279,9 +289,10 @@ def phase_kernels(cuda_op, torch, dev):
     check(bits_equal(cuda_op.chain_hop(x), cuda_op._plain_chain_hop(x)),
           "chain hop kernel != x + 1")
     torch.cuda.synchronize()
-    log("phase 2: kernels match their plain twins (f32/bf16; n=1, 4097, "
-        "2^26+3, offset 1; scale bitwise, also around its vector, its block "
-        "and a grid of many blocks, aligned and offset 1; transpose "
+    log("phase 2: kernels match their plain twins (f32/bf16; sum, axpy "
+        "and scale bitwise at n=1, 4097, 2^26+3, offset 1, and around their "
+        "partition's vector, its block and a grid of many blocks, aligned "
+        "and offset 1; transpose "
         "(8192, 8192) int32, (4097, 1000) f32, (1, 1) bitwise; chain hop "
         "bitwise)")
 
@@ -853,36 +864,42 @@ def check_main_path(tmvar, torch, runs, bench):
 
 def time_kernels(cuda_op, torch, dev, launches):
     """Each kernel at the main path's largest per-call shape (the
-    segmented-ring combine at 256 MiB per rank: 2^26 f32 elements)."""
+    segmented-ring combine at 256 MiB per rank: 2^26 f32 elements), the
+    streaming kernels also in bf16 at the same bytes, and the SUM at the
+    main path's smaller operand sizes (``SUM_SIZES``)."""
     numel = 1 << 26
     g = torch.Generator(device=dev).manual_seed(99)
     a = torch.randn(numel, generator=g, device=dev)
     b = torch.randn(numel, generator=g, device=dev)
+    h = torch.randn(2, 2 * numel, generator=g, device=dev).to(torch.bfloat16)
+    ha, hb = h[0], h[1]  # bf16 at the same bytes: 2^27 elements
     cases = {
         "sum": (lambda: cuda_op.sum_(a, b), lambda: cuda_op._plain_sum(a, b),
-                lambda: torch.add(b, a)),
+                lambda: torch.add(b, a), lambda: cuda_op.sum_(ha, hb),
+                lambda: torch.add(hb, ha)),
         "axpy": (lambda: cuda_op.axpy(a, b, 0.999),
                  lambda: cuda_op._plain_axpy(a, b, 0.999),
-                 lambda: torch.add(a, b, alpha=0.999)),
+                 lambda: torch.add(a, b, alpha=0.999),
+                 lambda: cuda_op.axpy(ha, hb, 0.999),
+                 lambda: torch.add(ha, hb, alpha=0.999)),
         "scale": (lambda: cuda_op.scale(a, 1.0001),
                   lambda: cuda_op._plain_scale(a, 1.0001),
-                  lambda: torch.mul(a, 1.0001)),
+                  lambda: torch.mul(a, 1.0001),
+                  lambda: cuda_op.scale(ha, 1.0001),
+                  lambda: torch.mul(ha, 1.0001)),
     }
     rows = []
-    for name, (kern, plain, lib) in cases.items():
+    for name, (kern, plain, lib, kern_bf16, lib_bf16) in cases.items():
         replaces, streams = KERNELS[name]
         err = float((kern().float() - plain().float()).abs().max())
         ms = turns_ms({"ms": kern, "plain_ms": plain, "library_ms": lib},
                       inner=10)
+        bf16 = turns_ms({"ms_bf16": kern_bf16, "library_ms_bf16": lib_bf16},
+                        inner=10)
         extra = {}
-        if name == "scale":  # bf16 at the same bytes: 2^27 elements
-            h = torch.randn(2 * numel, generator=g, device=dev).to(
-                torch.bfloat16)
-            bf16 = turns_ms({"ms_bf16": lambda: cuda_op.scale(h, 1.0001),
-                             "library_ms_bf16": lambda: torch.mul(h, 1.0001)},
-                            inner=10)
-            extra = bf16
-            del h
+        if name == "sum":
+            extra["sizes"] = [time_sum_at(cuda_op, torch, a[:n], b[:n])
+                              for n in SUM_SIZES]
         rows.append({
             "name": f"stream_{'scale' if name == 'scale' else 'axpy'}"
                     f"[{name}]",
@@ -890,11 +907,30 @@ def time_kernels(cuda_op, torch, dev, launches):
             "launches": launches[name], "max_abs_err": err, **ms,
             "bound_ms": streams * numel * 4 / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "shape": [numel], "dtype": "float32",
-            **extra,
+            **bf16, **extra,
         })
+    del a, b, h, ha, hb
     rows.append(time_transpose(cuda_op, torch, dev, launches["transpose"]))
     rows.append(time_chain(cuda_op, torch, dev, launches["chain"]))
     return rows
+
+
+def time_sum_at(cuda_op, torch, x, y):
+    """The SUM kernel on f32 ``x`` and ``y`` in turns with
+    ``torch.add(y, x)``: launched from Python (what the main path pays;
+    below ~2^22 elements the host's launch cost, not the device, sets
+    the pace) and replayed from a CUDA graph of ``GRAPH_CALLS`` calls
+    (the device's time). At 2^20 elements the 12 MiB a call moves fit in
+    the 50 MB L2, for both, so the device time may beat the HBM bound."""
+    n = x.numel()
+    kern = lambda: cuda_op.sum_(x, y)  # noqa: E731
+    lib = lambda: torch.add(y, x)  # noqa: E731
+    eager = turns_ms({"ms": kern, "library_ms": lib}, inner=GRAPH_CALLS)
+    graph = turns_ms({"ms_graph": graphed(torch, kern, GRAPH_CALLS),
+                      "library_ms_graph": graphed(torch, lib, GRAPH_CALLS)})
+    return {"numel": n, **eager,
+            **{k: t / GRAPH_CALLS for k, t in graph.items()},
+            "bound_ms": 3 * n * 4 / HBM_BYTES_PER_S * 1e3}
 
 
 def time_transpose(cuda_op, torch, dev, launches):
@@ -1053,6 +1089,21 @@ def eager_hops_ms(hops, x):
     return {name: t / HOPS_TIMED for name, t in ms.items()}
 
 
+def graphed(torch, fn, calls):
+    """The replay of one CUDA graph holding ``calls`` calls of ``fn``
+    (warmed up on a side stream first, as torch requires)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    return g.replay
+
+
 def graph_hop_ms(torch, hop, x):
     """ms per hop over HOPS_TIMED dependent hops replayed from one CUDA
     graph holding all of them."""
@@ -1062,15 +1113,7 @@ def graph_hop_ms(torch, hop, x):
             y = hop(y)
         return y
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        chain()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        chain()
-    return time_ms(g.replay) / HOPS_TIMED
+    return time_ms(graphed(torch, chain, 1)) / HOPS_TIMED
 
 
 def time_chain(cuda_op, torch, dev, launches):

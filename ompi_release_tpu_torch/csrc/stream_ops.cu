@@ -4,27 +4,57 @@
 // Replaces the Pallas kernels of ompi_release_tpu/ops/pallas_op.py, all
 // launched through _blocked_call's pl.pallas_call (pallas_op.py:79):
 //   stream_axpy  <- _pallas_sum_fn (pallas_op.py:156, out = b + a) and
-//                   axpy (pallas_op.py:93, out = acc*c + a)
-//   stream_scale <- scale (pallas_op.py:105, out = x*c)
+//                   axpy (pallas_op.py:93, out = acc*c + a), looped by
+//                   make_axpy_loop (:217)
+//   stream_scale <- scale (pallas_op.py:105, out = x*c), looped by
+//                   make_scale_loop (:244): the bench's copy-rate yardstick
 //
-// Bound: pure streaming, no reuse. stream_axpy moves 3 x n x itemsize
-// bytes (two reads, one write) and stream_scale 2 x n x itemsize, so the
-// least time is bytes / HBM bandwidth (3.35 TB/s on an H100 SXM). The
+// Bound: bytes. Pure streaming, no reuse: stream_axpy moves 3 x n x
+// itemsize bytes (two reads, one write), 0.2404 ms for 2^26 f32 at the
+// H100 SXM's 3.35 TB/s; stream_scale 2 x n x itemsize, 0.160 ms. The
 // arithmetic (one or two flops per element) is far below the card's
 // compute rate.
 //
-// stream_axpy's design: one grid-stride loop. When every pointer is
-// 16-byte aligned the body moves 16 bytes per thread per load (4 f32 or
-// 8 bf16 values); the remainder of the vectorised range and every
-// element of a misaligned call (a view at an odd element offset) go
-// through a scalar loop, so the ragged tail is always covered (the
-// Pallas kernel instead refused a truncated grid and padded to whole
-// blocks). stream_scale has its own design and note below.
+// Design: one thread per unit of work, on a grid sized to the work
+// (stream_plan below; cuda_op.stream_plan is its copy for the host's
+// tests). When every operand is 16-byte aligned a unit is one 16-byte
+// vector of each operand (4 f32 or 8 bf16 values), plain loads and
+// stores, and the last n % (16 / itemsize) elements are done by block
+// 0's first threads; otherwise (a view at an odd element offset) a unit
+// is one element. Either way every element is written exactly once,
+// including the ragged tail (the Pallas kernel instead refused a
+// truncated grid and padded to whole blocks). At 2^26 f32 either kernel
+// launches 65,536 blocks of 256 threads: every SM has its 8 resident
+// blocks' loads in flight at once, and a block that finishes frees its
+// slot for the next.
+//
+// Both kernels first ran as one grid-stride loop capped at 2,112 blocks
+// (16 per SM): 256-thread blocks fit only 8 to an SM, so the launch ran
+// in two waves, and at 2^26 f32 each thread walked ~31 vectors one after
+// another with one pair of loads in flight. Times on an H100 80GB HBM3
+// at 700 W (PERF.md, chip_smoke.py's rows in turns with one PyTorch
+// call):
+// - stream_scale: 0.197-0.201 ms capped, 80 % of the bound; on the grid
+//   sized to the work 0.179-0.183 ms, a tie with torch.mul. A persistent
+//   bulk-copy ring (16 KB chunks through shared memory with Hopper's
+//   cp.async.bulk) was 4-6 % slower than torch.mul, and four 16-byte
+//   loads a thread with streaming hints tied one: the cap and the
+//   second wave were the loss, not the loads in flight.
+// - stream_axpy: 0.2777-0.2812 ms capped as SUM, 4.4-5.0 % slower than
+//   torch.add in the same calls; on the grid sized to the work
+//   0.2645-0.2669 ms, 0.4-1.2 % slower than torch.add (a tie within the
+//   noise that moves stream_scale against torch.mul by as much), 90 %
+//   of the bound, the same in bf16; the axpy body likewise. Replayed
+//   from a CUDA graph it ties torch.add at 2^24 elements and is 1-3 %
+//   slower at 2^20 and 2^22 (sizes that fit the 50 MB L2).
+// The two kernels share the partition, not the body, so that
+// stream_scale's code stays the code that was measured.
 //
 // Rounding: arithmetic is in f32 with explicit __fmul_rn/__fadd_rn so
 // nvcc cannot contract acc*c + a into an FMA; bf16 values are widened
-// to f32 and the result is rounded once with __float2bfloat16_rn. With
-// c == 1 (the SUM path) the kernel does one IEEE add per element.
+// to f32 and each result is rounded once with __float2bfloat16_rn, in
+// the vectors and the scalar elements alike. With c == 1 (the SUM path)
+// stream_axpy does one IEEE add per element.
 //
 // Kernels allocate nothing and launch on the caller's stream; each C
 // entry returns cudaGetLastError() for the wrapper to check.
@@ -40,9 +70,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-// 16 blocks per SM of an H100: 256-thread blocks fit only 8 to an SM
-// (2,048 threads), so a grid this large runs as two waves
-constexpr int kMaxBlocks = 132 * 16;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -58,6 +85,23 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+struct StreamPlan {
+  int64_t unit;   // elements per thread: 16 / itemsize, or 1 (misaligned)
+  int64_t units;  // threads with a unit of work
+  int64_t grid;   // blocks
+};
+
+// The partition of both streaming kernels over n elements of itemsize
+// bytes; ptrs are every operand's address (inputs and output).
+template <typename... P>
+StreamPlan stream_plan(int64_t n, int64_t itemsize, P... ptrs) {
+  const uintptr_t any = (reinterpret_cast<uintptr_t>(ptrs) | ...);
+  const int64_t unit = (any & 15u) == 0 ? 16 / itemsize : 1;
+  const int64_t units = n / unit;
+  const int64_t grid = (units + kThreads - 1) / kThreads;
+  return {unit, units, grid < 1 ? 1 : grid};
+}
+
 template <bool kPlainAdd>
 __device__ __forceinline__ float axpy1(float acc, float a, float c) {
   return kPlainAdd ? __fadd_rn(acc, a) : __fadd_rn(__fmul_rn(acc, c), a);
@@ -67,136 +111,51 @@ __device__ __forceinline__ float axpy1(float acc, float a, float c) {
 template <typename T, bool kPlainAdd>
 __global__ void __launch_bounds__(kThreads)
     axpy_kernel(const T* __restrict__ a, const T* __restrict__ acc,
-                T* __restrict__ out, float c, int64_t n, int vec) {
+                T* __restrict__ out, float c, int64_t n, int64_t units,
+                int vec) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (!vec) {
+    if (i < n) {
+      out[i] = from_f<T>(axpy1<kPlainAdd>(to_f(acc[i]), to_f(a[i]), c));
+    }
+    return;
+  }
   constexpr int K = 16 / sizeof(T);
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t nvec = vec ? n / K : 0;
-  const uint4* a4 = reinterpret_cast<const uint4*>(a);
-  const uint4* acc4 = reinterpret_cast<const uint4*>(acc);
-  uint4* out4 = reinterpret_cast<uint4*>(out);
-  for (int64_t i = tid; i < nvec; i += stride) {
-    uint4 va = a4[i];
-    uint4 vb = acc4[i];
-    uint4 vo;
-    const T* pa = reinterpret_cast<const T*>(&va);
-    const T* pb = reinterpret_cast<const T*>(&vb);
-    T* po = reinterpret_cast<T*>(&vo);
+  if (i < units) {
+    const uint4 va = reinterpret_cast<const uint4*>(a)[i];
+    uint4 v = reinterpret_cast<const uint4*>(acc)[i];
+    const T* ea = reinterpret_cast<const T*>(&va);
+    T* e = reinterpret_cast<T*>(&v);
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      po[j] = from_f<T>(axpy1<kPlainAdd>(to_f(pb[j]), to_f(pa[j]), c));
+      e[j] = from_f<T>(axpy1<kPlainAdd>(to_f(e[j]), to_f(ea[j]), c));
     }
-    out4[i] = vo;
+    reinterpret_cast<uint4*>(out)[i] = v;
   }
-  for (int64_t i = nvec * K + tid; i < n; i += stride) {
-    out[i] = from_f<T>(axpy1<kPlainAdd>(to_f(acc[i]), to_f(a[i]), c));
+  const int64_t tail = n - units * K;  // fewer than K elements
+  if (blockIdx.x == 0 && threadIdx.x < tail) {
+    const int64_t j = units * K + threadIdx.x;
+    out[j] = from_f<T>(axpy1<kPlainAdd>(to_f(acc[j]), to_f(a[j]), c));
   }
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
-int grid_for(int64_t work) {
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  return (int)blocks;
 }
 
 template <typename T>
 void launch_axpy(const void* a, const void* acc, void* out, float c,
                  int plain_add, int64_t n, cudaStream_t stream) {
-  const int vec = aligned16(a) && aligned16(acc) && aligned16(out);
-  const int64_t K = 16 / sizeof(T);
-  const int grid = grid_for(vec ? n / K + n % K : n);
+  const StreamPlan p = stream_plan(n, sizeof(T), a, acc, out);
   const T* pa = static_cast<const T*>(a);
   const T* pacc = static_cast<const T*>(acc);
   T* pout = static_cast<T*>(out);
   if (plain_add) {
-    axpy_kernel<T, true><<<grid, kThreads, 0, stream>>>(pa, pacc, pout, c,
-                                                       n, vec);
+    axpy_kernel<T, true><<<(unsigned)p.grid, kThreads, 0, stream>>>(
+        pa, pacc, pout, c, n, p.units, p.unit > 1);
   } else {
-    axpy_kernel<T, false><<<grid, kThreads, 0, stream>>>(pa, pacc, pout, c,
-                                                        n, vec);
+    axpy_kernel<T, false><<<(unsigned)p.grid, kThreads, 0, stream>>>(
+        pa, pacc, pout, c, n, p.units, p.unit > 1);
   }
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError().
-extern "C" int stream_axpy(int dtype, const void* a, const void* acc,
-                           void* out, float c, int plain_add, long long n,
-                           void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch_axpy<float>(a, acc, out, c, plain_add, n, s);
-  } else if (dtype == 1) {
-    launch_axpy<__nv_bfloat16>(a, acc, out, c, plain_add, n, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// stream_scale: out = x*c, one 16-byte vector per thread on a grid sized
-// to the work.
-//
-// Replaces the body scale (ompi_release_tpu/ops/pallas_op.py:105) of
-// _blocked_call's pallas_call, looped by make_scale_loop (:244): the
-// bench's copy-rate yardstick.
-//
-// Bound: bytes. 2 x n x itemsize moved (x read once, out written once):
-// 0.160 ms for 2^26 f32 at 3.35 TB/s.
-//
-// Design, with times on an H100 80GB HBM3 at 700 W (PERF.md): the
-// first design was stream_axpy's grid-stride loop, capped at
-// kMaxBlocks: each thread walked ~31 vectors with one load in flight,
-// in two waves of blocks, at 80 % of the bound. Two redesigns were
-// built and timed against torch.mul and this kernel, and were not kept:
-// - a persistent grid that streams 16 KB chunks through a ring of
-//   stages in shared memory with Hopper's bulk asynchronous copies
-//   (csrc/bulk_copy_sm90.cuh): about 5 % slower than torch.mul;
-// - a grid sized to the work, each thread issuing four independent
-//   16-byte loads with the streaming hint (__ldcs / __stcs): within 1 %
-//   of torch.mul, on either side, as is this kernel.
-// What ships is the plainest of these: one 16-byte vector per thread,
-// plain loads and stores, on a grid sized to the work (2^26 f32 launch
-// 65,536 blocks of 256 threads). Every SM has its 8 resident blocks'
-// loads in flight at once, and a block that finishes frees its slot for
-// the next; the cap and the second wave are what held the first design
-// back, not the loads in flight per thread. It ties torch.mul: the two
-// trade places by under 1 % between runs.
-//
-// When x and out are both 16-byte aligned the kernel moves vectors of 4
-// f32 or 8 bf16 values, and the last n % (16 / itemsize) elements are
-// done by block 0's first threads; otherwise (a view at an odd element
-// offset) every thread does one element. Either way every element is
-// written exactly once. scale_plan computes this partition;
-// cuda_op.scale_plan is its copy for the host's tests.
-//
-// Rounding: each element is widened to f32, multiplied once by c
-// (__fmul_rn) and rounded once (bf16: __float2bfloat16_rn), in the
-// vectors and the scalar elements alike.
-// ---------------------------------------------------------------------------
-
-namespace {
-
-struct ScalePlan {
-  int64_t unit;   // elements per thread: 16 / itemsize, or 1 (misaligned)
-  int64_t units;  // threads with a unit of work
-  int64_t grid;   // blocks
-};
-
-ScalePlan scale_plan(int64_t n, int64_t itemsize, uintptr_t x,
-                     uintptr_t out) {
-  const int64_t unit = ((x | out) & 15u) == 0 ? 16 / itemsize : 1;
-  const int64_t units = n / unit;
-  const int64_t grid = (units + kThreads - 1) / kThreads;
-  return {unit, units, grid < 1 ? 1 : grid};
-}
-
+// out = x*c
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     scale_kernel(const T* __restrict__ x, T* __restrict__ out, float c,
@@ -224,14 +183,29 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 void launch_scale(const void* x, void* out, float c, int64_t n,
                   cudaStream_t stream) {
-  const ScalePlan p = scale_plan(n, sizeof(T), reinterpret_cast<uintptr_t>(x),
-                                 reinterpret_cast<uintptr_t>(out));
+  const StreamPlan p = stream_plan(n, sizeof(T), x, out);
   scale_kernel<T><<<(unsigned)p.grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(out), c, n, p.units,
       p.unit > 1);
 }
 
 }  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. out must not overlap a or acc.
+// Returns cudaGetLastError().
+extern "C" int stream_axpy(int dtype, const void* a, const void* acc,
+                           void* out, float c, int plain_add, long long n,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch_axpy<float>(a, acc, out, c, plain_add, n, s);
+  } else if (dtype == 1) {
+    launch_axpy<__nv_bfloat16>(a, acc, out, c, plain_add, n, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
 
 // out = x*c; x and out must not overlap. Returns cudaGetLastError().
 extern "C" int stream_scale(int dtype, const void* x, void* out, float c,

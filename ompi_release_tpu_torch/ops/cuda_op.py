@@ -16,9 +16,10 @@ named by :func:`library_name`, a hash of every ``csrc/*.cu`` and
 
 - ``stream_axpy``: ``out = acc*c + a``; with ``c == 1`` a plain add, the
   SUM combiner (``sum_``, the ``_pallas_sum_fn`` role) — 3 streams;
-- ``stream_scale``: ``out = x*c`` — 2 streams, the copy-rate yardstick:
-  one 16-byte vector per thread on a grid sized to the work
-  (:func:`scale_plan` is its partition);
+- ``stream_scale``: ``out = x*c`` — 2 streams, the copy-rate yardstick;
+  both streaming kernels take one 16-byte vector of each operand per
+  thread on a grid sized to the work (:func:`stream_plan` is their one
+  partition);
 - ``tile_transpose_32``: the (rows, cols) -> (cols, rows) transpose of
   32-bit words (``transpose``, the ``make_transpose_loop`` body);
 - ``chain_add_one``: ``x + 1`` on one (8, 128) f32 tile (``chain_hop``,
@@ -341,24 +342,24 @@ def sum_(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 STREAM_THREADS = 256
 
 
-def scale_plan(n: int, itemsize: int, x_addr: int,
-               out_addr: int) -> Tuple[int, int, int]:
-    """``(unit, units, grid)``: how ``stream_scale`` splits ``n``
-    elements between ``x_addr`` and ``out_addr`` (a copy of the C
-    ``scale_plan`` in ``csrc/stream_ops.cu``, for the host's tests of
-    the partition). Thread ``i`` of the ``grid``
-    blocks of ``STREAM_THREADS`` does elements ``[i * unit, (i + 1) *
-    unit)`` if ``i < units``: one 16-byte vector (``unit = 16 //
-    itemsize``) when both addresses are 16-byte aligned, else one element
-    (``unit = 1``). The ``n - units * unit`` elements after the last
-    whole vector (fewer than ``unit``) go to block 0's first threads."""
-    unit = 16 // itemsize if (x_addr | out_addr) % 16 == 0 else 1
+def stream_plan(n: int, itemsize: int, *addrs: int) -> Tuple[int, int, int]:
+    """``(unit, units, grid)``: how ``stream_axpy`` and ``stream_scale``
+    split ``n`` elements of ``itemsize`` bytes between their operands at
+    ``addrs`` (inputs and output; a copy of the C ``stream_plan`` in
+    ``csrc/stream_ops.cu``, for the host's tests of the partition).
+    Thread ``i`` of the ``grid`` blocks of ``STREAM_THREADS`` does
+    elements ``[i * unit, (i + 1) * unit)`` of every operand if ``i <
+    units``: one 16-byte vector (``unit = 16 // itemsize``) when every
+    address is 16-byte aligned, else one element (``unit = 1``). The
+    ``n - units * unit`` elements after the last whole vector (fewer
+    than ``unit``) go to block 0's first threads."""
+    unit = 1 if any(addr % 16 for addr in addrs) else 16 // itemsize
     units = n // unit
     return unit, units, max(-(-units // STREAM_THREADS), 1)
 
 
-def scale_boundary_sizes(itemsize: int) -> List[int]:
-    """Sizes at the edges of :func:`scale_plan`'s partition: one vector
+def stream_boundary_sizes(itemsize: int) -> List[int]:
+    """Sizes at the edges of :func:`stream_plan`'s partition: one vector
     (``16 // itemsize`` elements), one block of vectors and a grid of
     4,097 blocks (several waves on an H100), each minus one, exact and
     plus one, and the grid with the longest tail after its last vector."""

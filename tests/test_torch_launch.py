@@ -11,13 +11,14 @@ wrappers take their kernel path; no data) show that every wrapper
 launches through the helper. The kernels themselves run only in
 ``tests/test_torch_cuda_kernels.py``.
 
-``stream_scale``'s partition (``cuda_op.scale_plan``: one 16-byte
-vector per thread when both arrays are 16-byte aligned, else one element
-per thread, and the tail after the last whole vector on block 0) is
-emulated in plain index arithmetic at the sizes around its vector, its
-block and a grid of many blocks (``cuda_op.scale_boundary_sizes``):
-every element is written exactly once, and every vector access is
-16-byte aligned.
+The one partition of the two streaming kernels (``cuda_op.stream_plan``:
+one 16-byte vector of each operand per thread when every operand is
+16-byte aligned, else one element per thread, and the tail after the
+last whole vector on block 0) is emulated in plain index arithmetic at
+the sizes around its vector, its block and a grid of many blocks
+(``cuda_op.stream_boundary_sizes``), for ``stream_scale``'s two operands
+and ``stream_axpy``'s three: every element is written exactly once, and
+every vector access is 16-byte aligned.
 """
 
 import contextlib
@@ -163,21 +164,21 @@ def test_every_wrapper_launches_through_the_helper(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the scale kernel's partition
+# the streaming kernels' partition
 # ---------------------------------------------------------------------------
 
-def _emulate_scale(n, itemsize, x_addr, out_addr):
+def _emulate(n, itemsize, addrs):
     """How many times the kernel writes each element, walking its
     threads as the C code does: thread i's vector (or element), then
     block 0's first threads over the tail after the last whole vector."""
-    unit, units, grid = cuda_op.scale_plan(n, itemsize, x_addr, out_addr)
+    unit, units, grid = cuda_op.stream_plan(n, itemsize, *addrs)
     assert grid >= 1 and grid * cuda_op.STREAM_THREADS >= units
     writes = np.zeros(n + 1, np.int64)  # one spare slot catches overruns
     i = np.arange(grid * cuda_op.STREAM_THREADS)
     mine = i[i < units]
-    if unit > 1:  # every vector access 16-byte aligned on both sides
-        assert (x_addr | out_addr) % 16 == 0
-        assert ((x_addr + mine * 16) % 16 == 0).all()
+    if unit > 1:  # every vector access 16-byte aligned on every operand
+        for addr in addrs:
+            assert ((addr + mine * 16) % 16 == 0).all()
     writes[:units * unit] += np.bincount(
         (mine[:, None] * unit + np.arange(unit)[None, :]).ravel(),
         minlength=units * unit)[:units * unit]
@@ -189,28 +190,67 @@ def _emulate_scale(n, itemsize, x_addr, out_addr):
 
 def _sizes(itemsize):
     return sorted({0, 1, 15, 16, 17,
-                   *cuda_op.scale_boundary_sizes(itemsize)})
+                   *cuda_op.stream_boundary_sizes(itemsize)})
 
 
-@pytest.mark.parametrize("itemsize,n", [(itemsize, n) for itemsize in (4, 2)
-                                        for n in _sizes(itemsize)])
+_PARTITION_CASES = [(itemsize, n) for itemsize in (4, 2)
+                    for n in _sizes(itemsize)]
+
+
+def _writes_every_element_once(n, itemsize, placements):
+    """The partition over operands at each placement's offsets (bytes
+    past 16-byte aligned bases): vectors exactly when every operand is
+    aligned, and every element written once (emulated once per distinct
+    plan: a misaligned placement's plan does not depend on which operand
+    is off the grid)."""
+    done = set()
+    for offsets in placements:
+        addrs = [0x7F0000000000 + k * 0x1000000000 + off
+                 for k, off in enumerate(offsets)]
+        plan = cuda_op.stream_plan(n, itemsize, *addrs)
+        assert plan[0] == (1 if any(offsets) else 16 // itemsize), offsets
+        if plan not in done:
+            done.add(plan)
+            writes, spill, _ = _emulate(n, itemsize, addrs)
+            assert (writes == 1).all() and spill == 0, (n, offsets)
+
+
+@pytest.mark.parametrize("itemsize,n", _PARTITION_CASES)
 def test_scale_partition_writes_every_element_once(itemsize, n):
-    for x_off in range(0, 16, itemsize):  # every head offset mod 16
-        # out at the same offset and 16-byte aligned
-        for out_off in {x_off, 0}:
-            x_addr, out_addr = 0x7F0000000000 + x_off, 0x7F1000000000 + out_off
-            writes, spill, (unit, _, _) = _emulate_scale(
-                n, itemsize, x_addr, out_addr)
-            assert (writes == 1).all() and spill == 0, (n, x_off, out_off)
-            assert unit == (16 // itemsize if x_off == out_off == 0 else 1)
+    # x at every head offset mod 16, out at the same offset and aligned
+    _writes_every_element_once(n, itemsize, [
+        (x_off, out_off) for x_off in range(0, 16, itemsize)
+        for out_off in {x_off, 0}])
+
+
+@pytest.mark.parametrize("itemsize,n", _PARTITION_CASES)
+def test_axpy_partition_writes_every_element_once(itemsize, n):
+    """``stream_axpy``'s three operands (a, acc, out): all aligned, then
+    each one alone off the 16-byte grid at every offset mod 16."""
+    _writes_every_element_once(n, itemsize, [(0, 0, 0)] + [
+        tuple(off if k == which else 0 for k in range(3))
+        for which in range(3) for off in range(itemsize, 16, itemsize)])
 
 
 @pytest.mark.parametrize("itemsize", [4, 2])
 def test_scale_plan_at_the_main_path_size(itemsize):
     n = 1 << 26  # the bench loops' and the SUM's 2^26 elements
-    unit, units, grid = cuda_op.scale_plan(n, itemsize, 0x10000, 0x20000)
+    unit, units, grid = cuda_op.stream_plan(n, itemsize, 0x10000, 0x20000)
     assert (unit, units) == (16 // itemsize, n * itemsize // 16)
     assert grid == units // cuda_op.STREAM_THREADS  # one vector a thread
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_axpy_plan_at_the_main_path_size(itemsize):
+    """The SUM of 2^26 elements takes the same grid as the scale kernel,
+    one vector of each operand a thread: 65,536 blocks in f32, uncapped."""
+    n = 1 << 26
+    plan = cuda_op.stream_plan(n, itemsize, 0x10000, 0x20000, 0x30000)
+    assert plan == cuda_op.stream_plan(n, itemsize, 0x10000, 0x20000)
+    unit, units, grid = plan
+    assert (unit, units) == (16 // itemsize, n * itemsize // 16)
+    assert grid == units // cuda_op.STREAM_THREADS
+    assert grid == (65536 if itemsize == 4 else 32768)
 
 
 @pytest.mark.parametrize("itemsize", [4, 2])
@@ -220,8 +260,9 @@ def test_scale_boundary_sizes_sit_on_the_partition_edges(itemsize):
     grid of 4,097 blocks (one thread short of full, full, full and a
     tail, full and the longest tail)."""
     vec = 16 // itemsize
-    plans = [cuda_op.scale_plan(n, itemsize, 0x10000, 0x20000)
-             for n in cuda_op.scale_boundary_sizes(itemsize)]
+    sizes = cuda_op.stream_boundary_sizes(itemsize)
+    plans = [cuda_op.stream_plan(n, itemsize, 0x10000, 0x20000)
+             for n in sizes]
     units = [p[1] for p in plans]
     grids = [p[2] for p in plans]
     block = cuda_op.STREAM_THREADS
@@ -230,6 +271,5 @@ def test_scale_boundary_sizes_sit_on_the_partition_edges(itemsize):
     assert units[6:] == [4097 * block - 1, 4097 * block, 4097 * block,
                          4097 * block]
     assert grids[6:] == [4097] * 4
-    tails = [n - u * vec for n, u in
-             zip(cuda_op.scale_boundary_sizes(itemsize), units)]
+    tails = [n - u * vec for n, u in zip(sizes, units)]
     assert tails == [vec - 1, 0, 1, vec - 1, 0, 1, vec - 1, 0, 1, vec - 1]
