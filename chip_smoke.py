@@ -65,6 +65,19 @@ Run from the repository root on a machine with a card:
      the kernels (``"flash"``) against plain autograd through ring
      attention (``"ring"``): loss rel 1e-2, every parameter's gradient
      within a relative L2 error of 3e-2 (bf16);
+   - slice 5: the switch-MoE TpuLM at full width (``ModelConfig(
+     n_experts=4)``, capacity factor 1.25, seed 0): one eval batch and 3
+     ``adamw(1e-3)`` steps on one fixed (8, 2048) batch; the flash
+     kernels must launch 8 times per forward and 8 + 8 per backward, the
+     loss must be within 1.0 of ln(32000) at init, finite and falling;
+     ``moe_layer`` at (16384, 512) bf16 against an independent
+     gather-based reference (the experts' queues bitwise, the output
+     within one bf16 ulp plus 1e-5, some tokens dropped); the tiny MoE
+     config's loss (rel 1e-5) and gradients (relative L2 2e-4) on the
+     card against the CPU, f32, through the flash kernels and their
+     twins; the full-width Mixer (``MixerConfig()``, 1,024 patch tensors,
+     ``sgd(0.1)``): two steps' losses on the card against the CPU from
+     the same weights, bf16 rel 1e-2 and f32 rel 1e-4 (TF32 off), falling;
 4. times the kernels (CUDA events, median of 7) at the main path's
    shapes beside their bound, their plain twins and one PyTorch library
    call, the streaming kernels, the transpose and the eager chain hop in
@@ -81,9 +94,14 @@ Run from the repository root on a machine with a card:
    allreduce's device time goes, one over an eval batch where the
    forward's goes and one over a train step where the step's goes (busy
    share, top kernels, host gaps); the forward's ms per batch and the
-   train step's ms per step, tokens/s and peak memory;
+   train step's ms per step, tokens/s, TFLOP/s and MFU (closed-form
+   FLOPs, ``models/flops.py``, against the card's bf16 peak) and peak
+   memory; the MoE step likewise, with its profiler window and its
+   one-hot einsums timed alone at the step's shapes; the Mixer's train
+   step (ms, samples/s, peak memory, profiler window);
 5. runs the port's bench suite (``ompi_release_tpu_torch.bench``, the
-   five BASELINE configs) in-process and prints its lines, the headline
+   five BASELINE configs) in-process and prints its lines, then the MFU
+   line (``transformer_fwdbwd_step``), the headline
    ``op_sum_256MiB_f32_hbm_bw`` last among them.
 
 Any mismatch or failure raises (exit code != 0) before the last line;
@@ -93,10 +111,13 @@ prints no result.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+
+from ompi_release_tpu_torch import bench as tbench
 
 #: H100 SXM published HBM rate (bytes/s), the denominator of bound_ms
 HBM_BYTES_PER_S = 3.35e12
@@ -129,6 +150,8 @@ TRUNK_PRODUCTS = (((16384, 512), (512, 512)), ((16384, 512), (512, 2048)),
 DQ_REPLACES = "ompi_release_tpu/ops/pallas_attention.py:264"
 DKV_REPLACES = "ompi_release_tpu/ops/pallas_attention.py:283"
 TRAIN_STEPS = 4  # slice 4's window: train steps on one fixed batch
+MOE_EXPERTS = 4  # the repo's expert count (__graft_entry__.py:106)
+MOE_TRAIN_STEPS = 3  # slice 5's MoE window: adamw(1e-3) steps
 SDPA_BWD_CALLS = 5  # SDPA backward calls in its profiler window
 SDPA_FWD_CALLS = 5  # calls per forward profiler window (SDPA, kernel)
 KERNELS = {
@@ -812,6 +835,181 @@ def check_train_path(torch, model, steps, launches):
         "falling; flash == ring (loss rel 1e-2, gradients rel L2 3e-2)")
 
 
+def drive_moe_path():
+    """Slice 5's MoE path: the full-width switch-MoE TpuLM (``ModelConfig(
+    n_experts=MOE_EXPERTS)``, capacity factor 1.25, bf16, seed 0), one
+    eval batch of (8, 2048) and MOE_TRAIN_STEPS ``adamw(1e-3)`` steps on
+    one fixed batch, on cuda:0. Returns the model, the eval's and the
+    steps' (loss, ms)."""
+    from ompi_release_tpu_torch import entry as tentry
+    from ompi_release_tpu_torch.models.transformer import ModelConfig, TpuLM
+
+    model = TpuLM(ModelConfig(n_experts=MOE_EXPERTS), seed=0)
+    evals = tentry.run_eval(model, n_batches=1)
+    return model, evals, tentry.run_train(model, MOE_TRAIN_STEPS)
+
+
+def check_moe_path(torch, model, evals, steps, launches):
+    """The MoE window's flash launches (8 per forward, 8 + 8 per
+    backward) and losses: within 1.0 of ln(vocab) at init, finite and
+    falling over the steps."""
+    import math
+
+    cfg = model.cfg
+    want = {"flash_fwd": cfg.n_layers * (len(evals) + len(steps)),
+            "flash_bwd_dq": cfg.n_layers * len(steps),
+            "flash_bwd_dkv": cfg.n_layers * len(steps)}
+    for name, n in want.items():
+        check(launches[name] == n, f"MoE path: {name} launched "
+                                   f"{launches[name]} times, not {n}")
+    losses = [loss for loss, _ in evals + steps]
+    check(all(math.isfinite(x) for x in losses), f"MoE losses {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab)) < 1.0,
+          f"MoE eval loss {losses[0]} not within 1.0 of ln({cfg.vocab})")
+    check(steps[-1][0] < steps[0][0], f"MoE train loss did not fall: "
+                                      f"{losses}")
+    log(json.dumps({"moe_eval_loss": evals[0][0],
+                    "moe_train_losses": [x for x, _ in steps]}))
+    log(f"phase 3: slice-5 MoE path: {want} flash launches; losses finite, "
+        "within 1.0 of ln(32000), falling")
+
+
+def check_moe_layer(torch, dev):
+    """``moe_layer`` at full width (T = 8 x 2048 tokens, d 512, 4 experts,
+    d_ff 2048, capacity factor 1.25, bf16) against an independent
+    gather-based reference: each expert's kept tokens in queue order
+    (the first C by token index), ``gate * expert(rows)``, dropped tokens
+    0 (some must be dropped). The expert's input must equal the gathered
+    rows bitwise, the output within one bf16 ulp plus 1e-5."""
+    from ompi_release_tpu_torch.models.transformer import _expert_fn
+    from ompi_release_tpu_torch.parallel import ep
+
+    t, d, e, f = 8 * 2048, 512, MOE_EXPERTS, 2048
+    g = torch.Generator(device=dev).manual_seed(21)
+    # inputs off zero mean: the router then favours some experts, and
+    # tokens over capacity are dropped
+    x = (torch.randn(t, d, generator=g, device=dev) + 1).to(torch.bfloat16)
+    router = (torch.randn(d, e, generator=g, device=dev) * 0.02).to(
+        torch.bfloat16).float()
+    we1 = (torch.randn(e, d, f, generator=g, device=dev) / d ** 0.5).to(
+        torch.bfloat16)
+    we2 = (torch.randn(e, f, d, generator=g, device=dev) / f ** 0.5).to(
+        torch.bfloat16)
+    seen = []
+
+    def expert(pe, rows):
+        seen.append(rows)
+        return _expert_fn(pe, rows)
+
+    with torch.no_grad():
+        out, aux = ep.moe_layer(x, router, expert, (we1, we2),
+                                capacity_factor=1.25)
+        cap = max(1, int(1.25 * t / e))
+        probs = torch.softmax(x.float() @ router, dim=-1)
+        gate, choice = probs.max(dim=-1)
+        want = torch.zeros(t, d, device=dev)
+        kept_total = 0
+        for i in range(e):
+            kept = (choice == i).nonzero()[:, 0][:cap]  # queue order
+            kept_total += kept.numel()
+            rows = torch.zeros(cap, d, dtype=x.dtype, device=dev)
+            rows[:kept.numel()] = x[kept]
+            check(bits_equal(seen[i], rows),
+                  f"moe_layer: expert {i}'s queue != the gathered rows")
+            y = _expert_fn((we1[i], we2[i]), rows)[:kept.numel()]
+            want[kept] = gate[kept, None] * y.float()
+        want = want.to(x.dtype)
+    check(0 < t - kept_total, "moe_layer check: no token dropped at 1.25")
+    ok = ulp_close(out, want, torch.bfloat16, atol=1e-5)
+    err = float((out.float() - want.float()).abs().max())
+    check(ok, f"moe_layer != gather reference (max |diff| {err})")
+    check(bool(torch.isfinite(aux)), f"moe_layer aux {aux}")
+    log(json.dumps({"moe_layer_vs_gather": {
+        "tokens": t, "capacity": cap, "dropped": t - kept_total,
+        "max_abs_err": err, "aux": float(aux)}}))
+    log("phase 3: moe_layer at (16384, 512) bf16 == the gather reference "
+        "(queues bitwise, output within one bf16 ulp + 1e-5)")
+
+
+def copy_params(params, device):
+    """A copy of the (nested) parameter dict on ``device``, detached."""
+    return {n: copy_params(t, device) if isinstance(t, dict)
+            else t.detach().to(device, copy=True) for n, t in params.items()}
+
+
+def check_moe_tiny_vs_cpu(torch, dev):
+    """The tiny MoE config (``tests/test_models.py``'s CFG with 4 experts,
+    capacity factor 1.25, f32, ``attn_impl="flash"``: the kernels on the
+    card, their plain twins on the CPU): loss rel 1e-5 and every
+    gradient within a relative L2 error of 2e-4 of the CPU's."""
+    from ompi_release_tpu_torch.models import transformer as tfm
+    from ompi_release_tpu_torch.optim import leaves
+
+    cfg = tfm.ModelConfig(vocab=32, d_model=16, n_layers=2, n_heads=4,
+                          head_dim=4, d_ff=32, max_seq=16, n_experts=4,
+                          dtype=torch.float32, attn_impl="flash")
+    base = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (8, 16),
+                           generator=torch.Generator().manual_seed(0))
+
+    def run(device):
+        params = copy_params(base, device)
+        ts = leaves(params)
+        for p in ts:
+            p.requires_grad_(True)
+        tok = tokens.to(device)
+        loss = tfm.forward_loss(cfg, params, tok, torch.roll(tok, -1, 1))
+        return float(loss.detach()), [
+            gr.cpu() for gr in torch.autograd.grad(loss, ts)]
+
+    (lc, gc), (lg, gg) = run(torch.device("cpu")), run(dev)
+    check(abs(lg - lc) <= 1e-5 * abs(lc),
+          f"tiny MoE loss: card {lg} vs CPU {lc} (rel 1e-5)")
+    rel = [float((a - b).norm() / b.norm()) for a, b in zip(gg, gc)]
+    check(max(rel) <= 2e-4, f"tiny MoE gradients: card vs CPU relative L2 "
+                            f"{rel} (> 2e-4)")
+    log(f"phase 3: tiny MoE on the card == on the CPU (loss {lg} vs {lc}; "
+        f"gradients rel L2 <= {max(rel):.2e})")
+
+
+def check_mixer_vs_cpu(torch, dev):
+    """The full-width Mixer step (``MixerConfig()``, a batch of
+    MIXER_BATCH from seed 0, ``sgd(0.1)``): the losses of two steps from
+    the same weights on the card and on the CPU, bf16 within rel 1e-2,
+    f32 within rel 1e-4 (TF32 off); both fall."""
+    import dataclasses
+
+    from ompi_release_tpu_torch import entry as tentry
+    from ompi_release_tpu_torch.models import mixer as mx
+    from ompi_release_tpu_torch.optim import sgd
+    from ompi_release_tpu_torch.parallel.mesh_axes import build_parallel_mesh
+
+    out = {}
+    for dtype, rtol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        cfg = dataclasses.replace(mx.MixerConfig(), dtype=dtype)
+        base = mx.init_params(cfg, torch.Generator().manual_seed(0))
+        patches, labels = tentry.mixer_batch(cfg)
+
+        def run(device):
+            params = copy_params(base, device)
+            step = mx.make_train_step(cfg, build_parallel_mesh(
+                devices=[device]))
+            state = sgd(tentry.MIXER_LR)(params)
+            return [float(step(params, state, patches, labels)[2])
+                    for _ in range(2)]
+
+        cpu, card = run(torch.device("cpu")), run(dev)
+        name = str(dtype)[6:]
+        out[name] = {"card": card, "cpu": cpu}
+        for a, b in zip(card, cpu):
+            check(abs(a - b) <= rtol * abs(b), f"Mixer {name}: card losses "
+                                              f"{card} vs CPU {cpu}")
+        check(card[1] < card[0], f"Mixer {name} loss did not fall: {card}")
+    log(json.dumps({"mixer_card_vs_cpu": out}))
+    log("phase 3: full-width Mixer step on the card == on the CPU (bf16 rel "
+        "1e-2, f32 rel 1e-4); losses fall")
+
+
 def check_main_path(tmvar, torch, runs, bench):
     n = N_RANKS
     for comm, method, x, kw, out in runs:
@@ -979,7 +1177,7 @@ def time_flash(fa, torch, dev, launches, hgmma):
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
-        prof = profile_window(torch, fn, SDPA_FWD_CALLS)
+        prof = tbench.profile_window(fn, SDPA_FWD_CALLS)
         device_ms[what] = prof["device_busy_ms"] / SDPA_FWD_CALLS
         check(device_ms[what] > 0, f"no device time in the {what} forward "
                                    f"window {prof}")
@@ -1036,7 +1234,7 @@ def time_flash_bwd(fa, torch, dev, launches, hgmma):
     for _ in range(2):
         sdpa_bwd()
     torch.cuda.synchronize()
-    prof = profile_window(torch, sdpa_bwd, SDPA_BWD_CALLS)
+    prof = tbench.profile_window(sdpa_bwd, SDPA_BWD_CALLS)
     library_ms = prof["device_busy_ms"] / SDPA_BWD_CALLS
     check(library_ms > 0, f"no device time in SDPA's backward window {prof}")
     log(json.dumps({"profile_sdpa_backward": True, **prof}))
@@ -1188,10 +1386,14 @@ def host_launch_us(cuda_op, fa, torch, dev):
 
 def run_bench(torch, dev):
     """Phase 5: the port's bench suite in-process, headline last."""
-    from ompi_release_tpu_torch import bench as tbench
 
     t0 = time.perf_counter()
     lines, headline = tbench.run_suite(dev)
+    mfu = tbench.mfu_line(dev)
+    check(mfu["metric"] == "transformer_fwdbwd_step"
+          and (mfu.get("unstable") or mfu["mfu"] is not None),
+          f"MFU line {mfu}")
+    lines.append(mfu)
     for ln in lines + [headline]:
         check(ln["device"] == torch.cuda.get_device_name(dev),
               f"bench line without the card's name: {ln}")
@@ -1212,31 +1414,6 @@ def time_allreduce(tuned, torch, dev):
         del x
 
 
-def profile_window(torch, fn, calls):
-    """One torch.profiler window of ``calls`` calls of ``fn``: the
-    window's host time, the summed device kernel time (busy share = busy
-    / window), the launches and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    dev_us = lambda e: getattr(  # noqa: E731
-        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    return {"calls": calls, "window_ms": window_ms,
-            "device_busy_ms": busy_ms, "busy_share": busy_ms / window_ms,
-            "launches": sum(e.count for e in kernels),
-            "top": [[e.key[:80], dev_us(e) / 1e3, e.count] for e in top]}
-
-
 def profile_allreduce(tuned, torch, dev):
     """Where the tuned allreduce's time goes: one profiler window of 3
     calls per size."""
@@ -1246,7 +1423,7 @@ def profile_allreduce(tuned, torch, dev):
         tuned.allreduce(x)
         torch.cuda.synchronize()
         log(json.dumps({"profile_tuned_allreduce_bytes_per_rank": nbytes,
-                        **profile_window(torch, lambda: tuned.allreduce(x),
+                        **tbench.profile_window(lambda: tuned.allreduce(x),
                                          3)}))
         del x
 
@@ -1271,7 +1448,106 @@ def time_model(torch, model):
     tok = torch.as_tensor(tok, device=model.device)
     tgt = torch.as_tensor(tgt, device=model.device)
     log(json.dumps({"profile_tpulm_eval_batch": True,
-                    **profile_window(torch, lambda: model(tok, tgt), 1)}))
+                    **tbench.profile_window(lambda: model(tok, tgt), 1)}))
+
+
+def step_rate(torch, model, ms):
+    """TFLOP/s and MFU of a (8, 2048) train step of ``ms`` ms: FLOPs from
+    the closed form (``models.flops``), MFU against the card's bf16
+    peak, beside the card's name and power limit."""
+    from ompi_release_tpu_torch import entry as tentry
+    from ompi_release_tpu_torch.models.flops import train_step_flops
+
+    flops = train_step_flops(model.cfg, tentry.EVAL_BATCH, tentry.EVAL_SEQ)
+    name, limit = tbench.card(model.device)
+    peak = tbench.peak_flops(name)
+    tflops = flops / (ms * 1e-3) / 1e12
+    return {"flops_per_step": flops, "tflops_per_s": tflops,
+            "mfu": tflops * 1e12 / peak if peak else None,
+            "device": name, "power_limit": limit}
+
+
+def time_moe(torch, model):
+    """The MoE train step's ms per step, tokens/s, TFLOP/s (closed form)
+    and peak memory (median of 3 steps after the slice-5 window warmed
+    it), one profiler window over one step, and the one-hot einsums'
+    products timed alone at the step's shapes (per layer: two of
+    ``tec,td->ecd``, two of ``tec,ecd->td`` and one ``td,ecd->tec``,
+    forward and backward) to give their share of the step."""
+    from ompi_release_tpu_torch import entry as tentry
+    from ompi_release_tpu_torch.parallel import ep
+
+    torch.cuda.reset_peak_memory_stats()
+    steps = tentry.run_train(model, 3, seed=10)
+    ms = statistics.median(m for _, m in steps)
+    tokens = tentry.EVAL_BATCH * tentry.EVAL_SEQ
+    log(json.dumps({"tpulm_moe_train_ms_per_step": ms,
+                    **step_rate(torch, model, ms),
+                    "ms_each": [m for _, m in steps],
+                    "losses": [loss for loss, _ in steps],
+                    "tokens_per_s": tokens / (ms * 1e-3),
+                    "n_experts": model.cfg.n_experts,
+                    "capacity_factor": model.cfg.capacity_factor,
+                    "peak_device_memory_GiB":
+                        torch.cuda.max_memory_allocated() / 2**30}))
+    tok, tgt = tentry._batch(model.cfg, tentry.EVAL_BATCH, tentry.EVAL_SEQ,
+                             seed=10)
+    tok = torch.as_tensor(tok, device=model.device)
+    tgt = torch.as_tensor(tgt, device=model.device)
+    prof = tbench.profile_window(lambda: model.train_step(tok, tgt), 1)
+    log(json.dumps({"profile_tpulm_moe_train_step": True, **prof,
+                    "host_gap_ms": prof["window_ms"]
+                    - prof["device_busy_ms"]}))
+    e, d = model.cfg.n_experts, model.cfg.d_model
+    cap = max(1, int(model.cfg.capacity_factor * tokens / e))
+    g = torch.Generator(device=model.device).manual_seed(3)
+    logits = torch.randn(tokens, e, generator=g, device=model.device)
+    with torch.no_grad():
+        dispatch, combine = ep._one_hot_dispatch(logits, e, cap)
+        x = torch.randn(tokens, d, generator=g, device=model.device)
+        back = torch.randn(e, cap, d, generator=g, device=model.device)
+        each = {
+            "tec,td->ecd": time_ms(lambda: torch.einsum(
+                "tec,td->ecd", dispatch, x), reps=5),
+            "tec,ecd->td": time_ms(lambda: torch.einsum(
+                "tec,ecd->td", combine, back), reps=5),
+            "td,ecd->tec": time_ms(lambda: torch.einsum(
+                "td,ecd->tec", x, back), reps=5)}
+    per_step = model.cfg.n_layers * (2 * each["tec,td->ecd"]
+                                     + 2 * each["tec,ecd->td"]
+                                     + each["td,ecd->tec"])
+    log(json.dumps({"moe_one_hot_einsums_ms": each,
+                    "einsum_ms_per_step": per_step,
+                    "share_of_step": per_step / ms,
+                    "flops_each": 2 * tokens * e * cap * d}))
+
+
+def time_mixer(torch):
+    """The full-width Mixer's train step (``entry --mixer``: ``sgd(0.1)``
+    on one fixed batch of MIXER_BATCH): one warm-up step, then 6, each
+    timed on the host clock to a synchronize; the loss must fall. Prints
+    the median ms, samples/s and peak memory, and one profiler window
+    over one step."""
+    from ompi_release_tpu_torch import entry as tentry
+    from ompi_release_tpu_torch.models.mixer import MixerConfig, TpuMixer
+
+    torch.cuda.reset_peak_memory_stats()
+    model = TpuMixer(MixerConfig(), seed=0, lr=tentry.MIXER_LR)
+    runs = tentry.run_mixer_train(model, 1 + tentry.TRAIN_STEPS)
+    losses = [loss for loss, _ in runs]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"Mixer train losses {losses}")
+    ms = statistics.median(m for _, m in runs[1:])
+    log(json.dumps({"mixer_train_ms_per_step": ms,
+                    "ms_each": [m for _, m in runs[1:]], "losses": losses,
+                    "samples_per_s": tentry.MIXER_BATCH / (ms * 1e-3),
+                    "peak_device_memory_GiB":
+                        torch.cuda.max_memory_allocated() / 2**30}))
+    patches, labels = (torch.as_tensor(a, device=model.device)
+                       for a in tentry.mixer_batch(model.cfg))
+    prof = tbench.profile_window(lambda: model.train_step(patches, labels),
+                          1)
+    log(json.dumps({"profile_mixer_train_step": True, **prof}))
 
 
 def time_train(torch, model):
@@ -1287,6 +1563,7 @@ def time_train(torch, model):
     ms = statistics.median(m for _, m in steps)
     tokens = tentry.EVAL_BATCH * tentry.EVAL_SEQ
     log(json.dumps({"tpulm_train_ms_per_step": ms,
+                    **step_rate(torch, model, ms),
                     "ms_each": [m for _, m in steps],
                     "losses": [loss for loss, _ in steps],
                     "tokens_per_s": tokens / (ms * 1e-3),
@@ -1300,7 +1577,7 @@ def time_train(torch, model):
                              seed=10)
     tok = torch.as_tensor(tok, device=model.device)
     tgt = torch.as_tensor(tgt, device=model.device)
-    prof = profile_window(torch, lambda: model.train_step(tok, tgt), 1)
+    prof = tbench.profile_window(lambda: model.train_step(tok, tgt), 1)
     gap_ms = prof["window_ms"] - prof["device_busy_ms"]
     log(json.dumps({"profile_tpulm_train_step": True, **prof,
                     "host_gap_ms": gap_ms}))
@@ -1379,20 +1656,34 @@ def main():
     torch.cuda.synchronize()
     launches_train = dict(cuda_op.LAUNCHES)
     log(f"phase 3: slice-4 path launches {launches_train}")
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        launches[name] = launches_train[name]
-    # flash_fwd runs on both model paths: its row counts both windows
-    fwd_by_path = {"eval": launches["flash_fwd"],
-                   "train": launches_train["flash_fwd"]}
-    launches["flash_fwd"] = sum(fwd_by_path.values())
     check_train_path(torch, train_model, steps, launches_train)
     torch.cuda.empty_cache()
 
+    cuda_op.reset_launches()
+    moe_model, moe_evals, moe_steps = drive_moe_path()
+    torch.cuda.synchronize()
+    launches_moe = dict(cuda_op.LAUNCHES)
+    log(f"phase 3: slice-5 MoE path launches {launches_moe}")
+    check_moe_path(torch, moe_model, moe_evals, moe_steps, launches_moe)
+    torch.cuda.empty_cache()
+    # the flash kernels run on every model path: each row counts them all
+    by_path = {name: {"eval": launches_model[name],
+                      "train": launches_train[name],
+                      "moe": launches_moe[name]}
+               for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    for name, counts in by_path.items():
+        launches[name] = sum(counts.values())
+    check_moe_layer(torch, dev)
+    check_moe_tiny_vs_cpu(torch, dev)
+    check_mixer_vs_cpu(torch, dev)
+    torch.cuda.empty_cache()
+
     rows = time_kernels(cuda_op, torch, dev, launches)
-    rows.append(dict(time_flash(fa, torch, dev, launches["flash_fwd"],
-                                hgmma),
-                     launches_by_path=fwd_by_path))
+    rows.append(time_flash(fa, torch, dev, launches["flash_fwd"], hgmma))
     rows.extend(time_flash_bwd(fa, torch, dev, launches, hgmma))
+    for row in rows:
+        if row["name"] in by_path:
+            row["launches_by_path"] = by_path[row["name"]]
     host_us = host_launch_us(cuda_op, fa, torch, dev)
     for row in rows:  # named stream_axpy[sum], ..., chain_add_one, flash_*
         key = {"tile_transpose_32": "transpose", "chain_add_one": "chain"}.get(
@@ -1407,6 +1698,11 @@ def main():
     time_model(torch, model)
     time_train(torch, train_model)
     del model, train_model
+    torch.cuda.empty_cache()
+    time_moe(torch, moe_model)
+    del moe_model
+    torch.cuda.empty_cache()
+    time_mixer(torch)
     tuned.free()
     mpi.finalize()
     torch.cuda.empty_cache()

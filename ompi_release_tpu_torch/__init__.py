@@ -59,6 +59,35 @@ def initialized() -> bool:
     return Runtime.is_initialized()
 
 
+def finalized() -> bool:
+    """MPI_Finalized."""
+    from .runtime.runtime import Runtime
+
+    rt = Runtime._instance
+    return bool(rt is not None and rt.finalized)
+
+
+def wtime() -> float:
+    """MPI_Wtime: monotonic wall-clock seconds."""
+    import time
+
+    return time.monotonic()
+
+
+def wtick() -> float:
+    """MPI_Wtick: the wtime clock's resolution."""
+    import time
+
+    return time.get_clock_info("monotonic").resolution
+
+
+def get_version():
+    """MPI_Get_version analogue: (framework version, reference level),
+    the JAX package's capability level (the Open MPI 1.8.5-era
+    surface)."""
+    return __version__, "ompi-1.8.5-capability"
+
+
 def error_string(code) -> str:
     """MPI_Error_string: human text for an error class."""
     try:

@@ -12,7 +12,8 @@ torch tensor, or a numpy array that is moved to the communicator's
 device — and return the same layout. All of a communicator's rows live
 on one device: the device of its first rank (virtual ranks share it).
 
-Ported so far: WORLD/SELF, dup/create/split/free, attributes,
+Ported so far: WORLD/SELF, dup/create/split/split_type_shared/free,
+attributes, info objects, the ``submesh`` of each comm's devices,
 errhandlers, the blocking collectives, which call the installed
 ``c_coll`` table directly, and point-to-point through the per-comm PML
 engine (driver mode: the acting rank is the keyword ``rank=``).
@@ -32,6 +33,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..mca import pvar
+from ..runtime.mesh import build_submesh
 from ..utils import output
 from ..utils.errors import Errhandler, ErrorCode, MPIError, ERRORS_ARE_FATAL
 from .group import Group, UNDEFINED
@@ -82,12 +84,18 @@ class Communicator:
         self.errhandler: Errhandler = (
             parent.errhandler if parent else ERRORS_ARE_FATAL
         )
+        from .info import Info
+
+        parent_info = getattr(parent, "info", None)
+        self.info: Info = (parent_info.dup() if isinstance(parent_info, Info)
+                           else Info())  # MPI_Comm_set/get_info object
         self._attrs: Dict[int, Any] = {}
         self._freed = False
+        #: the 1-D "rank" mesh of the group's devices, in group order
+        self.submesh = build_submesh(runtime.mesh, group.world_ranks)
         #: the device holding the comm's rank-stacked buffers: its
         #: first rank's
-        self.device: torch.device = \
-            runtime.mesh.devices.reshape(-1)[group.world_ranks[0]]
+        self.device: torch.device = self.submesh.devices[0]
 
         # per-comm collective table (c_coll analogue), installed at
         # creation time exactly like coll_base_comm_select
@@ -171,6 +179,14 @@ class Communicator:
             for _, local in members:
                 result[local] = sub
         return result
+
+    def split_type_shared(self) -> List["Communicator"]:
+        """MPI_Comm_split_type(COMM_TYPE_SHARED): group by host process
+        (one controller process: one communicator)."""
+        eps = {e.rank: e for e in self.runtime.endpoints}
+        colors = [eps[self.group.world_rank(i)].process_index
+                  for i in range(self.size)]
+        return self.split(colors)  # type: ignore[return-value]
 
     def free(self) -> None:
         self._check_alive()

@@ -17,13 +17,21 @@ Counterpart of ``__graft_entry__.py``:
   naming the card. With ``--train`` it runs the full-width train step
   instead: ``adamw(1e-3)`` on one fixed (8, 2048) batch from seed 0, one
   warm-up step and then 6 steps, each printing its loss, ms and
-  tokens/s. Without CUDA it exits 2.
+  tokens/s. ``--experts N`` takes the switch-MoE TpuLM instead (the
+  same defaults with ``n_experts=N`` and ``capacity_factor`` 1.25; the
+  repo's expert count is 4). ``--mixer`` trains the full-width default
+  ``MixerConfig`` (64 patches, d_model 128, d_token 64, d_channel 512, 4
+  layers, 10 classes, bf16) on one fixed batch of 1,024 random patch
+  tensors and labels from seed 0 with ``sgd(0.1)``: one warm-up step,
+  then 6 steps, each printing its loss, ms and samples/s. Every line
+  carries the peak device memory so far. Without CUDA it exits 2.
 
 ``dryrun_multichip`` waits for the multi-card slice.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -37,6 +45,9 @@ EVAL_BATCH = 8
 EVAL_SEQ = 2048
 #: the full-width train run: steps after one warm-up step
 TRAIN_STEPS = 6
+#: the Mixer's full-width batch (patch tensors) and SGD rate
+MIXER_BATCH = 1024
+MIXER_LR = 0.1
 
 
 def _tiny_cfg():
@@ -129,33 +140,74 @@ def run_train(model, n_steps: int, seed: int = 0):
     return out
 
 
+def mixer_batch(cfg, b: int = MIXER_BATCH, seed: int = 0):
+    """(patches (b, P, D) f32, labels (b,) int32) from numpy's seed."""
+    rng = np.random.RandomState(seed)
+    patches = rng.randn(b, cfg.n_patches, cfg.d_model).astype(np.float32)
+    return patches, rng.randint(0, cfg.n_classes, size=(b,)).astype(np.int32)
+
+
+def run_mixer_train(model, n_steps: int, seed: int = 0):
+    """``n_steps`` train steps of ``model`` (a ``TpuMixer`` on the card)
+    on one fixed batch of ``MIXER_BATCH`` from ``seed``, each timed on
+    the host clock to a ``synchronize``. Returns ``[(loss, ms), ...]``."""
+    patches, labels = (torch.as_tensor(a, device=model.device)
+                       for a in mixer_batch(model.cfg, seed=seed))
+    out = []
+    for _ in range(n_steps):
+        torch.cuda.synchronize(model.device)
+        t0 = time.perf_counter()
+        loss = model.train_step(patches, labels)
+        torch.cuda.synchronize(model.device)
+        out.append((float(loss), (time.perf_counter() - t0) * 1e3))
+    return out
+
+
 def main(argv=None) -> int:
-    train = "--train" in (sys.argv[1:] if argv is None else argv)
+    ap = argparse.ArgumentParser(prog="python -m ompi_release_tpu_torch.entry")
+    ap.add_argument("--train", action="store_true",
+                    help="the train step instead of the eval forward")
+    ap.add_argument("--experts", type=int, default=0,
+                    help="switch-MoE TpuLM with this many experts")
+    ap.add_argument("--mixer", action="store_true",
+                    help="train the TpuMixer instead of the TpuLM")
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("entry: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
     from .bench import card
+    from .models.mixer import MixerConfig, TpuMixer
     from .models.transformer import ModelConfig, TpuLM
     from .ops import cuda_op
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
     cuda_op.build()
-    model = TpuLM(ModelConfig(), seed=0)
-    name, limit = card(model.device)
-    tokens = EVAL_BATCH * EVAL_SEQ
-    if train:
-        runs = run_train(model, 1 + TRAIN_STEPS)[1:]  # after one warm-up
-        metric, key = "tpulm_train_step", "step"
+    if args.mixer:
+        model = TpuMixer(MixerConfig(), seed=0, lr=MIXER_LR)
+        runs = run_mixer_train(model, 1 + TRAIN_STEPS)[1:]
+        metric, key, unit, per = "mixer_train_step", "step", \
+            "samples_per_s", MIXER_BATCH
     else:
-        run_eval(model, n_batches=1, seed=100)  # warm-up: cuBLAS, kernels
-        runs = run_eval(model)
-        metric, key = "tpulm_eval_batch", "batch"
+        model = TpuLM(ModelConfig(n_experts=args.experts), seed=0)
+        unit, per = "tokens_per_s", EVAL_BATCH * EVAL_SEQ
+        if args.train:
+            runs = run_train(model, 1 + TRAIN_STEPS)[1:]  # after a warm-up
+            metric, key = "tpulm_train_step", "step"
+        else:
+            run_eval(model, n_batches=1, seed=100)  # warm-up: cuBLAS
+            runs = run_eval(model)
+            metric, key = "tpulm_eval_batch", "batch"
+        if args.experts:
+            metric = metric.replace("tpulm", f"tpulm_moe{args.experts}")
+    name, limit = card(model.device)
     for i, (loss, ms) in enumerate(runs):
-        print(json.dumps({"metric": metric, key: i, "loss": loss, "ms": ms,
-                          "tokens_per_s": tokens / (ms * 1e-3),
-                          "device": name, "power_limit": limit}),
-              flush=True)
+        print(json.dumps({
+            "metric": metric, key: i, "loss": loss, "ms": ms,
+            unit: per / (ms * 1e-3),
+            "peak_device_memory_GiB":
+                torch.cuda.max_memory_allocated(model.device) / 2**30,
+            "device": name, "power_limit": limit}), flush=True)
     return 0
 
 

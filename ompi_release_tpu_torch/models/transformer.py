@@ -18,8 +18,10 @@ Parameters are a dict of tensors shaped as the JAX pytree, per-layer
 weights stacked on a leading ``n_layers`` axis; ``params_from_jax``
 carries a JAX pytree (as numpy arrays) over. The gradient is autograd's
 through the same forward, with ``flash_attention``'s backward the flash
-backward kernels (their plain twins on the CPU). The switch-MoE FFN
-(``n_experts > 0``) and axes > 1 are later slices.
+backward kernels (their plain twins on the CPU). ``n_experts > 0`` puts
+the switch-MoE FFN (``parallel.ep.moe_layer`` at ep = 1) in every layer
+in place of the dense one; its auxiliary load-balancing loss is computed
+and discarded, as the reference does. Axes > 1 are a later slice.
 """
 
 from __future__ import annotations
@@ -36,9 +38,8 @@ from torch import nn
 
 from ..ops.flash_attention import flash_attention
 from ..optim import adamw
-from ..parallel import cp, pp as pp_mod, tp as tp_mod
+from ..parallel import cp, ep as ep_mod, pp as pp_mod, tp as tp_mod
 from ..parallel.mesh_axes import ParallelMesh, build_parallel_mesh
-from ..utils.errors import ErrorCode, MPIError
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,8 +51,8 @@ class ModelConfig:
     head_dim: int = 64
     d_ff: int = 2048
     max_seq: int = 2048
-    n_experts: int = 0  # 0 = dense FFN; >0 = switch-MoE (not ported yet)
-    capacity_factor: float = 1.25  # read by the MoE layer (not ported yet)
+    n_experts: int = 0  # 0 = dense FFN; >0 = switch-MoE every layer
+    capacity_factor: float = 1.25
     microbatches: int = 1  # microbatch count of the pp schedule
     remat: bool = False  # checkpoint the trunk: recompute in the backward
     dtype: Any = torch.bfloat16
@@ -61,10 +62,6 @@ class ModelConfig:
     attn_impl: str = "auto"
 
     def __post_init__(self):
-        if self.n_experts:
-            raise MPIError(ErrorCode.ERR_NOT_AVAILABLE,
-                           "n_experts > 0 (switch-MoE) is not ported: "
-                           "ROADMAP slice 3 item 15")
         if self.attn_impl not in ("auto", "flash", "ring"):
             raise ValueError(f"attn_impl {self.attn_impl!r}: one of "
                              "'auto', 'flash', 'ring'")
@@ -79,6 +76,8 @@ class ModelConfig:
             raise ValueError("vocab must divide by tp")
         if self.d_ff % ax.get("tp", 1):
             raise ValueError("d_ff must divide by tp")
+        if self.n_experts and self.n_experts % ax.get("ep", 1):
+            raise ValueError("n_experts must divide by ep")
 
 
 # ---------------------------------------------------------------------------
@@ -88,23 +87,25 @@ class ModelConfig:
 def param_shapes(cfg: ModelConfig) -> Dict:
     """``{name: (shape, dtype)}`` of the parameter dict, ``layers``
     nested: the JAX ``init_params`` pytree's structure."""
-    d, l, dt = cfg.d_model, cfg.n_layers, cfg.dtype
+    d, l, dt, e = cfg.d_model, cfg.n_layers, cfg.dtype, cfg.n_experts
     hdim = cfg.n_heads * cfg.head_dim
     f32 = torch.float32
-    return {
-        "embed": ((cfg.vocab, d), dt),
-        "ln_f": ((d,), f32),
-        "layers": {
-            "ln1": ((l, d), f32),
-            "wq": ((l, d, hdim), dt),
-            "wk": ((l, d, hdim), dt),
-            "wv": ((l, d, hdim), dt),
-            "wo": ((l, hdim, d), dt),
-            "ln2": ((l, d), f32),
-            "w1": ((l, d, cfg.d_ff), dt),
-            "w2": ((l, cfg.d_ff, d), dt),
-        },
+    layers = {
+        "ln1": ((l, d), f32),
+        "wq": ((l, d, hdim), dt),
+        "wk": ((l, d, hdim), dt),
+        "wv": ((l, d, hdim), dt),
+        "wo": ((l, hdim, d), dt),
+        "ln2": ((l, d), f32),
     }
+    if e:
+        layers.update(router=((l, d, e), f32),
+                      we1=((l, e, d, cfg.d_ff), dt),
+                      we2=((l, e, cfg.d_ff, d), dt))
+    else:
+        layers.update(w1=((l, d, cfg.d_ff), dt), w2=((l, cfg.d_ff, d), dt))
+    return {"embed": ((cfg.vocab, d), dt), "ln_f": ((d,), f32),
+            "layers": layers}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -112,31 +113,33 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters with the shapes, dtypes and scales of the JAX
     ``init_params`` (``transformer.py:82-114``): N(0, 1) in f32 times
     0.02 for the embedding and 1/sqrt(fan-in) for the weights, cast to
-    ``cfg.dtype``; norms are f32 ones. Drawn on the CPU from
-    ``generator`` (the numbers differ from JAX's), then moved."""
-    def draw(shape, dtype, scale):
-        x = torch.randn(shape, generator=generator, dtype=torch.float32)
-        return (x * scale).to(dtype)
-
+    ``cfg.dtype``; norms are f32 ones. The MoE router is drawn at scale
+    0.02, cast to ``cfg.dtype`` and stored as f32 (``transformer.py:
+    106-108``: its values are rounded to ``cfg.dtype``). Drawn on the
+    CPU from ``generator`` (the numbers differ from JAX's), then
+    moved."""
     def make(name, shape, dtype):
         if name.startswith("ln"):
             return torch.ones(shape, dtype=dtype)
-        return draw(shape, dtype, 0.02 if name == "embed"
-                    else 1.0 / math.sqrt(shape[-2]))
+        scale = 0.02 if name in ("embed", "router") \
+            else 1.0 / math.sqrt(shape[-2])
+        x = torch.randn(shape, generator=generator, dtype=torch.float32)
+        return (x * scale).to(cfg.dtype).to(dtype)
 
     shapes = param_shapes(cfg)
     params = {n: make(n, *sd) for n, sd in shapes.items() if n != "layers"}
     params["layers"] = {n: make(n, *sd)
                         for n, sd in shapes["layers"].items()}
-    return _to_device(params, device)
+    return to_device(params, device)
 
 
-def _to_device(params: Dict, device) -> Dict:
+def to_device(params: Dict, device) -> Dict:
+    """The (nested) parameter dict with every tensor moved to ``device``
+    (``params`` itself when ``device`` is None)."""
     if device is None:
         return params
-    out = {n: t.to(device) for n, t in params.items() if n != "layers"}
-    out["layers"] = {n: t.to(device) for n, t in params["layers"].items()}
-    return out
+    return {n: to_device(t, device) if isinstance(t, dict) else t.to(device)
+            for n, t in params.items()}
 
 
 def _from_numpy(a) -> torch.Tensor:
@@ -146,13 +149,10 @@ def _from_numpy(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_jax(np_params: Dict, cfg: ModelConfig, device=None) -> Dict:
-    """The JAX pytree (``init_params`` output as numpy arrays, e.g.
-    ``jax.device_get(params)``) as the port's parameter dict, value for
-    value. Raises if a leaf is missing, extra, or of another shape or
-    dtype than ``cfg`` gives it."""
-    shapes = param_shapes(cfg)
-
+def tree_from_jax(np_params: Dict, shapes: Dict) -> Dict:
+    """A JAX parameter pytree (numpy arrays) as a dict of tensors, value
+    for value, checked against ``shapes`` (a ``param_shapes`` dict).
+    Raises if a leaf is missing, extra, or of another shape or dtype."""
     def convert(tree, spec, where):
         if set(tree) != set(spec):
             raise ValueError(f"params_from_jax: {where or 'top'} keys "
@@ -170,7 +170,15 @@ def params_from_jax(np_params: Dict, cfg: ModelConfig, device=None) -> Dict:
             out[name] = t
         return out
 
-    return _to_device(convert(np_params, shapes, ""), device)
+    return convert(np_params, shapes, "")
+
+
+def params_from_jax(np_params: Dict, cfg: ModelConfig, device=None) -> Dict:
+    """The JAX pytree (``init_params`` output as numpy arrays, e.g.
+    ``jax.device_get(params)``) as the port's parameter dict, value for
+    value. Raises if a leaf is missing, extra, or of another shape or
+    dtype than ``cfg`` gives it."""
+    return to_device(tree_from_jax(np_params, param_shapes(cfg)), device)
 
 
 # ---------------------------------------------------------------------------
@@ -228,10 +236,26 @@ def _layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor) -> torch.Tensor:
     x = x + tp_mod.row_parallel(attn, lp["wo"])
 
     h2 = _rmsnorm(x, lp["ln2"])
+    if cfg.n_experts:
+        out, _aux = ep_mod.moe_layer(
+            h2.reshape(mb * s, cfg.d_model), lp["router"], _expert_fn,
+            (lp["we1"], lp["we2"]), capacity_factor=cfg.capacity_factor)
+        return x + out.reshape(mb, s, cfg.d_model)
     u = tp_mod.column_parallel(h2, lp["w1"])
     # jax.nn.gelu's default is the tanh approximation
     u = F.gelu(u.float(), approximate="tanh").to(x.dtype)
     return x + tp_mod.row_parallel(u, lp["w2"])
+
+
+def _expert_fn(pe, t: torch.Tensor) -> torch.Tensor:
+    """One expert's FFN (``transformer.py:224-231``). Unlike the dense
+    branch, the first product is not rounded before the GELU: it is the
+    f32 product of the bf16 values (exact products, f32 sums), GELU'd in
+    f32 and then rounded; the second is ``column_parallel``'s."""
+    w1, w2 = pe
+    u = torch.matmul(t.float(), w1.float())
+    u = F.gelu(u, approximate="tanh").to(t.dtype)
+    return tp_mod.row_parallel(u, w2)
 
 
 def _trunk(cfg: ModelConfig, stage_layers: Dict,
@@ -261,21 +285,40 @@ def forward_loss(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     return nll.sum() / (b * s)
 
 
+def eval_fn(loss_fn, device: torch.device):
+    """``fn(params, *batch) -> scalar loss``: ``loss_fn(params, *batch)``
+    on ``device`` under ``torch.inference_mode()``, the batch's arrays
+    (numpy or tensors) moved there first."""
+    def fn(params: Dict, *batch) -> torch.Tensor:
+        with torch.inference_mode():
+            return loss_fn(params, *(torch.as_tensor(a, device=device)
+                                     for a in batch))
+
+    return fn
+
+
+def train_step_fn(loss_fn, device: torch.device):
+    """``step(params, opt_state, *batch) -> (params, opt_state, loss)``:
+    the loss on ``device``, its gradient by ``loss.backward()`` and one
+    ``opt_state.step()``; ``loss`` is the detached pre-update loss."""
+    def step(params: Dict, opt_state, *batch):
+        opt_state.zero_grad(set_to_none=True)
+        loss = loss_fn(params, *(torch.as_tensor(a, device=device)
+                                 for a in batch))
+        loss.backward()
+        opt_state.step()
+        return params, opt_state, loss.detach()
+
+    return step
+
+
 def make_forward(cfg: ModelConfig, mesh: ParallelMesh):
     """The loss-evaluation forward (the flagship inference/eval path) on
     ``mesh``'s device: ``fn(params, tokens, targets) -> scalar loss``.
     Tokens and targets may be numpy arrays or tensors; the forward runs
     under ``torch.inference_mode()``."""
     cfg.validate(mesh)
-    dev = mesh.device
-
-    def fn(params: Dict, tokens, targets) -> torch.Tensor:
-        with torch.inference_mode():
-            return forward_loss(cfg, params, torch.as_tensor(tokens,
-                                                             device=dev),
-                                torch.as_tensor(targets, device=dev))
-
-    return fn
+    return eval_fn(partial(forward_loss, cfg), mesh.device)
 
 
 def make_train_step(cfg: ModelConfig, mesh: ParallelMesh):
@@ -290,31 +333,21 @@ def make_train_step(cfg: ModelConfig, mesh: ParallelMesh):
     state) in place, returning the same objects where JAX returns new
     pytrees. ``loss`` is the detached pre-update loss."""
     cfg.validate(mesh)
-    dev = mesh.device
-
-    def step(params: Dict, opt_state, tokens, targets):
-        opt_state.zero_grad(set_to_none=True)
-        loss = forward_loss(cfg, params, torch.as_tensor(tokens, device=dev),
-                            torch.as_tensor(targets, device=dev))
-        loss.backward()
-        opt_state.step()
-        return params, opt_state, loss.detach()
-
-    return step
+    return train_step_fn(partial(forward_loss, cfg), mesh.device)
 
 
-class TpuLM(nn.Module):
-    """The model on one device: parameters (random from ``seed`` unless
-    given), the eval forward and the train step. ``device`` defaults to
-    ``cuda:0``; without CUDA it raises ``ERR_NOT_AVAILABLE`` unless the
-    caller asks for ``device="cpu"``, as ``init()`` does. The parameters
-    are frozen until the first :meth:`train_step`, which makes them
-    trainable and builds the state of ``optim.adamw(1e-3)`` (the
-    optimizer of ``__graft_entry__._dryrun_one``); another optimizer goes
-    through :func:`make_train_step`."""
+class OneDeviceModel(nn.Module):
+    """A model of the family on one device: its parameters (frozen until
+    the first :meth:`train_step`), the eval forward and the train step
+    its module's ``make_forward`` / ``make_train_step`` build.
+    ``device`` defaults to ``cuda:0``; without CUDA it raises
+    ``ERR_NOT_AVAILABLE`` unless the caller asks for ``device="cpu"``,
+    as ``init()`` does. ``params`` default to the module's
+    ``init_params`` from ``seed``; the first train step builds
+    ``optimizer(params)``."""
 
-    def __init__(self, cfg: ModelConfig, params: Optional[Dict] = None, *,
-                 device=None, seed: int = 0):
+    def __init__(self, cfg, params: Optional[Dict], device, seed: int,
+                 optimizer, *, init_params, make_forward, make_train_step):
         super().__init__()
         from ..runtime.ess import discover_devices
 
@@ -323,7 +356,7 @@ class TpuLM(nn.Module):
         self.device = self.mesh.device
         if params is None:
             params = init_params(cfg, torch.Generator().manual_seed(seed))
-        params = _to_device(params, self.device)
+        params = to_device(params, self.device)
 
         def frozen(tensors):
             return nn.ParameterDict({
@@ -335,6 +368,7 @@ class TpuLM(nn.Module):
                            if n != "layers"})
         self._fwd = make_forward(cfg, self.mesh)
         self._step = make_train_step(cfg, self.mesh)
+        self._optimizer = optimizer
         self.opt_state = None
 
     def params(self) -> Dict:
@@ -343,14 +377,27 @@ class TpuLM(nn.Module):
         out["layers"] = dict(self.layers.items())
         return out
 
-    def forward(self, tokens, targets) -> torch.Tensor:
-        return self._fwd(self.params(), tokens, targets)
+    def forward(self, *batch) -> torch.Tensor:
+        return self._fwd(self.params(), *batch)
 
-    def train_step(self, tokens, targets) -> torch.Tensor:
-        """One optimizer step on (B, S) tokens/targets; returns the
-        pre-update loss (detached)."""
+    def train_step(self, *batch) -> torch.Tensor:
+        """One optimizer step on the batch; returns the pre-update loss
+        (detached)."""
         if self.opt_state is None:
-            self.opt_state = adamw(1e-3)(self.params())
-        _, _, loss = self._step(self.params(), self.opt_state, tokens,
-                                targets)
+            self.opt_state = self._optimizer(self.params())
+        _, _, loss = self._step(self.params(), self.opt_state, *batch)
         return loss
+
+
+class TpuLM(OneDeviceModel):
+    """The TpuLM on one device (:class:`OneDeviceModel`): ``model(tokens,
+    targets)`` is the eval loss, ``model.train_step(tokens, targets)``
+    one step of ``optim.adamw(1e-3)`` (the optimizer of
+    ``__graft_entry__._dryrun_one``); another optimizer goes through
+    :func:`make_train_step`."""
+
+    def __init__(self, cfg: ModelConfig, params: Optional[Dict] = None, *,
+                 device=None, seed: int = 0):
+        super().__init__(cfg, params, device, seed, adamw(1e-3),
+                         init_params=init_params, make_forward=make_forward,
+                         make_train_step=make_train_step)

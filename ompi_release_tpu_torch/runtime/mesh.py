@@ -135,6 +135,15 @@ def build_mesh(devices: Sequence[torch.device],
     return mesh
 
 
+def build_submesh(world_mesh: Mesh, world_ranks: Sequence[int]) -> Mesh:
+    """1-D ``rank`` mesh over the given world ranks' devices, in group
+    order (MPI rank numbering)."""
+    flat = world_mesh.devices.reshape(-1)
+    devs = np.empty(len(world_ranks), dtype=object)
+    devs[:] = [flat[r] for r in world_ranks]
+    return Mesh(devs, ("rank",))
+
+
 def _device_kind(dev: torch.device) -> str:
     if dev.type == "cuda":
         return torch.cuda.get_device_name(dev)

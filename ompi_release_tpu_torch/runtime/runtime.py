@@ -1,8 +1,9 @@
 """Runtime bring-up/teardown — the ``MPI_Init``/``orte_init`` analogue.
 
 Counterpart of ``ompi_release_tpu/runtime/runtime.py``, init/finalize
-only (the wire, progress, observability, ULFM and retune arms are not
-ported yet). The bring-up sequence mirrors ``ompi_mpi_init.c``:
+and the ``runtime_timing`` init report only (the wire, progress,
+observability, ULFM and retune arms are not ported yet). The bring-up
+sequence mirrors ``ompi_mpi_init.c``:
 
   1. config/core var registration        (opal_init_util)
   2. ESS select + bootstrap              (orte_init/ess.init)
@@ -72,6 +73,11 @@ class Runtime:
 
             # 1. core vars + CLI
             mesh_mod.register_vars()
+            mca_var.register(
+                "runtime_timing", "bool", False,
+                "Report per-stage init timing after bring-up (the "
+                "ompi_timing var, ompi_mpi_init.c:366-371,617-625)",
+            )
             if cli_args:
                 mca_var.VARS.apply_cli(_parse_mca_cli(cli_args))
             self.job_state.activate(JobState.INIT)
@@ -99,7 +105,22 @@ class Runtime:
             self.initialized = True
             _log.verbose(1, f"initialized: {len(self.endpoints)} ranks on "
                             f"{self.mesh.shape} mesh")
+            if mca_var.get("runtime_timing", False):
+                self._report_init_timing()
             return self.world
+
+    def _report_init_timing(self) -> None:
+        """The ``ompi_timing`` report: per-stage durations from the job
+        state machine's timestamped history (``ompi_mpi_init.c:435-437,
+        617-625``)."""
+        hist = self.job_state.history()
+        if len(hist) < 2:
+            return
+        total = (hist[-1][0] - hist[0][0]) * 1e3
+        _log.info(f"init timing (total {total:.1f} ms):")
+        for (t0, s0, _), (t1, _, _) in zip(hist, hist[1:]):
+            name = self.job_state._fmt(s0)
+            _log.info(f"  {name:<14} {(t1 - t0) * 1e3:8.1f} ms")
 
     def finalize(self) -> None:
         with _lock:
