@@ -78,6 +78,32 @@ Run from the repository root on a machine with a card:
      twins; the full-width Mixer (``MixerConfig()``, 1,024 patch tensors,
      ``sgd(0.1)``): two steps' losses on the card against the CPU from
      the same weights, bf16 rel 1e-2 and f32 rel 1e-4 (TF32 off), falling;
+   - slice 6 (right after slice 1, on its WORLD and tuned comm): the
+     datatype engine (the eight BLOCK x CYCLIC(64) darray pieces of an
+     (8192, 8192) f32 array pack to plain indexing and unpack to the
+     array bitwise; a subarray face and a vector column round-trip;
+     external32 of a 4 MiB strided f32 and a bf16 payload; the on-card
+     checksum of 256 MiB equals a host sum); tuned gather/scatter
+     linear and binomial at 64 MiB per rank, roots 0 and 5, against
+     closed forms; scan/exscan at 64 MiB (WORLD defers to tuned's
+     recursive doubling) and 4 KiB (fused) equal ``torch.cumsum`` on
+     integer-valued inputs and the op ^cuda run on random ones;
+     allgatherv/gatherv/scatterv/reduce_scatter over counts 1:2:...:8
+     (256 MiB); ``dropless_moe`` over ranks 0-3 with the full-width MoE
+     TpuLM's layer-0 router assignments of the (8, 2048) batch (bf16,
+     width 512), every output bitwise ``expert_fn(assign, token)``, its
+     alltoallv against MPI_Alltoallv on the host; the fusion buffer over
+     the full-width TpuLM's 66 gradient tensors at the default cvars
+     and at threshold 64 MiB / capacity 25 MiB (8 x the input exactly;
+     the op ^cuda buckets' bits); ``ml`` at 2 x 4 (allreduce, reduce,
+     reduce_scatter_block at 256 MiB, bcast/allgather/alltoall at 64
+     MiB) against closed forms and op ^cuda; a tuning-database entry
+     that makes a 16 MiB tuned allreduce take ring, bitwise equal to
+     ring forced. ``stream_axpy[sum]`` must launch on fusion's and
+     ml's calls. Then its timings: pack/unpack of a darray piece beside
+     ``index_select``, the dropless alltoallv, the gradient list fused
+     two ways and per tensor, ml against tuned at 256 MiB, scan at 64
+     MiB;
 4. times the kernels (CUDA events, median of 7) at the main path's
    shapes beside their bound, their plain twins and one PyTorch library
    call, the streaming kernels, the transpose and the eager chain hop in
@@ -1583,6 +1609,566 @@ def time_train(torch, model):
                     "host_gap_ms": gap_ms}))
 
 
+# ---------------------------------------------------------------------------
+# slice 6: the datatype engine, the rooted/scan/v collectives, the fusion
+# buffer, the ml component and the tuning database
+# ---------------------------------------------------------------------------
+
+DARRAY_N = 8192  # the (8192, 8192) f32 global array: 256 MiB
+DARRAY_GRID = (2, 4)  # BLOCK x CYCLIC(64) over a 2 x 4 process grid
+DARRAY_CYCLIC = 64
+MOE_RANKS = 4  # dropless_moe over world.create(ranks 0-3)
+TIMING_REPS = 5  # median of 5 per slice-6 timing
+
+
+def with_op_excluded(tmvar, fn):
+    """``fn()`` with the CUDA op component excluded (``--mca op
+    ^cuda``): the plain add on the card in the same algorithm order."""
+    tmvar.set_value("op", "^cuda")
+    try:
+        return fn()
+    finally:
+        tmvar.VARS.unset("op")
+
+
+def host_checksum(t):
+    """The datatype checksum written independently on the host: bytes
+    grouped by position mod 251, each group's sum times its weight, mod
+    2^32."""
+    import numpy as np
+
+    b = t.detach().cpu().contiguous().numpy().reshape(-1).view(np.uint8)
+    pad = (-b.size) % 251
+    groups = np.concatenate([b, np.zeros(pad, np.uint8)]).reshape(-1, 251)
+    sums = groups.sum(axis=0, dtype=np.int64)
+    return int((sums * (np.arange(251, dtype=np.int64) + 1)).sum()
+               & 0xFFFFFFFF)
+
+
+def s6_datatypes(torch, dev):
+    """The darray pieces of a 256 MiB global array, a subarray face, a
+    vector column, external32 round trips and the on-card checksum."""
+    import numpy as np
+    from ompi_release_tpu_torch import datatype as dt
+
+    G, (P0, P1) = DARRAY_N, DARRAY_GRID
+    g = torch.Generator(device=dev).manual_seed(606)
+    glob = torch.randn(G * G, generator=g, device=dev)
+    t0 = time.perf_counter()
+    types = [dt.create_darray(P0 * P1, r, [G, G],
+                              [dt.DIST_BLOCK, dt.DIST_CYCLIC],
+                              [dt.DARG_DEFAULT, DARRAY_CYCLIC], [P0, P1],
+                              dt.FLOAT) for r in range(P0 * P1)]
+    build_s = time.perf_counter() - t0
+    rebuilt = torch.zeros_like(glob)
+    for r, t in enumerate(types):
+        conv = dt.Convertor(t)
+        piece = conv.pack(glob)
+        plain = glob[torch.from_numpy(t.offsets(1).astype(np.int64)).to(dev)]
+        check(piece.numel() == G * G // (P0 * P1) and bits_equal(piece, plain),
+              f"darray rank {r}: pack != plain indexing")
+        rebuilt = conv.unpack(piece, rebuilt)
+    check(bits_equal(rebuilt, glob), "darray: the 8 pieces unpacked into "
+                                     "zeros != the global array")
+    mat = glob.view(G, G)
+    face = dt.Convertor(dt.create_subarray([G, G], [G, DARRAY_CYCLIC],
+                                           [0, G // 2], dt.FLOAT))
+    col = dt.Convertor(dt.create_vector(G, 1, G, dt.FLOAT))
+    for what, conv, want in (
+            ("subarray face", face,
+             mat[:, G // 2:G // 2 + DARRAY_CYCLIC].reshape(-1)),
+            ("vector column", col, mat[:, 0].contiguous())):
+        p = conv.pack(glob)
+        check(bits_equal(p, want), f"{what}: pack != plain slicing")
+        back = conv.unpack(p, torch.zeros_like(glob))
+        check(bits_equal(conv.pack(back), p) and
+              bits_equal(conv.unpack(p, glob), glob),
+              f"{what}: round trip not bitwise")
+    # external32: one 4 MiB strided f32 payload and one bf16 payload
+    blocks = MIB // 256  # 4 MiB of f32 in blocks of 256, stride 512
+    src = glob[: blocks * 512]
+    for wire, buf in ((dt.FLOAT, src),
+                      (dt.BFLOAT16, src.to(torch.bfloat16))):
+        t = dt.create_vector(blocks, 256, 512, wire)
+        conv = dt.Convertor(t)
+        raw = conv.pack_external(buf)
+        payload = conv.pack(buf)
+        bits = payload.view(torch.int16 if wire is dt.BFLOAT16
+                            else torch.int32).cpu().numpy()
+        check(np.array_equal(raw, np.frombuffer(
+            bits.astype(bits.dtype.newbyteorder(">")).tobytes(), np.uint8)),
+            f"external32 {wire.name}: bytes != big-endian payload")
+        back = conv.unpack_external(raw, torch.zeros_like(buf))
+        check(bits_equal(conv.pack(back), payload) and back.device == dev,
+              f"external32 {wire.name}: round trip not bitwise")
+    cs = dt.Convertor.checksum(glob)
+    check(cs.device == dev and int(cs) == host_checksum(glob),
+          "checksum of 256 MiB on the card != the host's")
+    log(f"slice 6: datatypes: 8 darray pieces of {G * G // 8 * 4 / MIB:g} MiB "
+        f"(maps built in {build_s:.2f} s on the host) pack to plain "
+        "indexing and unpack to the global array bitwise; subarray face, "
+        "vector column and external32 (f32 4 MiB, bf16) round-trip; "
+        f"checksum {int(cs)} equals the host's")
+    return glob, types
+
+
+def s6_rooted_scan(mpi_world, tuned, tmvar, torch, dev):
+    """gather/scatter linear and binomial at 64 MiB per rank, roots 0
+    and 5; scan/exscan at 64 MiB (tuned's recursive doubling) and 4 KiB
+    (the fused gather path)."""
+    n, count = N_RANKS, 64 * MIB // 4
+    g = torch.Generator(device=dev).manual_seed(61)
+    x = torch.randn(n, count, generator=g, device=dev)
+    runs = 0
+    for alg in ("linear", "binomial"):
+        tmvar.set_value("coll_tuned_gather_algorithm", alg)
+        tmvar.set_value("coll_tuned_scatter_algorithm", alg)
+        try:
+            for root in (0, 5):
+                out = tuned.gather(x, root=root)
+                want = torch.zeros(n, n * count, device=dev)
+                want[root] = x.reshape(-1)
+                check(("tuned", "gather", alg, root) in tuned._coll_programs
+                      and bits_equal(out, want),
+                      f"gather {alg} root {root} != closed form")
+                del out, want
+                out = tuned.scatter(x, root=root)
+                check(("tuned", "scatter", alg, root) in tuned._coll_programs
+                      and bits_equal(out, x[root].view(n, -1)),
+                      f"scatter {alg} root {root} != closed form")
+                del out
+                runs += 2
+        finally:
+            tmvar.VARS.unset("coll_tuned_gather_algorithm")
+            tmvar.VARS.unset("coll_tuned_scatter_algorithm")
+    from ompi_release_tpu_torch import ops as tops
+
+    ints = torch.randint(-64, 64, (n, count), generator=g,
+                         device=dev).float()
+    for comm, size, path in ((mpi_world, count, "tuned"),
+                             (mpi_world, 1024, "fused"),
+                             (tuned, count, "tuned")):
+        for name in ("scan", "exscan"):
+            key = (("fused", "scan", tops.SUM, name == "exscan")
+                   if path == "fused" else ("tuned", name, tops.SUM))
+            xi = ints[:, :size].contiguous()
+            got = getattr(comm, name)(xi)
+            check(key in comm._coll_programs,
+                  f"{comm.name} {name} at {size * 4} B did not take {path}")
+            want = torch.cumsum(xi, 0)
+            if name == "exscan":
+                want = torch.cat([torch.zeros_like(want[:1]), want[:-1]])
+            check(bits_equal(got, want), f"{comm.name} {name} at {size * 4} "
+                                         "B: != torch.cumsum (exact)")
+            xr = x[:, :size].contiguous()
+            r = getattr(comm, name)(xr)
+            check(bits_equal(r, with_op_excluded(
+                tmvar, lambda: getattr(comm, name)(xr))),
+                f"{comm.name} {name}: != op ^cuda")
+            runs += 3
+    log(f"slice 6: rooted/scan: {runs} calls (gather/scatter linear and "
+        "binomial at 64 MiB, roots 0 and 5; scan/exscan 64 MiB on WORLD "
+        "-> tuned, 4 KiB on WORLD -> fused, 64 MiB tuned) match closed "
+        "forms and op ^cuda bitwise")
+
+
+def ragged_counts(total_elems):
+    """Counts 1:2:...:8 summing to at most ``total_elems``."""
+    unit = total_elems // (N_RANKS * (N_RANKS + 1) // 2)
+    return [unit * (i + 1) for i in range(N_RANKS)]
+
+
+def s6_vcoll(tuned, torch, dev):
+    n = N_RANKS
+    counts = ragged_counts(256 * MIB // 4)
+    g = torch.Generator(device=dev).manual_seed(62)
+    bufs = [torch.randn(k, generator=g, device=dev) for k in counts]
+    cat = torch.cat(bufs)
+    check(bits_equal(tuned.allgatherv(bufs), cat), "allgatherv != concat")
+    check(bits_equal(tuned.gatherv(bufs, root=3), cat), "gatherv != concat")
+    parts = tuned.scatterv(cat, counts, root=6)
+    check(all(bits_equal(p, b) for p, b in zip(parts, bufs)),
+          "scatterv != root's slices")
+    del parts
+    total = sum(counts)
+    xi = torch.randint(-64, 64, (n, total), generator=g, device=dev).float()
+    red = xi.sum(0)
+    outs = tuned.reduce_scatter(xi, counts)
+    check(all(bits_equal(o, w) for o, w in zip(outs, red.split(counts))),
+          "reduce_scatter (integer-valued) != exact block sums")
+    log(f"slice 6: v-collectives: allgatherv/gatherv/scatterv/"
+        f"reduce_scatter over counts 1:2:...:8 ({total * 4 / MIB:.1f} MiB "
+        "f32) match their closed forms bitwise")
+    del bufs, cat, xi, red, outs
+
+
+def moe_assignments(torch, dev):
+    """The (8, 2048) batch's 16,384 tokens embedded by the full-width
+    MoE TpuLM at seed 0, and the argmax of its layer-0 router."""
+    from ompi_release_tpu_torch import entry as tentry
+    from ompi_release_tpu_torch.models.transformer import ModelConfig, TpuLM
+
+    cfg = ModelConfig(n_experts=MOE_EXPERTS)
+    model = TpuLM(cfg, seed=0, device=dev)
+    params = model.params()
+    tokens, _ = tentry._batch(cfg, tentry.EVAL_BATCH, cfg.max_seq)
+    emb = params["embed"][torch.from_numpy(tokens).long().to(dev)]
+    emb = emb.to(cfg.dtype).reshape(-1, cfg.d_model)
+    logits = emb.float() @ params["layers"]["router"][0].float()
+    assign = logits.argmax(dim=-1)
+    del model, params, logits
+    return emb, assign
+
+
+def mpi_alltoallv_host(bufs, counts):
+    """MPI_Alltoallv's receive buffers on the host, from numpy."""
+    import numpy as np
+
+    n = len(bufs)
+    offs = np.concatenate([np.zeros((n, 1), np.int64),
+                           np.cumsum(counts, axis=1)], axis=1)
+    return [np.concatenate([bufs[j][offs[j, i]:offs[j, i] + counts[j, i]]
+                            for j in range(n)]) for i in range(n)]
+
+
+def s6_dropless(mpi_world, torch, dev):
+    """dropless_moe over 4 ranks at the full-width MoE's shapes, and the
+    alltoallv of its count matrix against a host MPI_Alltoallv."""
+    import numpy as np
+    from ompi_release_tpu_torch.mca import pvar as tpvar
+    from ompi_release_tpu_torch.parallel.ep import dropless_moe
+
+    emb, assign = moe_assignments(torch, dev)
+    sub = mpi_world.create(mpi_world.group.incl(list(range(MOE_RANKS))),
+                           name="moe4")
+    per = emb.shape[0] // MOE_RANKS
+    tokens = [emb[i * per:(i + 1) * per] for i in range(MOE_RANKS)]
+    assigns = [assign[i * per:(i + 1) * per] for i in range(MOE_RANKS)]
+    e_local = MOE_EXPERTS // MOE_RANKS
+
+    def expert_fn(e, x):
+        return x * (e + 1) + e
+
+    outs = dropless_moe(sub, tokens, assigns, expert_fn, MOE_EXPERTS)
+    for i in range(MOE_RANKS):
+        want = torch.empty_like(tokens[i])
+        for e in range(MOE_EXPERTS):
+            sel = assigns[i] == e
+            want[sel] = expert_fn(e, tokens[i][sel])
+        check(outs[i].shape == tokens[i].shape and bits_equal(outs[i], want),
+              f"dropless_moe rank {i}: output != expert_fn per token")
+    # the count matrix, counted on the card, and the host's that routes
+    counts_dev = torch.stack([torch.bincount(a // e_local,
+                                             minlength=MOE_RANKS)
+                              for a in assigns]).cpu().numpy()
+    host_a = [a.cpu().numpy() for a in assigns]
+    counts = np.stack([np.bincount(a // e_local, minlength=MOE_RANKS)
+                       for a in host_a]).astype(np.int64)
+    check(np.array_equal(counts_dev, counts), "count matrix (card) != host")
+    per_expert = np.bincount(np.concatenate(host_a), minlength=MOE_EXPERTS)
+    # the routing alltoallv itself, against MPI_Alltoallv on the host
+    d = emb.shape[1]
+    order = [np.argsort(a // e_local, kind="stable") for a in host_a]
+    send = [t[torch.from_numpy(o).to(dev)].reshape(-1)
+            for t, o in zip(tokens, order)]
+    pad0 = tpvar.PVARS.lookup("vcoll_alltoallv_padded_elems").read()
+    ovf0 = tpvar.PVARS.lookup("vcoll_alltoallv_overflow_elems").read()
+    recv = sub.alltoallv(send, counts * d)
+    padded = tpvar.PVARS.lookup("vcoll_alltoallv_padded_elems").read() - pad0
+    overflow = (tpvar.PVARS.lookup("vcoll_alltoallv_overflow_elems").read()
+                - ovf0)
+    want = mpi_alltoallv_host([s.view(torch.int16).cpu().numpy()
+                               for s in send], counts * d)
+    check(all(np.array_equal(r.view(torch.int16).cpu().numpy(), w)
+              for r, w in zip(recv, want)),
+          "alltoallv at the dropless counts != host MPI_Alltoallv")
+    payload = int(counts.sum()) * d
+    log(json.dumps({"dropless_counts": counts.tolist(),
+                    "tokens_per_expert": per_expert.tolist(),
+                    "alltoallv_padded_elems": padded,
+                    "alltoallv_overflow_elems": overflow,
+                    "padded_over_payload": padded / payload}))
+    log(f"slice 6: dropless_moe: {emb.shape[0]} bf16 tokens of width {d} "
+        f"over {MOE_RANKS} ranks, none dropped, each output bitwise "
+        "expert_fn(assign, token); count matrix matches; alltoallv matches "
+        "MPI_Alltoallv on the host")
+    return sub, send, counts * d, padded / payload
+
+
+def grad_list(torch, dev, integer):
+    """The full-width TpuLM's parameters unstacked per layer, as a data-
+    parallel trainer hands its gradients over: 2 + 8 x 8 tensors, f32,
+    one row per rank (integer-valued: every rank the same values)."""
+    from ompi_release_tpu_torch.models.transformer import (
+        ModelConfig, param_shapes)
+
+    cfg = ModelConfig()
+    shapes = param_shapes(cfg)
+    flat = [("embed", shapes["embed"][0]), ("ln_f", shapes["ln_f"][0])]
+    for layer in range(cfg.n_layers):
+        for name, (shape, _) in shapes["layers"].items():
+            flat.append((f"{name}{layer}", shape[1:]))
+    g = torch.Generator(device=dev).manual_seed(63)
+    out = []
+    for _, shape in flat:
+        if integer:
+            x = torch.randint(-64, 64, shape, generator=g, device=dev).float()
+            out.append(x.unsqueeze(0).expand((N_RANKS,) + tuple(shape)))
+        else:
+            out.append(torch.randn((N_RANKS,) + tuple(shape), generator=g,
+                                   device=dev))
+    return out
+
+
+FUSION_CASES = {  # (threshold, capacity): the defaults; PyTorch DDP's
+    "a": (64 << 10, 4 * MIB),      # bucket_cap_mb of 25 under a 64 MiB
+    "b": (64 * MIB, 25 * MIB),     # threshold
+}
+
+
+def fused_grads(tuned, grads, case):
+    """Every gradient through a fusion buffer of ``case`` (no max delay:
+    the buckets follow the threshold and capacity alone)."""
+    from ompi_release_tpu_torch.coll.fusion import FusionBuffer
+
+    thr, cap = FUSION_CASES[case]
+    fb = FusionBuffer(tuned, threshold=thr, capacity=cap,
+                      max_delay_us=10 ** 9)
+    hs = [fb.allreduce(x) for x in grads]
+    fb.flush()
+    return [h.result() for h in hs]
+
+
+def s6_fusion(tuned, tmvar, cuda_op, torch, dev):
+    from ompi_release_tpu_torch.coll import fusion  # noqa: F401  (pvars)
+    from ompi_release_tpu_torch.mca import pvar as tpvar
+
+    names = ("coll_fusion_flushes", "coll_fusion_batched",
+             "coll_fusion_bytes_saved")
+    ints = grad_list(torch, dev, integer=True)
+    rand = grad_list(torch, dev, integer=False)
+    info = {}
+    for case in FUSION_CASES:
+        before = [tpvar.PVARS.lookup(k).read() for k in names]
+        s0 = cuda_op.LAUNCHES["sum"]
+        outs = fused_grads(tuned, ints, case)
+        sums = cuda_op.LAUNCHES["sum"] - s0
+        after = [tpvar.PVARS.lookup(k).read() for k in names]
+        for x, o in zip(ints, outs):
+            check(bits_equal(o, (x * N_RANKS).contiguous()),
+                  f"fusion ({case}): integer-valued result != 8 x")
+        del outs
+        got = fused_grads(tuned, rand, case)
+        want = with_op_excluded(tmvar, lambda: fused_grads(tuned, rand, case))
+        check(all(bits_equal(a, b) for a, b in zip(got, want)),
+              f"fusion ({case}): != the same buckets under op ^cuda")
+        del got, want
+        info[case] = {k: a - b for k, a, b in zip(names, after, before)}
+        info[case]["sum_launches"] = sums
+        log(json.dumps({"fusion_case": case,
+                        "threshold": FUSION_CASES[case][0],
+                        "capacity": FUSION_CASES[case][1], **info[case]}))
+    check(info["b"]["sum_launches"] > 0,
+          "fusion (b): the SUM kernel did not launch")
+    log(f"slice 6: fusion buffer: {len(ints)} gradient tensors "
+        f"({sum(x[0].numel() for x in ints) * 4 / 1e6:.1f} MB a rank); "
+        "(a) and (b) give 8 x exactly and the op ^cuda buckets' bits")
+    return ints, rand
+
+
+def s6_ml(mpi_world, tmvar, cuda_op, torch, dev):
+    tmvar.set_value("coll_ml_local_size", 4)
+    tmvar.set_value("coll", "ml,basic")
+    try:
+        ml = mpi_world.dup(name="ml")
+    finally:
+        tmvar.VARS.unset("coll")
+        tmvar.VARS.unset("coll_ml_local_size")
+    check(ml._coll_providers["allreduce"][0] == "ml",
+          f"ml not first: {ml._coll_providers['allreduce']}")
+    n = N_RANKS
+    g = torch.Generator(device=dev).manual_seed(64)
+    s0 = cuda_op.LAUNCHES["sum"]
+    count = 256 * MIB // 4
+    for integer in (True, False):
+        x = (torch.randint(-64, 64, (n, count), generator=g,
+                           device=dev).float() if integer else
+             torch.randn(n, count, generator=g, device=dev))
+        for name, kw in (("allreduce", {}), ("reduce", {"root": 5}),
+                         ("reduce_scatter_block", {})):
+            out = getattr(ml, name)(x, **kw)
+            if integer:
+                tot = x.sum(0)
+                want = {"allreduce": tot.expand(n, -1),
+                        "reduce": torch.zeros_like(x).index_copy_(
+                            0, torch.tensor([5], device=dev), tot[None]),
+                        "reduce_scatter_block": tot.view(n, -1)}[name]
+                check(bits_equal(out, want.contiguous()),
+                      f"ml {name}: != closed form")
+            check(bits_equal(out, with_op_excluded(
+                tmvar, lambda: getattr(ml, name)(x, **kw))),
+                f"ml {name}: != op ^cuda")
+            del out
+        del x
+    sums = cuda_op.LAUNCHES["sum"] - s0
+    check(sums > 0, "ml: the SUM kernel did not launch")
+    x = torch.randn(n, 64 * MIB // 4, generator=g, device=dev)
+    check(bits_equal(ml.bcast(x, root=5), x[5].expand(n, -1).contiguous()),
+          "ml bcast != root's buffer")
+    check(bits_equal(ml.allgather(x),
+                     x.reshape(1, -1).expand(n, -1).contiguous()),
+          "ml allgather != concatenation")
+    check(bits_equal(ml.alltoall(x), x.view(n, n, -1).transpose(0, 1)
+                     .reshape(x.shape)), "ml alltoall != transpose")
+    ml.barrier()
+    log(f"slice 6: ml (2 x 4): allreduce/reduce/reduce_scatter_block at "
+        "256 MiB match closed forms and op ^cuda bitwise "
+        f"({sums} SUM launches); bcast/allgather/alltoall at 64 MiB match")
+    return ml
+
+
+def s6_tuning_db(mpi_world, tmvar, torch, dev):
+    import tempfile
+
+    from ompi_release_tpu_torch.tuning import db as tdb
+
+    tmvar.set_value("coll", "tuned")
+    try:
+        comm = mpi_world.dup(name="tuned_db")
+    finally:
+        tmvar.VARS.unset("coll")
+    from ompi_release_tpu_torch import ops as tops
+    from ompi_release_tpu_torch.coll.components import _TunedModule
+
+    x = torch.randn(N_RANKS, 16 * MIB // 4, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(65))
+    fixed = _TunedModule(comm)._pick_allreduce(x, tops.SUM)
+    check(fixed == "segmented_ring", f"fixed rules pick {fixed} at 16 MiB")
+    with tempfile.TemporaryDirectory() as root:
+        path = tdb.TuningDb(root).register(f"allreduce 0 {MIB} ring\n",
+                                           tdb.active())
+        tmvar.set_value("coll_tuned_use_dynamic_rules", True)
+        tmvar.set_value("coll_tuning_db_dir", root)
+        try:
+            got = comm.allreduce(x)
+        finally:
+            tmvar.VARS.unset("coll_tuned_use_dynamic_rules")
+            tmvar.VARS.unset("coll_tuning_db_dir")
+    keys = [k[:3] for k in comm._coll_programs]
+    check(keys == [("tuned", "allreduce", "ring")],
+          f"db allreduce took {keys}, not ring")
+    tmvar.set_value("coll_tuned_allreduce_algorithm", "ring")
+    try:
+        forced = comm.allreduce(x)
+    finally:
+        tmvar.VARS.unset("coll_tuned_allreduce_algorithm")
+    check(bits_equal(got, forced), "db-selected ring != forced ring")
+    comm.free()
+    log(f"slice 6: tuning db: entry {path.rsplit('/', 1)[-1]} "
+        f"({tdb.active().canon()}) made the 16 MiB tuned allreduce take "
+        "ring (fixed rules: segmented_ring), bitwise equal to ring forced")
+
+
+def phase_slice6(mpi_world, tuned, tmvar, cuda_op, torch, dev):
+    """Slice 6's path with every launch counter at 0 before it; returns
+    what its timings need and the SUM launches it made."""
+    t0 = time.perf_counter()
+    cuda_op.reset_launches()
+    glob, types = s6_datatypes(torch, dev)
+    s6_rooted_scan(mpi_world, tuned, tmvar, torch, dev)
+    torch.cuda.empty_cache()
+    s6_vcoll(tuned, torch, dev)
+    torch.cuda.empty_cache()
+    moe = s6_dropless(mpi_world, torch, dev)
+    grads = s6_fusion(tuned, tmvar, cuda_op, torch, dev)
+    torch.cuda.empty_cache()
+    ml = s6_ml(mpi_world, tmvar, cuda_op, torch, dev)
+    s6_tuning_db(mpi_world, tmvar, torch, dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda_op.LAUNCHES)
+    log(f"phase 3: slice-6 path launches {launches}")
+    check(launches["sum"] > 0, "kernel wrapper sum launched no time on the "
+                               "slice-6 path")
+    log(f"slice 6: checks took {time.perf_counter() - t0:.1f} s")
+    return {"glob": glob, "types": types, "moe": moe, "grads": grads,
+            "ml": ml, "sum_launches": launches["sum"]}
+
+
+def time_slice6(state, tuned, mpi_world, torch, dev):
+    """The slice-6 timings, CUDA events, median of TIMING_REPS."""
+    import numpy as np
+    from ompi_release_tpu_torch import datatype as dt
+
+    t0 = time.perf_counter()
+    glob, types = state["glob"], state["types"]
+    conv = dt.Convertor(types[0])
+    piece = conv.pack(glob)
+    idx64 = torch.from_numpy(types[0].offsets(1).astype(np.int64)).to(dev)
+    idx32 = types[0].device_offsets(1, dev)
+    elems = piece.numel()
+    bound_ms = (2 * elems * 4 + elems * 4) / HBM_BYTES_PER_S * 1e3
+    ms = turns_ms({"pack": lambda: conv.pack(glob),
+                   "index_select_i32": lambda: glob.index_select(0, idx32),
+                   "index_select_i64": lambda: glob.index_select(0, idx64),
+                   "unpack": lambda: conv.unpack(piece, glob)},
+                  reps=TIMING_REPS)
+    gbps = {k: 3 * elems * 4 / (v * 1e-3) / 1e9 for k, v in ms.items()}
+    log(json.dumps({"darray_piece_bytes": elems * 4, "ms": ms,
+                    "GBps_vs_bound_bytes": gbps, "bound_ms": bound_ms,
+                    "unpack_note": "unpack also copies the 256 MiB buffer "
+                                   "(it never writes the caller's)"}))
+    sub, send, counts, ratio = state["moe"]
+    a2av = time_ms(lambda: sub.alltoallv(send, counts), reps=TIMING_REPS)
+    log(json.dumps({"alltoallv_dropless_ms": a2av,
+                    "padded_over_payload": ratio,
+                    "payload_bytes": int(counts.sum()) * 2}))
+    profiles = {"alltoallv_dropless": (lambda: sub.alltoallv(send, counts),
+                                       3)}
+    from ompi_release_tpu_torch.mca import pvar as tpvar
+
+    _, rand = state["grads"]
+    ways = {f"fused_{case}": (lambda c=case: fused_grads(tuned, rand, c))
+            for case in FUSION_CASES}
+    ways["per_tensor"] = lambda: [tuned.allreduce(x) for x in rand]
+    issued = {}
+    invocations = tpvar.PVARS.lookup("coll_invocations")
+    for name, fn in ways.items():
+        before = invocations.read()
+        fn()
+        issued[name] = invocations.read() - before
+    fb_ms = {name: time_ms(fn, reps=TIMING_REPS, warmup=1)
+             for name, fn in ways.items()}
+    log(json.dumps({"gradient_allreduce_ms": fb_ms,
+                    "collectives_issued": issued, "tensors": len(rand),
+                    "bytes_per_rank": sum(x[0].numel() for x in rand) * 4}))
+    profiles["gradients_fused_b"] = (ways["fused_b"], 1)
+    profiles["gradients_per_tensor"] = (ways["per_tensor"], 1)
+    ml = state["ml"]
+    x = torch.randn(N_RANKS, 256 * MIB // 4, device=dev)
+    ar = turns_ms({"ml": lambda: ml.allreduce(x),
+                   "tuned": lambda: tuned.allreduce(x)}, reps=TIMING_REPS)
+    busbw = {k: 2 * (N_RANKS - 1) / N_RANKS * 256 * MIB / (v * 1e-3) / 1e9
+             for k, v in ar.items()}
+    log(json.dumps({"allreduce_256MiB_ms": ar, "bus_GBps": busbw}))
+    del x
+    y = torch.randn(N_RANKS, 64 * MIB // 4, device=dev)
+    scan_ms = time_ms(lambda: mpi_world.scan(y), reps=TIMING_REPS)
+    log(json.dumps({"scan_64MiB_ms": scan_ms}))
+    profiles["scan_64MiB"] = (lambda: mpi_world.scan(y), 1)
+    x = torch.randn(N_RANKS, 256 * MIB // 4, device=dev)
+    profiles["ml_allreduce_256MiB"] = (lambda: ml.allreduce(x), 1)
+    # where each one's time goes: device busy share of a profiler window
+    for name, (fn, calls) in profiles.items():
+        fn()
+        torch.cuda.synchronize()
+        log(json.dumps({f"profile_{name}": tbench.profile_window(fn,
+                                                                 calls)}))
+    del x, y
+    ml.free()
+    sub.free()
+    log(f"slice 6: timings took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
 
@@ -1627,6 +2213,14 @@ def main():
                          "main path")
     check_main_path(tmvar, torch, runs, bench)
     del runs, bench
+    torch.cuda.empty_cache()
+
+    slice6 = phase_slice6(world, tuned, tmvar, cuda_op, torch, dev)
+    sum_by_path = {"slice1": launches["sum"],
+                   "slice6": slice6["sum_launches"]}
+    launches["sum"] += slice6["sum_launches"]
+    time_slice6(slice6, tuned, world, torch, dev)
+    del slice6
     torch.cuda.empty_cache()
 
     cuda_op.reset_launches()
@@ -1684,6 +2278,8 @@ def main():
     for row in rows:
         if row["name"] in by_path:
             row["launches_by_path"] = by_path[row["name"]]
+        if row["name"] == "stream_axpy[sum]":
+            row["launches_by_path"] = sum_by_path
     host_us = host_launch_us(cuda_op, fa, torch, dev)
     for row in rows:  # named stream_axpy[sum], ..., chain_add_one, flash_*
         key = {"tile_transpose_32": "transpose", "chain_add_one": "chain"}.get(

@@ -14,9 +14,10 @@ size, row r being rank r's buffer. N virtual ranks share one device
 the caller passes ``device="cpu"``.
 
 Layering follows the JAX package: ``mca``/``utils`` (config, components,
-logging), ``runtime`` (bring-up, state machine), ``ops`` (reduction ops
-and the hand-written CUDA kernels), ``comm`` and ``coll``; ``parallel``
-and ``models`` carry the flagship TpuLM's eval forward.
+logging), ``runtime`` (bring-up, state machine), ``datatype`` (derived
+datatypes, pack/unpack), ``ops`` (reduction ops and the hand-written
+CUDA kernels), ``comm``, ``coll`` and ``tuning`` (the per-topology
+tuning database); ``parallel`` and ``models`` carry the model family.
 """
 
 from . import mca, utils
@@ -24,7 +25,8 @@ from .utils.errors import ErrorCode, MPIError
 
 __version__ = "0.1.0"
 
-_LAZY = {"runtime", "ops", "comm", "coll", "parallel", "models"}
+_LAZY = {"runtime", "datatype", "ops", "comm", "coll", "parallel", "models",
+         "tuning"}
 
 
 def __getattr__(name):

@@ -19,11 +19,13 @@ from ..utils.errors import ErrorCode, MPIError
 
 _log = output.stream("coll")
 
-#: operations every communicator must end up with (the ported part of
-#: the coll.h fn table)
+#: operations every communicator must end up with (the coll.h fn
+#: table's blocking half)
 OP_NAMES = (
-    "allreduce", "reduce", "bcast", "allgather", "reduce_scatter_block",
-    "alltoall", "barrier",
+    "allreduce", "reduce", "bcast", "allgather", "gather", "scatter",
+    "reduce_scatter_block", "alltoall", "scan", "exscan", "barrier",
+    # v-variants (per-rank counts; coll_tuned_alltoallv.c etc.)
+    "alltoallv", "allgatherv", "gatherv", "scatterv", "reduce_scatter",
 )
 
 COLL_FRAMEWORK = mca_component.framework(

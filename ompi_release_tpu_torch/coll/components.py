@@ -1,10 +1,11 @@
 """coll components: ``fused`` (one fold per collective), ``tuned`` (named
-algorithms + decision rules), ``basic`` (linear reference), ``self``
-(size-1 fast path).
+algorithms + decision rules), ``ml`` (two-level hierarchical),
+``basic`` (linear reference), ``self`` (size-1 fast path).
 
 Counterpart of ``ompi_release_tpu/coll/components.py`` with the same
-priorities: fused 100 > tuned 50 > basic 10, and ``self`` claims
-size-1 communicators outright. The ``ml`` component is not ported yet.
+priorities: fused 100 > tuned 50 > ml 40 > basic 10, and ``self``
+claims size-1 communicators outright. The v-variants live in
+``coll/vcoll.py``; fused and tuned hand them their padded kernels.
 
 Every local reduction step of tuned/basic (and fused) resolves its op
 through the op framework (:func:`_resolve_op`), so large f32/bf16 SUMs
@@ -14,7 +15,7 @@ hence a distinct program-cache key.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -25,7 +26,7 @@ from ..utils import output
 from ..utils.errors import ErrorCode, MPIError
 from . import dynamic_rules, pipeline, spmd
 from .base import COLL_FRAMEWORK
-from .driver import run_sharded
+from .driver import run_sharded, run_sharded2d
 
 _log = output.stream("coll")
 
@@ -75,9 +76,18 @@ class _FusedModule:
             "reduce": self.reduce,
             "bcast": self.bcast,
             "allgather": self.allgather,
+            "gather": self.gather,
+            "scatter": self.scatter,
             "reduce_scatter_block": self.reduce_scatter_block,
             "alltoall": self.alltoall,
+            "scan": self.scan,
+            "exscan": self.exscan,
             "barrier": self.barrier,
+            "alltoallv": self.alltoallv,
+            "allgatherv": self.allgatherv,
+            "gatherv": self.gatherv,
+            "scatterv": self.scatterv,
+            "reduce_scatter": self.reduce_scatter,
         }
 
     def allreduce(self, comm, x, op: Op):
@@ -116,8 +126,32 @@ class _FusedModule:
         return run_sharded(comm, ("fused", "allgather"),
                            lambda xb: _flat_gather(spmd.allgather_lax(xb)), x)
 
+    def gather(self, comm, x, root: int):
+        return run_sharded(
+            comm, ("fused", "gather", root),
+            lambda xb: spmd.gather_linear(xb, comm.size, root), x)
+
+    def scatter(self, comm, x, root: int):
+        # x: root's row holds the n chunks back to back
+        return run_sharded(
+            comm, ("fused", "scatter", root),
+            lambda xb: spmd.scatter_linear(xb, comm.size, root), x)
+
     def reduce_scatter_block(self, comm, x, op: Op):
         n = comm.size
+        if op.is_pair_op:
+            vals, idxs = x
+
+            def pair_body(v, i):
+                rv, ri = spmd.allreduce_pair_lax(v, i, op)
+                own = list(range(n))
+                return (spmd._take(rv.reshape((n, n, -1) + tuple(
+                            rv.shape[2:])), own),
+                        spmd._take(ri.reshape((n, n, -1) + tuple(
+                            ri.shape[2:])), own))
+
+            return run_sharded(comm, ("fused", "rsb_pair", op), pair_body,
+                               vals, extra_arrays=(idxs,))
         op = _resolve_op(op, x)
         return run_sharded(comm, ("fused", "reduce_scatter_block", op),
                            lambda xb: spmd.reduce_scatter_lax(xb, op, n), x)
@@ -131,13 +165,68 @@ class _FusedModule:
 
         return run_sharded(comm, ("fused", "alltoall"), body, x)
 
+    def scan(self, comm, x, op: Op, *, exclusive: bool = False):
+        """Gather-based scan in :func:`spmd.associative_scan`'s order
+        (``lax.associative_scan``'s); pair ops scan their (value,
+        index) tuples. Past ``coll_xla_scan_gather_limit`` per rank it
+        declines, so tuned's recursive doubling takes the call (the
+        gather stages the whole comm's buffers)."""
+        if op.is_pair_op:
+            vals, idxs = x
+            return run_sharded(
+                comm, ("fused", "scan_pair", op, exclusive),
+                lambda v, i: spmd.scan_gather((v, i), op, exclusive),
+                vals, extra_arrays=(idxs,))
+        if _per_rank_bytes(x) > int(mca_var.get(
+                "coll_xla_scan_gather_limit", 1 << 20)):
+            return None
+        return run_sharded(comm, ("fused", "scan", op, exclusive),
+                           lambda xb: spmd.scan_gather(xb, op, exclusive), x)
+
+    def exscan(self, comm, x, op: Op):
+        return self.scan(comm, x, op, exclusive=True)
+
     def barrier(self, comm):
         _sync(comm)
+
+    # -- v-variants (padded kernels, counts at the host edge) -------------
+    def alltoallv(self, comm, sendbufs, sendcounts):
+        from . import vcoll
+
+        return vcoll.alltoallv(comm, sendbufs, sendcounts, kernel="lax")
+
+    def allgatherv(self, comm, sendbufs):
+        from . import vcoll
+
+        return vcoll.allgatherv(comm, sendbufs, kernel="lax")
+
+    def gatherv(self, comm, sendbufs, root: int):
+        from . import vcoll
+
+        return vcoll.gatherv(comm, sendbufs, root, kernel="lax")
+
+    def scatterv(self, comm, sendbuf, counts, root: int):
+        from . import vcoll
+
+        return vcoll.scatterv(comm, sendbuf, counts, root)
+
+    def reduce_scatter(self, comm, x, recvcounts, op: Op):
+        from . import vcoll
+
+        return vcoll.reduce_scatter(comm, x, recvcounts, op, kernel="lax")
 
 
 class FusedCollComponent(mca_component.Component):
     NAME = "fused"
     PRIORITY = 100
+
+    def register_vars(self) -> None:
+        mca_var.register(
+            "coll_xla_scan_gather_limit", "size", 1 << 20,
+            "Per-rank bytes above which the fused scan/exscan (gather + "
+            "associative scan, n x size staged) defers to tuned's "
+            "recursive-doubling scan",
+        )
 
     def query(self, ctx=None):
         if ctx is None:
@@ -164,6 +253,11 @@ ALLTOALL_ALGORITHMS = (
     "auto", "pairwise", "bruck", "basic_linear", "lax",
 )
 REDUCE_ALGORITHMS = ("auto", "binomial", "in_order_binary", "linear")
+# coll_tuned_{gather,scatter}.c menus; both linear_sync branches map to
+# linear (the sync round trip protects an eager receiver from overrun,
+# which a rank-axis exchange has no analogue of)
+GATHER_ALGORITHMS = ("auto", "binomial", "linear")
+SCATTER_ALGORITHMS = ("auto", "binomial", "linear")
 
 dynamic_rules.RULE_COLLECTIVES.update({
     "allreduce": ALLREDUCE_ALGORITHMS,
@@ -171,6 +265,8 @@ dynamic_rules.RULE_COLLECTIVES.update({
     "allgather": ALLGATHER_ALGORITHMS,
     "alltoall": ALLTOALL_ALGORITHMS,
     "reduce": REDUCE_ALGORITHMS,
+    "gather": GATHER_ALGORITHMS,
+    "scatter": SCATTER_ALGORITHMS,
 })
 
 
@@ -192,9 +288,18 @@ class _TunedModule:
             "bcast": self.bcast,
             "reduce": self.reduce,
             "allgather": self.allgather,
+            "gather": self.gather,
+            "scatter": self.scatter,
             "reduce_scatter_block": self.reduce_scatter_block,
             "alltoall": self.alltoall,
+            "scan": self.scan,
+            "exscan": self.exscan,
             "barrier": self.barrier,
+            "alltoallv": self.alltoallv,
+            "allgatherv": self.allgatherv,
+            "gatherv": self.gatherv,
+            "scatterv": self.scatterv,
+            "reduce_scatter": self.reduce_scatter,
         }
 
     # -- allreduce --------------------------------------------------------
@@ -458,8 +563,106 @@ class _TunedModule:
 
         return run_sharded(comm, ("tuned", "alltoall", alg), body, x)
 
+    # -- gather / scatter (coll_tuned_{gather,scatter}.c) -----------------
+    def _pick_gather(self, x) -> str:
+        """gather_intra_dec_fixed: block > 6000 B -> linear (both
+        linear_sync branches); n > 60, or n > 10 with block < 1024 B ->
+        binomial; else linear."""
+        forced = mca_var.get("coll_tuned_gather_algorithm", "auto")
+        if forced != "auto":
+            return forced
+        n = self.comm.size
+        block = _per_rank_bytes(x)
+        dyn = dynamic_rules.lookup("gather", n, block)
+        if dyn is not None:
+            return dyn
+        if block > 6000:
+            return "linear"
+        if n > 60 or (n > 10 and block < 1024):
+            return "binomial"
+        return "linear"
+
+    def gather(self, comm, x, root: int):
+        alg = self._pick_gather(x)
+        n = comm.size
+        if alg == "binomial":
+            body = lambda xb: spmd.gather_binomial(xb, n, root)  # noqa: E731
+        else:
+            body = lambda xb: spmd.gather_linear(xb, n, root)  # noqa: E731
+        return run_sharded(comm, ("tuned", "gather", alg, root), body, x)
+
+    def _pick_scatter(self, x) -> str:
+        """scatter_intra_dec_fixed: n > 10 with block < 300 B ->
+        binomial; else linear. The block is root's per-destination
+        chunk."""
+        forced = mca_var.get("coll_tuned_scatter_algorithm", "auto")
+        if forced != "auto":
+            return forced
+        n = self.comm.size
+        block = _per_rank_bytes(x) // max(1, n)
+        dyn = dynamic_rules.lookup("scatter", n, block)
+        if dyn is not None:
+            return dyn
+        return "binomial" if (n > 10 and block < 300) else "linear"
+
+    def scatter(self, comm, x, root: int):
+        n = comm.size
+        alg = self._pick_scatter(x)
+        if alg == "binomial":
+            body = lambda xb: spmd.scatter_binomial(xb, n, root)  # noqa: E731
+        else:
+            body = lambda xb: spmd.scatter_linear(xb, n, root)  # noqa: E731
+        return run_sharded(comm, ("tuned", "scatter", alg, root), body, x)
+
+    # -- scan / exscan ----------------------------------------------------
+    def scan(self, comm, x, op: Op):
+        if op.is_pair_op:
+            return None  # pair scans stay with fused's gather path
+        n = comm.size
+        return run_sharded(
+            comm, ("tuned", "scan", op),
+            lambda xb: spmd.scan_recursive_doubling(xb, op, n), x)
+
+    def exscan(self, comm, x, op: Op):
+        if op.is_pair_op:
+            return None
+        n = comm.size
+        return run_sharded(
+            comm, ("tuned", "exscan", op),
+            lambda xb: spmd.scan_recursive_doubling(xb, op, n,
+                                                    exclusive=True), x)
+
     def barrier(self, comm):
         _sync(comm)
+
+    # -- v-variants: tuned's hand schedules on the padded kernels ----------
+    def alltoallv(self, comm, sendbufs, sendcounts):
+        from . import vcoll
+
+        return vcoll.alltoallv(comm, sendbufs, sendcounts,
+                               kernel="pairwise")
+
+    def allgatherv(self, comm, sendbufs):
+        from . import vcoll
+
+        return vcoll.allgatherv(comm, sendbufs, kernel="ring")
+
+    def gatherv(self, comm, sendbufs, root: int):
+        from . import vcoll
+
+        return vcoll.gatherv(comm, sendbufs, root, kernel="ring")
+
+    def scatterv(self, comm, sendbuf, counts, root: int):
+        from . import vcoll
+
+        return vcoll.scatterv(comm, sendbuf, counts, root)
+
+    def reduce_scatter(self, comm, x, recvcounts, op: Op):
+        if not op.commutative or op.identity is None:
+            return None  # fused's allreduce + slice path handles these
+        from . import vcoll
+
+        return vcoll.reduce_scatter(comm, x, recvcounts, op, kernel="ring")
 
 
 class TunedCollComponent(mca_component.Component):
@@ -471,7 +674,9 @@ class TunedCollComponent(mca_component.Component):
                            ("bcast", BCAST_ALGORITHMS),
                            ("allgather", ALLGATHER_ALGORITHMS),
                            ("alltoall", ALLTOALL_ALGORITHMS),
-                           ("reduce", REDUCE_ALGORITHMS)):
+                           ("reduce", REDUCE_ALGORITHMS),
+                           ("gather", GATHER_ALGORITHMS),
+                           ("scatter", SCATTER_ALGORITHMS)):
             mca_var.register(
                 f"coll_tuned_{coll}_algorithm", "enum", "auto",
                 f"Force a specific {coll} algorithm", choices=algs,
@@ -505,11 +710,6 @@ class TunedCollComponent(mca_component.Component):
             "Rule file: 'collective min_comm_size min_msg_bytes "
             "algorithm [segsize]' lines, last match wins",
         )
-        mca_var.register(
-            "coll_tuning_db_dir", "str", "",
-            "Tuning-database directory (not ported: setting it with "
-            "dynamic rules on and no rule file raises)",
-        )
 
     def query(self, ctx=None):
         if ctx is None:
@@ -529,7 +729,8 @@ class _BasicModule:
         self.comm = comm
 
     def fns(self) -> Dict[str, Callable]:
-        return {"allreduce": self.allreduce, "reduce": self.reduce}
+        return {"allreduce": self.allreduce, "reduce": self.reduce,
+                "scatter": self.scatter, "gather": self.gather}
 
     def allreduce(self, comm, x, op: Op):
         if op.is_pair_op:
@@ -547,6 +748,16 @@ class _BasicModule:
         op = _resolve_op(op, x)
         return run_sharded(comm, ("basic", "reduce", op, root),
                            lambda xb: spmd.reduce_linear(xb, op, n, root), x)
+
+    def scatter(self, comm, x, root: int):
+        n = comm.size
+        return run_sharded(comm, ("basic", "scatter", root),
+                           lambda xb: spmd.scatter_linear(xb, n, root), x)
+
+    def gather(self, comm, x, root: int):
+        n = comm.size
+        return run_sharded(comm, ("basic", "gather", root),
+                           lambda xb: spmd.gather_linear(xb, n, root), x)
 
 
 class BasicCollComponent(mca_component.Component):
@@ -576,10 +787,71 @@ class _SelfModule:
             "reduce": same,
             "bcast": same,
             "allgather": same,
+            "gather": same,
+            "scatter": same,
             "reduce_scatter_block": same,
             "alltoall": same,
+            "scan": same,
+            "exscan": lambda comm, x, op: torch.zeros_like(x),
             "barrier": lambda comm: _sync(comm),
+            # v-variants on one rank: local identities with the vcoll
+            # path's validation and 1-D flattening, so callers see the
+            # same shapes on any comm size
+            "alltoallv": self._alltoallv,
+            "allgatherv": self._allgatherv,
+            "gatherv": lambda comm, bufs, root: self._allgatherv(comm, bufs),
+            "scatterv": self._scatterv,
+            "reduce_scatter": self._reduce_scatter,
         }
+
+    @staticmethod
+    def _alltoallv(comm, bufs, counts):
+        from . import vcoll
+
+        b = vcoll._as_1d_tensors(comm, bufs, "alltoallv")
+        c = vcoll._counts_matrix(counts, 1)
+        if b[0].shape[0] != int(c[0, 0]):
+            raise MPIError(
+                ErrorCode.ERR_COUNT,
+                f"alltoallv buffer has {b[0].shape[0]} elements, count "
+                f"is {int(c[0, 0])}",
+            )
+        return [b[0].clone()]
+
+    @staticmethod
+    def _allgatherv(comm, bufs):
+        from . import vcoll
+
+        return vcoll._as_1d_tensors(comm, bufs, "allgatherv")[0].clone()
+
+    @staticmethod
+    def _scatterv(comm, buf, counts, root):
+        from .driver import as_rank_buffer
+
+        if root != 0:
+            raise MPIError(ErrorCode.ERR_ROOT, f"bad root {root}")
+        flat = as_rank_buffer(buf, comm.device).reshape(-1)
+        counts = [int(k) for k in counts]
+        if len(counts) != 1 or flat.shape[0] != counts[0]:
+            raise MPIError(
+                ErrorCode.ERR_COUNT,
+                "scatterv needs 1 count matching the buffer length",
+            )
+        return [flat.clone()]
+
+    @staticmethod
+    def _reduce_scatter(comm, x, counts, op):
+        from .driver import as_rank_buffer
+
+        flat = as_rank_buffer(x, comm.device).reshape(-1)
+        counts = [int(k) for k in counts]
+        if len(counts) != 1 or flat.shape[0] != counts[0]:
+            raise MPIError(
+                ErrorCode.ERR_COUNT,
+                "reduce_scatter on a self comm needs x of shape "
+                "(1, recvcounts[0])",
+            )
+        return [flat.clone()]
 
 
 class SelfCollComponent(mca_component.Component):
@@ -594,7 +866,145 @@ class SelfCollComponent(mca_component.Component):
         return None
 
 
+# ---------------------------------------------------------------------------
+# ml component — hierarchical two-level collectives (ml/bcol/sbgp)
+# ---------------------------------------------------------------------------
+
+def _discover_hierarchy(comm) -> Optional[tuple]:
+    """sbgp-style subgroup discovery: split the comm's ranks into fast
+    domains (same host process / slice). Returns (inter, intra) when
+    ranks form equal-size contiguous groups, else None. The
+    ``coll_ml_local_size`` variable overrides discovery (virtual ranks
+    all share one process)."""
+    forced = int(mca_var.get("coll_ml_local_size", 0))
+    n = comm.size
+    if forced > 1:
+        return (n // forced, forced) if n % forced == 0 else None
+    eps = {e.rank: e for e in comm.runtime.endpoints}
+    keys = []
+    for i in range(n):
+        e = eps.get(comm.group.world_rank(i))
+        if e is None:
+            return None
+        keys.append((e.process_index, e.slice_index))
+    groups: Dict[tuple, list] = {}
+    for i, k in enumerate(keys):
+        groups.setdefault(k, []).append(i)
+    sizes = {len(v) for v in groups.values()}
+    if len(groups) < 2 or len(sizes) != 1:
+        return None
+    intra = sizes.pop()
+    if intra < 2:
+        return None
+    # groups must be contiguous rank blocks for the 2-D factorization
+    for members in groups.values():
+        if members != list(range(members[0], members[0] + intra)):
+            return None
+    return (len(groups), intra)
+
+
+class _MlModule:
+    """Two-level algorithms over the (node, local) decomposition."""
+
+    def __init__(self, comm, inter: int, intra: int) -> None:
+        self.comm = comm
+        self.inter = inter
+        self.intra = intra
+
+    def fns(self) -> Dict[str, Callable]:
+        return {
+            "allreduce": self.allreduce,
+            "reduce": self.reduce,
+            "bcast": self.bcast,
+            "allgather": self.allgather,
+            "reduce_scatter_block": self.reduce_scatter_block,
+            "alltoall": self.alltoall,
+            "barrier": self.barrier,
+        }
+
+    def _reducible(self, op: Op) -> bool:
+        return not (op.is_pair_op or op.identity is None
+                    or not op.commutative)
+
+    def _run(self, comm, key: tuple, body, x):
+        return run_sharded2d(comm, ("ml",) + key + (self.inter, self.intra),
+                             body, x, inter=self.inter, intra=self.intra)
+
+    def allreduce(self, comm, x, op: Op):
+        if not self._reducible(op):
+            return None  # defer to lower-priority providers
+        op = _resolve_op(op, x)
+        return self._run(comm, ("allreduce", op), lambda xb:
+                         spmd.allreduce_two_level(xb, op, self.inter,
+                                                  self.intra), x)
+
+    def reduce(self, comm, x, op: Op, root: int):
+        if not self._reducible(op):
+            return None
+        op = _resolve_op(op, x)
+        return self._run(comm, ("reduce", op, root), lambda xb:
+                         spmd.reduce_two_level(xb, op, self.inter,
+                                               self.intra, root), x)
+
+    def allgather(self, comm, x):
+        return self._run(comm, ("allgather",), lambda xb: _flat_gather(
+            spmd.allgather_two_level(xb, self.inter, self.intra)), x)
+
+    def reduce_scatter_block(self, comm, x, op: Op):
+        if not self._reducible(op):
+            return None
+        op = _resolve_op(op, x)
+        return self._run(comm, ("reduce_scatter_block", op), lambda xb:
+                         spmd.reduce_scatter_two_level(xb, op, self.inter,
+                                                       self.intra), x)
+
+    def alltoall(self, comm, x):
+        n = comm.size
+
+        def body(xb):
+            blocks = xb.reshape((n, n, -1) + tuple(xb.shape[2:]))
+            return spmd.alltoall_two_level(
+                blocks, self.inter, self.intra).reshape(xb.shape)
+
+        return self._run(comm, ("alltoall",), body, x)
+
+    def bcast(self, comm, x, root: int):
+        return self._run(comm, ("bcast", root), lambda xb:
+                         spmd.bcast_two_level(xb, self.inter, self.intra,
+                                              root), x)
+
+    def barrier(self, comm):
+        self._run(comm, ("barrier",), spmd.barrier_psum,
+                  torch.zeros((comm.size,), dtype=torch.int32,
+                              device=comm.device))
+        _sync(comm)
+
+
+class MlCollComponent(mca_component.Component):
+    """Hierarchical collectives; wins only when selected (coll=ml) or
+    its priority is raised, and declines comms with no hierarchy."""
+
+    NAME = "ml"
+    PRIORITY = 40
+
+    def register_vars(self) -> None:
+        mca_var.register(
+            "coll_ml_local_size", "int", 0,
+            "Force the fast-domain (intra) size for hierarchical "
+            "collectives; 0 = discover from endpoint process/slice ids",
+        )
+
+    def query(self, ctx=None):
+        if ctx is None:
+            return (self.priority, self)
+        h = _discover_hierarchy(ctx)
+        if h is None:
+            return None
+        return (self.priority, _MlModule(ctx, *h))
+
+
 COLL_FRAMEWORK.register(FusedCollComponent())
 COLL_FRAMEWORK.register(TunedCollComponent())
+COLL_FRAMEWORK.register(MlCollComponent())
 COLL_FRAMEWORK.register(BasicCollComponent())
 COLL_FRAMEWORK.register(SelfCollComponent())

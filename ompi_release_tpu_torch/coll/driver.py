@@ -13,7 +13,9 @@ the comm's device. What stays from the reference:
   object[, seg])``: it caches the body callable (capturing it as a CUDA
   graph is later work);
 - the ``coll_invocations`` / ``coll_programs_compiled`` /
-  ``coll_plan_cache_hits`` pvars.
+  ``coll_plan_cache_hits`` pvars;
+- :func:`run_sharded2d`, the same runner over the ``(node, local)``
+  factorization the hierarchical ``ml`` bodies use.
 """
 
 from __future__ import annotations
@@ -92,3 +94,32 @@ def run_sharded(comm, key: Tuple, body: Callable, x, *,
         prog = body
         cache[key] = prog
     return prog(x.to(comm.device), *[e.to(comm.device) for e in extra_arrays])
+
+
+def run_sharded2d(comm, key: Tuple, body: Callable, x, *,
+                  inter: int, intra: int) -> Any:
+    """Like :func:`run_sharded` over a 2-D (node, local) factorization
+    of the comm's ranks: rank r = (node r // intra, local r % intra),
+    the sbgp subgrouping the hierarchical (``ml``) bodies close over.
+    ``ERR_COUNT`` unless the leading axis is the comm size and
+    inter * intra == size; the program cache and the pvars are
+    :func:`run_sharded`'s."""
+    _invoke_count.add()
+    if not isinstance(x, torch.Tensor):
+        raise MPIError(ErrorCode.ERR_TYPE,
+                       "driver-mode collectives take a single tensor with "
+                       "a leading rank axis")
+    if x.shape[0] != comm.size or inter * intra != comm.size:
+        raise MPIError(
+            ErrorCode.ERR_COUNT,
+            f"2-D driver needs leading axis == size ({comm.size}) and "
+            f"inter*intra == size (got {inter}x{intra})",
+        )
+    cache = _program_cache(comm)
+    prog = cache.get(key)
+    _plan_cache.observe(0.0 if prog is None else 1.0)
+    if prog is None:
+        _compile_count.add()
+        prog = body
+        cache[key] = prog
+    return prog(x.to(comm.device))

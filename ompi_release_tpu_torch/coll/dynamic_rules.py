@@ -1,6 +1,6 @@
 """tuned dynamic rule files — operator-supplied decision tables
-(counterpart of ``ompi_release_tpu/coll/dynamic_rules.py``, file rules
-only; ``coll_tuned_dynamic_file.c`` analogue).
+(counterpart of ``ompi_release_tpu/coll/dynamic_rules.py``;
+``coll_tuned_dynamic_file.c`` analogue).
 
 Same line format as the reference::
 
@@ -14,24 +14,34 @@ fixed decision constants. The optional ``segsize`` column is the
 pipeline segment size in bytes (``auto`` or omitted = the
 ``coll_pipeline_segsize`` cvar, ``0`` = no pipelining). Each collective
 measures ``min_msg_bytes`` in its own decision unit (allreduce, bcast,
-reduce: bytes per rank; allgather: total bytes; alltoall: bytes per
-destination block). Selected with ``coll_tuned_use_dynamic_rules`` +
-``coll_tuned_dynamic_rules_filename``; unknown collectives or algorithms
-fail at load time with the file and line number.
+reduce, gather: bytes per rank; allgather: total bytes; alltoall and
+scatter: bytes per destination block). Selected with
+``coll_tuned_use_dynamic_rules`` + ``coll_tuned_dynamic_rules_filename``;
+unknown collectives or algorithms fail at load time with the file and
+line number.
 
-Not ported yet: the tuning database (``coll_tuning_db_dir``) and the
-topology-fingerprint header stanza it keys on. Reaching either raises
-``ERR_NOT_AVAILABLE`` rather than silently ignoring the configuration.
+A file may carry the tuning database's topology-fingerprint stanza::
+
+    # fingerprint: hosts=1;ppn=1;links=local;P=1
+    # version: 2
+
+It is parsed, not skipped (a malformed stanza fails at load with its
+line number) and exposed through :func:`load_rules_doc` /
+:func:`rules_source`. When ``coll_tuning_db_dir`` is set and NO explicit
+rules filename is, the database entry best matching the job's
+fingerprint (:mod:`..tuning.db`) is the rule file; the explicit file
+outranks the database. Files without the stanza keep the legacy
+semantics.
 """
 
 from __future__ import annotations
 
 import os
-import re
 import threading
 from typing import Dict, List, Optional, Tuple
 
 from ..mca import var as mca_var
+from ..tuning import db as _tuning_db
 from ..utils import output
 from ..utils.errors import ErrorCode, MPIError
 
@@ -41,26 +51,19 @@ _log = output.stream("coll")
 #: components.py at import; kept here to avoid a cycle)
 RULE_COLLECTIVES: Dict[str, Tuple[str, ...]] = {}
 
-#: the tuning database's header stanza (``# fingerprint: ...`` /
-#: ``# version: N``), recognised only to refuse it
-_DB_STANZA_RE = re.compile(r"^\s*#\s*(fingerprint|version)\s*:", re.I)
-
 Rules = Dict[str, List[Tuple[int, int, str, Optional[int]]]]
 
-# (path, mtime_ns, size) -> parsed rules; a rewritten file is re-parsed
-_cache: Dict[Tuple[str, int, int], Rules] = {}
+# (path, mtime_ns, size) -> (parsed rules, header meta); a rewritten
+# file is re-parsed, an unchanged one costs a stat per lookup
+_cache: Dict[Tuple[str, int, int], Tuple[Rules, Dict]] = {}
 _cache_lock = threading.Lock()
 
 
-def _not_ported(what: str) -> MPIError:
-    return MPIError(ErrorCode.ERR_NOT_AVAILABLE,
-                    f"{what}: the tuning database is not ported to "
-                    "ompi_release_tpu_torch yet (use a plain rule file)")
-
-
-def load_rules(path: str) -> Rules:
-    """Parse a rule file into {collective: [(min_n, min_bytes, alg,
-    segsize)]} preserving file order."""
+def load_rules_doc(path: str) -> Tuple[Rules, Dict]:
+    """Parse a rule file into ``(rules, meta)``: rules is {collective:
+    [(min_n, min_bytes, alg, segsize)]} preserving file order; meta is
+    the header stanza, ``{"fingerprint": canonical str | None,
+    "version": int | None}``."""
     try:
         with open(path) as fh:
             lines = fh.read().splitlines()
@@ -68,9 +71,20 @@ def load_rules(path: str) -> Rules:
         raise MPIError(ErrorCode.ERR_FILE,
                        f"cannot read dynamic rules file {path}: {e}")
     rules: Rules = {}
+    meta: Dict = {"fingerprint": None, "version": None}
     for lineno, line in enumerate(lines, 1):
-        if _DB_STANZA_RE.match(line):
-            raise _not_ported(f"{path}:{lineno}: tuning-database stanza")
+        m = _tuning_db.FP_LINE_RE.match(line)
+        if m:
+            try:
+                fp = _tuning_db.Fingerprint.parse(m.group(1))
+            except ValueError as e:
+                raise MPIError(ErrorCode.ERR_ARG, f"{path}:{lineno}: {e}")
+            meta["fingerprint"] = fp.canon()
+            continue
+        m = _tuning_db.VERSION_LINE_RE.match(line)
+        if m:
+            meta["version"] = int(m.group(1))
+            continue
         line = line.split("#", 1)[0].strip()
         if not line:
             continue
@@ -114,39 +128,72 @@ def load_rules(path: str) -> Rules:
                     f"K/M/G ok) or 'auto', got '{parts[4]}'",
                 )
         rules.setdefault(coll, []).append((min_n, min_bytes, alg, segsize))
-    return rules
+    return rules, meta
 
 
-def _active_rules() -> Optional[Rules]:
-    """The configured rule table, or None when dynamic rules are off."""
+def load_rules(path: str) -> Rules:
+    """The rule table of :func:`load_rules_doc` alone."""
+    return load_rules_doc(path)[0]
+
+
+def _db_selected_path() -> Optional[str]:
+    """The tuning database's entry for the active topology fingerprint,
+    or None (no ``coll_tuning_db_dir`` / no matching entry: the fixed
+    constants apply, as if no file were named)."""
+    if not mca_var.get("coll_tuning_db_dir", ""):
+        return None
+    return _tuning_db.select_rules_path()
+
+
+def _active_doc() -> Tuple[Optional[Rules], Optional[Dict],
+                           Optional[str], str]:
+    """(rules, meta, path, mode) of the configured rule table; (None,
+    None, None, "off") when dynamic rules are off or nothing is
+    configured. The explicit filename outranks the database."""
     if not mca_var.get("coll_tuned_use_dynamic_rules", False):
-        return None
+        return None, None, None, "off"
     path = mca_var.get("coll_tuned_dynamic_rules_filename", "")
+    mode = "file"
     if not path:
-        if mca_var.get("coll_tuning_db_dir", ""):
-            raise _not_ported("coll_tuning_db_dir is set")
-        return None
+        path = _db_selected_path()
+        mode = "db"
+        if not path:
+            return None, None, None, "off"
     try:
         st = os.stat(path)
     except OSError as e:
         # the file vanished mid-run: keep serving the last parsed copy;
         # only a file that never parsed is fatal
         with _cache_lock:
-            rules = next((r for (p, _, _), r in _cache.items() if p == path),
-                         None)
-        if rules is None:
+            doc = next((d for (p, _, _), d in _cache.items() if p == path),
+                       None)
+        if doc is None:
             raise MPIError(ErrorCode.ERR_FILE,
                            f"dynamic rules file {path} unreadable: {e}")
-        return rules
+        return doc[0], doc[1], path, mode
     key = (path, st.st_mtime_ns, st.st_size)
     with _cache_lock:
-        rules = _cache.get(key)
-    if rules is None:
-        rules = load_rules(path)  # parse before dropping the old copy
+        doc = _cache.get(key)
+    if doc is None:
+        doc = load_rules_doc(path)  # parse before dropping the old copy
         with _cache_lock:
             _cache.clear()
-            _cache[key] = rules
-    return rules
+            _cache[key] = doc
+    return doc[0], doc[1], path, mode
+
+
+def _active_rules() -> Optional[Rules]:
+    """The configured rule table, or None when dynamic rules are off."""
+    return _active_doc()[0]
+
+
+def rules_source() -> Dict[str, Optional[str]]:
+    """Where the live rule table comes from: ``{"mode": "off" | "file"
+    | "db", "path", "fingerprint"}`` (the loaded file's stamped
+    fingerprint, None for a file without the stanza)."""
+    _rules, meta, path, mode = _active_doc()
+    return {"mode": mode, "path": path,
+            "fingerprint": (meta or {}).get("fingerprint")}
 
 
 def _last_match(coll: str, comm_size: int, msg_bytes: int, col: int):

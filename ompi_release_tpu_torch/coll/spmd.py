@@ -550,3 +550,277 @@ def alltoall_pairwise(blocks: torch.Tensor, n: int) -> torch.Tensor:
         recv = ppermute(send, [(i, (i + k) % n) for i in range(n)])
         _put(out, [(r - k) % n for r in range(n)], recv)
     return out
+
+
+# ---------------------------------------------------------------------------
+# gather / scatter: the root's buffer holds the n blocks in rank order
+# ---------------------------------------------------------------------------
+
+def gather_linear(x: torch.Tensor, n: int, root: int = 0) -> torch.Tensor:
+    """Linear gather (``coll_tuned_gather.c`` basic_linear; also the
+    fused and basic components' body): one allgather, root keeps it
+    (other ranks' buffers are undefined in MPI: zeros here, as in the
+    reference)."""
+    g = x.reshape((1, -1) + tuple(x.shape[2:])).expand(
+        (n, -1) + tuple(x.shape[2:]))
+    return _where([r == root for r in range(n)], g, torch.zeros_like(g))
+
+
+def scatter_linear(x: torch.Tensor, n: int, root: int = 0) -> torch.Tensor:
+    """Linear scatter (basic_linear; also the fused and basic
+    components' body): bcast root's buffer (:func:`bcast_masked_psum`),
+    each rank takes its own chunk."""
+    full = bcast_masked_psum(x, root)
+    chunks = full.reshape((n, n, -1) + tuple(full.shape[2:]))
+    return _take(chunks, list(range(n)))
+
+
+def _window_index(base: Sequence[int], k: int,
+                  device: torch.device) -> torch.Tensor:
+    """Per-rank block indices ``base[r] + j`` for j < k: an (n, k)
+    device tensor (the reference's ``dynamic_slice_in_dim`` window)."""
+    return _idx([[b + j for j in range(k)] for b in base], device)
+
+
+def _masked(cond: Sequence[Sequence[bool]], t: torch.Tensor) -> torch.Tensor:
+    """``jnp.where(mask, t, 0)`` with a host-computed (n, k) mask over
+    the first two dims of ``t``."""
+    m = _cached(_freeze([[bool(c) for c in row] for row in cond]),
+                torch.bool, str(t.device))
+    m = m.view(tuple(m.shape) + (1,) * (t.dim() - 2))
+    return torch.where(m, t, torch.zeros_like(t))
+
+
+def gather_binomial(x: torch.Tensor, n: int, root: int = 0) -> torch.Tensor:
+    """Binomial-tree gather (``gather_intra_binomial``): log2(n) rounds;
+    at round k the ranks whose root-relative vrank has lowest set bit k
+    forward their accumulated k-block range to vrank - k. Each round
+    moves a k-block window at a clamped base; window entries outside
+    the sender's own range are masked to zero and receivers merge
+    additively (``cur + recv``) into the same window, exactly as the
+    reference does (so a received -0.0 lands as +0.0 there and here).
+    Non-root ranks end with zeros. Returns (n, n*block, ...)."""
+    rows = _ranks(n, x.device).view(n, 1)
+    v = [(r - root) % n for r in range(n)]
+    out = torch.zeros((n, n) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    _put(out, v, x)
+    rank_of = lambda vv: (vv + root) % n  # noqa: E731
+    k = 1
+    while k < n:
+        s_send = [min(vr, n - k) for vr in v]
+        window = out[rows, _window_index(s_send, k, x.device)]
+        live = [[(vr & (2 * k - 1)) == k and s + j >= vr for j in range(k)]
+                for vr, s in zip(v, s_send)]
+        contrib = _masked(live, window)
+        perm = [(rank_of(vs), rank_of(vs - k))
+                for vs in range(n) if (vs & (2 * k - 1)) == k]
+        recv = ppermute(contrib, perm)
+        recv_idx = _window_index([min(vr + k, n - k) for vr in v], k,
+                                 x.device)
+        out[rows, recv_idx] = out[rows, recv_idx] + recv
+        k *= 2
+    # vrank order -> rank order: result[i] = out[(i - root) % n]
+    out = torch.roll(out, shifts=root, dims=1)
+    flat = out.reshape((n, -1) + tuple(x.shape[2:]))
+    return _where([r == root for r in range(n)], flat, torch.zeros_like(flat))
+
+
+def scatter_binomial(x: torch.Tensor, n: int, root: int = 0) -> torch.Tensor:
+    """Binomial-tree scatter (``scatter_intra_binomial``): the mirror of
+    :func:`gather_binomial` — root starts with all n blocks; at round k
+    (descending) every range holder passes the upper k blocks of its
+    range to vrank + k (a masked k-block window, additive merge).
+    ``x`` is (n, n*block, ...) with root's row holding the blocks;
+    returns each rank's own block, (n, block, ...)."""
+    rows = _ranks(n, x.device).view(n, 1)
+    v = [(r - root) % n for r in range(n)]
+    blocks = x.reshape((n, n, x.shape[1] // n) + tuple(x.shape[2:]))
+    buf = _where([r == root for r in range(n)],
+                 torch.roll(blocks, shifts=-root, dims=1),
+                 torch.zeros_like(blocks))
+    rank_of = lambda vv: (vv + root) % n  # noqa: E731
+    k = 1 << max(0, (n - 1).bit_length() - 1)
+    while k >= 1:
+        s_send = [min(vr + k, n - k) for vr in v]
+        window = buf[rows, _window_index(s_send, k, x.device)]
+        live = [[vr % (2 * k) == 0 and vr + k < n and s + j >= vr + k
+                 for j in range(k)] for vr, s in zip(v, s_send)]
+        contrib = _masked(live, window)
+        perm = [(rank_of(vs), rank_of(vs + k))
+                for vs in range(n) if vs % (2 * k) == 0 and vs + k < n]
+        recv = ppermute(contrib, perm)
+        recv_idx = _window_index([min(vr, n - k) for vr in v], k, x.device)
+        buf[rows, recv_idx] = buf[rows, recv_idx] + recv
+        k //= 2
+    return _take(buf, v)
+
+
+# ---------------------------------------------------------------------------
+# scan / barrier
+# ---------------------------------------------------------------------------
+
+def associative_scan(g: torch.Tensor, op: Op) -> torch.Tensor:
+    """Inclusive scan over the leading axis in the combine order of
+    ``jax.lax.associative_scan`` (combine adjacent pairs, scan the
+    reduced sequence recursively, fill in the even positions,
+    interleave): the fused component's scan, one fixed order. ``op``
+    gets ``(earlier, later)``; ``g`` may be a tuple of tensors for a
+    pair op."""
+    pair = isinstance(g, tuple)
+    elems = g if pair else (g,)
+    comb = (lambda a, b: op(a, b)) if pair else \
+        (lambda a, b: (op(a[0], b[0]),))
+
+    def scan(el):
+        m = el[0].shape[0]
+        if m < 2:
+            return el
+        reduced = comb(tuple(e[0:m - 1:2] for e in el),
+                       tuple(e[1::2] for e in el))
+        odd = scan(reduced)
+        if m % 2 == 0:
+            even = comb(tuple(o[:-1] for o in odd),
+                        tuple(e[2::2] for e in el))
+        else:
+            even = comb(odd, tuple(e[2::2] for e in el))
+        even = tuple(torch.cat([e[0:1], r], dim=0)
+                     for e, r in zip(el, even))
+        out = []
+        for ev, od in zip(even, odd):
+            res = torch.empty((m,) + tuple(ev.shape[1:]), dtype=ev.dtype,
+                              device=ev.device)
+            res[0::2] = ev
+            res[1::2] = od
+            out.append(res)
+        return tuple(out)
+
+    res = scan(elems)
+    return res if pair else res[0]
+
+
+def scan_gather(x, op: Op, exclusive: bool = False):
+    """The fused component's scan: every rank's buffer gathered, one
+    :func:`associative_scan`, rank r keeps prefix r (exscan: prefix
+    r - 1, zeros at rank 0, which MPI leaves undefined). ``x`` is a
+    tensor or a pair-op (values, indices) tuple."""
+    s = associative_scan(x, op)
+    if not exclusive:
+        return s if isinstance(s, tuple) else s.clone()
+
+    def shift(t):
+        return torch.cat([torch.zeros_like(t[0:1]), t[:-1]], dim=0)
+
+    return tuple(shift(t) for t in s) if isinstance(s, tuple) else shift(s)
+
+
+def scan_recursive_doubling(x: torch.Tensor, op: Op, n: int,
+                            exclusive: bool = False) -> torch.Tensor:
+    """Inclusive/exclusive prefix reduction over ranks (MPI_Scan/Exscan),
+    log2-round recursive doubling (libnbc's iscan schedule): each round
+    folds ``op(recv, acc)``, the lower ranks' partial on the left."""
+    ranks = range(n)
+    acc = x
+    d = 1
+    while d < n:
+        recv = ppermute(acc, [(i, i + d) for i in range(n - d)])
+        acc = _where([r >= d for r in ranks], op(recv, acc), acc)
+        d *= 2
+    if not exclusive:
+        return acc if acc is not x else x.clone()
+    # exscan: shift inclusive results up by one rank; rank 0 -> zeros
+    return ppermute(acc, [(i, i + 1) for i in range(n - 1)])
+
+
+def barrier_psum(x: torch.Tensor) -> torch.Tensor:
+    """Barrier = 0-byte allreduce of the rank axis's zeros; completion
+    of the queued work is the synchronization."""
+    return _bcast_rows(fold_ranks(torch.zeros_like(x),
+                                  Op("sum", lambda a, b: a + b)), x.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# two-level (ml) bodies: rank r = (node r // intra, local r % intra)
+# ---------------------------------------------------------------------------
+
+def allreduce_two_level(x: torch.Tensor, op: Op, inter: int,
+                        intra: int) -> torch.Tensor:
+    """Hierarchical allreduce (coll/ml + bcol + sbgp analogue): ring
+    reduce-scatter inside each fast domain (``intra`` consecutive
+    ranks), the owned chunks reduced across the slow domain (one
+    :func:`fold_ranks` over nodes), then an allgather inside the
+    domain. Inter-domain traffic is 1/intra of the payload."""
+    n = inter * intra
+    flat = x.reshape(n, -1)
+    total = flat.shape[1]
+    chunk = -(-total // intra)
+    padded = _pad_to(flat, chunk * intra, op.identity_for(x.dtype))
+    # level 1: reduce-scatter within each node -> (inter, intra, chunk)
+    mine = torch.stack([
+        reduce_scatter_ring(padded[i * intra:(i + 1) * intra], op, intra)
+        for i in range(inter)])
+    # level 2: allreduce each local position's chunk across the nodes
+    red = fold_ranks(mine, op)  # (intra, chunk)
+    # level 3: allgather within the node: every rank the whole vector
+    return _bcast_rows(red.reshape(-1)[:total], n).reshape(x.shape)
+
+
+def bcast_two_level(x: torch.Tensor, inter: int, intra: int,
+                    root: int) -> torch.Tensor:
+    """Hierarchical bcast: root's value, zeros elsewhere, folded inside
+    each fast domain and then across domains (the reference's
+    ``psum(psum(contrib, local), node)``)."""
+    n = inter * intra
+    contrib = _where([r == root for r in range(n)], x, torch.zeros_like(x))
+    add = Op("sum", lambda a, b: a + b)
+    if x.dtype is torch.bool:
+        contrib = contrib.to(torch.int32)
+        add = Op("max", torch.maximum)
+    per_node = contrib.reshape((inter, intra) + tuple(x.shape[1:]))
+    local = fold_ranks(per_node.transpose(0, 1), add)  # (inter, ...)
+    return _bcast_rows(fold_ranks(local, add).to(x.dtype), n)
+
+
+def reduce_two_level(x: torch.Tensor, op: Op, inter: int, intra: int,
+                     root: int) -> torch.Tensor:
+    """Hierarchical rooted reduce: the two-level allreduce kept at the
+    root's position."""
+    return _root_only(allreduce_two_level(x, op, inter, intra), root)
+
+
+def allgather_two_level(x: torch.Tensor, inter: int,
+                        intra: int) -> torch.Tensor:
+    """Hierarchical allgather: each node's blocks gathered inside the
+    fast domain, then the per-node aggregates exchanged across domains.
+    Returns (n ranks, n blocks, ...) in rank order (node-major)."""
+    # on one device both levels land every rank's block in rank order
+    return _bcast_rows(x, inter * intra)
+
+
+def reduce_scatter_two_level(x: torch.Tensor, op: Op, inter: int,
+                             intra: int) -> torch.Tensor:
+    """Hierarchical reduce_scatter_block: the two-level allreduce, each
+    rank keeping its own chunk."""
+    n = inter * intra
+    red = allreduce_two_level(x, op, inter, intra)
+    chunks = red.reshape((n, n, -1) + tuple(red.shape[2:]))
+    return _take(chunks, list(range(n)))
+
+
+def alltoall_two_level(blocks: torch.Tensor, inter: int,
+                       intra: int) -> torch.Tensor:
+    """Hierarchical alltoall: an inter-domain exchange of whole-domain
+    super-blocks, then an intra-domain exchange (each slow-domain
+    message aggregates intra**2 rank-pair blocks). ``blocks``: (n, n,
+    ...), row r's block j destined to rank j; returns out[r, j] = the
+    block rank j sent to rank r."""
+    rest = tuple(blocks.shape[2:])
+    # [src node, src local, dst node, dst local]
+    b = blocks.reshape((inter, intra, inter, intra) + rest)
+    # inter exchange: rank (dn, sl) receives every node's blocks for
+    # its node -> [dn, sl, sn, dl]
+    b = b.permute((2, 1, 0, 3) + tuple(range(4, 4 + len(rest)))).contiguous()
+    # intra exchange: rank (dn, dl) receives from each local sl
+    # -> [dn, dl, sn, sl]
+    b = b.permute((0, 3, 2, 1) + tuple(range(4, 4 + len(rest)))).contiguous()
+    return b.reshape(blocks.shape)

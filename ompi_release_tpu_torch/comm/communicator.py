@@ -14,9 +14,10 @@ on one device: the device of its first rank (virtual ranks share it).
 
 Ported so far: WORLD/SELF, dup/create/split/split_type_shared/free,
 attributes, info objects, the ``submesh`` of each comm's devices,
-errhandlers, the blocking collectives, which call the installed
-``c_coll`` table directly, and point-to-point through the per-comm PML
-engine (driver mode: the acting rank is the keyword ``rank=``).
+errhandlers, the blocking collectives (rooted, scan and v-variants
+included), which call the installed ``c_coll`` table directly, the
+small-message fusion buffer, and point-to-point through the per-comm
+PML engine (driver mode: the acting rank is the keyword ``rank=``).
 Nonblocking and persistent collectives and the fault-tolerance hooks
 come with later slices.
 
@@ -41,6 +42,7 @@ from .group import Group, UNDEFINED
 _log = output.stream("comm")
 _cid_counter = itertools.count(0)
 _cid_lock = threading.Lock()
+_fusion_create_lock = threading.Lock()
 _comm_registry: Dict[int, "Communicator"] = {}
 
 _comm_count = pvar.counter("comm_active_count", "live communicators")
@@ -262,6 +264,12 @@ class Communicator:
     def allgather(self, x):
         return self._coll("allgather")(self, self._buf(x))
 
+    def gather(self, x, root: int = 0):
+        return self._coll("gather")(self, self._buf(x), root)
+
+    def scatter(self, x, root: int = 0):
+        return self._coll("scatter")(self, self._buf(x), root)
+
     def reduce_scatter_block(self, x, op=None):
         from .. import ops as ops_mod
 
@@ -271,8 +279,73 @@ class Communicator:
     def alltoall(self, x):
         return self._coll("alltoall")(self, self._buf(x))
 
+    def scan(self, x, op=None):
+        from .. import ops as ops_mod
+
+        return self._coll("scan")(self, self._buf(x), op or ops_mod.SUM)
+
+    def exscan(self, x, op=None):
+        from .. import ops as ops_mod
+
+        return self._coll("exscan")(self, self._buf(x), op or ops_mod.SUM)
+
     def barrier(self) -> None:
         self._coll("barrier")(self)
+
+    # -- small-message fusion (coll/fusion.py) -----------------------------
+    def fusion_buffer(self):
+        """This communicator's small-message fusion buffer (Horovod
+        fusion-buffer / BTL-coalescing analogue): allreduces below
+        ``coll_fusion_threshold`` pack into one collective per (op,
+        dtype). Created lazily, one per comm, under a module lock so a
+        racing first use cannot orphan an instance."""
+        fb = getattr(self, "_fusion_buffer", None)
+        if fb is None:
+            from ..coll.fusion import FusionBuffer
+
+            with _fusion_create_lock:
+                fb = getattr(self, "_fusion_buffer", None)
+                if fb is None:
+                    fb = FusionBuffer(self)
+                    self._fusion_buffer = fb
+        return fb
+
+    def fused_allreduce(self, x, op=None):
+        """Allreduce through the fusion buffer: small tensors coalesce
+        with other submissions (flush with
+        ``comm.fusion_buffer().flush()`` or the handle's ``result()``);
+        large ones dispatch immediately. Returns a
+        :class:`~..coll.fusion.FusedHandle`."""
+        return self.fusion_buffer().allreduce(x, op)
+
+    # -- v-variant collectives (per-rank counts; ragged host edge) ---------
+    def alltoallv(self, sendbufs, sendcounts):
+        """MPI_Alltoallv: ``sendbufs[i]`` holds rank i's chunks for
+        ranks 0..n-1 back to back, ``sendcounts[i][j]`` elements for
+        rank j. Returns ``recv[i]`` = chunks from each source, in
+        source order."""
+        return self._coll("alltoallv")(self, sendbufs, sendcounts)
+
+    def allgatherv(self, sendbufs):
+        """MPI_Allgatherv: ragged per-rank buffers, concatenated in
+        rank order (identical on all ranks: returned once)."""
+        return self._coll("allgatherv")(self, sendbufs)
+
+    def gatherv(self, sendbufs, root: int = 0):
+        return self._coll("gatherv")(self, sendbufs, root)
+
+    def scatterv(self, sendbuf, counts, root: int = 0):
+        """MPI_Scatterv: root's buffer split into counts[i] elements
+        per rank; returns one tensor per rank."""
+        return self._coll("scatterv")(self, sendbuf, counts, root)
+
+    def reduce_scatter(self, x, recvcounts, op=None):
+        """General MPI_Reduce_scatter with per-rank recv counts."""
+        from .. import ops as ops_mod
+
+        return self._coll("reduce_scatter")(
+            self, x, recvcounts, op or ops_mod.SUM
+        )
 
     # -- point-to-point (dispatched through the selected PML engine) -------
     @property

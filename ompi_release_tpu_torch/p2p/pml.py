@@ -89,9 +89,9 @@ def _as_device_payload(data, device: torch.device) -> torch.Tensor:
             ErrorCode.ERR_TYPE,
             f"p2p payload of type {type(data).__name__} is not a "
             "numeric array; describe structured/byte data with a "
-            "datatype and pack it (datatype.pack / Convertor) before "
-            f"sending, then unpack at the receiver (dtype {arr.dtype} "
-            "is not numeric)",
+            "datatype and pack it (ompi_release_tpu_torch.datatype."
+            "Convertor) before sending, then unpack at the receiver "
+            f"(dtype {arr.dtype} is not numeric)",
         )
     return torch.from_numpy(arr).to(device)
 

@@ -7,7 +7,9 @@ dropped and their outputs are zero (the residual carries them). With
 one ep rank the two ``all_to_all`` calls and the ``pmean`` of the
 auxiliary loss are the identity; the reshapes to ``(n, E_local, C, D)``
 and back are kept so that ep > 1 slots in with the multi-card slice.
-``dropless_moe`` (``:100-189``) needs ``alltoallv`` and comes with it.
+``dropless_moe`` (``:100-189``) is the exact-count alternative over
+``alltoallv``, for communicators inside one process; a communicator
+spanning processes waits for the cross-process transport.
 
 The dispatch and combine einsums are f32 products over one-hot tensors:
 each expert slot holds at most one token and each token sits in at most
@@ -16,10 +18,13 @@ one slot, so both are exact in any summation order (with TF32 off).
 
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils.errors import ErrorCode, MPIError
 
 
 def _one_hot_dispatch(logits: torch.Tensor, n_experts: int, capacity: int
@@ -80,3 +85,83 @@ def moe_layer(x: torch.Tensor, router_w: torch.Tensor, expert_fn: Callable,
     back = done.float().reshape(e_global, capacity, dmodel)  # route back
     out = torch.einsum("tec,ecd->td", combine, back)
     return out.to(x.dtype), aux
+
+
+def dropless_moe(comm, tokens, assignments, expert_fn: Callable,
+                 n_experts: int) -> List[torch.Tensor]:
+    """Dropless expert routing over ``alltoallv``: uneven capacities.
+
+    :func:`moe_layer` pays for static shapes with token dropping; this
+    driver-mode path is the exact-count alternative: the per-(rank,
+    rank) token counts become an alltoallv count matrix
+    (``coll_tuned_alltoallv.c``'s own use case), so no token is dropped.
+    (The kernel under alltoallv still pads each chunk to the capped
+    max count; what this path buys is exactness, not wire volume.)
+
+    tokens[i]: (T_i, D) rank i's tokens (ragged T_i); assignments[i]:
+    (T_i,) global expert ids; expert ``e`` lives on rank
+    ``e // (n_experts // n)``. ``expert_fn(e, x)`` applies expert e to
+    (K, D) tokens. Returns per-rank (T_i, D) outputs in original token
+    order, on the comm's device. The counts are computed on the host;
+    tokens move only on the device.
+    """
+    if getattr(comm, "spans_processes", False):
+        raise MPIError(
+            ErrorCode.ERR_NOT_AVAILABLE,
+            "dropless_moe over a communicator spanning processes needs "
+            "the cross-process transport, which is not ported",
+        )
+    from ..coll.driver import as_rank_buffer
+
+    n = comm.size
+    if n_experts % n:
+        raise ValueError(f"{n_experts} experts not divisible by {n} ranks")
+    e_local = n_experts // n
+    if len(tokens) != n or len(assignments) != n:
+        raise ValueError(
+            f"dropless_moe: need one tokens and assignments entry per "
+            f"rank ({n}), got {len(tokens)} tokens / "
+            f"{len(assignments)} assignments"
+        )
+    dev = comm.device
+    toks = [as_rank_buffer(t, dev) for t in tokens]
+    assign = [np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+              .astype(np.int32).reshape(-1) for a in assignments]
+    d = toks[0].shape[1] if toks[0].dim() == 2 else 1
+
+    # sort each rank's tokens by destination rank (stable keeps the
+    # order within a destination, which the inverse permutation needs)
+    owners = [a // e_local for a in assign]
+    order = [np.argsort(o, kind="stable") for o in owners]
+    counts = np.stack([np.bincount(o, minlength=n) for o in owners]
+                      ).astype(np.int64)
+    order_dev = [torch.from_numpy(o).to(dev) for o in order]
+    sendbufs = [t.reshape(-1, d).index_select(0, o).reshape(-1)
+                for t, o in zip(toks, order_dev)]
+    recv = comm.alltoallv(sendbufs, counts * d)
+    # the expert ids travel alongside (same counts, 1 element per token)
+    recv_ids = comm.alltoallv(
+        [torch.from_numpy(a[o]).to(dev) for a, o in zip(assign, order)],
+        counts)
+
+    # each rank runs its local experts on the exact token set
+    processed = []
+    for j in range(n):
+        rt = recv[j].reshape(-1, d)
+        ids = recv_ids[j]
+        out = torch.empty_like(rt)
+        for e in range(j * e_local, (j + 1) * e_local):
+            sel = (ids == e).nonzero().reshape(-1)
+            if sel.numel():
+                out[sel] = expert_fn(e, rt.index_select(0, sel)).to(rt.dtype)
+        processed.append(out.reshape(-1))
+
+    # route back: the return count matrix is the transpose
+    back = comm.alltoallv(processed, counts.T * d)
+    outputs = []
+    for pos in range(n):
+        inv = torch.empty_like(order_dev[pos])
+        inv[order_dev[pos]] = torch.arange(order_dev[pos].numel(),
+                                           device=dev)
+        outputs.append(back[pos].reshape(-1, d).index_select(0, inv))
+    return outputs

@@ -16,6 +16,7 @@ and dp cases belong to later slices.
 """
 
 import concurrent.futures
+import gc
 import os
 import pathlib
 import subprocess
@@ -58,6 +59,22 @@ def worlds():
     yield jworld, tworld
     trt._reset_for_tests()
     tvar.VARS.unset("runtime_virtual_ranks")
+
+
+@pytest.fixture(autouse=True)
+def _no_collection_inside_the_shm_btl_lock():
+    """The JAX package's ShmBtl registers each instance under a plain
+    lock (``ompi_release_tpu/btl/components.py:827``). A garbage
+    collection that starts inside it finalizes an older instance, whose
+    finalizer takes the same lock (``:799``), and the process hangs.
+    Collect first, then keep the collector off while a case runs (an
+    instance freed by its refcount is finalized outside the lock)."""
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
 
 
 def val(v):

@@ -368,11 +368,13 @@ def test_rule_file_picks_like_jax(tmp_path):
                 jrules.lookup(coll, n, nbytes)
             assert trules.lookup_segsize(coll, n, nbytes) == \
                 jrules.lookup_segsize(coll, n, nbytes)
+        # the tuning database's header stanza is parsed, not refused
         f.write_text("# fingerprint: hosts=1;ppn=8;links=shm;P=8\n"
+                     "# version: 3\n"
                      "allreduce 0 0 ring\n")
-        with pytest.raises(MPIError, match="not ported") as e:
-            trules.lookup("allreduce", 8, 100)
-        assert e.value.code == ErrorCode.ERR_NOT_AVAILABLE
+        assert trules.lookup("allreduce", 8, 100) == \
+            jrules.lookup("allreduce", 8, 100) == "ring"
+        assert trules.rules_source() == jrules.rules_source()
         f.write_text("allreduce 0 0 warp_drive\n")
         with pytest.raises(MPIError, match="rules.txt:1"):
             trules.lookup("allreduce", 8, 100)
