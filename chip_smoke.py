@@ -104,6 +104,34 @@ Run from the repository root on a machine with a card:
      ``index_select``, the dropless alltoallv, the gradient list fused
      two ways and per tensor, ml against tuned at 256 MiB, scan at 64
      MiB;
+   - slice 7 (right after slice 6): every collective above already went
+     through ``coll/plan.py``, a seen signature replaying its CUDA
+     graph. On the tuned comm each i-collective (13 families) and
+     ``ibarrier`` at 4 MiB a rank, three fires each, equals its blocking
+     call with ``coll_compiled=false`` bitwise, the SUM also op ^cuda; a
+     steady 256 MiB ``iallreduce`` returns before it completes (test()
+     false, dispatch ms < completion ms); ``allreduce_init`` on a 256
+     MiB buffer started 10 times with its contents redrawn in place
+     equals the interpreted call bitwise each time (1 capturing fire, 9
+     hits); the main path's families (allreduce at 8 B-256 MiB, bcast,
+     allgather, reduce_scatter_block, alltoall) capture as graphs on
+     tuned, fused, ml and basic (none "bad"), each replay bitwise the
+     interpreted leg; a profiler window sees the SUM kernel in every
+     replay; a replay after the index cache is cleared and its memory
+     overwritten gives the same bits; a tuned cvar write re-captures at
+     the next fire and follows the forced algorithm; BASELINE config 5's
+     int32 alltoall at 8 MiB a rank on the (4, 2) periodic cart comm
+     equals the closed-form permutation, its neighbor_allgather/alltoall
+     at 16 MiB a rank and their ineighbor twins index-built expectations;
+     a 4 + 4 intercomm over WORLD's halves: the inter-allreduce at 64 MiB
+     equals op ^cuda, merge orders low first; freeing a comm returns its
+     graphs' memory; a host-syncing body fails its capture, stays
+     interpreted and gives the interpreted bits. Then its timings, the
+     plan and the interpreted leg in turns: the tuned allreduce at the
+     six sweep sizes, a persistent start at 256 MiB beside iallreduce,
+     host µs per 8 B fire, the 66-tensor gradient list
+     one allreduce per tensor, profiler windows of each, the input copy
+     and output clone a replay adds at 256 MiB, and peak memory;
 4. times the kernels (CUDA events, median of 7) at the main path's
    shapes beside their bound, their plain twins and one PyTorch library
    call, the streaming kernels, the transpose and the eager chain hop in
@@ -2169,6 +2197,559 @@ def time_slice6(state, tuned, mpi_world, torch, dev):
     log(f"slice 6: timings took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# slice 7: nonblocking and persistent collectives, the frozen plans as CUDA
+# graphs, topologies and intercommunicators
+# ---------------------------------------------------------------------------
+
+#: the tuned allreduce sweep's sizes per rank (the main path's)
+SWEEP_BYTES = (8, 4 << 10, 64 << 10, 4 * MIB, 16 * MIB, 256 * MIB)
+PERSISTENT_STARTS = 10  # allreduce_init starts on the 256 MiB buffer
+HOST_FIRES = 200  # 8 B allreduces per host-time sample set, each from idle
+
+
+def interpreted(comm, name, *args):
+    """A collective's interpreted leg: its c_coll entry called directly,
+    which is what ``coll_compiled=false`` runs (without the cvar write,
+    which would void every frozen plan)."""
+    return comm.c_coll[name](comm, *args)
+
+
+def plan_entries(comm):
+    from ompi_release_tpu_torch.coll import plan as tplan
+
+    return {k: e for k, e in tplan._device_plans.items() if k[0] == comm.cid}
+
+
+def bad_plans(comm, *families):
+    """Why each of ``comm``'s plans (of ``families``, or all) that stays
+    interpreted does."""
+    return {str(k[1][:2]): e["bad"] for k, e in plan_entries(comm).items()
+            if "bad" in e and (not families or k[1][0] in families)}
+
+
+def check_frozen(comm, calls, what):
+    """Every signature ``comm`` fired has a frozen plan with a graph."""
+    entries = plan_entries(comm)
+    check(len(entries) >= calls, f"{what}: {len(entries)} plans for "
+                                 f"{calls} signatures")
+    for key, e in entries.items():
+        check("bad" not in e and e["frozen"].graph is not None,
+              f"{what}: plan {key[1][:2]} is not a captured graph: "
+              f"{e.get('bad')}")
+
+
+def hits():
+    from ompi_release_tpu_torch.mca import pvar as tpvar
+
+    st = tpvar.PVARS.lookup("coll_compiled_cache_hits").read()
+    return int(st["count"]), int(st["sum"])
+
+
+def comm_with(world, tmvar, coll, **cvars):
+    for k, v in dict(coll=coll, **cvars).items():
+        tmvar.set_value(k, v)
+    try:
+        return world.dup(name=f"s7_{coll.split(',')[0]}")
+    finally:
+        for k in dict(coll=coll, **cvars):
+            tmvar.VARS.unset(k)
+
+
+def s7_ifamily(tuned, tmvar, torch, dev):
+    """Each i-collective and ibarrier against its blocking call with
+    ``coll_compiled=false``, bitwise, three fires each (the interpreted
+    capture, the graph capture, a replay); the SUM also against op ^cuda."""
+    from ompi_release_tpu_torch import ops as tops
+
+    n = N_RANKS
+    g = torch.Generator(device=dev).manual_seed(70)
+    x = torch.randn(n, 4 * MIB // 4, generator=g, device=dev)
+    rs_counts = [(i % 3 + 1) * 65536 for i in range(n)]
+    xrs = torch.randn(n, sum(rs_counts), generator=g, device=dev)
+    v_counts = [[((i + 2 * j) % 4 + 1) * 16384 for j in range(n)]
+                for i in range(n)]
+    v_bufs = [torch.randn(sum(v_counts[i]), generator=g, device=dev)
+              for i in range(n)]
+    ragged = [torch.randn((i + 1) * 65536, generator=g, device=dev)
+              for i in range(n)]
+    cases = [
+        ("iallreduce", "allreduce", (x, tops.SUM)),
+        ("ireduce", "reduce", (x, tops.SUM, 5)),
+        ("ibcast", "bcast", (x, 3)),
+        ("iallgather", "allgather", (x,)),
+        ("igather", "gather", (x, 5)),
+        ("iscatter", "scatter", (x, 2)),
+        ("ireduce_scatter_block", "reduce_scatter_block", (x, tops.SUM)),
+        ("ireduce_scatter", "reduce_scatter", (xrs, rs_counts, tops.SUM)),
+        ("ialltoall", "alltoall", (x,)),
+        ("iscan", "scan", (x, tops.SUM)),
+        ("iexscan", "exscan", (x, tops.SUM)),
+        ("ialltoallv", "alltoallv", (v_bufs, v_counts)),
+        ("iallgatherv", "allgatherv", (ragged,)),
+    ]
+    tmvar.set_value("coll_compiled", False)
+    try:
+        wants = [getattr(tuned, b)(*args) for _, b, args in cases]
+    finally:
+        tmvar.VARS.unset("coll_compiled")
+    plain = with_op_excluded(tmvar, lambda: tuned.allreduce(x))
+    check(bits_equal(wants[0], plain), "allreduce != op ^cuda")
+
+    def same(got, want):
+        if isinstance(want, (list, tuple)):
+            return len(got) == len(want) and all(
+                same(a, b) for a, b in zip(got, want))
+        return bits_equal(got, want)
+
+    for (iname, _, args), want in zip(cases, wants):
+        for fire in range(3):
+            req = getattr(tuned, iname)(*args)
+            req.wait()
+            check(req.test()[0] and same(req.value, want),
+                  f"{iname} fire {fire} != blocking (coll_compiled=false)")
+    rb = tuned.ibarrier()
+    rb.wait()
+    check(rb.test()[0], "ibarrier did not complete")
+    # the general reduce_scatter slices the body's output: interpreted
+    bad = bad_plans(tuned, *{b for _, b, _ in cases} - {"reduce_scatter"})
+    check(not bad, f"i-family plans not captured: {bad}")
+    log(f"slice 7: {len(cases)} i-collectives x 3 fires and ibarrier equal "
+        "their blocking calls bitwise; iallreduce equals op ^cuda")
+
+
+def s7_async(tuned, torch, dev):
+    """A 256 MiB-a-rank iallreduce in steady state returns before it
+    completes."""
+    from ompi_release_tpu_torch import ops as tops
+
+    x = torch.randn(N_RANKS, 256 * MIB // 4, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(71))
+    for _ in range(2):  # the interpreted capture, the graph capture
+        tuned.iallreduce(x).wait()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    req = tuned.iallreduce(x)
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+    done_at_dispatch = req.test()[0]
+    req.wait()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    log(json.dumps({"iallreduce_256MiB_dispatch_ms": dispatch_ms,
+                    "completion_ms": total_ms,
+                    "test_right_after_dispatch": done_at_dispatch}))
+    check(not done_at_dispatch and dispatch_ms < total_ms,
+          "iallreduce at 256 MiB did not return before completion")
+    check(not bad_plans(tuned, "allreduce"),
+          f"plans not captured: {bad_plans(tuned)}")
+    check(bits_equal(req.value, interpreted(tuned, "allreduce", x,
+                                            tops.SUM)),
+          "iallreduce at 256 MiB != the interpreted call")
+
+
+def s7_persistent(tuned, torch, dev):
+    """allreduce_init on a 256 MiB-a-rank buffer started ten times, its
+    contents redrawn in place between starts: every result is the
+    interpreted call's, bitwise; one capturing fire, then hits."""
+    from ompi_release_tpu_torch import ops as tops
+
+    g = torch.Generator(device=dev).manual_seed(72)
+    buf = torch.empty(N_RANKS, 256 * MIB // 4, device=dev)
+    req = tuned.allreduce_init(buf)
+    c0, s0 = hits()
+    for k in range(PERSISTENT_STARTS):
+        buf.normal_(generator=g)
+        want = interpreted(tuned, "allreduce", buf, tops.SUM)
+        req.start()
+        req.wait()
+        check(bits_equal(req.value, want),
+              f"allreduce_init start {k} != the interpreted call")
+        del want
+    c1, s1 = hits()
+    check((c1 - c0, s1 - s0) == (PERSISTENT_STARTS, PERSISTENT_STARTS - 1),
+          f"persistent starts: {c1 - c0} fires, {s1 - s0} hits; "
+          f"{bad_plans(tuned)}")
+    log(f"slice 7: allreduce_init at 256 MiB: {PERSISTENT_STARTS} starts "
+        f"bitwise the interpreted call; {c1 - c0} fires, {s1 - s0} hits")
+
+
+def s7_plans(world, tuned, tmvar, torch, dev):
+    """The main path's families freeze as CUDA graphs on every provider,
+    each replay bitwise the interpreted leg."""
+    from ompi_release_tpu_torch import ops as tops
+    from ompi_release_tpu_torch.mca import pvar as tpvar
+
+    failures = tpvar.PVARS.lookup("coll_graph_capture_failures").read()
+    g = torch.Generator(device=dev).manual_seed(73)
+    fams = ("bcast", "allgather", "reduce_scatter_block", "alltoall")
+
+    def fire3(comm, name, *args):
+        want = interpreted(comm, name, *args)
+        for fire in range(3):
+            check(bits_equal(getattr(comm, name)(*args), want),
+                  f"{comm.name}.{name} fire {fire} != interpreted")
+
+    comms = {"tuned": tuned,
+             "fused": comm_with(world, tmvar, "fused"),
+             "ml": comm_with(world, tmvar, "ml,basic",
+                             coll_ml_local_size=4),
+             "basic": comm_with(world, tmvar, "basic")}
+    fired = {}
+    for cname, comm in comms.items():
+        sizes = SWEEP_BYTES if cname == "tuned" else (4 * MIB, 64 * MIB)
+        for nbytes in sizes:
+            x = torch.randn(N_RANKS, nbytes // 4, generator=g, device=dev)
+            fire3(comm, "allreduce", x, tops.SUM)
+        calls = len(sizes)
+        if cname != "basic":
+            x = torch.randn(N_RANKS, 4 * MIB // 4, generator=g, device=dev)
+            for name in fams:
+                args = (x, 3) if name == "bcast" else \
+                    (x, tops.SUM) if name == "reduce_scatter_block" else (x,)
+                fire3(comm, name, *args)
+            calls += len(fams)
+        check_frozen(comm, calls, cname)
+        fired[cname] = calls
+        del x
+    check(tpvar.PVARS.lookup("coll_graph_capture_failures").read()
+          == failures, "a main-path capture failed")
+    for name in ("fused", "ml", "basic"):
+        comms[name].free()
+    torch.cuda.empty_cache()
+    log(f"slice 7: every main-path family captured as a CUDA graph "
+        f"(signatures per provider {fired}); every replay bitwise the "
+        "interpreted leg")
+
+
+def s7_replay_profile(world, tmvar, torch, dev):
+    """A profiler window over a fresh signature's four fires (the
+    interpreted capture, the graph capture and replay, two replays): the
+    SUM kernel runs in every one of them, replays included. Then a window
+    of replays alone (logged)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    comm = comm_with(world, tmvar, "tuned")
+    x = torch.randn(N_RANKS, 16 * MIB // 4, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(74))
+
+    def axpy_count(prof):
+        return sum(e.count for e in prof.key_averages()
+                   if "axpy_kernel" in e.key
+                   and str(getattr(e, "device_type", "")).endswith("CUDA"))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        outs = [comm.allreduce(x) for _ in range(4)]
+        torch.cuda.synchronize()
+    (entry,) = plan_entries(comm).values()
+    per_fire = entry["frozen"].launches.get("sum", 0)
+    seen = axpy_count(prof)
+    log(json.dumps({"profile_capture_and_replays": {
+        "axpy_kernel_launches": seen, "per_fire": per_fire, "fires": 4}}))
+    check(per_fire > 0 and seen == 4 * per_fire,
+          f"profiler window shows {seen} axpy_kernel launches for 4 fires "
+          f"of {per_fire}")
+    check(all(bits_equal(o, outs[0]) for o in outs), "replays differ")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            comm.allreduce(x)
+        torch.cuda.synchronize()
+    log(json.dumps({"profile_replays_only": {
+        "axpy_kernel_launches": axpy_count(prof), "per_fire": per_fire,
+        "fires": 2}}))
+    comm.free()
+
+
+def s7_index_cache(tuned, torch, dev):
+    """Clear the index cache and overwrite the memory it freed: a replay
+    still gives the same bits (the plan holds every index its graph
+    reads)."""
+    import gc
+
+    from ompi_release_tpu_torch.coll import spmd
+
+    x = torch.randn(N_RANKS, 16 * MIB // 4, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(75))
+    for _ in range(2):
+        tuned.allreduce(x)
+    want = tuned.allreduce(x)
+    torch.cuda.synchronize()
+    spmd._build.cache_clear()
+    gc.collect()
+    junk = [torch.full((64,), 2 ** 40, dtype=torch.int64, device=dev)
+            for _ in range(20000)]
+    got = tuned.allreduce(x)
+    torch.cuda.synchronize()
+    check(bits_equal(got, want), "replay changed after the index cache was "
+                                 "cleared and its memory overwritten")
+    del junk
+    log("slice 7: a replay after clearing the index cache and overwriting "
+        "its freed memory gives the same bits")
+
+
+def s7_recapture(tuned, tmvar, torch, dev):
+    """A tuned cvar write: the next fire re-captures and follows it."""
+    from ompi_release_tpu_torch import ops as tops
+
+    x = torch.randn(N_RANKS, 4 * MIB // 4, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(76))
+    for _ in range(2):
+        tuned.allreduce(x)
+    tmvar.set_value("coll_tuned_allreduce_algorithm", "recursive_doubling")
+    try:
+        c0, s0 = hits()
+        got = [tuned.allreduce(x) for _ in range(3)]
+        c1, s1 = hits()
+        want = interpreted(tuned, "allreduce", x, tops.SUM)
+    finally:
+        tmvar.VARS.unset("coll_tuned_allreduce_algorithm")
+    check((c1 - c0, s1 - s0) == (3, 2), f"after a cvar write: {c1 - c0} "
+                                        f"fires, {s1 - s0} hits")
+    check(any(k[:3] == ("tuned", "allreduce", "recursive_doubling")
+              for k in tuned._coll_programs),
+          "the re-capture did not follow the forced algorithm")
+    check(all(bits_equal(o, want) for o in got),
+          "the re-captured plan != the forced interpreted call")
+    log("slice 7: a tuned cvar write re-captured at the next fire and "
+        "followed the forced algorithm, bitwise")
+
+
+def s7_free(world, tmvar, torch, dev):
+    """Freeing a comm returns its graphs' memory."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_alloc = torch.cuda.memory_allocated(dev)
+    base_res = torch.cuda.memory_reserved(dev)
+    comm = comm_with(world, tmvar, "tuned")
+    x = torch.randn(N_RANKS, 64 * MIB // 4, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(77))
+    for _ in range(3):
+        comm.allreduce(x)
+        comm.bcast(x, 2)
+    del x
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - base_alloc
+    comm.free()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after_alloc = torch.cuda.memory_allocated(dev) - base_alloc
+    after_res = torch.cuda.memory_reserved(dev) - base_res
+    log(json.dumps({"graph_memory_held_MiB": held / MIB,
+                    "after_free_allocated_MiB": after_alloc / MIB,
+                    "after_free_reserved_MiB": after_res / MIB}))
+    check(held > 512 * MIB, f"two 64 MiB plans hold only {held / MIB} MiB")
+    check(after_alloc <= MIB and after_res <= 64 * MIB,
+          f"freeing the comm left {after_alloc / MIB} MiB allocated, "
+          f"{after_res / MIB} MiB reserved")
+
+
+def s7_uncapturable(tuned, torch, dev):
+    """A body that syncs with the host cannot be captured: its plan turns
+    "bad", stays interpreted and counts, and its result stays right."""
+    from ompi_release_tpu_torch import ops as tops
+    from ompi_release_tpu_torch.mca import pvar as tpvar
+
+    failures = tpvar.PVARS.lookup("coll_graph_capture_failures")
+    f0 = failures.read()
+    op = tops.user_op("sum_host_sync",
+                      lambda a, b: (float(b.reshape(-1)[0]), a + b)[1])
+    x = torch.randn(N_RANKS, 4096, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(78))
+    want = interpreted(tuned, "allreduce", x, op)
+    outs = [tuned.allreduce(x, op) for _ in range(3)]
+    check(all(bits_equal(o, want) for o in outs),
+          "an uncapturable body gave another result")
+    bad = [k for k, e in plan_entries(tuned).items()
+           if "bad" in e and ("op", op) in k[1]]
+    check(failures.read() == f0 + 1 and len(bad) == 1,
+          f"capture failures {failures.read() - f0}, bad plans {len(bad)}")
+    log("slice 7: a host-syncing body failed its capture once, stayed "
+        "interpreted and gave the interpreted bits")
+
+
+def s7_torus(world, torch, dev):
+    """BASELINE config 5 on a 2D torus: the (4, 2) periodic cart comm's
+    alltoall of int32 at 8 MiB a rank against the closed-form
+    permutation, and the neighborhood collectives at 16 MiB a rank
+    against index-built expectations, blocking and nonblocking."""
+    from ompi_release_tpu_torch.topo import cart_create, dims_create
+
+    n = N_RANKS
+    dims = dims_create(n, 2)
+    cart, topo = cart_create(world, dims, periods=[True, True])
+    check(dims == (4, 2) and topo.dims == (4, 2), f"dims {dims}")
+    g = torch.Generator(device=dev).manual_seed(79)
+    x = torch.randint(-2**31, 2**31 - 1, (n, 8 * MIB // 4), generator=g,
+                      device=dev, dtype=torch.int32)
+    for _ in range(3):
+        out = cart.alltoall(x)
+        check(bits_equal(out, x.view(n, n, -1).transpose(0, 1)
+                         .reshape(x.shape)),
+              "config 5 alltoall on the (4, 2) torus != the permutation")
+    nbrs = [topo.neighbors(r) for r in range(n)]
+    y = torch.randn(n, 16 * MIB // 4, generator=g, device=dev)
+    want = torch.stack([torch.stack([y[s] for s in row]) for row in nbrs])
+    blocks = torch.randn(n, 4, 16 * MIB // 16, generator=g, device=dev)
+    want_a2a = torch.stack([torch.stack([blocks[s, j ^ 1]
+                                         for j, s in enumerate(row)])
+                            for row in nbrs])
+    check(bits_equal(topo.neighbor_allgather(y), want),
+          "neighbor_allgather != the index-built expectation")
+    check(bits_equal(topo.neighbor_alltoall(blocks), want_a2a),
+          "neighbor_alltoall != the index-built expectation")
+    r1, r2 = topo.ineighbor_allgather(y), topo.ineighbor_alltoall(blocks)
+    r1.wait()
+    r2.wait()
+    check(bits_equal(r1.value, want) and bits_equal(r2.value, want_a2a),
+          "ineighbor_* != the index-built expectations")
+    cart.free()
+    log("slice 7: config 5's alltoall on the (4, 2) periodic cart comm "
+        "equals the closed-form permutation; neighbor_allgather/alltoall "
+        "and their ineighbor twins equal index-built expectations")
+
+
+def s7_intercomm(world, tmvar, torch, dev):
+    """A 4 + 4 intercomm over WORLD's halves: the inter-allreduce at 64
+    MiB a rank SUM against op ^cuda bitwise, and the merge ordering."""
+    from ompi_release_tpu_torch.comm import intercomm_create
+
+    lo = world.create(world.group.incl([0, 1, 2, 3]), name="s7_lo")
+    hi = world.create(world.group.incl([4, 5, 6, 7]), name="s7_hi")
+    ia, ib = intercomm_create(lo, 0, hi, 0)
+    g = torch.Generator(device=dev).manual_seed(80)
+    a = torch.randn(4, 64 * MIB // 4, generator=g, device=dev)
+    b = torch.randn(4, 64 * MIB // 4, generator=g, device=dev)
+    outs = [ia.allreduce(a, b) for _ in range(3)]
+    back = ib.allreduce(b, a)
+    plain = with_op_excluded(tmvar, lambda: ia.allreduce(a, b))
+    check(all(bits_equal(o, plain) for o in outs),
+          "inter-allreduce at 64 MiB != op ^cuda")
+    check(bits_equal(back, with_op_excluded(tmvar,
+                                            lambda: ib.allreduce(b, a))),
+          "the mirror's inter-allreduce != op ^cuda")
+    req = ia.iallreduce(a, b)
+    req.wait()
+    check(bits_equal(req.value, plain), "inter-iallreduce != op ^cuda")
+    check(ia.merge(high=False).group.world_ranks == tuple(range(8))
+          and ia.merge(high=True).group.world_ranks
+          == (4, 5, 6, 7, 0, 1, 2, 3), "intercomm merge ordering")
+    log("slice 7: the 4 + 4 inter-allreduce at 64 MiB equals op ^cuda "
+        "bitwise; merge orders low group first")
+
+
+def phase_slice7(world, tuned, tmvar, cuda_op, torch, dev):
+    """Slice 7's path with every launch counter at 0 before it; returns
+    the SUM launches it made (replays counted once each)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_op.reset_launches()
+    s7_ifamily(tuned, tmvar, torch, dev)
+    s7_async(tuned, torch, dev)
+    s7_persistent(tuned, torch, dev)
+    torch.cuda.empty_cache()
+    s7_plans(world, tuned, tmvar, torch, dev)
+    s7_replay_profile(world, tmvar, torch, dev)
+    s7_index_cache(tuned, torch, dev)
+    s7_recapture(tuned, tmvar, torch, dev)
+    s7_torus(world, torch, dev)
+    s7_intercomm(world, tmvar, torch, dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda_op.LAUNCHES)
+    log(f"phase 3: slice-7 path launches {launches}")
+    check(launches["sum"] > 0, "kernel wrapper sum launched no time on the "
+                               "slice-7 path")
+    s7_free(world, tmvar, torch, dev)
+    s7_uncapturable(tuned, torch, dev)
+    log(json.dumps({"slice7_peak_memory_GiB":
+                    torch.cuda.max_memory_allocated(dev) / 2 ** 30}))
+    log(f"slice 7: checks took {time.perf_counter() - t0:.1f} s")
+    return launches["sum"]
+
+
+def time_slice7(tuned, torch, dev):
+    """Slice 7's timings, the frozen plan (a CUDA-graph replay) and the
+    interpreted leg in turns (not gates): the tuned allreduce per sweep
+    size, a persistent start at 256 MiB (no input copy) beside the
+    iallreduce and the interpreted call, host µs per fire, the 66-tensor gradient list one allreduce per
+    tensor, each case's busy share in a profiler window, the input copy
+    and output clone a replay adds at 256 MiB, and the peak memory."""
+    from ompi_release_tpu_torch import ops as tops
+
+    sum_op = tops.SUM
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    g = torch.Generator(device=dev).manual_seed(81)
+    sweep = {}
+    for nbytes in SWEEP_BYTES:
+        x = torch.randn(N_RANKS, nbytes // 4, generator=g, device=dev)
+        ms = turns_ms({"plan": lambda: tuned.allreduce(x),
+                       "interpreted": lambda: interpreted(
+                           tuned, "allreduce", x, sum_op)},
+                      reps=TIMING_REPS)
+        sweep[nbytes] = ms
+        if nbytes in (4 * MIB, 256 * MIB):
+            for leg, fn in (("plan", lambda: tuned.allreduce(x)),
+                            ("interpreted", lambda: interpreted(
+                                tuned, "allreduce", x, sum_op))):
+                log(json.dumps({f"profile_{leg}_allreduce_{nbytes}":
+                                tbench.profile_window(fn, 3)}))
+        del x
+    log(json.dumps({"tuned_allreduce_ms_plan_vs_interpreted": sweep}))
+    buf = torch.randn(N_RANKS, 256 * MIB // 4, generator=g, device=dev)
+    req = tuned.allreduce_init(buf)
+
+    def start():
+        req.start()
+        req.wait()
+
+    log(json.dumps({"allreduce_256MiB_ms_persistent_vs_iallreduce": turns_ms(
+        {"persistent_start": start,
+         "iallreduce": lambda: tuned.iallreduce(buf).wait(),
+         "interpreted": lambda: interpreted(tuned, "allreduce", buf,
+                                            sum_op)}, reps=TIMING_REPS)}))
+    del req, buf
+    x = torch.randn(N_RANKS, 2, generator=g, device=dev)
+    host = {"plan": [], "interpreted": []}
+    fns = {"plan": lambda: tuned.allreduce(x),
+           "interpreted": lambda: interpreted(tuned, "allreduce", x,
+                                              sum_op)}
+    for r in range(4):  # each call timed from an idle card: its host time
+        for leg in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            for _ in range(HOST_FIRES):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fns[leg]()
+                host[leg].append((time.perf_counter() - t1) * 1e6)
+    torch.cuda.synchronize()
+    log(json.dumps({"host_us_per_8B_allreduce": {
+        k: statistics.median(v) for k, v in host.items()}}))
+    grads = grad_list(torch, dev, integer=False)
+    legs = {"plan": lambda: [tuned.allreduce(t) for t in grads],
+            "interpreted": lambda: [interpreted(tuned, "allreduce", t,
+                                                sum_op) for t in grads]}
+    log(json.dumps({"gradient_list_per_tensor_ms":
+                    turns_ms(legs, reps=TIMING_REPS)}))
+    for leg, fn in legs.items():
+        log(json.dumps({f"profile_{leg}_gradient_list":
+                        tbench.profile_window(fn, 1)}))
+    del grads
+    x = torch.randn(N_RANKS, 256 * MIB // 4, generator=g, device=dev)
+    si, so = x.clone(), x.clone()
+    log(json.dumps({"replay_extra_ms_256MiB": {
+        "input_copy": time_ms(lambda: si.copy_(x), reps=TIMING_REPS),
+        "output_clone": time_ms(lambda: so.clone(), reps=TIMING_REPS),
+        "bound_each": 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3}}))
+    del x, si, so
+    log(json.dumps({"slice7_timings_peak_memory_GiB":
+                    torch.cuda.max_memory_allocated(dev) / 2 ** 30}))
+    log(f"slice 7: timings took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
 
@@ -2221,6 +2802,12 @@ def main():
     launches["sum"] += slice6["sum_launches"]
     time_slice6(slice6, tuned, world, torch, dev)
     del slice6
+    torch.cuda.empty_cache()
+
+    sum_by_path["slice7"] = phase_slice7(world, tuned, tmvar, cuda_op,
+                                         torch, dev)
+    launches["sum"] += sum_by_path["slice7"]
+    time_slice7(tuned, torch, dev)
     torch.cuda.empty_cache()
 
     cuda_op.reset_launches()
@@ -2288,6 +2875,8 @@ def main():
         if key == "chain":
             row["add_host_us_per_launch"] = host_us["torch.add(x, 1)"]
     time_allreduce(tuned, torch, dev)
+    check(not bad_plans(tuned, "allreduce"),
+          f"the sweep's plans are not graphs: {bad_plans(tuned)}")
     profile_allreduce(tuned, torch, dev)
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB")

@@ -16,8 +16,11 @@ the caller passes ``device="cpu"``.
 Layering follows the JAX package: ``mca``/``utils`` (config, components,
 logging), ``runtime`` (bring-up, state machine), ``datatype`` (derived
 datatypes, pack/unpack), ``ops`` (reduction ops and the hand-written
-CUDA kernels), ``comm``, ``coll`` and ``tuning`` (the per-topology
-tuning database); ``parallel`` and ``models`` carry the model family.
+CUDA kernels), ``comm`` (intra- and intercommunicators), ``coll``
+(components, frozen plans, nonblocking and persistent collectives),
+``topo`` (cartesian and graph topologies) and ``tuning`` (the
+per-topology tuning database); ``parallel`` and ``models`` carry the
+model family.
 """
 
 from . import mca, utils
@@ -26,7 +29,7 @@ from .utils.errors import ErrorCode, MPIError
 __version__ = "0.1.0"
 
 _LAZY = {"runtime", "datatype", "ops", "comm", "coll", "parallel", "models",
-         "tuning"}
+         "tuning", "topo"}
 
 
 def __getattr__(name):

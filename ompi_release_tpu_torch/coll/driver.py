@@ -10,16 +10,22 @@ the comm's device. What stays from the reference:
   (``ERR_COUNT`` otherwise), pair-op ``(values, indices)`` tuples only
   through ``extra_arrays`` (``ERR_TYPE`` otherwise);
 - the per-comm program cache keyed by ``(component, family, alg, Op
-  object[, seg])``: it caches the body callable (capturing it as a CUDA
-  graph is later work);
+  object[, seg])``: it caches the body callable; ``coll/plan.py``
+  freezes a steady-state body, on the card as a CUDA graph;
 - the ``coll_invocations`` / ``coll_programs_compiled`` /
-  ``coll_plan_cache_hits`` pvars;
+  ``coll_plan_cache_hits`` pvars and the ``coll_orchestration_seconds``
+  timer (Python time from the dispatch entry to the body's launch);
+- the capture hooks ``coll/plan.py`` arms around a collective's first
+  run (:func:`begin_capture`): each runner records (body, input
+  tensor, output tensor) while a capture is armed;
 - :func:`run_sharded2d`, the same runner over the ``(node, local)``
   factorization the hierarchical ``ml`` bodies use.
 """
 
 from __future__ import annotations
 
+import threading
+import time as _time
 from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
@@ -41,6 +47,68 @@ _plan_cache = pvar.aggregate(
     "plan-cache outcome per driver invocation (1=hit, 0=miss); "
     "sum/count = hit ratio",
 )
+#: Python time on the collective DISPATCH path: from the collective's
+#: dispatch entry to the moment the body (or a frozen plan) launches —
+#: decision logic, cache lookups, validation. The delta across a run
+#: isolates orchestration from device time.
+_orch = pvar.timer(
+    "coll_orchestration_seconds",
+    "Python orchestration seconds on the collective dispatch path "
+    "(decision, planning, validation, posting — before the compiled "
+    "program or wire transport takes over)",
+)
+
+#: capture/attribution state for ``coll/plan.py``: ``entries`` records
+#: each body launch (body, input tensor, output tensor) while a capture
+#: is armed; ``t0`` re-bases the orchestration timer at the OUTER
+#: dispatch entry so interpreted and frozen fires time the same span.
+_capture_tls = threading.local()
+
+
+def begin_capture() -> list:
+    """Arm body-launch capture on this thread; returns the live entry
+    list (one dict per runner launch)."""
+    entries: list = []
+    _capture_tls.entries = entries
+    return entries
+
+
+def end_capture() -> None:
+    _capture_tls.entries = None
+
+
+def orch_mark(t0: float) -> None:
+    """Re-base the next runner's orchestration interval at ``t0`` (the
+    outer dispatch entry), so the timer covers the decision path too."""
+    _capture_tls.t0 = t0
+
+
+def orch_clear() -> None:
+    _capture_tls.t0 = None
+
+
+def _orch_t0(default: float) -> float:
+    t0 = getattr(_capture_tls, "t0", None)
+    if t0 is None:
+        return default
+    _capture_tls.t0 = None  # one-shot: consumed by this launch
+    return t0
+
+
+def _launch(body: Callable, x: torch.Tensor, extras: Tuple,
+            t_in: float) -> Any:
+    """Run the cached body, recording it while a capture is armed: the
+    input and output OBJECTS let ``coll/plan.py`` prove the collective
+    was the body alone (no pre- or post-processing around it)."""
+    cap = getattr(_capture_tls, "entries", None)
+    if cap is not None:
+        cap.append({"prog": body, "x": x, "extra": bool(extras),
+                    "out": None})
+    _orch.add(_time.perf_counter() - t_in)
+    out = body(x, *extras)
+    if cap is not None:
+        cap[-1]["out"] = out
+    return out
 
 
 def as_rank_buffer(x, device: torch.device) -> torch.Tensor:
@@ -71,6 +139,7 @@ def run_sharded(comm, key: Tuple, body: Callable, x, *,
     buffers (leading axis == comm.size, every extra array laid out the
     same way). The body for ``key`` is cached on the communicator: the
     key must hold every static parameter the body closes over."""
+    t_in = _orch_t0(_time.perf_counter())
     _invoke_count.add()
     if not isinstance(x, torch.Tensor):
         raise MPIError(
@@ -93,7 +162,8 @@ def run_sharded(comm, key: Tuple, body: Callable, x, *,
         _compile_count.add()
         prog = body
         cache[key] = prog
-    return prog(x.to(comm.device), *[e.to(comm.device) for e in extra_arrays])
+    return _launch(prog, x.to(comm.device),
+                   tuple(e.to(comm.device) for e in extra_arrays), t_in)
 
 
 def run_sharded2d(comm, key: Tuple, body: Callable, x, *,
@@ -104,6 +174,7 @@ def run_sharded2d(comm, key: Tuple, body: Callable, x, *,
     ``ERR_COUNT`` unless the leading axis is the comm size and
     inter * intra == size; the program cache and the pvars are
     :func:`run_sharded`'s."""
+    t_in = _orch_t0(_time.perf_counter())
     _invoke_count.add()
     if not isinstance(x, torch.Tensor):
         raise MPIError(ErrorCode.ERR_TYPE,
@@ -122,4 +193,4 @@ def run_sharded2d(comm, key: Tuple, body: Callable, x, *,
         _compile_count.add()
         prog = body
         cache[key] = prog
-    return prog(x.to(comm.device))
+    return _launch(prog, x.to(comm.device), (), t_in)

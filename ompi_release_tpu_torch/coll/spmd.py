@@ -26,6 +26,7 @@ written: bodies that update in place do so on their own copies.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import List, Sequence, Tuple
 
 import torch
@@ -37,9 +38,35 @@ from ..ops.op import Op
 # helpers
 # ---------------------------------------------------------------------------
 
+#: a CUDA-graph capture in progress on this thread (``coll/plan.py``):
+#: ``holds`` collects every cached index tensor the captured body reads,
+#: so the frozen graph keeps them alive past an eviction
+_graph_tls = threading.local()
+
+
+def hold_indices(holds) -> None:
+    """Arm (a list) or disarm (None) this thread's capture: while armed,
+    every cached index tensor a body reads is appended to ``holds``, and
+    a cache miss raises instead of copying host indices to the device
+    inside the capture."""
+    _graph_tls.holds = holds
+
+
 @functools.lru_cache(maxsize=4096)
-def _cached(values: Tuple, dtype: torch.dtype, device: str) -> torch.Tensor:
+def _build(values: Tuple, dtype: torch.dtype, device: str) -> torch.Tensor:
+    if getattr(_graph_tls, "holds", None) is not None:
+        # never cached (lru_cache keeps no exceptions): the capture
+        # fails and its plan stays interpreted
+        raise RuntimeError("index cache miss inside a CUDA-graph capture")
     return torch.tensor(values, dtype=dtype, device=device)
+
+
+def _cached(values: Tuple, dtype: torch.dtype, device: str) -> torch.Tensor:
+    t = _build(values, dtype, device)
+    holds = getattr(_graph_tls, "holds", None)
+    if holds is not None:
+        holds.append(t)
+    return t
 
 
 def _idx(values: Sequence, device: torch.device) -> torch.Tensor:

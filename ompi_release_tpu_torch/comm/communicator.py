@@ -15,11 +15,13 @@ on one device: the device of its first rank (virtual ranks share it).
 Ported so far: WORLD/SELF, dup/create/split/split_type_shared/free,
 attributes, info objects, the ``submesh`` of each comm's devices,
 errhandlers, the blocking collectives (rooted, scan and v-variants
-included), which call the installed ``c_coll`` table directly, the
-small-message fusion buffer, and point-to-point through the per-comm
-PML engine (driver mode: the acting rank is the keyword ``rank=``).
-Nonblocking and persistent collectives and the fault-tolerance hooks
-come with later slices.
+included), which dispatch through ``coll/plan.py`` (a seen call
+signature fires its frozen plan, on the card a CUDA graph), the
+nonblocking i-family, ``ibarrier`` and the persistent ``*_init``
+collectives (``coll/nbc.py``), the small-message fusion buffer, and
+point-to-point through the per-comm PML engine (driver mode: the acting
+rank is the keyword ``rank=``). The fault-tolerance hooks come with a
+later slice.
 
 CID allocation: under a single controller the reference's agreement
 (``comm_cid.c``) reduces to a deterministic monotone counter.
@@ -55,10 +57,14 @@ def _next_cid() -> int:
 
 def clear_comm_registry() -> None:
     """Finalize-time teardown: mark every live communicator freed (so
-    stale handles raise instead of silently working)."""
+    stale handles raise instead of silently working) and drop their
+    frozen plans."""
+    from ..coll import plan as _coll_plan
+
     for c in list(_comm_registry.values()):
         c._freed = True
         _comm_count.add(-1)
+        _coll_plan.clear_comm(c.cid)
     _comm_registry.clear()
 
 
@@ -77,6 +83,8 @@ class Keyval:
 
 
 class Communicator:
+    is_inter = False  # Intercommunicator overrides (MPI_Comm_test_inter)
+
     def __init__(self, runtime, group: Group, *, name: str = "",
                  parent: Optional["Communicator"] = None) -> None:
         self.runtime = runtime
@@ -91,6 +99,7 @@ class Communicator:
         parent_info = getattr(parent, "info", None)
         self.info: Info = (parent_info.dup() if isinstance(parent_info, Info)
                            else Info())  # MPI_Comm_set/get_info object
+        self.topo = None  # topology (cart/graph), set by topo/topo.py
         self._attrs: Dict[int, Any] = {}
         self._freed = False
         #: the 1-D "rank" mesh of the group's devices, in group order
@@ -129,6 +138,7 @@ class Communicator:
         self._check_alive()
         c = Communicator(self.runtime, self.group,
                          name=name or f"dup({self.name})", parent=self)
+        c.topo = self.topo
         # MPI_Comm_dup runs attribute copy callbacks
         for kv_id, value in list(self._attrs.items()):
             kv = _keyval_table.get(kv_id)
@@ -192,12 +202,21 @@ class Communicator:
 
     def free(self) -> None:
         self._check_alive()
+        from ..coll import nbc as _nbc
+        from ..coll import plan as _coll_plan
+
+        # schedules submitted on the comm run before it dies (a late
+        # completion, not a lost request)
+        _nbc.drain_comm(self)
         for kv_id, value in list(self._attrs.items()):
             kv = _keyval_table.get(kv_id)
             if kv and kv.delete_fn:
                 kv.delete_fn(self, kv, value, kv.extra_state)
         self._attrs.clear()
         _comm_registry.pop(self.cid, None)
+        # frozen plans (and their graphs' memory pool) die with the comm:
+        # a reused cid must never fire a dead comm's plans
+        _coll_plan.clear_comm(self.cid)
         self._freed = True
         _comm_count.add(-1)
 
@@ -236,7 +255,34 @@ class Communicator:
             raise MPIError(ErrorCode.ERR_INTERN,
                            f"no {op_name} implementation installed on "
                            f"{self.name}")
-        return fn
+        # steady-state dispatch (coll/plan): a signature seen before
+        # fires its frozen plan — the interpreted decision path runs once
+        # per (signature, cvar generation), not once per call
+        from ..coll import plan as _plan
+
+        return lambda comm_, *a, **k: _plan.dispatch(comm_, op_name, fn, a,
+                                                     k)
+
+    def _run_serialized(self, fn, *args, **kw):
+        """Run ``fn`` in the comm's collective posting order, blocking:
+        a direct call on a comm inside one process."""
+        return fn(*args, **kw)
+
+    def _submit_serialized(self, fn, *args, **kw):
+        """Nonblocking run of ``fn`` in the comm's collective posting
+        order: returns a Request backed by a schedule posted to the
+        progress engine."""
+        from ..coll import nbc as _nbc
+
+        return _nbc.submit(self, getattr(fn, "__name__", "serialized"),
+                           fn, args, kw)
+
+    def _async(self, value):
+        """Wrap work already enqueued on this comm's device as a Request
+        carrying ``value`` (see coll/nbc)."""
+        from ..coll import nbc as _nbc
+
+        return _nbc.async_request(value, self.device)
 
     def _buf(self, x):
         """The rank-stacked buffer on this comm's device (pair-op
@@ -291,6 +337,113 @@ class Communicator:
 
     def barrier(self) -> None:
         self._coll("barrier")(self)
+
+    # -- nonblocking collectives (libnbc analogue; coll/nbc.py) ------------
+    # Dispatch enqueues the collective on the current CUDA stream and
+    # returns a Request completed by an event behind it; a seen signature
+    # replays its frozen plan.
+    def _icoll(self, name: str, *args, **kw):
+        from ..coll import nbc as _nbc
+
+        return _nbc.icoll(self, name, args, kw)
+
+    def iallreduce(self, x, op=None):
+        from .. import ops as ops_mod
+
+        return self._icoll("allreduce", self._buf(x), op or ops_mod.SUM)
+
+    def ireduce(self, x, op=None, root: int = 0):
+        from .. import ops as ops_mod
+
+        return self._icoll("reduce", self._buf(x), op or ops_mod.SUM, root)
+
+    def ibcast(self, x, root: int = 0):
+        return self._icoll("bcast", self._buf(x), root)
+
+    def iallgather(self, x):
+        return self._icoll("allgather", self._buf(x))
+
+    def igather(self, x, root: int = 0):
+        return self._icoll("gather", self._buf(x), root)
+
+    def iscatter(self, x, root: int = 0):
+        return self._icoll("scatter", self._buf(x), root)
+
+    def ireduce_scatter_block(self, x, op=None):
+        from .. import ops as ops_mod
+
+        return self._icoll("reduce_scatter_block", self._buf(x),
+                           op or ops_mod.SUM)
+
+    def ireduce_scatter(self, x, recvcounts, op=None):
+        from .. import ops as ops_mod
+
+        return self._icoll("reduce_scatter", x, recvcounts,
+                           op or ops_mod.SUM)
+
+    def ialltoall(self, x):
+        return self._icoll("alltoall", self._buf(x))
+
+    def iscan(self, x, op=None):
+        from .. import ops as ops_mod
+
+        return self._icoll("scan", self._buf(x), op or ops_mod.SUM)
+
+    def iexscan(self, x, op=None):
+        from .. import ops as ops_mod
+
+        return self._icoll("exscan", self._buf(x), op or ops_mod.SUM)
+
+    def ialltoallv(self, sendbufs, sendcounts):
+        return self._icoll("alltoallv", sendbufs, sendcounts)
+
+    def iallgatherv(self, sendbufs):
+        return self._icoll("allgatherv", sendbufs)
+
+    # -- persistent collectives (MPI-4 *_init; coll/nbc.persistent) --------
+    # The plan — resolved dispatch entry, op object, bound buffer — is
+    # built ONCE here; Request.start() fires it against the buffer's
+    # CURRENT contents each time without blocking.
+    def allreduce_init(self, x, op=None):
+        from .. import ops as ops_mod
+        from ..coll import nbc as _nbc
+
+        return _nbc.persistent(self, "allreduce", (x, op or ops_mod.SUM))
+
+    def bcast_init(self, x, root: int = 0):
+        from ..coll import nbc as _nbc
+
+        return _nbc.persistent(self, "bcast", (x, root))
+
+    def allgather_init(self, x):
+        from ..coll import nbc as _nbc
+
+        return _nbc.persistent(self, "allgather", (x,))
+
+    def reduce_scatter_init(self, x, recvcounts, op=None):
+        from .. import ops as ops_mod
+        from ..coll import nbc as _nbc
+
+        return _nbc.persistent(self, "reduce_scatter",
+                               (x, recvcounts, op or ops_mod.SUM))
+
+    def alltoall_init(self, x):
+        from ..coll import nbc as _nbc
+
+        return _nbc.persistent(self, "alltoall", (x,))
+
+    def barrier_init(self):
+        from ..coll import nbc as _nbc
+
+        return _nbc.persistent(self, "barrier", ())
+
+    def ibarrier(self):
+        """Nonblocking barrier: returns before the barrier completes; its
+        Request completes when every rank's work queued before it has
+        finished (an event on the comm's device, see coll/nbc)."""
+        from ..coll import nbc as _nbc
+
+        return _nbc.ibarrier(self)
 
     # -- small-message fusion (coll/fusion.py) -----------------------------
     def fusion_buffer(self):

@@ -66,8 +66,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel launches per wrapper (``sum_``, ``axpy``, ``scale``,
 #: ``transpose``, ``chain_hop`` here; ``flash_forward`` and
 #: ``flash_backward``'s two kernels in ``flash_attention.py``), bumped only
-#: where the wrapper launches its kernel (a launch captured into a CUDA
-#: graph counts once, at capture; replays do not pass through the wrapper)
+#: where the wrapper launches its kernel. A launch captured into a CUDA
+#: graph counts once, at capture; replays do not pass through the
+#: wrapper, except for ``coll/plan.py``'s frozen plans, which move their
+#: captured launches to their replays (:func:`take_launches`,
+#: :func:`count_replay`)
 LAUNCHES: Dict[str, int] = {"sum": 0, "axpy": 0, "scale": 0,
                             "transpose": 0, "chain": 0, "flash_fwd": 0,
                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -87,6 +90,23 @@ _launcher: Optional[Tuple[ctypes.PyDLL, Callable[[], int],
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def take_launches(before: Dict[str, int]) -> Dict[str, int]:
+    """The launches counted since ``before`` (a copy of ``LAUNCHES``),
+    taken back out of the counts: a graph capture records its kernels,
+    it does not run them."""
+    delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+             if LAUNCHES[k] != before[k]}
+    for k, v in delta.items():
+        LAUNCHES[k] -= v
+    return delta
+
+
+def count_replay(launches: Dict[str, int]) -> None:
+    """Count one replay of a graph that captured ``launches``."""
+    for k, v in launches.items():
+        LAUNCHES[k] += v
 
 
 def _nvcc() -> str:

@@ -1,8 +1,9 @@
 """Runtime bring-up/teardown — the ``MPI_Init``/``orte_init`` analogue.
 
-Counterpart of ``ompi_release_tpu/runtime/runtime.py``, init/finalize
-and the ``runtime_timing`` init report only (the wire, progress,
-observability, ULFM and retune arms are not ported yet). The bring-up
+Counterpart of ``ompi_release_tpu/runtime/runtime.py``, init/finalize,
+the async progress engine's thread and the ``runtime_timing`` init
+report (the wire, observability, ULFM and retune arms are not ported
+yet). The bring-up
 sequence mirrors ``ompi_mpi_init.c``:
 
   1. config/core var registration        (opal_init_util)
@@ -78,6 +79,13 @@ class Runtime:
                 "Report per-stage init timing after bring-up (the "
                 "ompi_timing var, ompi_mpi_init.c:366-371,617-625)",
             )
+            # the frameworks the collectives read register their vars
+            # now: a registration inside a first collective would move
+            # the write generation and void the plan it froze
+            from ..coll import plan as _plan  # noqa: F401  coll_compiled
+            from ..ops import op as op_mod
+
+            op_mod.OP_FRAMEWORK.open()
             if cli_args:
                 mca_var.VARS.apply_cli(_parse_mca_cli(cli_args))
             self.job_state.activate(JobState.INIT)
@@ -102,6 +110,12 @@ class Runtime:
 
             self.world, self.self_comm = comm_world.create_world(self)
             self.job_state.activate(JobState.REGISTERED)
+
+            # async progress engine: arm the dedicated thread when the
+            # operator opted in (posts arm it lazily too)
+            from . import progress as _progress
+
+            _progress.engine().ensure_thread()
             self.initialized = True
             _log.verbose(1, f"initialized: {len(self.endpoints)} ranks on "
                             f"{self.mesh.shape} mesh")
@@ -126,8 +140,12 @@ class Runtime:
         with _lock:
             if not self.initialized or self.finalized:
                 return
+            # stop the progress engine BEFORE communicators are torn
+            # down: a schedule on the progress thread still uses them
             from ..comm import communicator as comm_mod
+            from . import progress as _progress
 
+            _progress.engine().shutdown()
             comm_mod.clear_comm_registry()
             self.job_state.activate(JobState.TERMINATED)
             self.finalized = True

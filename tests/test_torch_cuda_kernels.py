@@ -388,3 +388,104 @@ def test_flash_bwd_bf16_element_loads(dev, d, offset):
     want = fa._plain_flash_backward(q, k, v, out, lse, do, True)
     torch.cuda.synchronize()
     _grads_close(got, want, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# coll/plan.py's frozen plans: CUDA graphs of the cached bodies
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def tuned(dev):
+    """A tuned communicator of 8 virtual ranks on the card."""
+    import ompi_release_tpu_torch as mpi
+    from ompi_release_tpu_torch.mca import var
+    from ompi_release_tpu_torch.runtime import runtime as rt
+
+    rt._reset_for_tests()
+    world = mpi.init(cli_args=["--mca", "runtime_virtual_ranks", "8"])
+    var.set_value("coll", "tuned")
+    try:
+        comm = world.dup(name="plan_tuned")
+    finally:
+        var.VARS.unset("coll")
+    yield comm
+    comm.free()
+    rt._reset_for_tests()
+    var.VARS.unset("runtime_virtual_ranks")
+
+
+def _plans(comm):
+    from ompi_release_tpu_torch.coll import plan
+
+    return [e for k, e in plan._device_plans.items() if k[0] == comm.cid]
+
+
+@pytest.mark.parametrize("nbytes", [8, 64 << 10, 4 << 20, 16 << 20])
+def test_plan_replays_bitwise_and_counts_launches(tuned, nbytes):
+    """The second call captures the tuned allreduce's body as a graph;
+    every replay is bitwise the interpreted leg, and each replay counts
+    the SUM launches its graph captured."""
+    from ompi_release_tpu_torch import ops
+
+    x = torch.randn(8, nbytes // 4, device=tuned.device)
+    want = tuned.c_coll["allreduce"](tuned, x, ops.SUM)
+    outs = [tuned.allreduce(x) for _ in range(3)]
+    (entry,) = _plans(tuned)
+    assert entry["frozen"].graph is not None
+    captured = entry["frozen"].launches.get("sum", 0)
+    assert (captured > 0) == (nbytes >= 4 << 20)  # the SUM kernel's claim
+    before = cuda_op.LAUNCHES["sum"]
+    outs.append(tuned.allreduce(x))
+    assert cuda_op.LAUNCHES["sum"] - before == captured
+    for o in outs:
+        assert torch.equal(o.view(torch.int32), want.view(torch.int32))
+
+
+def test_plan_capture_failure_stays_interpreted(tuned):
+    """A body that syncs with the host cannot be captured: the plan
+    turns "bad" with the reason, later calls run interpreted with the
+    same bits, and the next capture (a fresh pool) succeeds."""
+    from ompi_release_tpu_torch import ops
+
+    op = ops.user_op("sum_host_sync",
+                     lambda a, b: (float(b.reshape(-1)[0]), a + b)[1])
+    x = torch.randn(8, 1024, device=tuned.device)
+    want = tuned.c_coll["allreduce"](tuned, x, op)
+    for _ in range(3):
+        assert torch.equal(tuned.allreduce(x, op).view(torch.int32),
+                           want.view(torch.int32))
+    (entry,) = _plans(tuned)
+    assert "capture failed" in entry["bad"]
+    y = torch.randn(8, 1 << 20, device=tuned.device)
+    for _ in range(2):
+        tuned.allreduce(y)
+    assert sum(e.get("frozen") is not None and e["frozen"].graph is not None
+               for e in _plans(tuned)) == 1
+
+
+def test_persistent_plan_dies_with_its_request(tuned):
+    """A persistent request whose buffer lies on the card replays a graph
+    that reads the buffer in place (no input copy), bitwise the
+    interpreted leg; dropping the request frees the graph's memory."""
+    import gc
+
+    from ompi_release_tpu_torch import ops
+
+    gc.collect()
+    base = torch.cuda.memory_allocated(tuned.device)
+    buf = torch.randn(8, 4 << 20, device=tuned.device)
+    req = tuned.allreduce_init(buf)
+    for _ in range(3):
+        buf.normal_()
+        want = tuned.c_coll["allreduce"](tuned, buf, ops.SUM)
+        req.start()
+        req.wait()
+        assert torch.equal(req.value.view(torch.int32),
+                           want.view(torch.int32))
+    assert not _plans(tuned)  # the plan is the request's, not the comm's
+    held = torch.cuda.memory_allocated(tuned.device) - base
+    del req, buf, want
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(tuned.device) - base < held
+    assert torch.cuda.memory_allocated(tuned.device) - base <= 1 << 20
