@@ -132,6 +132,30 @@ Run from the repository root on a machine with a card:
      host µs per 8 B fire, the 66-tensor gradient list
      one allreduce per tensor, profiler windows of each, the input copy
      and output clone a replay adds at 256 MiB, and peak memory;
+   - slice 8 (right after slice 7): one-sided windows on WORLD, each
+     epoch's planned leg (close 1 interpreted, close 2 captures the
+     unrolled close as a CUDA graph, later closes replay it) against
+     the same epochs with ``osc_compiled`` false, bitwise, and every
+     plan must be a graph: a parameter-server window of 8 x 64 MiB f32
+     (10 fence epochs of 7 accumulates of fresh 64 MiB gradients into
+     rank 0 and a get, also against the sums taken in the same order on
+     the host), a (8, 16 MiB) bf16 window filled by 32 indexed puts and
+     a get per lock epoch (rank 3) and PSCW epoch (rank 5), and 1,024
+     fetch_and_op(SUM) + 1,024 compare_and_swap calls on one int32
+     element of a (8, 2^20) window against the closed form; SHMEM on a
+     tuned comm of its own: a (8, 16 MiB) f32 heap through the bulk path
+     equals the per-call path on every PE, ``sum_to_all`` at 64 MiB a PE
+     equals the op ^cuda call and must launch ``stream_axpy[sum]``, 4
+     threads contending for one lock keep 100 increments; a File of 8 x
+     32 MiB card blocks under a vector view and a 256 MiB sharded array
+     read back bitwise. Then its timings: epoch-close ms, host µs and
+     ``osc_orchestration_seconds`` per close, replayed against
+     interpreted in turns, at bench.py's ``rma_steady`` sizes and 64
+     MiB, a profiler window of 64 MiB replays, SHMEM rounds bulk against
+     per call, File and sharded GB/s, peak memory. After the slice-4
+     check, a ``Checkpointer`` async save of the full-width TpuLM's
+     parameters and AdamW state, a train step in place before its wait,
+     and a restore bitwise the state at the save;
 4. times the kernels (CUDA events, median of 7) at the main path's
    shapes beside their bound, their plain twins and one PyTorch library
    call, the streaming kernels, the transpose and the eager chain hop in
@@ -2750,6 +2774,541 @@ def time_slice7(tuned, torch, dev):
     log(f"slice 7: timings took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# slice 8: one-sided windows with frozen epoch plans as CUDA graphs,
+# OpenSHMEM, file IO and checkpoints
+# ---------------------------------------------------------------------------
+
+PS_ELEMS = 64 * MIB // 4  # a parameter-server window's rank slice: 64 MiB f32
+PS_CLOSES = 10  # fence epochs: 1 interpreted, 1 capture, 8 replays
+KV_ELEMS = 16 * MIB // 2  # the bf16 cache window's rank slice: 16 MiB
+KV_PUTS = 32  # indexed puts per cache epoch
+KV_CLOSES = 6
+AMO_CALLS = 1024
+AMO_ELEMS = 1 << 20
+#: bench.py's rma_steady sizes (bench.py:1116-1190), then the PS slice
+RMA_BYTES = (4 << 10, 64 << 10, 256 << 10, 64 * MIB)
+SHMEM_BYTES = (4 << 10, 64 << 10)
+IO_BLOCK_ELEMS = 32 * MIB // 4  # a rank's File block: 32 MiB f32
+CLOSE_SAMPLES = 100  # host µs samples per leg, each close from an idle card
+
+
+def osc_plans_are_graphs(win, what, racy=False):
+    """Every epoch plan of ``win`` replays as a CUDA graph. Where threads
+    race to queue ops (``racy``), a batch of several contenders' ops can
+    close together once and freeze a plan that never replays (its one
+    close ran interpreted, as every first close does): such plans are
+    allowed, every replayed plan must still be a graph, and at least one
+    plan must have replayed."""
+    plans = list(win._access_plans.values())
+    check(plans, f"{what}: no epoch plan frozen")
+    for p in plans:
+        check(p.bad is None, f"{what}: an epoch plan is not a CUDA graph: "
+                             f"{p.bad}")
+        if racy and p.prog is None:
+            continue
+        check(p.graph is not None,
+              f"{what}: an epoch plan is not a CUDA graph: "
+              + ("never replayed" if p.prog is None else "none captured"))
+    check(any(p.graph is not None for p in plans),
+          f"{what}: no epoch plan replayed as a CUDA graph")
+
+
+def osc_hits():
+    from ompi_release_tpu_torch.mca import pvar as tpvar
+
+    st = tpvar.PVARS.lookup("osc_plan_cache_hits").read()
+    return int(st["count"]), int(st["sum"])
+
+
+def with_osc_interpreted(tmvar, fn):
+    """``fn()`` with ``osc_compiled`` false: every close interpreted."""
+    tmvar.set_value("osc_compiled", False)
+    try:
+        return fn()
+    finally:
+        tmvar.VARS.unset("osc_compiled")
+
+
+def s8_param_server(world, tmvar, torch, dev):
+    """A window of 8 x 64 MiB f32: each fence epoch accumulates 7 fresh
+    64 MiB gradients into rank 0, then gets it. The planned leg (close 1
+    interpreted, close 2 captures, closes 3-10 replay) against the
+    interpreted leg and the sums taken in the same order on the host,
+    bitwise."""
+    import numpy as np
+
+    from ompi_release_tpu_torch.osc import win_allocate
+
+    def run():
+        g = torch.Generator(device=dev).manual_seed(90)
+        w = win_allocate(world, (PS_ELEMS,))
+        reads, hosts = [], []
+        w.fence()
+        for _ in range(PS_CLOSES):
+            grads = torch.randn(N_RANKS - 1, PS_ELEMS, generator=g,
+                                device=dev)
+            for r in range(1, N_RANKS):
+                w.accumulate(grads[r - 1], target=0)
+            get = w.get(target=0)
+            w.fence()
+            reads.append(get.value)
+            hosts.append(grads.cpu().numpy())
+        w.fence_end()
+        return w, reads, hosts
+
+    wi, want, hosts = with_osc_interpreted(tmvar, run)
+    c0, s0 = osc_hits()
+    wc, got, _ = run()
+    c1, s1 = osc_hits()
+    osc_plans_are_graphs(wc, "parameter-server epoch")
+    check((c1 - c0, s1 - s0) == (PS_CLOSES, PS_CLOSES - 1),
+          f"parameter-server closes: {c1 - c0} planned, {s1 - s0} replays")
+    ref = np.zeros(PS_ELEMS, np.float32)
+    for k, (a, b) in enumerate(zip(got, want)):
+        for row in hosts[k]:
+            ref = ref + row
+        check(bits_equal(a, b), f"parameter-server close {k}: plan != "
+                                "interpreted")
+        check(np.array_equal(a.cpu().numpy().view(np.int32),
+                             ref.view(np.int32)),
+              f"parameter-server close {k} != the host's sums")
+    check(bits_equal(wc.read(), wi.read()), "parameter-server windows differ")
+    wi.free()
+    wc.free()
+    log(f"slice 8: parameter-server window (8 x 64 MiB f32): {PS_CLOSES} "
+        f"fence epochs of 7 accumulates + a get, {s1 - s0} graph replays, "
+        "bitwise the interpreted closes and the host's sums")
+
+
+def s8_kv_fill(world, tmvar, torch, dev):
+    """A (8, 16 MiB) bf16 window filled by indexed puts (a page of a KV
+    cache per epoch) in lock epochs on rank 3 and PSCW epochs on rank 5,
+    each epoch read back by a get: planned against interpreted,
+    bitwise; the window holds the last epoch's values."""
+    from ompi_release_tpu_torch.osc import win_allocate
+
+    pos = [j * (KV_ELEMS // KV_PUTS) + 17 for j in range(KV_PUTS)]
+
+    def run():
+        g = torch.Generator(device=dev).manual_seed(91)
+        w = win_allocate(world, (KV_ELEMS,), torch.bfloat16)
+        reads = []
+        for k in range(2 * KV_CLOSES):
+            vals = torch.randn(KV_PUTS, generator=g,
+                               device=dev).to(torch.bfloat16)
+            lock = k < KV_CLOSES
+            t = 3 if lock else 5
+            if lock:
+                w.lock(t)
+            else:
+                w.post(world.group)
+                w.start(world.group)
+            for j, i in enumerate(pos):
+                w.put(vals[j], target=t, index=i)
+            get = w.get(target=t)
+            if lock:
+                w.unlock(t)
+            else:
+                w.complete()
+                w.wait()
+            reads.append(get.value)
+        return w, reads, vals
+
+    wi, want, _ = with_osc_interpreted(tmvar, run)
+    wc, got, last = run()
+    osc_plans_are_graphs(wc, "KV-cache fill")
+    check(len(wc._access_plans) == 2, "KV-cache fill: one plan per epoch kind")
+    check(all(bits_equal(a, b) for a, b in zip(got, want)),
+          "KV-cache fill: a planned read != the interpreted one")
+    final = wc.read()
+    check(bits_equal(final, wi.read()), "KV-cache windows differ")
+    check(bits_equal(final[5, pos], last), "KV-cache page != the last puts")
+    wi.free()
+    wc.free()
+    log(f"slice 8: KV-cache fill (8 x 16 MiB bf16): {2 * KV_CLOSES} lock and "
+        f"PSCW epochs of {KV_PUTS} indexed puts + a get, graphs, bitwise the "
+        "interpreted closes")
+
+
+def s8_amo_loop(world, torch, dev):
+    """1,024 fetch_and_op(SUM) and 1,024 compare_and_swap calls, each
+    flushed, on one int32 element of a (8, 2^20) window, against the
+    closed form."""
+    import numpy as np
+
+    from ompi_release_tpu_torch import ops as tops
+    from ompi_release_tpu_torch.osc import win_allocate
+
+    w = win_allocate(world, (AMO_ELEMS,), torch.int32)
+    w.lock_all()
+    fetched, swapped = [], []
+    t0 = time.perf_counter()
+    for _ in range(AMO_CALLS):
+        req = w.fetch_and_op(np.int32(3), 6, op=tops.SUM, index=12345)
+        w.flush(6)
+        fetched.append(req.value)
+    for k in range(AMO_CALLS):
+        req = w.compare_and_swap(np.int32(k + 1), np.int32(k), 2, index=777)
+        w.flush(2)
+        swapped.append(req.value)
+    host_s = time.perf_counter() - t0
+    w.unlock_all()
+    got_f = torch.stack(fetched).cpu().numpy()
+    got_s = torch.stack(swapped).cpu().numpy()
+    k = np.arange(AMO_CALLS, dtype=np.int32)
+    check(np.array_equal(got_f, 3 * k), "fetch_and_op values != 3k")
+    check(np.array_equal(got_s, k), "compare_and_swap values != k")
+    data = w.read()
+    check(int(data[6, 12345]) == 3 * AMO_CALLS
+          and int(data[2, 777]) == AMO_CALLS
+          and int(data.sum()) == 4 * AMO_CALLS, "AMO window != closed form")
+    osc_plans_are_graphs(w, "scalar AMO loop")
+    w.free()
+    log(json.dumps({"amo_loop_host_us_per_call":
+                    host_s / (2 * AMO_CALLS) * 1e6}))
+    log(f"slice 8: {AMO_CALLS} fetch_and_op(SUM) + {AMO_CALLS} "
+        "compare_and_swap on one int32 element equal the closed form")
+
+
+def s8_shmem(comm, tmvar, cuda_op, torch, dev):
+    """SHMEM on a tuned comm: a (8, 16 MiB) f32 heap through the bulk
+    path equals the per-call path on every PE; sum_to_all at 64 MiB a PE
+    equals the op ^cuda call and launches the SUM kernel; 4 threads
+    contending for one lock keep mutual exclusion."""
+    import threading
+
+    from ompi_release_tpu_torch.oshmem import ShmemCtx
+
+    ctx = ShmemCtx(comm)
+    elems = 16 * MIB // 4
+
+    def heap_rounds(bulk):
+        tmvar.set_value("shmem_bulk", bulk)
+        try:
+            g = torch.Generator(device=dev).manual_seed(92)
+            sym = ctx.malloc((elems,))
+            for _ in range(4):
+                vals = torch.randn(N_RANKS, elems, generator=g, device=dev)
+                bump = torch.randn(N_RANKS, elems, generator=g, device=dev)
+                for pe in range(N_RANKS):
+                    ctx.put(sym, vals[pe], pe=pe)
+                    ctx.atomic_add(sym, bump[pe], pe=pe)
+                ctx.quiet()
+            heaps = [sym.local(pe) for pe in range(N_RANKS)]
+            osc_plans_are_graphs(sym._win, f"SHMEM heap (bulk {bulk})")
+            sym.free()
+            return heaps
+        finally:
+            tmvar.VARS.unset("shmem_bulk")
+
+    per_call, bulk = heap_rounds(False), heap_rounds(True)
+    check(all(bits_equal(a, b) for a, b in zip(bulk, per_call)),
+          "SHMEM bulk heap != the per-call heap")
+    del per_call, bulk
+    x = torch.randn(N_RANKS, 64 * MIB // 4, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(93))
+    before = cuda_op.LAUNCHES["sum"]
+    outs = [ctx.sum_to_all(x) for _ in range(3)]
+    sum_launches = cuda_op.LAUNCHES["sum"] - before
+    plain = with_op_excluded(tmvar, lambda: ctx.sum_to_all(x))
+    check(all(bits_equal(o, plain) for o in outs),
+          "sum_to_all at 64 MiB != the op ^cuda call")
+    check(sum_launches > 0, "sum_to_all launched no stream_axpy[sum]")
+    del outs, plain, x
+    lk = ctx.lock_create()
+    counter = ctx.malloc((1,), torch.int32)
+    errs = []
+
+    def contender(pe):
+        try:
+            for _ in range(25):
+                ctx.set_lock(lk, pe=pe)
+                try:
+                    v = int(ctx.atomic_fetch(counter, pe=0).reshape(-1)[0])
+                    ctx.atomic_set(counter, v + 1, pe=0)
+                finally:
+                    ctx.clear_lock(lk, pe=pe)
+        except Exception as e:  # surfaced after join
+            errs.append(e)
+
+    threads = [threading.Thread(target=contender, args=(pe,))
+               for pe in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    check(not any(th.is_alive() for th in threads) and not errs,
+          f"lock contention: {errs}")
+    final = int(ctx.atomic_fetch(counter, pe=0).reshape(-1)[0])
+    check(final == 100, f"4 x 25 locked increments gave {final}")
+    osc_plans_are_graphs(lk._win, "SHMEM lock word", racy=True)
+    osc_plans_are_graphs(counter._win, "SHMEM locked counter")
+    lock_plans = list(lk._win._access_plans.values())
+    once = sum(p.prog is None for p in lock_plans)
+    ctx.finalize()
+    log(f"slice 8: SHMEM (8 x 16 MiB f32 heap) bulk == per-call on every PE; "
+        f"sum_to_all at 64 MiB == op ^cuda ({sum_launches} SUM launches); "
+        "4-thread lock contention kept 100 increments; lock-word plans: "
+        f"{len(lock_plans) - once} graphs, {once} batches of racing CASes "
+        "closed once")
+
+
+def s8_io(world, torch, dev, tmp):
+    """File.write_at_all of 8 x 32 MiB card blocks under a vector view
+    (half of each tile a hole), read back bitwise; save_sharded /
+    load_sharded of a 256 MiB f32 card tensor, bitwise."""
+    import os
+
+    import numpy as np
+
+    from ompi_release_tpu_torch.datatype import datatype as tdt
+    from ompi_release_tpu_torch.io import File, load_sharded, save_sharded
+
+    x = torch.randn(N_RANKS, IO_BLOCK_ELEMS, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(94))
+    ft = tdt.create_vector(8, IO_BLOCK_ELEMS // 8, IO_BLOCK_ELEMS // 4,
+                           tdt.FLOAT)
+    path = os.path.join(tmp, "blocks.bin")
+    offsets = [r * IO_BLOCK_ELEMS for r in range(N_RANKS)]
+    with File(world, path) as f:
+        f.set_view(0, np.float32, filetype=ft)
+        f.write_at_all(offsets, [x[r] for r in range(N_RANKS)])
+        back = f.read_at_all(offsets, [IO_BLOCK_ELEMS] * N_RANKS)
+    host = x.cpu().numpy()
+    check(all(np.array_equal(b.view(np.int32), host[r].view(np.int32))
+              for r, b in enumerate(back)), "File read-back != the blocks")
+    raw = np.fromfile(path, np.float32)
+    run = IO_BLOCK_ELEMS // 8
+    check(np.array_equal(raw[:run].view(np.int32),
+                         host[0, :run].view(np.int32))
+          and np.array_equal(raw[2 * run:3 * run].view(np.int32),
+                             host[0, run:2 * run].view(np.int32)),
+          "the vector view did not place the runs")
+    save_sharded(os.path.join(tmp, "arr"), x, name="x")
+    y = load_sharded(os.path.join(tmp, "arr"), name="x")
+    check(bits_equal(y, x.cpu()), "save_sharded/load_sharded of 256 MiB")
+    log("slice 8: File.write_at_all of 8 x 32 MiB under a vector view and "
+        "a 256 MiB save_sharded/load_sharded read back bitwise")
+
+
+def phase_slice8(world, tmvar, cuda_op, torch, dev):
+    """Slice 8's path with every launch counter at 0 before it; returns
+    the SUM launches it made. SHMEM runs on a tuned comm of its own,
+    freed with its collectives' graphs at the end."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_op.reset_launches()
+    s8_param_server(world, tmvar, torch, dev)
+    s8_kv_fill(world, tmvar, torch, dev)
+    s8_amo_loop(world, torch, dev)
+    shm = comm_with(world, tmvar, "tuned")
+    s8_shmem(shm, tmvar, cuda_op, torch, dev)
+    shm.free()
+    with tempfile.TemporaryDirectory() as tmp:
+        s8_io(world, torch, dev, tmp)
+    torch.cuda.synchronize()
+    launches = dict(cuda_op.LAUNCHES)
+    log(f"phase 3: slice-8 path launches {launches}")
+    check(launches["sum"] > 0, "kernel wrapper sum launched no time on the "
+                               "slice-8 path")
+    log(json.dumps({"slice8_peak_memory_GiB":
+                    torch.cuda.max_memory_allocated(dev) / 2 ** 30}))
+    log(f"slice 8: checks took {time.perf_counter() - t0:.1f} s")
+    return launches["sum"]
+
+
+def time_slice8(world, tmvar, torch, dev):
+    """Slice 8's timings (not gates), each line with the card: epoch-close
+    ms and host µs per close, replayed plan against the interpreted close
+    in turns, with osc_orchestration_seconds per close, at bench.py's
+    rma_steady sizes and 64 MiB; a profiler window of 64 MiB replays;
+    SHMEM bulk against per-call rounds; File and sharded GB/s; the peak
+    memory."""
+    import os
+    import tempfile
+
+    from ompi_release_tpu_torch.io import File, load_sharded, save_sharded
+    from ompi_release_tpu_torch.mca import pvar as tpvar
+    from ompi_release_tpu_torch.oshmem import ShmemCtx
+    from ompi_release_tpu_torch.osc import win_allocate
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    card = card_line()
+    orch = tpvar.PVARS.lookup("osc_orchestration_seconds")
+    g = torch.Generator(device=dev).manual_seed(95)
+    rma = {}
+    for nbytes in RMA_BYTES:
+        elems = nbytes // 4
+        w = win_allocate(world, (elems,))
+        pay = torch.randn(elems, generator=g, device=dev)
+        acc = torch.randn(elems, generator=g, device=dev)
+
+        def queue():
+            w.lock(1)
+            w.put(pay, target=1)
+            w.accumulate(acc, target=1)
+            return w.get(target=1)
+
+        def replayed():
+            queue()
+            w.unlock(1)
+
+        def interpreted_close():
+            queue()
+            with w._op_lock:
+                w._run_epoch_program(w._take_pending(1),
+                                     _t0=time.perf_counter())
+            w.unlock(1)
+
+        legs = {"replayed": replayed, "interpreted": interpreted_close}
+        for fn in legs.values():  # the plan frozen, captured, replayed
+            for _ in range(3):
+                fn()
+        ms = turns_ms(legs, reps=TIMING_REPS)
+        host, orch_us = {}, {}
+        for name in legs:
+            samples, spans = [], []
+            for _ in range(CLOSE_SAMPLES):
+                queue()
+                torch.cuda.synchronize()
+                o0 = orch.read()
+                t1 = time.perf_counter()
+                if name == "replayed":
+                    w.unlock(1)
+                else:
+                    with w._op_lock:
+                        w._run_epoch_program(w._take_pending(1),
+                                             _t0=time.perf_counter())
+                    w.unlock(1)
+                samples.append((time.perf_counter() - t1) * 1e6)
+                spans.append((orch.read() - o0) * 1e6)
+            orch_us[name] = statistics.median(spans)
+            host[name] = statistics.median(samples)
+        torch.cuda.synchronize()
+        osc_plans_are_graphs(w, f"timed epoch at {nbytes} B")
+        rma[nbytes] = {"epoch_ms": ms, "close_host_us": host,
+                       "orchestration_us_per_close": orch_us}
+        if nbytes == RMA_BYTES[-1]:
+            log(json.dumps({"profile_replayed_epoch_64MiB":
+                            tbench.profile_window(replayed, 3)}))
+        w.free()
+        del w, pay, acc
+    log(json.dumps({"rma_put_acc_get_plan_vs_interpreted": rma,
+                    "card": card}))
+    ctx = ShmemCtx(world)
+    shm = {}
+    for nbytes in SHMEM_BYTES:
+        elems = nbytes // 4
+        vals = torch.randn(N_RANKS, elems, generator=g, device=dev)
+        bump = torch.full((elems,), 0.5, device=dev)
+        for bulk in (False, True):
+            tmvar.set_value("shmem_bulk", bulk)
+            try:
+                sym = ctx.malloc((elems,))
+                rounds = []
+                for r in range(12):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    for pe in range(N_RANKS):
+                        ctx.put(sym, vals[pe], pe=pe)
+                        ctx.atomic_add(sym, bump, pe=pe)
+                    ctx.quiet()
+                    torch.cuda.synchronize()
+                    if r >= 2:  # after the plan's capture
+                        rounds.append((time.perf_counter() - t1) * 1e3)
+                sym.free()
+            finally:
+                tmvar.VARS.unset("shmem_bulk")
+            shm.setdefault(nbytes, {})["bulk" if bulk else "per_call"] = \
+                statistics.median(rounds)
+    ctx.finalize()
+    log(json.dumps({"shmem_round_ms_8_puts_8_adds": shm, "card": card}))
+    x = torch.randn(N_RANKS, IO_BLOCK_ELEMS, generator=g, device=dev)
+    nbytes = x.numel() * 4
+    io = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        import numpy as np
+
+        offsets = [r * IO_BLOCK_ELEMS for r in range(N_RANKS)]
+        with File(world, os.path.join(tmp, "f.bin")) as f:
+            f.set_view(0, np.float32)
+            t1 = time.perf_counter()
+            f.write_at_all(offsets, [x[r] for r in range(N_RANKS)])
+            io["file_write_GBps"] = nbytes / (time.perf_counter() - t1) / 1e9
+            t1 = time.perf_counter()
+            f.read_at_all(offsets, [IO_BLOCK_ELEMS] * N_RANKS)
+            io["file_read_GBps"] = nbytes / (time.perf_counter() - t1) / 1e9
+        t1 = time.perf_counter()
+        save_sharded(os.path.join(tmp, "a"), x, name="x")
+        io["sharded_save_GBps"] = nbytes / (time.perf_counter() - t1) / 1e9
+        t1 = time.perf_counter()
+        load_sharded(os.path.join(tmp, "a"), name="x").to(dev)
+        torch.cuda.synchronize()
+        io["sharded_load_GBps"] = nbytes / (time.perf_counter() - t1) / 1e9
+    del x
+    log(json.dumps({"io_256MiB": io, "card": card}))
+    log(json.dumps({"slice8_timings_peak_memory_GiB":
+                    torch.cuda.max_memory_allocated(dev) / 2 ** 30}))
+    log(f"slice 8: timings took {time.perf_counter() - t0:.1f} s")
+
+
+def s8_checkpoint(model, torch):
+    """A Checkpointer save (async) and restore of the full-width TpuLM's
+    parameters and AdamW state, from the card and back, bitwise; a train
+    step runs in place between the save and its wait, and the restore is
+    the state at the save. Files go in a temporary directory."""
+    import tempfile
+
+    from ompi_release_tpu_torch import entry as tentry
+    from ompi_release_tpu_torch.ft import Checkpointer
+
+    opt = model.opt_state
+    check(opt is not None, "the train path left no AdamW state")
+    p = model.params()
+    flat = {**{n: t for n, t in p.items() if n != "layers"},
+            **{f"layers.{n}": t for n, t in p["layers"].items()}}
+    live = {"params": {n: t.detach() for n, t in flat.items()}}
+    for key in ("exp_avg", "exp_avg_sq", "step"):
+        live[key] = {n: opt.state[t][key] for n, t in flat.items()}
+    want = {k: {n: t.clone() for n, t in d.items()} for k, d in live.items()}
+    first = next(iter(flat))
+    nbytes = sum(t.numel() * t.element_size()
+                 for d in want.values() for t in d.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(1, live, async_=True)
+        save_return_s = time.perf_counter() - t0
+        tentry.run_train(model, 1)  # updates params and AdamW state in place
+        ck.wait()
+        save_s = time.perf_counter() - t0
+        changed = not bits_equal(live["params"][first],
+                                 want["params"][first])
+        t0 = time.perf_counter()
+        got = ck.restore(want)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    check(changed, "the train step between save and wait changed nothing")
+    for k, d in want.items():
+        for n, t in d.items():
+            check(got[k][n].device == t.device and bits_equal(got[k][n], t),
+                  f"checkpoint restore of {k}/{n} != the state at the save")
+    log(json.dumps({"checkpoint_tpulm_adamw": {
+        "state_MiB": nbytes / MIB, "leaves": sum(len(d) for d in want.values()),
+        "save_returns_ms": save_return_s * 1e3,
+        "save_commit_s": save_s, "restore_s": restore_s,
+        "save_GBps": nbytes / save_s / 1e9,
+        "restore_GBps": nbytes / restore_s / 1e9}, "card": card_line()}))
+    log("slice 8: Checkpointer async save + restore of the full-width TpuLM's "
+        "parameters and AdamW state, card to card, bitwise the state at the "
+        "save (a train step ran in place before the wait)")
+
+
 def main():
     import torch
 
@@ -2810,6 +3369,11 @@ def main():
     time_slice7(tuned, torch, dev)
     torch.cuda.empty_cache()
 
+    sum_by_path["slice8"] = phase_slice8(world, tmvar, cuda_op, torch, dev)
+    launches["sum"] += sum_by_path["slice8"]
+    time_slice8(world, tmvar, torch, dev)
+    torch.cuda.empty_cache()
+
     cuda_op.reset_launches()
     p2p = drive_p2p_path(world, cuda_op, torch, dev)
     torch.cuda.synchronize()
@@ -2838,6 +3402,7 @@ def main():
     launches_train = dict(cuda_op.LAUNCHES)
     log(f"phase 3: slice-4 path launches {launches_train}")
     check_train_path(torch, train_model, steps, launches_train)
+    s8_checkpoint(train_model, torch)
     torch.cuda.empty_cache()
 
     cuda_op.reset_launches()

@@ -18,8 +18,10 @@ logging), ``runtime`` (bring-up, state machine), ``datatype`` (derived
 datatypes, pack/unpack), ``ops`` (reduction ops and the hand-written
 CUDA kernels), ``comm`` (intra- and intercommunicators), ``coll``
 (components, frozen plans, nonblocking and persistent collectives),
-``topo`` (cartesian and graph topologies) and ``tuning`` (the
-per-topology tuning database); ``parallel`` and ``models`` carry the
+``topo`` (cartesian and graph topologies), ``tuning`` (the
+per-topology tuning database), ``osc`` (one-sided windows with frozen
+epoch plans), ``oshmem`` (OpenSHMEM), ``io`` (MPI-IO files and sharded
+arrays) and ``ft`` (checkpoints); ``parallel`` and ``models`` carry the
 model family.
 """
 
@@ -29,7 +31,7 @@ from .utils.errors import ErrorCode, MPIError
 __version__ = "0.1.0"
 
 _LAZY = {"runtime", "datatype", "ops", "comm", "coll", "parallel", "models",
-         "tuning", "topo"}
+         "tuning", "topo", "osc", "oshmem", "io", "ft"}
 
 
 def __getattr__(name):

@@ -232,6 +232,60 @@ def _pool(cid: int):
         return pool
 
 
+#: held around every CUDA-graph capture of the port (collective plans
+#: here, epoch plans in ``osc/plan.py``) and around every epoch close's
+#: device work (``osc/window.py``): a capture takes the launches counted
+#: while it runs as its graph's and empties the allocator's cache, so no
+#: other thread's close may launch meanwhile
+capture_lock = threading.RLock()
+
+
+def capture_graph(body: Callable[[], Any], device: torch.device, pool
+                  ) -> Tuple[Any, Any, Dict[str, int], List[torch.Tensor]]:
+    """Capture ``body()`` on a side stream of ``device`` into a
+    ``torch.cuda.CUDAGraph`` of memory pool ``pool``; returns (graph,
+    body's output, the kernel launches it recorded, the cached index
+    tensors it read). On failure it restores the device's default
+    generator and raises: the caller must never capture into ``pool``
+    again."""
+    from ..ops import cuda_op
+    from . import spmd
+
+    with capture_lock, torch.cuda.device(device):
+        # blocks the allocator caches cannot be freed during a capture,
+        # so a capture that needs memory would fail with the card's
+        # memory idle in the cache: release it first (as torch.cuda.graph
+        # does; it waits for the device, once per capture)
+        torch.cuda.empty_cache()
+        # a capture that dies before its end leaves the device's default
+        # generator in capture mode (only capture_end restores it)
+        gen = torch.cuda.default_generators[device.index]
+        rng = gen.clone_state()
+        graph = torch.cuda.CUDAGraph()
+        holds: List[torch.Tensor] = []
+        before = dict(cuda_op.LAUNCHES)
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        spmd.hold_indices(holds)
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    out = body()
+                finally:
+                    graph.capture_end()
+        except Exception:
+            gen.graphsafe_set_state(rng)
+            raise
+        finally:
+            spmd.hold_indices(None)
+            launches = cuda_op.take_launches(before)
+        cur.wait_stream(side)
+    return graph, out, launches, holds
+
+
 class _Frozen:
     """One signature's frozen body; on the card, the graph of it."""
 
@@ -250,47 +304,16 @@ class _Frozen:
         read in place by every replay, and the graph gets a pool of its
         own (it dies with the request); otherwise the static input is a
         copy of ``x``."""
-        from ..ops import cuda_op
-        from . import spmd
-
-        # blocks the allocator caches cannot be freed during a capture,
-        # so a capture that needs memory would fail with the card's
-        # memory idle in the cache: release it first (as torch.cuda.graph
-        # does; it waits for the device, once per capture)
-        torch.cuda.empty_cache()
         static_in = x if cid is None else x.clone()
-        # a capture that dies before its end leaves the device's default
-        # generator in capture mode (only capture_end restores it)
-        gen = torch.cuda.default_generators[x.device.index]
-        rng = gen.clone_state()
-        graph = torch.cuda.CUDAGraph()
-        holds: List[torch.Tensor] = []
-        before = dict(cuda_op.LAUNCHES)
-        with torch.cuda.device(x.device):
-            cur = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
-            side.wait_stream(cur)
-            spmd.hold_indices(holds)
-            try:
-                with torch.cuda.stream(side):
-                    pool = torch.cuda.graph_pool_handle() if cid is None \
-                        else _pool(cid)
-                    graph.capture_begin(pool=pool,
-                                        capture_error_mode="thread_local")
-                    try:
-                        out = self.body(static_in)
-                    finally:
-                        graph.capture_end()
-            except Exception as e:  # the plan stays interpreted
-                _log.verbose(1, f"CUDA-graph capture failed: {e}")
-                gen.graphsafe_set_state(rng)
-                with _lock:  # the failed capture may leave the pool open
-                    _pools.pop(cid, None)
-                return f"{type(e).__name__}: {e}"
-            finally:
-                spmd.hold_indices(None)
-                launches = cuda_op.take_launches(before)
-            cur.wait_stream(side)
+        pool = torch.cuda.graph_pool_handle() if cid is None else _pool(cid)
+        try:
+            graph, out, launches, holds = capture_graph(
+                lambda: self.body(static_in), x.device, pool)
+        except Exception as e:  # the plan stays interpreted
+            _log.verbose(1, f"CUDA-graph capture failed: {e}")
+            with _lock:  # the failed capture may leave the pool open
+                _pools.pop(cid, None)
+            return f"{type(e).__name__}: {e}"
         if not isinstance(out, torch.Tensor):
             return "the body returned no tensor"
         self.graph, self.static_in, self.static_out = graph, static_in, out

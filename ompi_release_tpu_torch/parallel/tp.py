@@ -8,7 +8,7 @@ in f32 and round once to the input dtype (``preferred_element_type=f32``
 then ``astype``), and the loss works on f32 logits. The collectives of
 tp > 1 (and the options that select them, ``gather_output`` and
 ``scatter_output``), and the bias terms no caller passes yet, come with
-the multi-card slice (ROADMAP queue 1 item 14).
+the multi-card slice (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations

@@ -489,3 +489,95 @@ def test_persistent_plan_dies_with_its_request(tuned):
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated(tuned.device) - base < held
     assert torch.cuda.memory_allocated(tuned.device) - base <= 1 << 20
+
+
+# ---------------------------------------------------------------------------
+# osc/plan.py's frozen epoch plans: CUDA graphs of the unrolled closes
+# ---------------------------------------------------------------------------
+
+def _epochs(win, ops, pays, sync="lock"):
+    """Run one epoch per payload pair (put, accumulate, get, indexed
+    fetch-and-op, indexed CAS on target 2); returns every read and the
+    window after each."""
+    out = []
+    for a, b in pays:
+        if sync == "lock":
+            win.lock(2)
+        else:
+            win.fence()
+        win.put(a, target=2)
+        win.accumulate(b, target=2, op=ops.SUM)
+        g = win.get(target=2)
+        f = win.fetch_and_op(b[5], target=2, op=ops.MAX, index=5)
+        c = win.compare_and_swap(a[1], b[1], target=2, index=1)
+        if sync == "lock":
+            win.unlock(2)
+        else:
+            win.fence_end()
+        out += [g.value, f.value, c.value, win.read()]
+    return out
+
+
+@pytest.mark.parametrize("sync", ["lock", "fence"])
+def test_epoch_plan_replays_as_graph_bitwise(tuned, sync):
+    """The first close of a signature runs interpreted, the second
+    captures the unrolled close as a CUDA graph, later closes replay it:
+    every read and the window bitwise the interpreted closes
+    (``osc_compiled`` off)."""
+    from ompi_release_tpu_torch import ops
+    from ompi_release_tpu_torch.mca import var
+    from ompi_release_tpu_torch.osc import win_allocate
+
+    g = torch.Generator(device=tuned.device).manual_seed(5)
+    pays = [(torch.randn(1 << 16, generator=g, device=tuned.device),
+             torch.randn(1 << 16, generator=g, device=tuned.device))
+            for _ in range(5)]
+    var.set_value("osc_compiled", False)
+    try:
+        wi = win_allocate(tuned, (1 << 16,))
+        want = _epochs(wi, ops, pays, sync)
+    finally:
+        var.VARS.unset("osc_compiled")
+    wc = win_allocate(tuned, (1 << 16,))
+    got = _epochs(wc, ops, pays, sync)
+    (plan,) = wc._access_plans.values()
+    assert plan.graph is not None and plan.bad is None
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    wi.free()
+    wc.free()
+
+
+def test_epoch_plan_capture_failure_stays_interpreted(tuned):
+    """A user op that syncs with the host cannot be captured: the plan
+    keeps its reason and stays interpreted with the interpreted bits;
+    its pool is never captured into again, and the next signature's
+    capture (a fresh pool) succeeds."""
+    from ompi_release_tpu_torch import ops
+    from ompi_release_tpu_torch.mca import pvar
+    from ompi_release_tpu_torch.osc import win_allocate
+
+    op = ops.user_op("sum_host_sync",
+                     lambda a, b: (float(b.reshape(-1)[0]), a + b)[1])
+    failures = pvar.PVARS.lookup("osc_graph_capture_failures")
+    f0 = failures.read()
+    x = torch.randn(4096, device=tuned.device)
+    w = win_allocate(tuned, (4096,))
+    want = torch.zeros_like(x)
+    for _ in range(3):
+        w.fence()
+        w.accumulate(x, target=1, op=op)
+        w.fence_end()
+        want = want + x
+        assert torch.equal(w.read()[1], want)
+    (plan,) = w._access_plans.values()
+    assert "capture failed" in plan.bad and plan.graph is None
+    assert failures.read() - f0 == 1
+    for _ in range(2):
+        w.fence()
+        w.accumulate(x, target=3)
+        w.fence_end()
+    graphs = [p for p in w._access_plans.values() if p.graph is not None]
+    assert len(graphs) == 1
+    assert torch.equal(w.read()[3], x + x)
+    w.free()

@@ -81,6 +81,8 @@ def test_importing_every_module_loads_no_jax():
         "import ompi_release_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "for name in ('osc', 'oshmem', 'io', 'ft'):\n"
+        "    assert getattr(p, name).__name__ == p.__name__ + '.' + name\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
