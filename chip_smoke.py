@@ -156,6 +156,26 @@ Run from the repository root on a machine with a card:
      check, a ``Checkpointer`` async save of the full-width TpuLM's
      parameters and AdamW state, a train step in place before its wait,
      and a restore bitwise the state at the save;
+   - slice 9 (after the Mixer's timings): the full-width TpuLM over 8
+     virtual ranks of the card in dryrun_multichip's two factorizations.
+     Mesh A, dp 2 x pp 2 x tp 2 with 2 microbatches (dense): 1 eval batch
+     and 4 ``adamw(1e-3)`` steps; the flash kernels must launch 12 times
+     a forward (3 GPipe ticks x the stage's 4 layers, each launch over
+     every rank) and 12 + 12 a backward, ``stream_axpy[sum]`` must launch
+     (the tp psums); mesh B, dp 2 x sp 2 x ep 2 with 4 experts and
+     capacity factor 4.0: 1 eval and 3 steps through ring attention (no
+     flash at sp > 1). Each mesh's losses near ln(32000) and falling, its
+     step-1 loss within rel 1e-4 and step-2 loss within rel 1e-3 / abs
+     1e-4 of the one-card model from the same seed-0 weights and batch
+     (for mesh B the one-card MoE runs its batch as 8 microbatches: at
+     capacity 4.0 nothing is dropped either way). The full-width Mixer at
+     dp 2 x tp 2: two ``sgd(0.1)`` steps against one card, f32 rel 1e-4,
+     bf16 rel 1e-2. tree_allreduce / tree_reduce_scatter /
+     tree_allgather over the TpuLM's 66 gradients on dp = 8: bitwise the
+     per-leaf folds and the op ^cuda run. Then each mesh's step beside
+     the one-card step in turns, a profiler window each, peak memory.
+     ``python3 chip_smoke.py --slice9`` runs this phase alone (no result
+     line);
 4. times the kernels (CUDA events, median of 7) at the main path's
    shapes beside their bound, their plain twins and one PyTorch library
    call, the streaming kernels, the transpose and the eager chain hop in
@@ -3309,6 +3329,326 @@ def s8_checkpoint(model, torch):
         "save (a train step ran in place before the wait)")
 
 
+# ---------------------------------------------------------------------------
+# slice 9: the parallelism strategies at axes > 1 — the full-width TpuLM
+# train step sharded over 8 virtual ranks, the Mixer at dp x tp, and the
+# whole-tree passes
+# ---------------------------------------------------------------------------
+
+#: dryrun_multichip(8)'s two factorizations (__graft_entry__.py:133-162)
+MESH_A = dict(dp=2, pp=2, tp=2)  # dense, microbatches 2
+MESH_B = dict(dp=2, sp=2, ep=2)  # 4 experts, capacity factor 4.0
+S9_TRAIN_A = 4  # mesh A: 1 eval batch + 4 train steps
+S9_TRAIN_B = 3  # mesh B: 1 eval batch + 3 train steps
+#: the one-card MoE reference runs its (8, 2048) batch as 8 microbatches
+#: of one sequence: at capacity factor 4.0 no token is dropped either
+#: way (capacity = tokens per call), so the loss is the same function,
+#: and each call's (T, E, C) dispatch is mesh B's per-rank one
+MOE_REF_MICROBATCHES = 8
+#: flash launches of one mesh-A forward: (M + S - 1) ticks x L / S layers
+#: of the pp-stacked stage, each one launch over all ranks
+S9_FLASH_PER_FWD = (2 + 2 - 1) * (8 // 2)
+#: the most relative L2 gap of any leaf's full-width f32 gradient between
+#: a mesh and the one-card model (s9_grads_close): sound runs on an H100
+#: read 8e-7 to 4.0e-6, a gradient of the wrong magnitude (2x) about 1
+S9_GRAD_REL = 1e-4
+#: rows of the (rows, 2048) batch of that gradient comparison
+S9_GRAD_ROWS = 4
+
+
+def s9_losses_close(got, want, what):
+    """Step 1 within rel 1e-4, step 2 within rel 1e-3 / abs 1e-4 (the
+    bounds of tests/test_models.py:88, 96-97)."""
+    check(all(map(math.isfinite, got)), f"{what}: losses {got}")
+    check(abs(got[0] - want[0]) <= 1e-4 * abs(want[0]),
+          f"{what}: step-1 loss {got[0]} vs the one-card {want[0]} "
+          "(rel 1e-4)")
+    check(abs(got[1] - want[1]) <= max(1e-3 * abs(want[1]), 1e-4),
+          f"{what}: step-2 loss {got[1]} vs the one-card {want[1]} "
+          "(rel 1e-3, abs 1e-4)")
+
+
+def s9_grads_close(torch, axes, cfg, ref_cfg, what):
+    """Every leaf's gradient of the loss at full width in f32 (TF32 off),
+    sharded over ``axes``, against the one-card model's (``ref_cfg``)
+    from the same seed-0 weights on the same (S9_GRAD_ROWS, 2048) batch:
+    the relative L2 gap of each leaf within S9_GRAD_REL. The loss gates
+    see AdamW's first update, about lr * sign(g), so they miss a gradient
+    of the wrong magnitude; this gate does not, and the same gaps with
+    the sharded gradients scaled by 2 must exceed it. f32, because bf16's
+    rounding (and the MoE routing flips it causes) puts a floor of 1e-2
+    to 1e-1 under the gaps; the transposes it checks are the same in
+    either dtype. Returns (worst gap, its leaf, the least gap at 2x)."""
+    import dataclasses
+
+    from ompi_release_tpu_torch import entry as tentry
+    from ompi_release_tpu_torch.models import transformer as tfm
+    from ompi_release_tpu_torch.optim import leaves
+    from ompi_release_tpu_torch.parallel.mesh_axes import build_parallel_mesh
+
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    ref_cfg = dataclasses.replace(ref_cfg, dtype=torch.float32)
+    mesh = build_parallel_mesh(**axes)
+    base = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    tok, tgt = (torch.as_tensor(a, device=mesh.device) for a in tentry._batch(
+        cfg, S9_GRAD_ROWS, tentry.EVAL_SEQ))
+
+    def names(params, prefix=""):
+        out = []
+        for k in sorted(params):
+            v = params[k]
+            out.extend(names(v, f"{prefix}{k}.") if isinstance(v, dict)
+                       else [prefix + k])
+        return out
+
+    def grads(loss_fn):
+        params = copy_params(base, mesh.device)
+        ts = leaves(params)
+        for p in ts:
+            p.requires_grad_(True)
+        return [g.float() for g in torch.autograd.grad(loss_fn(params), ts)]
+
+    got = grads(lambda p: tfm.sharded_loss(cfg, mesh, p, tok, tgt))
+    want = grads(lambda p: tfm.forward_loss(ref_cfg, p, tok, tgt))
+
+    def gaps(scale):
+        return [float((scale * a - b).norm() / b.norm())
+                for a, b in zip(got, want)]
+
+    rel, planted = gaps(1.0), gaps(2.0)
+    leaf = names(base)
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    log(json.dumps({f"s9_grads_{what}": dict(zip(leaf, rel)),
+                    "limit": S9_GRAD_REL, "least_gap_at_2x": min(planted)}))
+    check(max(rel) <= S9_GRAD_REL,
+          f"{what}: gradient of {leaf[worst]} relative L2 {rel[worst]} vs "
+          f"the one-card model's (> {S9_GRAD_REL})")
+    check(min(planted) > S9_GRAD_REL,
+          f"{what}: a 2x gradient passes the gate ({min(planted)})")
+    del got, want
+    torch.cuda.empty_cache()
+    return rel[worst], leaf[worst], min(planted)
+
+
+def s9_mesh(torch, axes, cfg, n_train, ref_cfg, cuda_op):
+    """One mesh's path: the sharded TpuLM's eval batch and ``n_train``
+    steps (launch counts read around exactly them), then the one-card
+    model from the same seed-0 weights on the same batch for 2 steps.
+    Returns (model, evals, steps, launches, ref_losses, peak GiB)."""
+    from ompi_release_tpu_torch import entry as tentry
+    from ompi_release_tpu_torch.models.transformer import TpuLM
+    from ompi_release_tpu_torch.parallel.mesh_axes import build_parallel_mesh
+
+    mesh = build_parallel_mesh(**axes)
+    check(mesh.size == 8 and mesh.device.type == "cuda",
+          f"mesh {axes}: {mesh.size} ranks on {mesh.device}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = TpuLM(cfg, seed=0, mesh=mesh)
+    torch.cuda.synchronize()
+    cuda_op.reset_launches()
+    evals = tentry.run_eval(model, n_batches=1)
+    steps = tentry.run_train(model, n_train)
+    torch.cuda.synchronize()
+    launches = dict(cuda_op.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ref = TpuLM(ref_cfg, seed=0)
+    ref_losses = [loss for loss, _ in tentry.run_train(ref, 2)]
+    del ref
+    torch.cuda.empty_cache()
+    return model, evals, steps, launches, ref_losses, peak
+
+
+def s9_mixer(torch):
+    """The full-width Mixer at dp = 2, tp = 2: two ``sgd(0.1)`` steps
+    against the one-card Mixer from the same weights, f32 (TF32 off)
+    within rel 1e-4 and the default bf16 within rel 1e-2."""
+    import dataclasses
+
+    from ompi_release_tpu_torch import entry as tentry
+    from ompi_release_tpu_torch.models import mixer as mx
+    from ompi_release_tpu_torch.optim import sgd
+    from ompi_release_tpu_torch.parallel.mesh_axes import build_parallel_mesh
+
+    out = {}
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        cfg = dataclasses.replace(mx.MixerConfig(), dtype=dtype)
+        base = mx.init_params(cfg, torch.Generator().manual_seed(0))
+        patches, labels = tentry.mixer_batch(cfg)
+
+        def run(axes):
+            mesh = build_parallel_mesh(**axes)
+            params = copy_params(base, mesh.device)
+            step = mx.make_train_step(cfg, mesh)
+            state = sgd(tentry.MIXER_LR)(params)
+            return [float(step(params, state, patches, labels)[2])
+                    for _ in range(2)]
+
+        one, sharded = run({}), run(dict(dp=2, tp=2))
+        name = str(dtype)[6:]
+        out[name] = {"dp2xtp2": sharded, "one_card": one}
+        for a, b in zip(sharded, one):
+            check(abs(a - b) <= rtol * abs(b),
+                  f"Mixer {name} at dp2 x tp2: losses {sharded} vs the "
+                  f"one-card {one} (rel {rtol})")
+        check(sharded[1] < sharded[0], f"Mixer {name} loss did not fall")
+    log(json.dumps({"s9_mixer_dp2xtp2_vs_one_card": out}))
+    return out
+
+
+def s9_tree_passes(tmvar, cuda_op, torch, dev):
+    """tree_allreduce / tree_reduce_scatter / tree_allgather over the
+    full-width TpuLM's 66 gradients stacked on dp = 8 virtual ranks:
+    the planned passes (default buckets) bitwise the per-leaf folds
+    (``bucket_bytes=0``) and the ``--mca op ^cuda`` run; the allgather
+    of the reduce-scatter's shards bitwise the allreduce (one fold
+    order). Returns the SUM launches of the planned passes."""
+    from ompi_release_tpu_torch.parallel import tree
+    from ompi_release_tpu_torch.parallel.mesh_axes import ParallelMesh
+
+    mesh = ParallelMesh(shape={"dp": N_RANKS}, device=dev)
+    grads = {f"g{i:02d}": g for i, g in enumerate(
+        grad_list(torch, dev, integer=False))}
+    shapes = {k: tuple(v.shape[1:]) for k, v in grads.items()}
+
+    def passes(bb):
+        with mesh:
+            ar = tree.tree_allreduce(grads, "dp", bucket_bytes=bb)
+            rs = tree.tree_reduce_scatter(grads, "dp", mean=False,
+                                          bucket_bytes=bb)
+            ag = tree.tree_allgather(rs, shapes, "dp", bucket_bytes=bb)
+        return ar, rs, ag
+
+    cuda_op.reset_launches()
+    planned = passes(None)
+    torch.cuda.synchronize()
+    sums = cuda_op.LAUNCHES["sum"]
+    perleaf = passes(0)
+    plain = with_op_excluded(tmvar, lambda: passes(None))
+    for kind, p, q, r in zip(("allreduce", "reduce_scatter", "allgather"),
+                             planned, perleaf, plain):
+        for k in grads:
+            check(bits_equal(p[k], q[k]), f"tree_{kind} {k}: planned != "
+                                          "per-leaf (bitwise)")
+            check(bits_equal(p[k], r[k]), f"tree_{kind} {k}: != op ^cuda "
+                                          "(bitwise)")
+    for k in grads:
+        check(bits_equal(planned[2][k], planned[0][k]),
+              f"{k}: allgather(reduce_scatter) != allreduce (bitwise)")
+    check(sums > 0, "the tree passes launched no stream_axpy[sum]")
+    nbytes = sum(g.numel() * g.element_size() for g in grads.values())
+    log(json.dumps({"s9_tree_passes": {
+        "leaves": len(grads), "ranks": N_RANKS, "MiB": nbytes / MIB,
+        "sum_launches": sums}}))
+    return sums
+
+
+def phase_slice9(tmvar, cuda_op, torch, dev):
+    """Slice 9's path: the full-width TpuLM train step sharded over the
+    8 virtual ranks of dryrun_multichip's two factorizations, each
+    against the one-card model from the same weights; the Mixer at dp x
+    tp; the whole-tree passes. Returns the models and the launches."""
+    import dataclasses
+
+    from ompi_release_tpu_torch.models.transformer import ModelConfig
+
+    t0 = time.perf_counter()
+    cfg_a = ModelConfig(microbatches=2)
+    model_a, evals_a, steps_a, la, ref_a, peak_a = s9_mesh(
+        torch, MESH_A, cfg_a, S9_TRAIN_A, cfg_a, cuda_op)
+    losses_a = [x for x, _ in steps_a]
+    want = {"flash_fwd": S9_FLASH_PER_FWD * (1 + S9_TRAIN_A),
+            "flash_bwd_dq": S9_FLASH_PER_FWD * S9_TRAIN_A,
+            "flash_bwd_dkv": S9_FLASH_PER_FWD * S9_TRAIN_A}
+    for name, n in want.items():
+        check(la[name] == n, f"mesh A: {name} launched {la[name]} times, "
+                             f"not {n} ({S9_FLASH_PER_FWD} a forward)")
+    check(la["sum"] > 0, "mesh A: stream_axpy[sum] launched no time")
+    check(abs(evals_a[0][0] - math.log(cfg_a.vocab)) < 1.0,
+          f"mesh A eval loss {evals_a[0][0]} not near ln(32000)")
+    check(losses_a[-1] < losses_a[0], f"mesh A losses {losses_a} not falling")
+    s9_losses_close(losses_a, ref_a, "mesh A (dp2 x pp2 x tp2)")
+    log(json.dumps({"s9_mesh_a": MESH_A, "eval_loss": evals_a[0][0],
+                    "train_losses": losses_a, "one_card_losses": ref_a,
+                    "launches": la, "peak_device_memory_GiB": peak_a}))
+    del model_a
+    torch.cuda.empty_cache()
+    grad_a = s9_grads_close(torch, MESH_A, cfg_a, cfg_a, "mesh_a")
+
+    cfg_b = ModelConfig(n_experts=MOE_EXPERTS, capacity_factor=4.0)
+    ref_b_cfg = ModelConfig(n_experts=MOE_EXPERTS, capacity_factor=4.0,
+                            microbatches=MOE_REF_MICROBATCHES)
+    model_b, evals_b, steps_b, lb, ref_b, peak_b = s9_mesh(
+        torch, MESH_B, cfg_b, S9_TRAIN_B, ref_b_cfg, cuda_op)
+    losses_b = [x for x, _ in steps_b]
+    check(lb["flash_fwd"] == 0, "mesh B (sp = 2) must take ring attention")
+    check(abs(evals_b[0][0] - math.log(cfg_b.vocab)) < 1.0,
+          f"mesh B eval loss {evals_b[0][0]} not near ln(32000)")
+    check(losses_b[-1] < losses_b[0], f"mesh B losses {losses_b} not falling")
+    s9_losses_close(losses_b, ref_b, "mesh B (dp2 x sp2 x ep2, MoE)")
+    log(json.dumps({"s9_mesh_b": MESH_B, "eval_loss": evals_b[0][0],
+                    "train_losses": losses_b, "one_card_losses": ref_b,
+                    "launches": lb, "peak_device_memory_GiB": peak_b}))
+    del model_b
+    torch.cuda.empty_cache()
+    grad_b = s9_grads_close(  # the reference: one sequence a microbatch
+        torch, MESH_B, cfg_b,
+        dataclasses.replace(ref_b_cfg, microbatches=S9_GRAD_ROWS), "mesh_b")
+
+    s9_mixer(torch)
+    tree_sums = s9_tree_passes(tmvar, cuda_op, torch, dev)
+    log(f"phase 3: slice-9 path: mesh A {la['flash_fwd']} / "
+        f"{la['flash_bwd_dq']} / {la['flash_bwd_dkv']} flash launches, "
+        f"{la['sum']} SUM launches; meshes A and B == the one-card steps "
+        "(rel 1e-4 / 1e-3), gradients within relative L2 "
+        f"{grad_a[0]:.2e} ({grad_a[1]}) / {grad_b[0]:.2e} ({grad_b[1]}) "
+        f"(2x: >= {min(grad_a[2], grad_b[2]):.2f}); "
+        "Mixer dp2 x tp2 == one card; tree passes "
+        f"bitwise ({time.perf_counter() - t0:.1f} s)")
+    return {"mesh_a": la, "mesh_b": lb, "tree_sum": tree_sums}
+
+
+def time_slice9(torch):
+    """Each mesh's train step beside the one-card dense step, in turns
+    (CUDA events, median of 3 after a warm-up round): ms per step and
+    tokens/s, the peak memory of each mesh's window, and one profiler
+    window per mesh step (busy share, top kernels, host gaps)."""
+    from ompi_release_tpu_torch import entry as tentry
+    from ompi_release_tpu_torch.models.transformer import ModelConfig, TpuLM
+    from ompi_release_tpu_torch.parallel.mesh_axes import build_parallel_mesh
+
+    tok, tgt = (torch.as_tensor(a, device="cuda") for a in tentry._batch(
+        ModelConfig(), tentry.EVAL_BATCH, tentry.EVAL_SEQ, seed=10))
+    tokens = tentry.EVAL_BATCH * tentry.EVAL_SEQ
+    one = TpuLM(ModelConfig(), seed=0)
+    out = {}
+    for label, axes, cfg in (
+            ("mesh_a", MESH_A, ModelConfig(microbatches=2)),
+            ("mesh_b", MESH_B, ModelConfig(n_experts=MOE_EXPERTS,
+                                           capacity_factor=4.0))):
+        torch.cuda.empty_cache()
+        model = TpuLM(cfg, seed=0, mesh=build_parallel_mesh(**axes))
+        torch.cuda.reset_peak_memory_stats()
+        ms = turns_ms({label: lambda: model.train_step(tok, tgt),
+                       "one_card": lambda: one.train_step(tok, tgt)},
+                      reps=3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = tbench.profile_window(lambda: model.train_step(tok, tgt), 1)
+        out[label] = {"axes": axes, "ms_per_step": ms[label],
+                      "tokens_per_s": tokens / (ms[label] * 1e-3),
+                      "one_card_ms_per_step": ms["one_card"],
+                      "vs_one_card": ms[label] / ms["one_card"],
+                      "peak_device_memory_GiB_with_one_card": peak,
+                      "profile": {**prof, "host_gap_ms": prof["window_ms"]
+                                  - prof["device_busy_ms"]}}
+        log(json.dumps({f"s9_time_{label}": out[label],
+                        "card": card_line()}))
+        del model
+    del one
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
 
@@ -3327,6 +3667,15 @@ def main():
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     log(f"card: {card_line()}")
+    if sys.argv[1:] == ["--slice9"]:
+        # a short run of slice 9 alone (the build, its phase and its
+        # timings); it prints no result line
+        cuda_op.build()
+        phase_slice9(tmvar, cuda_op, torch, dev)
+        time_slice9(torch)
+        log(f"chip_smoke --slice9: passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"allow_tf32 matmul {torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
@@ -3455,6 +3804,19 @@ def main():
     time_mixer(torch)
     tuned.free()
     mpi.finalize()
+    torch.cuda.empty_cache()
+
+    s9 = phase_slice9(tmvar, cuda_op, torch, dev)
+    s9_by_row = {"flash_fwd": s9["mesh_a"]["flash_fwd"],
+                 "flash_bwd_dq": s9["mesh_a"]["flash_bwd_dq"],
+                 "flash_bwd_dkv": s9["mesh_a"]["flash_bwd_dkv"],
+                 "stream_axpy[sum]": s9["mesh_a"]["sum"] + s9["mesh_b"]["sum"]
+                 + s9["tree_sum"]}
+    for row in rows:  # the main path's launches now include slice 9's
+        if row["name"] in s9_by_row:
+            row["launches"] += s9_by_row[row["name"]]
+            row["launches_by_path"]["slice9"] = s9_by_row[row["name"]]
+    time_slice9(torch)
     torch.cuda.empty_cache()
     run_bench(torch, dev)
     log(f"chip_smoke: every phase passed in "

@@ -49,7 +49,14 @@ _log = output.stream("coll")
 
 #: collective name -> algorithms a rule may name (filled by
 #: components.py at import; kept here to avoid a cycle)
-RULE_COLLECTIVES: Dict[str, Tuple[str, ...]] = {}
+RULE_COLLECTIVES: Dict[str, Tuple[str, ...]] = {
+    # parallel/tree's planned whole-tree passes register here directly:
+    # min_comm_size is the participant count, min_msg_bytes the TOTAL
+    # tree bytes, and the 5th (segsize) column the fused bucket capacity
+    # in bytes; "per_leaf" pins bucketing off. Consumed by
+    # parallel.tree.resolve_bucket_bytes.
+    "tree_buckets": ("auto", "fused", "per_leaf"),
+}
 
 Rules = Dict[str, List[Tuple[int, int, str, Optional[int]]]]
 

@@ -58,7 +58,10 @@ def _build(values: Tuple, dtype: torch.dtype, device: str) -> torch.Tensor:
         # never cached (lru_cache keeps no exceptions): the capture
         # fails and its plan stays interpreted
         raise RuntimeError("index cache miss inside a CUDA-graph capture")
-    return torch.tensor(values, dtype=dtype, device=device)
+    # a normal tensor even when first asked for under inference_mode: a
+    # cached index may later be saved for an autograd backward
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _cached(values: Tuple, dtype: torch.dtype, device: str) -> torch.Tensor:

@@ -25,13 +25,22 @@ Counterpart of ``__graft_entry__.py``:
   tensors and labels from seed 0 with ``sgd(0.1)``: one warm-up step,
   then 6 steps, each printing its loss, ms and samples/s. Every line
   carries the peak device memory so far. Without CUDA it exits 2.
-
-``dryrun_multichip`` waits for the multi-card slice.
+  ``--mesh dp=2,pp=2,tp=2`` runs any of these sharded over a mesh of
+  virtual ranks of the card (``parallel.build_parallel_mesh``; axes not
+  named are 1): the TpuLM with ``microbatches=2`` when pp > 1 and
+  ``capacity_factor`` 4.0 when ep > 1 (the dryrun's values), the Mixer
+  over dp and tp only.
+- :func:`dryrun_multichip` is ``__graft_entry__.dryrun_multichip``: the
+  full train step (the tiny config, ``adamw(1e-3)``) over the two
+  factorizations of n ranks that cover every axis > 1, one step each,
+  as virtual ranks of one device (the card unless ``device`` says
+  otherwise).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -86,8 +95,6 @@ def train_entry(device=None):
     otherwise): the tiny config with ``capacity_factor=4.0``,
     ``adamw(1e-3)`` and its (4, 16) batch. ``step(*args)`` returns
     ``(params, opt_state, loss)`` and updates the parameters in place."""
-    import dataclasses
-
     from .models import transformer as tfm
     from .optim import adamw
     from .parallel.mesh_axes import build_parallel_mesh
@@ -102,6 +109,66 @@ def train_entry(device=None):
         params, adamw(1e-3)(params),
         torch.as_tensor(tokens, device=mesh.device),
         torch.as_tensor(targets, device=mesh.device))
+
+
+def _dryrun_one(n: int, axes: dict, device=None) -> float:
+    """One full train step over an n-rank mesh with the factorization
+    ``axes`` (``__graft_entry__._dryrun_one``): returns its loss."""
+    from .models import transformer as tfm
+    from .optim import adamw
+    from .parallel.mesh_axes import build_parallel_mesh
+    from .runtime.ess import discover_devices
+
+    cfg = dataclasses.replace(
+        _tiny_cfg(), n_experts=4 if axes["ep"] > 1 else 0,
+        capacity_factor=4.0, microbatches=2 if axes["pp"] > 1 else 1)
+    mesh = build_parallel_mesh(devices=discover_devices(device)[:1], **axes)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                             mesh.device)
+    step = tfm.make_train_step(cfg, mesh)
+    b = 4 * axes["dp"] * axes["ep"] * cfg.microbatches
+    tokens, targets = _batch(cfg, b, 16 * axes["sp"])
+    _, _, loss = step(params, adamw(1e-3)(params), tokens, targets)
+    loss = float(loss)
+    if not np.isfinite(loss):
+        raise FloatingPointError(f"dryrun_multichip: non-finite loss {loss}")
+    print(f"dryrun_multichip: n={n} axes={axes} loss={loss:.4f} OK")
+    return loss
+
+
+def dryrun_multichip(n_devices: int = 8, device=None):
+    """The full train step over real multi-axis shardings of
+    ``n_devices`` virtual ranks: the load-bearing factorization (tp, pp,
+    dp first), then, at n divisible by 8, one that puts the remaining
+    axes (sp, ep) > 1, so every axis runs > 1. Returns [(axes, loss)]."""
+    axes = {"dp": 1, "pp": 1, "sp": 1, "ep": 1, "tp": 1}
+    rem = n_devices
+    for name in ("tp", "pp", "dp", "sp", "ep"):
+        if rem % 2 == 0:
+            axes[name] *= 2
+            rem //= 2
+    axes["dp"] *= rem  # leftover odd factor
+    ran = [(axes, _dryrun_one(n_devices, axes, device))]
+    if any(axes[k] == 1 for k in ("sp", "ep")) and n_devices % 8 == 0:
+        axes2 = {"dp": n_devices // 4, "pp": 1, "sp": 2, "ep": 2, "tp": 1}
+        ran.append((axes2, _dryrun_one(n_devices, axes2, device)))
+    union = {k: max(a[k] for a, _ in ran) for k in axes}
+    print(f"dryrun_multichip: axis coverage across {len(ran)} "
+          f"factorization(s): {union} "
+          f"({'ALL AXES > 1' if min(union.values()) > 1 else 'partial'})")
+    return ran
+
+
+def parse_mesh(text: str) -> dict:
+    """``"dp=2,pp=2,tp=2"`` -> the axis sizes (unnamed axes 1)."""
+    axes = {"dp": 1, "pp": 1, "sp": 1, "ep": 1, "tp": 1}
+    for part in filter(None, text.split(",")):
+        name, _, size = part.partition("=")
+        if name.strip() not in axes or not size.strip().isdigit():
+            raise ValueError(f"--mesh: {part!r} is not axis=size with an "
+                             f"axis of {tuple(axes)}")
+        axes[name.strip()] = int(size)
+    return axes
 
 
 def run_eval(model, n_batches: int = EVAL_BATCHES, batch: int = EVAL_BATCH,
@@ -171,7 +238,11 @@ def main(argv=None) -> int:
                     help="switch-MoE TpuLM with this many experts")
     ap.add_argument("--mixer", action="store_true",
                     help="train the TpuMixer instead of the TpuLM")
+    ap.add_argument("--mesh", default="",
+                    help="shard over virtual ranks of the card, e.g. "
+                         "dp=2,pp=2,tp=2")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    axes = parse_mesh(args.mesh)
     if not torch.cuda.is_available():
         print("entry: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -180,16 +251,22 @@ def main(argv=None) -> int:
     from .models.mixer import MixerConfig, TpuMixer
     from .models.transformer import ModelConfig, TpuLM
     from .ops import cuda_op
+    from .parallel.mesh_axes import build_parallel_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
     cuda_op.build()
+    mesh = build_parallel_mesh(**axes)
     if args.mixer:
-        model = TpuMixer(MixerConfig(), seed=0, lr=MIXER_LR)
+        model = TpuMixer(MixerConfig(), seed=0, lr=MIXER_LR, mesh=mesh)
         runs = run_mixer_train(model, 1 + TRAIN_STEPS)[1:]
         metric, key, unit, per = "mixer_train_step", "step", \
             "samples_per_s", MIXER_BATCH
     else:
-        model = TpuLM(ModelConfig(n_experts=args.experts), seed=0)
+        cfg = ModelConfig(n_experts=args.experts,
+                          microbatches=2 if axes["pp"] > 1 else 1)
+        if axes["ep"] > 1:
+            cfg = dataclasses.replace(cfg, capacity_factor=4.0)
+        model = TpuLM(cfg, seed=0, mesh=mesh)
         unit, per = "tokens_per_s", EVAL_BATCH * EVAL_SEQ
         if args.train:
             runs = run_train(model, 1 + TRAIN_STEPS)[1:]  # after a warm-up
@@ -203,7 +280,7 @@ def main(argv=None) -> int:
     name, limit = card(model.device)
     for i, (loss, ms) in enumerate(runs):
         print(json.dumps({
-            "metric": metric, key: i, "loss": loss, "ms": ms,
+            "metric": metric, key: i, "loss": loss, "ms": ms, "mesh": axes,
             unit: per / (ms * 1e-3),
             "peak_device_memory_GiB":
                 torch.cuda.max_memory_allocated(model.device) / 2**30,

@@ -1,11 +1,15 @@
-"""TpuMixer — the MLP-Mixer, the second model family, on one card.
+"""TpuMixer — the MLP-Mixer, the second model family, on one device or
+sharded over dp and tp.
 
 Counterpart of ``ompi_release_tpu/models/mixer.py``: the same
-configuration, parameter layout, layers, loss and train step, with
-every mesh axis of size 1. Each block mixes tokens (an MLP across the
-patch axis) and then channels (the ``column_parallel`` /
-``row_parallel`` FFN pair of ``parallel.tp``); the head pools the
-patches and classifies. All products are plain cuBLAS products: the
+configuration, parameter layout, layers, loss and train step. Each block
+mixes tokens (an MLP across the patch axis, replicated over tp) and then
+channels (the ``column_parallel`` / ``row_parallel`` FFN pair of
+``parallel.tp``, sharded over tp: one psum per block); the head pools
+the patches and classifies; the batch splits over dp. On a mesh the
+per-rank code runs over the stacked layout of ``parallel/mesh_axes.py``
+(``transformer.shard_params``' idiom); any axis but dp and tp must be 1,
+as the reference refuses. All products are plain cuBLAS products: the
 reference reaches no Pallas kernel here.
 
 The reference's precisions are kept: token mixing takes the f32 product
@@ -27,10 +31,10 @@ import torch
 import torch.nn.functional as F
 
 from ..optim import sgd
-from ..parallel import tp as tp_mod
-from ..parallel.mesh_axes import ParallelMesh
+from ..parallel import axes, tp as tp_mod
+from ..parallel.mesh_axes import P, ParallelMesh
 from .transformer import (
-    OneDeviceModel, eval_fn, to_device, train_step_fn, tree_from_jax,
+    OneDeviceModel, _map2, eval_fn, to_device, train_step_fn, tree_from_jax,
 )
 
 
@@ -105,18 +109,19 @@ def _layernorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     x32 = x.float()
     mu = x32.mean(dim=-1, keepdim=True)
     var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    g = axes.align(g, x.dim() - axes.lead(x))
     return ((x32 - mu) * torch.rsqrt(var + 1e-6) * g).to(x.dtype)
 
 
 def _layer(lp: Dict, x: torch.Tensor) -> torch.Tensor:
-    """One mixer block. x: (B, P, D)."""
+    """One mixer block. x: (B, P, D) per rank."""
     # token mixing across patches: f32 product of the working-type
     # values, GELU in f32, then an f32 x f32 product (wt2 widened)
-    h = _layernorm(x, lp["ln1"]).transpose(1, 2)  # (B, D, P)
-    h = torch.matmul(h.float(), lp["wt1"].float())
+    h = _layernorm(x, lp["ln1"]).transpose(-2, -1)  # (B, D, P)
+    h = axes.rank_matmul(h.float(), lp["wt1"].float())
     h = F.gelu(h, approximate="tanh")
-    h = torch.matmul(h, lp["wt2"].float())
-    x = x + h.transpose(1, 2).to(x.dtype)
+    h = axes.rank_matmul(h, lp["wt2"].float())
+    x = x + h.transpose(-2, -1).to(x.dtype)
 
     # channel mixing: the FFN pair, GELU in the working type
     h = _layernorm(x, lp["ln2"])
@@ -131,15 +136,57 @@ def forward_loss(cfg: MixerConfig, params: Dict, patches: torch.Tensor,
     """patches: (B, P, D) pre-embedded patch features; labels: (B,)
     int. Returns the mean cross-entropy (an f32 scalar)."""
     x = patches.to(cfg.dtype)
+    n = axes.lead(x)
     layers = params["layers"]
-    for i in range(layers["ln1"].shape[0]):
-        x = _layer({n: t[i] for n, t in layers.items()}, x)
+    for i in range(layers["ln1"].shape[n]):
+        x = _layer({k: t.select(n, i) for k, t in layers.items()}, x)
     x = _layernorm(x, params["ln_f"])
-    pooled = x.float().mean(dim=1)  # (B, D)
-    logits = torch.matmul(pooled, params["head"].float())
+    pooled = x.float().mean(dim=-2)  # (B, D)
+    logits = axes.rank_matmul(pooled, params["head"].float())
     logp = F.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, 1, labels.long()[:, None])[:, 0]
-    return nll.sum() / nll.shape[0]
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    total = nll.shape[-1] * axes.axis_size_or_1("dp")
+    return axes.psum(nll.sum(dim=-1) / total, "dp")
+
+
+def param_specs(cfg: MixerConfig) -> Dict:
+    """``PartitionSpec``s of the parameter dict (``mixer.py:94-107``):
+    the channel-mixing pair split over tp, the rest replicated."""
+    return {
+        "layers": {"ln1": P(), "wt1": P(), "wt2": P(), "ln2": P(),
+                   "wc1": P(None, None, "tp"),   # column parallel
+                   "wc2": P(None, "tp", None)},  # row parallel
+        "ln_f": P(),
+        "head": P(),
+    }
+
+
+def batch_spec():
+    return P("dp")
+
+
+def shard_params(params: Dict, cfg: MixerConfig,
+                 mesh: ParallelMesh) -> Dict:
+    """The parameters' stacked per-rank views under :func:`param_specs`
+    (``transformer.shard_params``)."""
+    return _map2(mesh.stack, params, param_specs(cfg))
+
+
+def sharded_loss(cfg: MixerConfig, mesh: ParallelMesh, params: Dict,
+                 patches: torch.Tensor, labels: torch.Tensor
+                 ) -> torch.Tensor:
+    """The scalar loss over ``mesh``'s ranks: the batch split over dp."""
+    with mesh:
+        loss = forward_loss(cfg, shard_params(params, cfg, mesh),
+                            mesh.stack(patches, batch_spec()),
+                            mesh.stack(labels, batch_spec()))
+    return loss.reshape(())
+
+
+def _loss_on(cfg: MixerConfig, mesh: ParallelMesh):
+    if mesh.size == 1:
+        return partial(forward_loss, cfg)
+    return partial(sharded_loss, cfg, mesh)
 
 
 def make_forward(cfg: MixerConfig, mesh: ParallelMesh):
@@ -147,7 +194,7 @@ def make_forward(cfg: MixerConfig, mesh: ParallelMesh):
     device, under ``torch.inference_mode()``; patches and labels may be
     numpy arrays or tensors."""
     cfg.validate(mesh)
-    return eval_fn(partial(forward_loss, cfg), mesh.device)
+    return eval_fn(_loss_on(cfg, mesh), mesh.device)
 
 
 def make_train_step(cfg: MixerConfig, mesh: ParallelMesh):
@@ -157,17 +204,19 @@ def make_train_step(cfg: MixerConfig, mesh: ParallelMesh):
     ``transformer.make_train_step``: the parameters and the state are
     updated in place, ``loss`` is the detached pre-update loss."""
     cfg.validate(mesh)
-    return train_step_fn(partial(forward_loss, cfg), mesh.device)
+    return train_step_fn(_loss_on(cfg, mesh), mesh.device)
 
 
 class TpuMixer(OneDeviceModel):
     """The Mixer on one device (``transformer.OneDeviceModel``):
     ``model(patches, labels)`` is the eval loss,
     ``model.train_step(patches, labels)`` one step of ``optim.sgd(lr)``
-    (``lr`` 0.1 by default, the JAX bf16 test's rate)."""
+    (``lr`` 0.1 by default, the JAX bf16 test's rate). With ``mesh``
+    (dp and tp only) the model runs sharded over its axes."""
 
     def __init__(self, cfg: MixerConfig, params: Optional[Dict] = None, *,
-                 device=None, seed: int = 0, lr: float = 0.1):
+                 device=None, seed: int = 0, lr: float = 0.1,
+                 mesh: Optional[ParallelMesh] = None):
         super().__init__(cfg, params, device, seed, sgd(lr),
                          init_params=init_params, make_forward=make_forward,
-                         make_train_step=make_train_step)
+                         make_train_step=make_train_step, mesh=mesh)

@@ -1,27 +1,41 @@
-"""TpuLM — the flagship decoder-only transformer on one card: the eval
-forward and the train step.
+"""TpuLM — the flagship decoder-only transformer: the eval forward and
+the train step, on one device or sharded over a 5-axis mesh of virtual
+ranks of one device.
 
 Counterpart of ``ompi_release_tpu/models/transformer.py``: the same
-configuration, parameter layout, layers, loss and train step, with every
-mesh axis of size 1 (``parallel.mesh_axes``). The path
+configuration, parameter layout, layers, loss and train step. The path
 is tokens -> embedding -> n_layers blocks (RMSNorm, RoPE, q/k/v,
 causal attention, output projection, tanh-GELU MLP) -> final RMSNorm ->
 tied-embedding cross-entropy -> mean loss.
 
+On a mesh (``parallel.build_parallel_mesh``, any dp, pp, sp, ep, tp)
+every strategy of the reference is load-bearing: the batch splits over
+(dp, ep) and the sequence over sp; the trunk's layers split over pp and
+run the GPipe ring (``parallel.pp``); attention is exact ring attention
+over sp with RoPE on global positions (``parallel.cp``) when sp > 1;
+heads, FFN and vocab split over tp (``parallel.tp``); the MoE's experts
+split over ep (``parallel.ep``). The per-rank code runs over the
+stacked layout of ``parallel/mesh_axes.py``: every rank's slice in one
+tensor, each op one launch for all ranks. The parameters stay global
+tensors; ``shard_params`` hands the per-rank code their views, so the
+gradient of a replicated parameter is the sum over its replicas and the
+optimizer updates each tensor once. A one-device mesh runs the
+unsharded forward.
+
 Attention (``attn_impl``, the JAX meaning): ``"flash"`` is
 ``ops.flash_attention`` (the CUDA kernel on the card, its plain twin on
 the CPU), ``"ring"`` is ``parallel.cp.ring_attention``, and ``"auto"``
-is the kernel on a CUDA device (sp = 1 on one card) and ring elsewhere,
-as JAX picks the Pallas kernel on a TPU and ring elsewhere.
+is the kernel on a CUDA device when sp = 1 and ring elsewhere, as JAX
+picks the Pallas kernel on a TPU and ring elsewhere.
 
 Parameters are a dict of tensors shaped as the JAX pytree, per-layer
 weights stacked on a leading ``n_layers`` axis; ``params_from_jax``
 carries a JAX pytree (as numpy arrays) over. The gradient is autograd's
 through the same forward, with ``flash_attention``'s backward the flash
 backward kernels (their plain twins on the CPU). ``n_experts > 0`` puts
-the switch-MoE FFN (``parallel.ep.moe_layer`` at ep = 1) in every layer
-in place of the dense one; its auxiliary load-balancing loss is computed
-and discarded, as the reference does. Axes > 1 are a later slice.
+the switch-MoE FFN (``parallel.ep.moe_layer``) in every layer in place
+of the dense one; its auxiliary load-balancing loss is computed and
+discarded, as the reference does.
 """
 
 from __future__ import annotations
@@ -38,8 +52,9 @@ from torch import nn
 
 from ..ops.flash_attention import flash_attention
 from ..optim import adamw
-from ..parallel import cp, ep as ep_mod, pp as pp_mod, tp as tp_mod
-from ..parallel.mesh_axes import ParallelMesh, build_parallel_mesh
+from ..parallel import axes, cp, ep as ep_mod, pp as pp_mod, tp as tp_mod
+from ..parallel import tree as tree_mod
+from ..parallel.mesh_axes import P, ParallelMesh, build_parallel_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,59 +203,72 @@ def params_from_jax(np_params: Dict, cfg: ModelConfig, device=None) -> Dict:
 def _rmsnorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     x32 = x.float()
     r = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + 1e-6)
-    return (x32 * r * g).to(x.dtype)
+    return (x32 * r * axes.align(g, x.dim() - axes.lead(x))).to(x.dtype)
 
 
 def _rope(x: torch.Tensor, pos: torch.Tensor, base: float) -> torch.Tensor:
-    """x: (mb, S, H, Dh); pos: (S,) positions. Non-interleaved halves,
-    angles in f32."""
+    """x: (..., mb, S, H, Dh); pos: (S,) positions, or (ranks..., 1, S)
+    global positions inside a mesh. Non-interleaved halves, angles in
+    f32."""
     half = x.shape[-1] // 2
     freq = torch.pow(
         torch.tensor(base, dtype=torch.float32),
         -torch.arange(half, dtype=torch.float32) / half).to(x.device)
-    ang = pos[:, None].float() * freq[None]  # (S, half)
-    cos = torch.cos(ang)[None, :, None, :]
-    sin = torch.sin(ang)[None, :, None, :]
+    ang = pos[..., None].float() * freq  # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
 
 
 def _use_flash(cfg: ModelConfig, device: torch.device) -> bool:
-    """The JAX rule with sp = 1: "flash", or "auto" on the accelerator
-    (here a CUDA device, there a TPU)."""
-    return cfg.attn_impl == "flash" or (
-        cfg.attn_impl == "auto" and device.type == "cuda")
+    """The JAX rule: "flash", or "auto" on the accelerator (here a CUDA
+    device, there a TPU), when the sequence is local to the rank (sp =
+    1); ring attention over sp otherwise."""
+    sp_n = axes.axis_size_or_1("sp")
+    if cfg.attn_impl == "flash" and sp_n > 1:
+        raise ValueError(
+            "attn_impl='flash' is single-shard attention; with sp>1 "
+            "use 'ring' (or 'auto', which picks ring for sharded seq)")
+    return sp_n == 1 and (cfg.attn_impl == "flash" or (
+        cfg.attn_impl == "auto" and device.type == "cuda"))
 
 
 def _layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor) -> torch.Tensor:
-    """One transformer block. x: (mb, S, D)."""
-    mb, s, _ = x.shape
-    pos = torch.arange(s, device=x.device)
+    """One transformer block. x: (mb, S_loc, D) per rank (inside a mesh
+    with the rank dims in front)."""
+    n = axes.lead(x)
+    mb, s = x.shape[n], x.shape[n + 1]
+    # global positions: the sp rank's block of the sequence
+    pos = axes.axis_index("sp", 2) * s + torch.arange(s, device=x.device)
     h = _rmsnorm(x, lp["ln1"])
     hl = lp["wq"].shape[-1] // cfg.head_dim
 
     def qkv(w):
-        return tp_mod.column_parallel(h, w).reshape(mb, s, hl, cfg.head_dim)
+        y = tp_mod.column_parallel(h, w)
+        return y.reshape(y.shape[:-1] + (hl, cfg.head_dim))
 
     q = _rope(qkv(lp["wq"]), pos, cfg.rope_base)
     k = _rope(qkv(lp["wk"]), pos, cfg.rope_base)
     v = qkv(lp["wv"])
     # (mb, H, S, Dh): the JAX vmap over mb written out as a batch dim
-    q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    q, k, v = (t.transpose(-3, -2).contiguous() for t in (q, k, v))
     if _use_flash(cfg, x.device):
         attn = flash_attention(q, k, v, True)
     else:
         attn = cp.ring_attention(q, k, v, causal=True)
-    attn = attn.transpose(1, 2).reshape(mb, s, hl * cfg.head_dim)
+    attn = attn.transpose(-3, -2)
+    attn = attn.reshape(attn.shape[:-2] + (hl * cfg.head_dim,))
     x = x + tp_mod.row_parallel(attn, lp["wo"])
 
     h2 = _rmsnorm(x, lp["ln2"])
     if cfg.n_experts:
         out, _aux = ep_mod.moe_layer(
-            h2.reshape(mb * s, cfg.d_model), lp["router"], _expert_fn,
-            (lp["we1"], lp["we2"]), capacity_factor=cfg.capacity_factor)
-        return x + out.reshape(mb, s, cfg.d_model)
+            h2.reshape(h2.shape[:n] + (mb * s, cfg.d_model)), lp["router"],
+            _expert_fn, (lp["we1"], lp["we2"]),
+            capacity_factor=cfg.capacity_factor)
+        return x + out.reshape(out.shape[:n] + (mb, s, cfg.d_model))
     u = tp_mod.column_parallel(h2, lp["w1"])
     # jax.nn.gelu's default is the tanh approximation
     u = F.gelu(u.float(), approximate="tanh").to(x.dtype)
@@ -248,41 +276,139 @@ def _layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _expert_fn(pe, t: torch.Tensor) -> torch.Tensor:
-    """One expert's FFN (``transformer.py:224-231``). Unlike the dense
-    branch, the first product is not rounded before the GELU: it is the
-    f32 product of the bf16 values (exact products, f32 sums), GELU'd in
-    f32 and then rounded; the second is ``column_parallel``'s."""
+    """The experts' FFN (``transformer.py:224-231``): (C, D) tokens of one
+    expert, or inside a mesh (..., E_local, C, D) of them all. Unlike the
+    dense branch, the first product is not rounded before the GELU: it
+    is the f32 product of the bf16 values (exact products, f32 sums),
+    GELU'd in f32 and then rounded; the second rounds once."""
     w1, w2 = pe
     u = torch.matmul(t.float(), w1.float())
     u = F.gelu(u, approximate="tanh").to(t.dtype)
-    return tp_mod.row_parallel(u, w2)
+    return torch.matmul(u, w2).to(t.dtype)
 
 
 def _trunk(cfg: ModelConfig, stage_layers: Dict,
            x: torch.Tensor) -> torch.Tensor:
     """The stage's layers in order (the JAX ``lax.scan`` over the
-    leading axis of the stacked weights)."""
-    for i in range(stage_layers["ln1"].shape[0]):
-        x = _layer(cfg, {n: t[i] for n, t in stage_layers.items()}, x)
+    leading axis of the stacked weights; inside a mesh the pp rank's
+    slice of them)."""
+    n = axes.lead(x)
+    for i in range(stage_layers["ln1"].shape[n]):
+        x = _layer(cfg, {k: t.select(n, i) for k, t in stage_layers.items()},
+                   x)
     return x
+
+
+# ---------------------------------------------------------------------------
+# the sharded model: per-rank code over the stacked layout of a mesh
+# ---------------------------------------------------------------------------
+
+#: regex partition rules, first match wins (``parallel.tree.
+#: match_partition_rules``): which mesh axis owns which tensor dim, keyed
+#: by parameter path name (``transformer.py:116-131``)
+PARTITION_RULES = (
+    (r"^embed$", P("tp", None)),
+    (r"^ln_f$", P()),
+    (r"layers/ln[12]$", P("pp", None)),
+    (r"layers/w[qkv]$", P("pp", None, "tp")),
+    (r"layers/wo$", P("pp", "tp", None)),
+    (r"layers/router$", P("pp", None, None)),
+    (r"layers/we[12]$", P("pp", "ep", None, None)),
+    (r"layers/w1$", P("pp", None, "tp")),
+    (r"layers/w2$", P("pp", "tp", None)),
+)
+
+
+def _skeleton(shapes: Dict) -> Dict:
+    """A ``param_shapes`` dict as meta tensors (shapes, no storage)."""
+    return {n: _skeleton(v) if isinstance(v, dict)
+            else torch.empty(v[0], dtype=v[1], device="meta")
+            for n, v in shapes.items()}
+
+
+def param_specs(cfg: ModelConfig) -> Dict:
+    """``PartitionSpec``s matching the parameter dict, from
+    :data:`PARTITION_RULES` (an unmatched leaf raises)."""
+    return tree_mod.match_partition_rules(PARTITION_RULES,
+                                          _skeleton(param_shapes(cfg)))
+
+
+def batch_spec():
+    return P(("dp", "ep"), "sp")
+
+
+def _map2(f, a: Dict, b: Dict) -> Dict:
+    return {n: _map2(f, v, b[n]) if isinstance(v, dict) else f(v, b[n])
+            for n, v in a.items()}
+
+
+def shard_params(params: Dict, cfg: ModelConfig, mesh: ParallelMesh) -> Dict:
+    """Each global parameter as its stacked per-rank views on ``mesh``
+    under :func:`param_specs` (``mesh.stack``: sharded dims split to the
+    axes' rank dims, replicated axes size-1 rank dims). Views, no copies:
+    the gradient of a view reaches the global tensor, summed over the
+    ranks that share it (the replicas' allreduce)."""
+    return _map2(mesh.stack, params, param_specs(cfg))
+
+
+def make_batch_sharding(mesh: ParallelMesh):
+    """``fn(tokens) -> stacked views``: a global (B, S) batch under
+    :func:`batch_spec`, moved to the mesh's device first."""
+    return lambda a: mesh.stack(torch.as_tensor(a, device=mesh.device),
+                                batch_spec())
 
 
 def forward_loss(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                  targets: torch.Tensor) -> torch.Tensor:
-    """Scalar mean cross-entropy. tokens/targets: (B, S) int."""
-    b, s = tokens.shape
+    """The scalar mean cross-entropy (``transformer.py:249-291``) on one
+    device, tokens/targets (B, S) int; or per rank inside a mesh, params
+    stacked by :func:`shard_params` and tokens/targets (b_loc, S_loc) per
+    rank. The pipeline's outputs are real on the last pp stage only
+    (zeros elsewhere), so the final norm and the f32 LM head run on that
+    stage's slice alone: the psum over pp of the reference's masked loss
+    adds exact zeros. Inside a mesh the loss is invariant over every
+    axis."""
+    n = axes.lead(tokens)
+    b_loc, s_loc = tokens.shape[n:]
     m = cfg.microbatches
-    if b % m:
-        raise ValueError(f"batch {b} does not split into {m} microbatches")
+    if b_loc % m:
+        raise ValueError(f"batch {b_loc} per rank does not split into {m} "
+                         "microbatches")
     emb = tp_mod.vocab_parallel_embedding(tokens,
                                           params["embed"]).to(cfg.dtype)
-    x_mb = emb.reshape(m, b // m, s, cfg.d_model)
+    x_mb = emb.reshape(emb.shape[:n] + (m, b_loc // m, s_loc, cfg.d_model))
     y = pp_mod.pipeline(partial(_trunk, cfg), params["layers"], x_mb,
                         remat=cfg.remat)
-    h = _rmsnorm(y.reshape(b, s, cfg.d_model), params["ln_f"])
+    pp_n = axes.axis_size_or_1("pp")
+    if pp_n > 1:
+        y = y.narrow(axes.current_mesh().axis_dim("pp"), pp_n - 1, 1)
+    h = _rmsnorm(y.reshape(y.shape[:n] + (b_loc, s_loc, cfg.d_model)),
+                 params["ln_f"])
     nll = tp_mod.vocab_parallel_xent(h.float(), params["embed"].float(),
                                      targets)
-    return nll.sum() / (b * s)
+    total = b_loc * s_loc * math.prod(axes.axis_size_or_1(a)
+                                      for a in ("dp", "ep", "sp"))
+    local = nll.sum(dim=(-2, -1)) / total
+    return axes.psum(local, ("dp", "sp", "ep"))
+
+
+def sharded_loss(cfg: ModelConfig, mesh: ParallelMesh, params: Dict,
+                 tokens: torch.Tensor, targets: torch.Tensor
+                 ) -> torch.Tensor:
+    """The scalar loss of global params and a global (B, S) batch over
+    ``mesh``'s ranks (the reference's shard_map'd loss with out_specs
+    ``P()``)."""
+    batch = make_batch_sharding(mesh)
+    with mesh:
+        loss = forward_loss(cfg, shard_params(params, cfg, mesh),
+                            batch(tokens), batch(targets))
+    return loss.reshape(())
+
+
+def _loss_on(cfg: ModelConfig, mesh: ParallelMesh):
+    if mesh.size == 1:
+        return partial(forward_loss, cfg)
+    return partial(sharded_loss, cfg, mesh)
 
 
 def eval_fn(loss_fn, device: torch.device):
@@ -318,7 +444,7 @@ def make_forward(cfg: ModelConfig, mesh: ParallelMesh):
     Tokens and targets may be numpy arrays or tensors; the forward runs
     under ``torch.inference_mode()``."""
     cfg.validate(mesh)
-    return eval_fn(partial(forward_loss, cfg), mesh.device)
+    return eval_fn(_loss_on(cfg, mesh), mesh.device)
 
 
 def make_train_step(cfg: ModelConfig, mesh: ParallelMesh):
@@ -333,7 +459,7 @@ def make_train_step(cfg: ModelConfig, mesh: ParallelMesh):
     state) in place, returning the same objects where JAX returns new
     pytrees. ``loss`` is the detached pre-update loss."""
     cfg.validate(mesh)
-    return train_step_fn(partial(forward_loss, cfg), mesh.device)
+    return train_step_fn(_loss_on(cfg, mesh), mesh.device)
 
 
 class OneDeviceModel(nn.Module):
@@ -344,15 +470,19 @@ class OneDeviceModel(nn.Module):
     ``ERR_NOT_AVAILABLE`` unless the caller asks for ``device="cpu"``,
     as ``init()`` does. ``params`` default to the module's
     ``init_params`` from ``seed``; the first train step builds
-    ``optimizer(params)``."""
+    ``optimizer(params)``. ``mesh`` (``parallel.build_parallel_mesh``)
+    shards the model over virtual ranks of its device: the parameters
+    stay global tensors, each step runs over their stacked views."""
 
     def __init__(self, cfg, params: Optional[Dict], device, seed: int,
-                 optimizer, *, init_params, make_forward, make_train_step):
+                 optimizer, *, init_params, make_forward, make_train_step,
+                 mesh: Optional[ParallelMesh] = None):
         super().__init__()
         from ..runtime.ess import discover_devices
 
         self.cfg = cfg
-        self.mesh = build_parallel_mesh(devices=discover_devices(device)[:1])
+        self.mesh = mesh if mesh is not None else build_parallel_mesh(
+            devices=discover_devices(device)[:1])
         self.device = self.mesh.device
         if params is None:
             params = init_params(cfg, torch.Generator().manual_seed(seed))
@@ -394,10 +524,12 @@ class TpuLM(OneDeviceModel):
     targets)`` is the eval loss, ``model.train_step(tokens, targets)``
     one step of ``optim.adamw(1e-3)`` (the optimizer of
     ``__graft_entry__._dryrun_one``); another optimizer goes through
-    :func:`make_train_step`."""
+    :func:`make_train_step`. With ``mesh`` the model runs sharded over
+    its axes."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[Dict] = None, *,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0,
+                 mesh: Optional[ParallelMesh] = None):
         super().__init__(cfg, params, device, seed, adamw(1e-3),
                          init_params=init_params, make_forward=make_forward,
-                         make_train_step=make_train_step)
+                         make_train_step=make_train_step, mesh=mesh)

@@ -1,15 +1,18 @@
-"""Expert parallelism at ep = 1: the switch-MoE layer of
-``ompi_release_tpu/parallel/ep.py:20-97`` on one rank.
+"""Expert parallelism: the switch-MoE layer of
+``ompi_release_tpu/parallel/ep.py:20-97`` over the ep axis.
 
 Top-1 (switch) routing with a fixed per-expert capacity, so the dispatch
 and combine tensors have static shapes; tokens over capacity are
-dropped and their outputs are zero (the residual carries them). With
-one ep rank the two ``all_to_all`` calls and the ``pmean`` of the
-auxiliary loss are the identity; the reshapes to ``(n, E_local, C, D)``
-and back are kept so that ep > 1 slots in with the multi-card slice.
-``dropless_moe`` (``:100-189``) is the exact-count alternative over
-``alltoallv``, for communicators inside one process; a communicator
-spanning processes waits for the cross-process transport.
+dropped and their outputs are zero (the residual carries them). Inside a
+mesh (``parallel/mesh_axes.py``'s stacked layout) the capacity comes
+from each rank's own token count, the ``(n, E_local, C, D)`` queues
+cross the ep ranks by two untiled ``all_to_all`` calls (a transpose of
+the ep rank dim with the queue's leading dim) and the aux loss is
+``pmean``'d over ep; the experts of every rank run as one batched
+product. Outside a mesh the layer is the one-rank math with one product
+per expert. ``dropless_moe`` (``:100-189``) is the exact-count
+alternative over ``alltoallv``, for communicators inside one process; a
+communicator spanning processes waits for the cross-process transport.
 
 The dispatch and combine einsums are f32 products over one-hot tensors:
 each expert slot holds at most one token and each token sits in at most
@@ -25,65 +28,81 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.errors import ErrorCode, MPIError
+from . import axes
 
 
 def _one_hot_dispatch(logits: torch.Tensor, n_experts: int, capacity: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dispatch, combine) for top-1 routing. logits: (T, E); dispatch:
-    (T, E, C) f32 one-hot slot assignment; combine: dispatch times the
-    gate probability. Only ``combine`` carries a gradient (through the
-    gate); the argmax and the one-hots carry none."""
+    """(dispatch, combine) for top-1 routing. logits: (..., T, E);
+    dispatch: (..., T, E, C) f32 one-hot slot assignment; combine:
+    dispatch times the gate probability. Only ``combine`` carries a
+    gradient (through the gate); the argmax and the one-hots carry
+    none."""
     probs = torch.softmax(logits.float(), dim=-1)
     expert = probs.argmax(dim=-1)  # the first maximum, as jnp.argmax
-    gate = probs.gather(-1, expert[:, None])[:, 0]
-    eh = F.one_hot(expert, n_experts).to(torch.int32)  # (T, E)
+    gate = probs.gather(-1, expert[..., None])[..., 0]
+    eh = F.one_hot(expert, n_experts).to(torch.int32)  # (..., T, E)
     # position of each token within its expert's queue
-    pos = torch.cumsum(eh, dim=0, dtype=torch.int32) * eh - eh
+    pos = torch.cumsum(eh, dim=-2, dtype=torch.int32) * eh - eh
     keep = (pos < capacity) & (eh == 1)
     slot = torch.where(keep, pos, torch.zeros_like(pos))
     dispatch = F.one_hot(slot.long(), capacity).float() * keep[..., None]
-    combine = dispatch * gate[:, None, None]
+    combine = dispatch * gate[..., None, None]
     return dispatch, combine
 
 
 def moe_layer(x: torch.Tensor, router_w: torch.Tensor, expert_fn: Callable,
               expert_params: Sequence[torch.Tensor], *,
-              capacity_factor: float = 1.25
+              axis_name: str = "ep", capacity_factor: float = 1.25
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Switch-MoE layer over one ep rank. x: (T, D) tokens; router_w:
-    (D, E) f32; ``expert_params``: tensors with a leading E axis;
-    ``expert_fn(params_e, tokens) -> tokens`` runs once per expert (the
-    reference's ``vmap``). Returns (output (T, D) in x's dtype, the
-    load-balancing aux loss, an f32 scalar)."""
-    n = 1  # ep ranks
-    t, dmodel = x.shape
-    e_global = router_w.shape[1]
+    """Switch-MoE layer over the ep axis. x: (T, D) this rank's tokens;
+    router_w: (D, E_global) f32, replicated; ``expert_params``: this
+    rank's experts' tensors with a leading E_local axis;
+    ``expert_fn(params, tokens) -> tokens`` applies the experts (outside
+    a mesh once per expert on (C, D) tokens, inside one once for all
+    ranks and experts on (..., E_local, n*C, D), the reference's
+    ``vmap``). Returns (output (T, D) in x's dtype, the load-balancing
+    aux loss, an f32 scalar)."""
+    n = axes.axis_size_or_1(axis_name)
+    lead = axes.lead(x)
+    t, dmodel = x.shape[-2:]
+    e_global = router_w.shape[-1]
     if e_global % n:
         raise ValueError(f"{e_global} experts not divisible by ep={n}")
     e_local = e_global // n
     capacity = max(1, int(capacity_factor * t / e_global))
 
-    logits = torch.matmul(x.float(), router_w.float())
+    logits = axes.rank_matmul(x.float(), router_w.float())
     dispatch, combine = _one_hot_dispatch(logits, e_global, capacity)
 
     # load-balancing aux loss (Switch eq. 4): E * sum_e f_e * p_e, with
     # f_e from the router's argmax BEFORE capacity dropping
     probs = torch.softmax(logits, dim=-1)
     pre_drop = F.one_hot(logits.argmax(dim=-1), e_global).float()
-    aux = e_global * torch.sum(pre_drop.mean(dim=0) * probs.mean(dim=0))
+    aux = axes.pmean(e_global * torch.sum(pre_drop.mean(dim=-2)
+                                          * probs.mean(dim=-2), dim=-1),
+                     axis_name)
 
-    # local tokens -> (E, C, D) expert queues -> (n, E_local, C, D); the
-    # all_to_all over one rank leaves them in place
-    sent = torch.einsum("tec,td->ecd", dispatch, x.float())
-    recv = sent.reshape(n, e_local, capacity, dmodel)
-    per_expert = recv.transpose(0, 1).reshape(
-        e_local, n * capacity, dmodel).to(x.dtype)
-    done = torch.stack([
-        expert_fn(tuple(p[e] for p in expert_params), per_expert[e])
-        for e in range(e_local)])
-    done = done.reshape(e_local, n, capacity, dmodel).transpose(0, 1)
-    back = done.float().reshape(e_global, capacity, dmodel)  # route back
-    out = torch.einsum("tec,ecd->td", combine, back)
+    # local tokens -> (E, C, D) expert queues -> (n, E_local, C, D)
+    sent = torch.einsum("...tec,...td->...ecd", dispatch, x.float())
+    ranks = sent.shape[:lead]
+    recv = axes.all_to_all(
+        sent.reshape(ranks + (n, e_local, capacity, dmodel)), axis_name,
+        split_axis=0, concat_axis=0)  # each rank keeps its experts' queues
+    per_expert = recv.transpose(-4, -3).reshape(
+        recv.shape[:lead] + (e_local, n * capacity, dmodel)).to(x.dtype)
+    if lead:
+        done = expert_fn(tuple(expert_params), per_expert)
+    else:
+        done = torch.stack([
+            expert_fn(tuple(p[e] for p in expert_params), per_expert[e])
+            for e in range(e_local)])
+    done = done.reshape(done.shape[:lead]
+                        + (e_local, n, capacity, dmodel)).transpose(-4, -3)
+    back = axes.all_to_all(done.float(), axis_name, split_axis=0,
+                           concat_axis=0)  # route back
+    back = back.reshape(back.shape[:lead] + (e_global, capacity, dmodel))
+    out = torch.einsum("...tec,...ecd->...td", combine, back)
     return out.to(x.dtype), aux
 
 

@@ -581,3 +581,85 @@ def test_epoch_plan_capture_failure_stays_interpreted(tuned):
     assert len(graphs) == 1
     assert torch.equal(w.read()[3], x + x)
     w.free()
+
+
+# ---------------------------------------------------------------------------
+# slice 9: the axis psum's autograd Function on the SUM kernel, and the
+# sharded TpuLM's flash launches
+# ---------------------------------------------------------------------------
+
+def _op_excluded(fn):
+    """``fn()`` with ``--mca op ^cuda``: the plain add in the same fold."""
+    from ompi_release_tpu_torch.mca import var as tvar
+
+    tvar.set_value("op", "^cuda")
+    try:
+        return fn()
+    finally:
+        tvar.VARS.unset("op")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_axis_psum_on_the_sum_kernel_bitwise(dev, dtype, ranks):
+    """``axes.psum`` over tp (a fold of 16 MiB operands: the SUM kernel
+    claims them) and ``axes.vary``'s backward (the cotangents' fold)
+    against the same calls with ``--mca op ^cuda``, forward and backward,
+    bitwise; the kernel launches in both directions."""
+    from ompi_release_tpu_torch.parallel import axes
+    from ompi_release_tpu_torch.parallel.mesh_axes import ParallelMesh
+
+    mesh = ParallelMesh(shape={"dp": 2, "tp": ranks}, device=dev)
+    g = torch.Generator(device=dev).manual_seed(ranks)
+    x = torch.randn(2, ranks, 8 * 1024 * 1024 // ranks, generator=g,
+                    device=dev).to(dtype)
+    h = torch.randn(2, 1, x.shape[-1], generator=g, device=dev).to(dtype)
+    cot = torch.randn(2, 1, x.shape[-1], generator=g, device=dev).to(dtype)
+
+    def run():
+        xi = x.clone().requires_grad_(True)
+        hi = h.clone().requires_grad_(True)
+        with mesh:
+            y = axes.psum(axes.vary(hi, "tp") * xi, "tp")
+        y.backward(cot)
+        return y.detach(), xi.grad, hi.grad
+
+    before = cuda_op.LAUNCHES["sum"]
+    got = run()
+    torch.cuda.synchronize()
+    launched = cuda_op.LAUNCHES["sum"] - before
+    want = _op_excluded(run)
+    assert launched >= 2 * (ranks - 1)  # the forward's and backward's folds
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
+def test_mesh_a_flash_launches(dev):
+    """A dp 2 x pp 2 x tp 2 forward with 2 microbatches launches the flash
+    forward (M + S - 1) x L / S times, one launch over every rank, and
+    its backward as many dq and dkv launches."""
+    import numpy as np
+
+    from ompi_release_tpu_torch.models import transformer as tfm
+    from ompi_release_tpu_torch.parallel.mesh_axes import build_parallel_mesh
+
+    cfg = tfm.ModelConfig(vocab=256, d_model=128, n_layers=4, n_heads=4,
+                          head_dim=32, d_ff=256, max_seq=256,
+                          microbatches=2)
+    mesh = build_parallel_mesh(dp=2, pp=2, tp=2)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    for t in [params["embed"], params["ln_f"], *params["layers"].values()]:
+        t.requires_grad_(True)
+    rng = np.random.RandomState(0)
+    tokens = torch.as_tensor(rng.randint(0, 256, size=(8, 256)), device=dev)
+    targets = torch.roll(tokens, -1, dims=1)
+    cuda_op.reset_launches()
+    loss = tfm.sharded_loss(cfg, mesh, params, tokens, targets)
+    torch.cuda.synchronize()
+    per_fwd = (2 + 2 - 1) * (cfg.n_layers // 2)
+    assert cuda_op.LAUNCHES["flash_fwd"] == per_fwd
+    loss.backward()
+    torch.cuda.synchronize()
+    assert cuda_op.LAUNCHES["flash_bwd_dq"] == per_fwd
+    assert cuda_op.LAUNCHES["flash_bwd_dkv"] == per_fwd
+    assert abs(float(loss) - np.log(cfg.vocab)) < 1.0

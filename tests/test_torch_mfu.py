@@ -141,6 +141,9 @@ def test_main_prints_the_mfu_line_before_the_headline(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(tbench, "run_suite", lambda dev: (
         [{"metric": "allreduce_8B"}], {"metric": "op_sum_256MiB_f32_hbm_bw"}))
+    monkeypatch.setattr(tbench, "run_mesh_suite", lambda dev: (
+        [{"metric": "mesh8_allreduce_8B"}],
+        {"metric": "allreduce_256MiB_f32_busbw_8dev"}))
     monkeypatch.setattr(tbench, "mfu_line", lambda dev: {
         "metric": "transformer_fwdbwd_step"})
     try:
@@ -149,5 +152,8 @@ def test_main_prints_the_mfu_line_before_the_headline(monkeypatch, capsys):
         torch.backends.cuda.matmul.allow_tf32 = False
     out = [json.loads(ln)["metric"]
            for ln in capsys.readouterr().out.splitlines()]
-    assert out == ["allreduce_8B", "transformer_fwdbwd_step",
-                   "op_sum_256MiB_f32_hbm_bw"]
+    # the mesh suite's lines and its headline follow the single-card
+    # lines; the MFU line, then the single-card headline, come last
+    assert out == ["allreduce_8B", "mesh8_allreduce_8B",
+                   "allreduce_256MiB_f32_busbw_8dev",
+                   "transformer_fwdbwd_step", "op_sum_256MiB_f32_hbm_bw"]

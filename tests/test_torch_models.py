@@ -334,11 +334,16 @@ def test_entry_matches_graft_entry_with_carried_weights():
 # ---------------------------------------------------------------------------
 
 def test_not_ported_cases_raise():
+    # axes > 1 build meshes of virtual ranks since the parallel slice
+    # (tests/test_torch_parallel.py); what a mesh cannot be still raises
     for axes in (dict(tp=2), dict(dp=2), dict(sp=2, pp=2)):
-        with pytest.raises(MPIError, match="multi-card slice"):
-            build_parallel_mesh(devices=[CPU], **axes)
+        mesh = build_parallel_mesh(devices=[CPU], **axes)
+        assert mesh.size == int(np.prod(list(axes.values())))
+        assert mesh.device == CPU
     with pytest.raises(ValueError, match="devices"):
         build_parallel_mesh(devices=[CPU, CPU])
+    with pytest.raises(ValueError, match="devices"):
+        build_parallel_mesh(tp=4, devices=[CPU, CPU])
     with pytest.raises(ValueError, match="attn_impl"):
         ttfm.ModelConfig(attn_impl="dense")
 

@@ -41,6 +41,22 @@ from ompi_release_tpu_torch.osc.window import _PendingOp as TPendingOp
 from ompi_release_tpu_torch.runtime import runtime as trt
 
 N = 8
+#: the pvars this module reads; the aggregates' min and max are not
+#: differences, so both packages' must start from the same history
+OSC_PVARS = ("osc_orchestration_seconds", "osc_plan_cache_hits",
+             "osc_plan_programs", "osc_plans_frozen")
+
+
+def reset_osc_pvars():
+    """Zero the module's pvars in both packages: an earlier test file on
+    the same process (any JAX file that runs epochs, e.g.
+    ``tests/test_osc.py``) leaves the JAX package's aggregates with a
+    max of 1 that a fresh port process does not have."""
+    for registry in (jpvar.PVARS, tpvar.PVARS):
+        for name in OSC_PVARS:
+            p = registry.lookup(name)
+            if p is not None:
+                p.reset()
 
 
 @pytest.fixture(scope="module")
@@ -49,6 +65,7 @@ def worlds():
     trt._reset_for_tests()
     tworld = tmpi.init(cli_args=["--mca", "runtime_virtual_ranks", str(N)],
                        device="cpu")
+    reset_osc_pvars()
     yield jworld, tworld
     trt._reset_for_tests()
     tvar.VARS.unset("runtime_virtual_ranks")
