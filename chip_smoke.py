@@ -176,6 +176,32 @@ Run from the repository root on a machine with a card:
      the one-card step in turns, a profiler window each, peak memory.
      ``python3 chip_smoke.py --slice9`` runs this phase alone (no result
      line);
+   - slice 10 (run right after the kernel checks, while this process
+     holds little on the card; its timings print after slice 1's, beside
+     them): the multi-process plane. The
+     parent builds the kernel library and the native control-plane
+     library, then runs a ``tools.tpurun`` job of 2 workers (this script
+     with ``--slice10-worker``), each owning 4 virtual ranks of
+     ``cuda:0``: COMM_WORLD spans 8 ranks over 2 processes. Each worker
+     drives allreduce f32 SUM from 8 B by powers of 4 to 128 MiB and 256
+     MiB per rank, bcast, allgather (bf16), reduce_scatter_block and
+     alltoall at slice 1's shapes, every ``hier`` inter schedule at 1
+     MiB and 64 MiB, the ring example over all 8 ranks, a 256 MiB send
+     0 -> 5, an ssend and an ANY_SOURCE probe; every result bitwise its
+     closed form (integer-valued inputs) and the ``--mca op ^cuda``
+     call; ``stream_axpy[sum]`` must launch in every allreduce of >= 4
+     MiB and in both folds (the shadow comm's alone, then the spanning
+     call); the shadow comm's allreduce plans must be CUDA graphs and
+     the spanning comm must freeze none. Then per worker: allreduce ms
+     and bus GB/s per size beside the one-process tuned allreduce,
+     ``hier_inter_bytes`` per call, ping-pong GB/s 0 <-> 5, staging
+     GB/s each way, a profiler window of one 256 MiB allreduce, peak
+     memory and the card's memory in use. A second job with a distinct
+     ``OMPITPU_HOST_ID`` per worker runs a 64 MiB allreduce and send on
+     the DCN staging path (``wire_bytes_zero_copy`` > 0). Each job must
+     exit 0 and leave no worker and no shm segment behind.
+     ``python3 chip_smoke.py --slice10`` runs this phase alone (no
+     result line);
 4. times the kernels (CUDA events, median of 7) at the main path's
    shapes beside their bound, their plain twins and one PyTorch library
    call, the streaming kernels, the transpose and the eager chain hop in
@@ -1502,14 +1528,21 @@ def run_bench(torch, dev):
 
 
 def time_allreduce(tuned, torch, dev):
+    """The tuned allreduce per size (slice 1's sizes and slice 10's
+    sweep); returns {bytes per rank: ms}."""
     g = torch.Generator(device=dev).manual_seed(7)
-    for nbytes in (8, 4 << 10, 64 << 10, 4 * MIB, 16 * MIB, 256 * MIB):
-        x = torch.randn(N_RANKS, nbytes // 4, generator=g, device=dev)
+    out = {}
+    for nbytes in sorted({8, 4 << 10, 64 << 10, 4 * MIB, 16 * MIB,
+                          256 * MIB} | set(S10_SIZES)):
+        x = torch.randn(N_RANKS, max(1, nbytes // 4), generator=g,
+                        device=dev)
         ms = time_ms(lambda: tuned.allreduce(x), reps=5)
         busbw = 2 * (N_RANKS - 1) / N_RANKS * nbytes / (ms * 1e-3) / 1e9
         log(json.dumps({"tuned_allreduce_bytes_per_rank": nbytes,
                         "ms": ms, "bus_GBps": busbw}))
+        out[nbytes] = ms
         del x
+    return out
 
 
 def profile_allreduce(tuned, torch, dev):
@@ -3649,6 +3682,441 @@ def time_slice9(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the multi-process plane — a tpurun job of the port, COMM_WORLD
+# spanning two worker processes on one card
+# ---------------------------------------------------------------------------
+
+S10_PROCS = 2
+S10_RANKS = 4  # virtual ranks a worker owns on cuda:0
+S10_N = S10_PROCS * S10_RANKS
+#: the spanning allreduce sweep: 8 B by powers of 4 to 128 MiB, and 256
+#: MiB, per rank
+S10_SIZES = tuple(8 * 4 ** k for k in range(13)) + (256 * MIB,)
+S10_ALGS = ("linear", "recursive_doubling", "ring", "rabenseifner")
+S10_SCHED_BYTES = (MIB, 64 * MIB)
+S10_PINGPONG = (MIB, 16 * MIB, 64 * MIB, 256 * MIB)
+S10_DCN_BYTES = 64 * MIB
+
+
+def s10_pattern(torch, count, rank, dev, dtype=None):
+    """Rank ``rank``'s integer-valued row: exact under any fold order."""
+    x = (torch.arange(count, device=dev) % 13 + rank).float()
+    return x if dtype is None else x.to(dtype)
+
+
+def s10_rows(torch, count, off, dev, dtype=None):
+    """This worker's rank-stacked input: rows of its world ranks."""
+    return torch.stack([s10_pattern(torch, count, off + i, dev, dtype)
+                        for i in range(S10_RANKS)])
+
+
+def s10_sum(torch, count, dev):
+    """The closed form of the SUM over all ranks of ``s10_pattern``."""
+    return (torch.arange(count, device=dev) % 13 * S10_N
+            + S10_N * (S10_N - 1) // 2).float()
+
+
+def s10_collectives(w, torch, off, dev):
+    """The collective half of the worker's main path: yields each
+    call's (name, output) as soon as the call returns."""
+    for nbytes in S10_SIZES:
+        yield (f"allreduce_{nbytes}",
+               w.allreduce(s10_rows(torch, max(1, nbytes // 4), off, dev)))
+    # bcast, allgather, reduce_scatter_block, alltoall at slice 1's
+    # shapes per rank (f32 64 MiB, bf16 32 MiB, f32 128 MiB, int32 32 MiB)
+    yield ("bcast", w.bcast(s10_rows(torch, 16 * MIB, off, dev), root=5))
+    yield ("allgather", w.allgather(
+        s10_rows(torch, 16 * MIB, off, dev, torch.bfloat16)))
+    yield ("reduce_scatter_block", w.reduce_scatter_block(
+        s10_rows(torch, 32 * MIB, off, dev)))
+    a2a = torch.stack([
+        torch.arange(8 * MIB, device=dev, dtype=torch.int32)
+        + (off + i) * 8 * MIB for i in range(S10_RANKS)])
+    yield ("alltoall", w.alltoall(a2a))
+
+
+def s10_check_collectives(torch, outs, off, dev):
+    """Every output against its closed form, bitwise."""
+    for name, got in outs:
+        if name.startswith("allreduce_"):
+            count = max(1, int(name.split("_")[1]) // 4)
+            want = s10_sum(torch, count, dev).expand(S10_RANKS, count)
+        elif name == "bcast":
+            want = s10_pattern(torch, 16 * MIB, 5, dev).expand(
+                S10_RANKS, 16 * MIB)
+        elif name == "allgather":
+            want = torch.cat([s10_pattern(torch, 16 * MIB, r, dev,
+                                          torch.bfloat16)
+                              for r in range(S10_N)]).expand(
+                S10_RANKS, S10_N * 16 * MIB)
+        elif name == "reduce_scatter_block":
+            full = s10_sum(torch, 32 * MIB, dev).view(S10_N, -1)
+            want = full[off:off + S10_RANKS]
+        else:  # alltoall: row b's chunk j is rank j's chunk for b
+            c = MIB
+            src = torch.arange(8 * MIB, device=dev,
+                               dtype=torch.int32).view(S10_N, c)
+            want = torch.stack([torch.cat([
+                src[off + b] + j * 8 * MIB for j in range(S10_N)])
+                for b in range(S10_RANKS)])
+        check(bits_equal(got, want.contiguous()),
+              f"slice 10: {name} differs from its closed form")
+
+
+def s10_p2p(w, torch, off, dev, ring_tpu):
+    """The point-to-point half: the ring over all 8 ranks, a 256 MiB send
+    0 -> 5, an ssend 1 -> 6, a probe with ANY_SOURCE at rank 2."""
+    res = {"ring": ring_tpu.ring_spanning(w)}
+    count = P2P_BYTES // 4
+    if off == 0:
+        w.send(s10_pattern(torch, count, 0, dev), dest=5, tag=42, rank=0)
+        w.send(torch.full((4,), 61.0, device=dev), dest=6, tag=43, rank=1,
+               sync=True)
+        st = None
+        while st is None:
+            st = w.iprobe(source=-1, tag=44, rank=2)
+        got, st2 = w.recv(source=st.source, tag=44, rank=2)
+        check(st.source == 4 and st2.source == 4
+              and bits_equal(got, torch.full((3,), 4.0, device=dev)),
+              f"slice 10: ANY_SOURCE probe saw {st.source}, got {got}")
+    else:
+        got, st = w.recv(source=0, tag=42, rank=5)
+        check(st.source == 0 and got.device == dev
+              and bits_equal(got, s10_pattern(torch, count, 0, dev)),
+              "slice 10: the 256 MiB send 0 -> 5 differs")
+        got, st = w.recv(source=1, tag=43, rank=6)
+        check(bits_equal(got, torch.full((4,), 61.0, device=dev)),
+              "slice 10: the ssend 1 -> 6 differs")
+        w.send(torch.full((3,), 4.0, device=dev), dest=2, tag=44, rank=4)
+    w.barrier()
+    return res
+
+
+def s10_schedules(w, tmvar, torch, off, dev):
+    """Each hier inter schedule forced at 1 MiB and 64 MiB: bitwise the
+    closed form, so bitwise each other."""
+    for nbytes in S10_SCHED_BYTES:
+        count = nbytes // 4
+        outs = {}
+        for alg in S10_ALGS:
+            tmvar.set_value("hier_inter_algorithm", alg)
+            try:
+                outs[alg] = w.allreduce(s10_rows(torch, count, off, dev))
+            finally:
+                tmvar.VARS.unset("hier_inter_algorithm")
+            check(bits_equal(outs[alg], s10_sum(torch, count, dev).expand(
+                S10_RANKS, count).contiguous()),
+                f"slice 10: {alg} at {nbytes} B differs from the closed "
+                "form")
+        first = outs[S10_ALGS[0]]
+        check(all(bits_equal(o, first) for o in outs.values()),
+              f"slice 10: the schedules differ at {nbytes} B")
+
+
+def s10_timings(w, tpvar, torch, off, dev, pidx):
+    """Allreduce ms and bus GB/s per size (median of 5, host clock
+    around a synchronize), hier_inter_bytes per call, ping-pong GB/s
+    0 <-> 5, staging GB/s each way, a profiler window of one 256 MiB
+    allreduce, peak memory and the card's memory in use."""
+    inter = tpvar.PVARS.lookup("hier_inter_bytes")
+    t = {"allreduce": {}}
+    for nbytes in S10_SIZES:
+        x = s10_rows(torch, max(1, nbytes // 4), off, dev)
+        w.allreduce(x)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            b0 = inter.read()
+            t0 = time.perf_counter()
+            w.allreduce(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            sent = inter.read() - b0
+        ms = statistics.median(times) * 1e3
+        t["allreduce"][nbytes] = {
+            "ms": ms, "bus_GBps": 2 * (S10_N - 1) / S10_N * nbytes
+            / (ms * 1e-3) / 1e9, "hier_inter_bytes": sent}
+        del x
+    t["pingpong"] = {}
+    for nbytes in S10_PINGPONG:
+        x = torch.ones(nbytes // 4, device=dev)
+        best = None
+        for _ in range(3):
+            w.barrier()
+            if pidx == 0:
+                t0 = time.perf_counter()
+                w.send(x, dest=5, tag=11, rank=0)
+                w.recv(source=5, tag=12, rank=0)
+                dt = time.perf_counter() - t0
+                best = dt if best is None else min(best, dt)
+            else:
+                v, _ = w.recv(source=0, tag=11, rank=5)
+                w.send(v, dest=0, tag=12, rank=5)
+        if pidx == 0:
+            t["pingpong"][nbytes] = {"rtt_ms": best * 1e3,
+                                     "GBps": 2 * nbytes / best / 1e9}
+        del x
+    x = torch.ones(P2P_BYTES // 4, device=dev)
+    h = x.cpu()
+    torch.cuda.synchronize()
+    d2h, h2d = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        h = x.to("cpu")
+        d2h.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        x = h.to(dev)
+        torch.cuda.synchronize()
+        h2d.append(time.perf_counter() - t0)
+    t["staging_GBps"] = {
+        "device_to_host": P2P_BYTES / statistics.median(d2h) / 1e9,
+        "host_to_device": P2P_BYTES / statistics.median(h2d) / 1e9}
+    del x, h
+    x = s10_rows(torch, 64 * MIB, off, dev)
+    w.barrier()
+    prof = tbench.profile_window(lambda: w.allreduce(x), 1)
+    t["profile_allreduce_256MiB"] = {
+        **{k: prof[k] for k in ("window_ms", "device_busy_ms",
+                                "busy_share", "launches", "top")}}
+    w.barrier()
+    res = subprocess.run(["nvidia-smi", "--query-gpu=memory.used,"
+                          "memory.total", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    t["card_memory_used"] = res.stdout.strip()
+    w.barrier()
+    del x
+    t["peak_device_memory_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    return t
+
+
+def s10_worker():
+    """One worker of the slice-10 job (``chip_smoke.py --slice10-worker``
+    under ``tools.tpurun``): writes its results as JSON to
+    ``$CHIP_SMOKE_S10_OUT/worker<process index>.json``. Any failure
+    raises: the worker exits non-zero and the launcher fails the job."""
+    import os
+
+    import torch
+
+    mode = os.environ["CHIP_SMOKE_S10_MODE"]
+    if mode == "dcn":
+        # a distinct shm identity per worker: every payload rides the
+        # DCN staging path (chunked frames over the OOB)
+        os.environ["OMPITPU_HOST_ID"] = \
+            "s10-dcn-" + os.environ["OMPITPU_NODE_ID"]
+    import ompi_release_tpu_torch as mpi
+    from ompi_release_tpu_torch.examples import ring_tpu
+    from ompi_release_tpu_torch.mca import pvar as tpvar
+    from ompi_release_tpu_torch.mca import var as tmvar
+    from ompi_release_tpu_torch.ops import cuda_op
+    from ompi_release_tpu_torch.runtime.runtime import Runtime
+
+    t_start = time.perf_counter()
+    w = mpi.init(cli_args=["--mca", "runtime_virtual_ranks",
+                           str(S10_RANKS)])
+    rt = Runtime.current()
+    pidx = int(rt.bootstrap["process_index"])
+    off = rt.local_rank_offset
+    dev = w.device
+    check(w.size == S10_N and w.spans_processes and dev.type == "cuda",
+          f"slice 10: WORLD {w.size} ranks on {dev}, spans "
+          f"{w.spans_processes}")
+    check(w._coll_providers["allreduce"] == ["hier"],
+          f"slice 10: allreduce providers {w._coll_providers}")
+    out = {"pidx": pidx, "pid": os.getpid(), "mode": mode}
+    if mode == "dcn":
+        zc = tpvar.PVARS.lookup("wire_bytes_zero_copy")
+        z0 = zc.read()
+        count = S10_DCN_BYTES // 4
+        got = w.allreduce(s10_rows(torch, count, off, dev))
+        check(bits_equal(got, s10_sum(torch, count, dev).expand(
+            S10_RANKS, count).contiguous()),
+            "slice 10 (dcn): the 64 MiB allreduce differs")
+        if pidx == 0:
+            w.send(s10_pattern(torch, count, 3, dev), dest=6, tag=5, rank=1)
+        else:
+            v, st = w.recv(source=1, tag=5, rank=6)
+            check(bits_equal(v, s10_pattern(torch, count, 3, dev)),
+                  "slice 10 (dcn): the 64 MiB send differs")
+        w.barrier()
+        out["wire_bytes_zero_copy"] = zc.read() - z0
+        check(out["wire_bytes_zero_copy"] > 0,
+              "slice 10 (dcn): wire_bytes_zero_copy stayed 0")
+    else:
+        cuda_op.reset_launches()
+        sums = []
+        outs = []
+        for item in s10_collectives(w, torch, off, dev):
+            outs.append(item)
+            sums.append((item[0], cuda_op.LAUNCHES["sum"]))
+        # both steps fold on the card: the shadow comm's local fold
+        # alone, then the spanning call (local + inter fold)
+        x = s10_rows(torch, P2P_BYTES // 4, off, dev)
+        n0 = cuda_op.LAUNCHES["sum"]
+        w._hier_module.shadow.allreduce(x)
+        local = cuda_op.LAUNCHES["sum"] - n0
+        w.allreduce(x)
+        spanning = cuda_op.LAUNCHES["sum"] - n0 - local
+        check(0 < local < spanning,
+              f"slice 10: SUM launches local {local}, spanning {spanning}: "
+              "the inter fold did not launch the kernel")
+        out["sum_launches_local_vs_spanning_256MiB"] = [local, spanning]
+        del x
+        s10_schedules(w, tmvar, torch, off, dev)
+        p2p = s10_p2p(w, torch, off, dev, ring_tpu)
+        torch.cuda.synchronize()
+        out["launches"] = dict(cuda_op.LAUNCHES)
+        prev = 0
+        per_size = {}
+        for name, n in sums:
+            per_size[name] = n - prev
+            prev = n
+        out["sum_launches_by_call"] = per_size
+        for nbytes in S10_SIZES:
+            if nbytes >= 4 * MIB:
+                check(per_size[f"allreduce_{nbytes}"] > 0,
+                      f"slice 10: stream_axpy[sum] did not launch in the "
+                      f"{nbytes} B allreduce")
+        s10_check_collectives(torch, outs, off, dev)
+        out["ring"] = p2p["ring"]
+        tmvar.set_value("op", "^cuda")
+        try:
+            plain = list(s10_collectives(w, torch, off, dev))
+        finally:
+            tmvar.VARS.unset("op")
+        for (name, got), (_, want) in zip(outs, plain):
+            check(bits_equal(got, want),
+                  f"slice 10: {name} differs from the op ^cuda call")
+        del outs, plain
+        torch.cuda.empty_cache()
+        out["timings"] = s10_timings(w, tpvar, torch, off, dev, pidx)
+        # the local shadow comm's plans are CUDA graphs, as on one
+        # process (each size fired 6 times in one generation); the
+        # spanning comm's schedules stay interpreted
+        shadow = w._hier_module.shadow
+        entries = {k: e for k, e in plan_entries(shadow).items()
+                   if k[1][0] == "allreduce"}
+        check(len(entries) >= len(S10_SIZES) and all(
+            "bad" not in e and e["frozen"].graph is not None
+            for e in entries.values()),
+            f"slice 10: the shadow comm's allreduce plans are not all "
+            f"graphs: {bad_plans(shadow)}")
+        check(not plan_entries(w), "slice 10: the spanning comm froze a plan")
+        out["shadow_graphs"] = len(entries)
+    out["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(os.environ["CHIP_SMOKE_S10_OUT"],
+                           f"worker{pidx}.json"), "w") as f:
+        json.dump(out, f)
+    mpi.finalize()
+    return 0
+
+
+def s10_job(mode, out_dir):
+    """One tpurun job of the port (2 workers running this script's
+    worker phase); returns (rc, wall seconds, worker pids, results)."""
+    import glob
+    import os
+
+    from ompi_release_tpu_torch.tools.tpurun import Job
+
+    env_keep = dict(os.environ)
+    os.environ["CHIP_SMOKE_S10_MODE"] = mode
+    os.environ["CHIP_SMOKE_S10_OUT"] = out_dir
+    t0 = time.perf_counter()
+    try:
+        job = Job(S10_PROCS, [sys.executable, os.path.abspath(__file__),
+                              "--slice10-worker"], [],
+                  heartbeat_s=0.5, miss_limit=20)
+        rc = job.run(timeout_s=600)
+    finally:
+        os.environ.clear()
+        os.environ.update(env_keep)
+    wall = time.perf_counter() - t0
+    pids = [p.pid for p in job.procs.values()]
+    check(all(p.poll() is not None for p in job.procs.values()),
+          f"slice 10 ({mode}): a worker outlived its job")
+    leftovers = [f for pid in pids
+                 for f in glob.glob(f"/dev/shm/ompitpu-{pid}-*")]
+    check(not leftovers, f"slice 10 ({mode}): shm segments left {leftovers}")
+    results = []
+    for i in range(S10_PROCS):
+        path = os.path.join(out_dir, f"worker{i}.json")
+        check(os.path.exists(path), f"slice 10 ({mode}): worker {i} wrote "
+                                    f"no result (job rc {rc})")
+        with open(path) as f:
+            results.append(json.load(f))
+    return rc, wall, pids, results
+
+
+def phase_slice10(cuda_op, torch):
+    """Slice 10's path: the parent builds the kernel library and the
+    native library, then runs a tpurun job of 2 workers x 4 virtual
+    ranks on cuda:0 (COMM_WORLD spans 8 ranks over 2 processes) and a
+    second, shorter job on the DCN staging path. The workers share the
+    card with this process, which releases its cached memory first.
+    Returns what ``report_slice10`` prints and the SUM launches summed
+    over the workers."""
+    import gc
+    import tempfile
+
+    from ompi_release_tpu_torch.native import build_library
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 3: slice 10: this process holds "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB on the card")
+    t0 = time.perf_counter()
+    cuda_op.build()
+    so, built = build_library()
+    log(f"phase 3: slice 10: native library {so} (make ran: {built}) and "
+        f"the kernels built in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as td:
+        rc, wall, pids, res = s10_job("main", td)
+    check(rc == 0, f"slice 10: the job exited {rc}")
+    sums = [r["launches"]["sum"] for r in res]
+    check(all(n > 0 for n in sums),
+          f"slice 10: stream_axpy[sum] launches per worker {sums}")
+    passes = sum(r["ring"][0] for r in res)
+    check(passes == (S10_N - 1) + 3 * S10_N
+          and [r["ring"][1] for r in res] == [0, None],
+          f"slice 10: ring passes {passes}, {[r['ring'] for r in res]}")
+    log(f"phase 3: slice-10 path: COMM_WORLD of {S10_N} ranks over "
+        f"{S10_PROCS} processes, every result bitwise its closed form and "
+        f"the op ^cuda call; stream_axpy[sum] launches {sums}; the job "
+        f"took {wall:.1f} s")
+    with tempfile.TemporaryDirectory() as td:
+        rc2, wall2, _, res2 = s10_job("dcn", td)
+    check(rc2 == 0, f"slice 10 (dcn): the job exited {rc2}")
+    log(f"phase 3: slice 10 passed in {time.perf_counter() - t0:.1f} s")
+    return {"res": res, "wall": wall, "res_dcn": res2, "wall_dcn": wall2,
+            "sum": sum(sums)}
+
+
+def report_slice10(s10, baseline=None):
+    """Slice 10's timings, each beside the card's name and power limit
+    and (when given) the one-process 8-rank tuned allreduce's ms."""
+    card = card_line()
+    for r in s10["res"]:
+        t = r["timings"]
+        for nbytes, row in t["allreduce"].items():
+            one = (baseline or {}).get(int(nbytes))
+            log(json.dumps({"s10_allreduce_bytes_per_rank": int(nbytes),
+                            "worker": r["pidx"], **row,
+                            "one_process_8rank_ms": one, "card": card}))
+        log(json.dumps({"s10_worker": r["pidx"], "card": card,
+                        **{k: v for k, v in t.items()
+                           if k != "allreduce"},
+                        "sum_launches_by_call": r["sum_launches_by_call"],
+                        "sum_launches_local_vs_spanning_256MiB":
+                            r["sum_launches_local_vs_spanning_256MiB"],
+                        "seconds": r["seconds"]}))
+    log(json.dumps({"s10_dcn": [r["wire_bytes_zero_copy"]
+                                for r in s10["res_dcn"]],
+                    "job_wall_s": s10["wall_dcn"], "card": card}))
+    log(json.dumps({"s10_job_wall_s": s10["wall"], "card": card}))
+
+
 def main():
     import torch
 
@@ -3665,8 +4133,17 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if sys.argv[1:] == ["--slice10-worker"]:
+        return s10_worker()
     t_start = time.perf_counter()
     log(f"card: {card_line()}")
+    if sys.argv[1:] == ["--slice10"]:
+        # slice 10 alone (the builds, the two jobs and their timings);
+        # it prints no result line
+        report_slice10(phase_slice10(cuda_op, torch))
+        log(f"chip_smoke --slice10: passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     if sys.argv[1:] == ["--slice9"]:
         # a short run of slice 9 alone (the build, its phase and its
         # timings); it prints no result line
@@ -3690,6 +4167,9 @@ def main():
     phase_flash(fa, torch, dev)
     phase_flash_bwd(fa, torch, dev)
     check_bf16_reduction(torch, dev)
+    # slice 10 runs while this process holds little on the card: its two
+    # worker processes share it (their timings print beside slice 1's)
+    s10 = phase_slice10(cuda_op, torch)
 
     cuda_op.reset_launches()
     world, tuned, runs = drive_main_path(mpi, tmvar, torch, dev)
@@ -3788,7 +4268,7 @@ def main():
         row["host_us_per_launch"] = host_us[key]
         if key == "chain":
             row["add_host_us_per_launch"] = host_us["torch.add(x, 1)"]
-    time_allreduce(tuned, torch, dev)
+    one_process_ms = time_allreduce(tuned, torch, dev)
     check(not bad_plans(tuned, "allreduce"),
           f"the sweep's plans are not graphs: {bad_plans(tuned)}")
     profile_allreduce(tuned, torch, dev)
@@ -3818,6 +4298,11 @@ def main():
             row["launches_by_path"]["slice9"] = s9_by_row[row["name"]]
     time_slice9(torch)
     torch.cuda.empty_cache()
+    report_slice10(s10, one_process_ms)
+    for row in rows:
+        if row["name"] == "stream_axpy[sum]":
+            row["launches"] += s10["sum"]
+            row["launches_by_path"]["slice10"] = s10["sum"]
     run_bench(torch, dev)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

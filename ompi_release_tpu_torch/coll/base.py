@@ -28,6 +28,11 @@ OP_NAMES = (
     "alltoallv", "allgatherv", "gatherv", "scatterv", "reduce_scatter",
 )
 
+#: a provider's "I ran, and MPI leaves this rank's result undefined"
+#: (gatherv off-root on a spanning comm): the dispatcher returns None
+#: for it instead of treating None as a decline
+NO_RESULT = object()
+
 COLL_FRAMEWORK = mca_component.framework(
     "coll", "collective operations (ompi/mca/coll analogue)"
 )
@@ -49,6 +54,8 @@ def comm_select(comm) -> Dict[str, Callable]:
         def call(comm_, *args, **kw):
             for fn in chain:
                 res = fn(comm_, *args, **kw)
+                if res is NO_RESULT:
+                    return None
                 if res is not None or op_name == "barrier":
                     return res
             raise MPIError(

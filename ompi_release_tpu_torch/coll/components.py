@@ -231,6 +231,8 @@ class FusedCollComponent(mca_component.Component):
     def query(self, ctx=None):
         if ctx is None:
             return (self.priority, self)
+        if getattr(ctx, "spans_processes", False):
+            return None  # cross-process comms belong to coll/hier
         return (self.priority, _FusedModule(ctx))
 
 
@@ -714,6 +716,8 @@ class TunedCollComponent(mca_component.Component):
     def query(self, ctx=None):
         if ctx is None:
             return (self.priority, self)
+        if getattr(ctx, "spans_processes", False):
+            return None  # cross-process comms belong to coll/hier
         return (self.priority, _TunedModule(ctx))
 
 
@@ -767,6 +771,8 @@ class BasicCollComponent(mca_component.Component):
     def query(self, ctx=None):
         if ctx is None:
             return (self.priority, self)
+        if getattr(ctx, "spans_processes", False):
+            return None  # cross-process comms belong to coll/hier
         return (self.priority, _BasicModule(ctx))
 
 
@@ -997,14 +1003,19 @@ class MlCollComponent(mca_component.Component):
     def query(self, ctx=None):
         if ctx is None:
             return (self.priority, self)
+        if getattr(ctx, "spans_processes", False):
+            return None  # cross-process comms belong to coll/hier
         h = _discover_hierarchy(ctx)
         if h is None:
             return None
         return (self.priority, _MlModule(ctx, *h))
 
 
+from .hier import HierCollComponent  # noqa: E402  (registration order)
+
 COLL_FRAMEWORK.register(FusedCollComponent())
 COLL_FRAMEWORK.register(TunedCollComponent())
 COLL_FRAMEWORK.register(MlCollComponent())
 COLL_FRAMEWORK.register(BasicCollComponent())
 COLL_FRAMEWORK.register(SelfCollComponent())
+COLL_FRAMEWORK.register(HierCollComponent())

@@ -20,11 +20,20 @@ signature fires its frozen plan, on the card a CUDA graph), the
 nonblocking i-family, ``ibarrier`` and the persistent ``*_init``
 collectives (``coll/nbc.py``), the small-message fusion buffer, and
 point-to-point through the per-comm PML engine (driver mode: the acting
-rank is the keyword ``rank=``). The fault-tolerance hooks come with a
-later slice.
+rank is the keyword ``rank=``), and the spanning branches of the
+unified multi-process world: a communicator whose members live in
+several ``tpurun`` workers knows its ``local_comm_ranks``, reports
+``spans_processes``, and selects the ``hier`` collectives and the wire
+PML. The fault-tolerance hooks come with a later slice.
 
-CID allocation: under a single controller the reference's agreement
-(``comm_cid.c``) reduces to a deterministic monotone counter.
+CID allocation: the reference's agreement (``comm_cid.c``) reduces to
+a deterministic monotone counter, identical on every process because
+every process creates every communicator in the same order (driver
+mode: a split builds each color's comm everywhere, with or without
+local members). Runtime-private comms (the ``hier`` module's
+process-local shadow) exist only where they have members, so they draw
+NEGATIVE cids from a counter of their own and never desynchronize the
+shared one.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ from .group import Group, UNDEFINED
 
 _log = output.stream("comm")
 _cid_counter = itertools.count(0)
+#: internal (runtime-private) communicators draw negative cids
+_internal_cid_counter = itertools.count(-1, -1)
 _cid_lock = threading.Lock()
 _fusion_create_lock = threading.Lock()
 _comm_registry: Dict[int, "Communicator"] = {}
@@ -50,9 +61,9 @@ _comm_registry: Dict[int, "Communicator"] = {}
 _comm_count = pvar.counter("comm_active_count", "live communicators")
 
 
-def _next_cid() -> int:
+def _next_cid(internal: bool = False) -> int:
     with _cid_lock:
-        return next(_cid_counter)
+        return next(_internal_cid_counter if internal else _cid_counter)
 
 
 def clear_comm_registry() -> None:
@@ -86,10 +97,11 @@ class Communicator:
     is_inter = False  # Intercommunicator overrides (MPI_Comm_test_inter)
 
     def __init__(self, runtime, group: Group, *, name: str = "",
-                 parent: Optional["Communicator"] = None) -> None:
+                 parent: Optional["Communicator"] = None,
+                 internal: bool = False) -> None:
         self.runtime = runtime
         self.group = group
-        self.cid = _next_cid()
+        self.cid = _next_cid(internal)
         self.name = name or f"comm{self.cid}"
         self.errhandler: Errhandler = (
             parent.errhandler if parent else ERRORS_ARE_FATAL
@@ -102,17 +114,40 @@ class Communicator:
         self.topo = None  # topology (cart/graph), set by topo/topo.py
         self._attrs: Dict[int, Any] = {}
         self._freed = False
-        #: the 1-D "rank" mesh of the group's devices, in group order
-        self.submesh = build_submesh(runtime.mesh, group.world_ranks)
+        # Local membership: under a unified multi-process world this
+        # process owns only a span of world ranks; the submesh (and
+        # every in-process collective) covers the LOCAL members, while
+        # cross-process traffic rides the wire (hier coll + wire pml).
+        if getattr(runtime, "unified", False):
+            off = runtime.local_rank_offset
+            cnt = runtime.local_size
+            self.local_comm_ranks = [
+                i for i, wr in enumerate(group.world_ranks)
+                if off <= wr < off + cnt
+            ]
+            self.spans_processes = len(self.local_comm_ranks) < group.size
+            local_positions = [group.world_rank(i) - off
+                               for i in self.local_comm_ranks]
+        else:
+            self.local_comm_ranks = list(range(group.size))
+            self.spans_processes = False
+            local_positions = list(group.world_ranks)
+        #: the 1-D "rank" mesh of the LOCAL members' devices, in group
+        #: order (None for a comm with no members in this process: its
+        #: operations can only be invoked where its ranks live)
+        self.submesh = (build_submesh(runtime.mesh, local_positions)
+                        if local_positions else None)
         #: the device holding the comm's rank-stacked buffers: its
-        #: first rank's
-        self.device: torch.device = self.submesh.devices[0]
+        #: first local rank's
+        self.device: Optional[torch.device] = (
+            self.submesh.devices[0] if self.submesh is not None else None)
 
         # per-comm collective table (c_coll analogue), installed at
         # creation time exactly like coll_base_comm_select
         from ..coll import base as coll_base
 
-        self.c_coll = coll_base.comm_select(self)
+        self.c_coll = (coll_base.comm_select(self)
+                       if self.submesh is not None else {})
         _comm_registry[self.cid] = self
         _comm_count.add()
         _log.verbose(2, f"created {self.name} cid={self.cid} size={self.size}")
@@ -194,7 +229,8 @@ class Communicator:
 
     def split_type_shared(self) -> List["Communicator"]:
         """MPI_Comm_split_type(COMM_TYPE_SHARED): group by host process
-        (one controller process: one communicator)."""
+        (one controller process: one communicator; under a unified
+        world each process's ranks form one process-local comm)."""
         eps = {e.rank: e for e in self.runtime.endpoints}
         colors = [eps[self.group.world_rank(i)].process_index
                   for i in range(self.size)]
@@ -213,6 +249,13 @@ class Communicator:
             if kv and kv.delete_fn:
                 kv.delete_fn(self, kv, value, kv.extra_state)
         self._attrs.clear()
+        # runtime-private dependents (the hier module's shadow comm)
+        # registered teardown hooks: free them with their owner
+        for cb in getattr(self, "_on_free", ()):
+            try:
+                cb()
+            except MPIError:
+                pass  # already freed
         _comm_registry.pop(self.cid, None)
         # frozen plans (and their graphs' memory pool) die with the comm:
         # a reused cid must never fire a dead comm's plans
@@ -255,6 +298,12 @@ class Communicator:
             raise MPIError(ErrorCode.ERR_INTERN,
                            f"no {op_name} implementation installed on "
                            f"{self.name}")
+        if self.spans_processes:
+            # spanning comms run the hier module's interpreted
+            # schedules (their frozen wire plans come with the native
+            # datapath slice); collectives are blocking and issued in
+            # the same order on every process, MPI's own rule
+            return fn
         # steady-state dispatch (coll/plan): a signature seen before
         # fires its frozen plan — the interpreted decision path runs once
         # per (signature, cvar generation), not once per call
@@ -508,6 +557,13 @@ class Communicator:
         eng = getattr(self, "_pml", None)
         if eng is None:
             self._check_alive()
+            if self.submesh is None:
+                raise MPIError(
+                    ErrorCode.ERR_COMM,
+                    f"{self.name} has no members on this controller "
+                    "process — its operations can only be invoked on "
+                    "the processes that own its ranks",
+                )
             from ..p2p import pml as pml_mod
 
             eng = pml_mod.comm_select(self)
@@ -564,6 +620,14 @@ class Communicator:
         ``size``. Returns (values, statuses) lists.
         """
         self._check_alive()
+        if self.spans_processes:
+            raise MPIError(
+                ErrorCode.ERR_NOT_AVAILABLE,
+                "driver-mode sendrecv acts as every rank at once; on a "
+                "communicator spanning controller processes use "
+                "per-rank isend/recv (each process acts only as its "
+                "local ranks)",
+            )
         n = self.size
         if (len(sendbufs) != n or len(dests) != n
                 or (sources is not None and len(sources) != n)):

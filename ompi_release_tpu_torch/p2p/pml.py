@@ -27,9 +27,13 @@ buffer belongs to the engine until its request completes, and a
 blocking standard ``send`` whose rendezvous is still pending snapshots
 the buffer before it returns.
 
-Not ported here: the cross-process ``WirePmlEngine``, the watchdog and
-observability hooks (multi-process and obs slices), message logging
-(``vprotocol.py``) and PERUSE events (``peruse.py``).
+Communicators spanning ``tpurun`` worker processes get the
+``WirePmlEngine``: pairs crossing a process boundary ride the runtime's
+wire router, and wire arrivals are fed into the same matching queues.
+
+Not ported here: the watchdog and observability hooks (obs slice), the
+ULFM bounded waits, message logging (``vprotocol.py``) and PERUSE
+events (``peruse.py``).
 """
 
 from __future__ import annotations
@@ -106,6 +110,11 @@ def register_vars() -> None:
         "pml_max_send_size", "size", 0,
         "Override: messages beyond this many bytes move as segments; "
         "0 = the pair's btl threshold (64 MiB, unlimited for a self-send)",
+    )
+    mca_var.register(
+        "pml_wire_timeout", "float", 30.0,
+        "Seconds a blocking cross-process recv or ssend waits for its "
+        "match before raising ERR_PENDING",
     )
 
 
@@ -410,6 +419,187 @@ class PmlEngine:
             )
 
 
+class WirePmlEngine(PmlEngine):
+    """PML for communicators spanning controller processes: local pairs
+    use the in-process matching machinery unchanged; pairs crossing a
+    process boundary ride the runtime's wire router (shm handoff on one
+    host, DCN staging across hosts) — the ``btl/tcp``-under-ob1 role,
+    with no caller-visible API difference (``btl_tcp_component.c:883``).
+
+    Driver-mode contract: each process acts only as its LOCAL ranks —
+    an isend must name a local ``src``, a recv a local ``dst``. Wire
+    arrivals are pumped into the normal unexpected queues during
+    recv/probe progress, so ordering, ANY_SOURCE/ANY_TAG and matched
+    probes keep their MPI semantics across the boundary. A payload on
+    the card is staged to the host with a blocking copy before it
+    leaves, and an arrival is moved to the comm's device before it
+    enters the queues.
+    """
+
+    def __init__(self, comm) -> None:
+        super().__init__(comm)
+        self._router = comm.runtime.wire
+        self._local_set = set(comm.local_comm_ranks)
+
+    def _require_local(self, rank: int, what: str) -> None:
+        if rank not in self._local_set:
+            owner = self._router.owner_of(self.comm.group.world_rank(rank))
+            raise MPIError(
+                ErrorCode.ERR_RANK,
+                f"{what} rank {rank} on {self.comm.name} is owned by "
+                f"process {owner}; each process acts only as its local "
+                "ranks (the acting-rank driver convention)",
+            )
+
+    # -- send --------------------------------------------------------------
+    def isend(self, data, dst: int, tag: int = 0, *, src: int,
+              sync: bool = False, ready: bool = False) -> Request:
+        self._check_rank(dst, "destination")
+        self._check_rank(src, "source")
+        self._require_local(src, "acting source")
+        if dst in self._local_set:
+            return super().isend(data, dst, tag, src=src, sync=sync,
+                                 ready=ready)
+        # cross-process: rsend legally degrades to a standard send (an
+        # implementation MAY treat ready mode as standard; verifying
+        # the remote posted-recv would cost a round trip). The payload
+        # is on the host when send_p2p returns, so the caller's buffer
+        # is reusable at once.
+        data = _as_device_payload(data, self.comm.device)
+        seq = self._router.send_p2p(self.comm, src, dst, tag, data, sync)
+        if not sync:
+            req = Request()
+            req.complete(status=Status(source=src, tag=tag))
+            return req
+        # ssend: completes when the receiver's match acks back
+        router, cid = self._router, self.comm.cid
+        src_world = self.comm.group.world_rank(src)
+
+        def progress(r) -> None:
+            router.poll_acks(src_world)
+            if router.has_ack(cid, seq):
+                router.take_ack(cid, seq)
+                r.complete(status=Status(source=src, tag=tag))
+
+        def block() -> None:
+            import time as _time
+
+            limit = float(mca_var.get("pml_wire_timeout", 30.0))
+            deadline = _time.monotonic() + limit
+            while _time.monotonic() < deadline:
+                router.poll_acks(src_world, timeout_ms=100)
+                if router.take_ack(cid, seq):
+                    return
+            raise MPIError(
+                ErrorCode.ERR_PENDING,
+                f"ssend to rank {dst} never matched (no ack within "
+                f"{limit}s; pml_wire_timeout raises the limit)",
+            )
+
+        req = Request(progress_fn=progress, block_fn=block)
+        # the block() completion path reaches Request.wait()'s bare
+        # complete(): pre-set the status so both completion paths
+        # report the same (source, tag)
+        req.status = Status(source=src, tag=tag)
+        return req
+
+    def send(self, data, dst: int, tag: int = 0, *, src: int,
+             sync: bool = False) -> None:
+        self._require_local(src, "acting source")
+        if dst in self._local_set:
+            super().send(data, dst, tag, src=src, sync=sync)
+            return
+        req = self.isend(data, dst, tag, src=src, sync=sync)
+        if sync:
+            req.wait()
+
+    # -- recv --------------------------------------------------------------
+    def _drain(self, dst: int, timeout_ms: int = 0) -> bool:
+        return self._router.drain_p2p(
+            self.comm.group.world_rank(dst), timeout_ms=max(1, timeout_ms)
+        )
+
+    def irecv(self, source: int = ANY_SOURCE, tag: int = ANY_TAG, *,
+              dst: int) -> Request:
+        self._check_rank(dst, "destination")
+        self._require_local(dst, "receiving")
+        may_cross = source == ANY_SOURCE or source not in self._local_set
+        if may_cross:
+            # pump anything already queued before posting, so an
+            # earlier wire arrival matches in order
+            while self._drain(dst):
+                pass
+        req = super().irecv(source, tag, dst=dst)
+        if may_cross and not req.is_complete:
+            engine = self
+
+            def progress(r) -> None:
+                engine._drain(dst)
+
+            def block() -> None:
+                import time as _time
+
+                limit = float(mca_var.get("pml_wire_timeout", 30.0))
+                deadline = _time.monotonic() + limit
+                while (not req.is_complete
+                       and _time.monotonic() < deadline):
+                    engine._drain(dst, timeout_ms=100)
+                if not req.is_complete:
+                    raise MPIError(
+                        ErrorCode.ERR_PENDING,
+                        f"recv(source={source}, tag={tag}) at rank "
+                        f"{dst}: no matching message within "
+                        f"{limit}s (pml_wire_timeout raises the "
+                        "limit)",
+                    )
+
+            req._progress_fn = progress
+            req._block_fn = block
+        return req
+
+    def iprobe(self, source: int = ANY_SOURCE, tag: int = ANY_TAG, *,
+               dst: int):
+        self._require_local(dst, "probing")
+        while self._drain(dst):
+            pass
+        return super().iprobe(source, tag, dst=dst)
+
+    def improbe(self, source: int = ANY_SOURCE, tag: int = ANY_TAG, *,
+                dst: int):
+        self._require_local(dst, "probing")
+        while self._drain(dst):
+            pass
+        return super().improbe(source, tag, dst=dst)
+
+    # -- wire delivery (called by the router's drain) ----------------------
+    def _enqueue_wire(self, src_rank: int, dst_rank: int, user_tag: int,
+                      data, on_matched=None) -> None:
+        """Insert one wire arrival into the matching machinery exactly
+        where a local eager send would land (payload already moved to
+        this process's device, so the entry is 'transferred')."""
+        data = data.to(self.comm.device)
+        req = Request()
+        if on_matched is not None:
+            req.on_complete(on_matched)
+        entry = _SendEntry(src_rank, dst_rank, user_tag, data, req, False)
+        entry.transferred = True
+        with self._lock:
+            self._purge_cancelled(dst_rank)
+            posted = self._posted[dst_rank]
+            match = next(
+                (r for r in posted
+                 if (r.source in (ANY_SOURCE, src_rank))
+                 and _tag_match(r.tag, user_tag)),
+                None,
+            )
+            if match is not None:
+                posted.remove(match)
+                self._deliver(entry, match)
+                return
+            _unexpected_count.add()
+            self._unexpected[dst_rank].append(entry)
+
+
 class Ob1TpuComponent(mca_component.Component):
     """Default PML component ("ob1" kept as the name users know)."""
 
@@ -422,6 +612,8 @@ class Ob1TpuComponent(mca_component.Component):
     def query(self, ctx=None):
         if ctx is None:
             return (self.priority, self)
+        if getattr(ctx, "spans_processes", False):
+            return (self.priority, WirePmlEngine(ctx))
         return (self.priority, PmlEngine(ctx))
 
 

@@ -1,10 +1,10 @@
 """Runtime bring-up/teardown — the ``MPI_Init``/``orte_init`` analogue.
 
 Counterpart of ``ompi_release_tpu/runtime/runtime.py``, init/finalize,
-the async progress engine's thread and the ``runtime_timing`` init
-report (the wire, observability, ULFM and retune arms are not ported
-yet). The bring-up
-sequence mirrors ``ompi_mpi_init.c``:
+the async progress engine's thread, the ``runtime_timing`` init report
+and the unified multi-process world under ``tpurun`` (the observability,
+ULFM and retune arms are not ported yet). The bring-up sequence mirrors
+``ompi_mpi_init.c``:
 
   1. config/core var registration        (opal_init_util)
   2. ESS select + bootstrap              (orte_init/ess.init)
@@ -15,6 +15,12 @@ sequence mirrors ``ompi_mpi_init.c``:
 
 with the ORTE job state machine activated at each boundary. WORLD lives
 on ``cuda:0`` unless the caller passes ``device="cpu"``.
+
+Under ``tpurun`` the ESS runs the coordinator wire-up and every worker's
+modex card names how many ranks it owns: with ``runtime_unified_world``
+(default on) COMM_WORLD spans every worker — process p owns a
+contiguous span of world ranks, and other processes' ranks are reached
+through the wire router (``runtime/wire.py``).
 """
 
 from __future__ import annotations
@@ -44,10 +50,19 @@ class Runtime:
         self.mesh: Optional[mesh_mod.Mesh] = None
         self.endpoints: List[mesh_mod.Endpoint] = []
         self.bootstrap: Dict[str, Any] = {}
+        self.agent = None  # tpurun WorkerAgent (set by the tpurun ESS)
         self.world = None
         self.self_comm = None
         self.initialized = False
         self.finalized = False
+        # unified multi-controller world (tpurun): this process owns
+        # world ranks [local_rank_offset, local_rank_offset+local_size)
+        # and reaches every other process's ranks through the wire
+        self.unified = False
+        self.local_rank_offset = 0
+        self.local_size = 0
+        self.proc_spans: List[tuple] = []
+        self.wire = None  # WireRouter when unified
 
     @classmethod
     def current(cls) -> "Runtime":
@@ -74,6 +89,17 @@ class Runtime:
 
             # 1. core vars + CLI
             mesh_mod.register_vars()
+            from .wire import register_vars as _wire_register_vars
+
+            _wire_register_vars()  # wire transport cvars: visible even
+            #                        in singleton mode
+            mca_var.register(
+                "runtime_unified_world", "bool", True,
+                "Under tpurun, form ONE COMM_WORLD spanning every "
+                "worker process (cross-process ranks reachable through "
+                "the wire router); false = each process's world spans "
+                "only its local ranks",
+            )
             mca_var.register(
                 "runtime_timing", "bool", False,
                 "Report per-stage init timing after bring-up (the "
@@ -93,6 +119,7 @@ class Runtime:
             # 2. ESS bootstrap (identity + device discovery)
             ess = ess_mod.ESS_FRAMEWORK.select()
             self.bootstrap = ess.bootstrap(device)
+            self.agent = self.bootstrap.get("agent")  # tpurun WorkerAgent
             self.job_state.activate(JobState.ALLOCATE, self.bootstrap)
 
             # 3. rank mapping
@@ -101,8 +128,14 @@ class Runtime:
             self.job_state.activate(JobState.MAP, self.mesh)
             self.job_state.activate(JobState.VM_READY)
 
-            # 4. modex
+            # 4. modex (endpoint allgather; under tpurun the peer
+            # processes' cards came through the coordinator)
             self.endpoints = mesh_mod.run_modex(self.mesh)
+            peer_cards = self.bootstrap.get("peer_cards") or []
+            if (self.agent is not None and len(peer_cards) > 1
+                    and bool(mca_var.get("runtime_unified_world", True))
+                    and all("local_device_count" in c for c in peer_cards)):
+                self._build_unified_world(peer_cards)
             self.job_state.activate(JobState.RUNNING)
 
             # 5-6. communicators + per-comm coll selection
@@ -136,6 +169,69 @@ class Runtime:
             name = self.job_state._fmt(s0)
             _log.info(f"  {name:<14} {(t1 - t0) * 1e3:8.1f} ms")
 
+    def _build_unified_world(self, peer_cards: List[Dict]) -> None:
+        """Form the union world: every process's ranks become world
+        ranks (process p owns a contiguous span), with peer-process
+        ranks represented by endpoints synthesized from their modex
+        cards — the ``add_procs``-over-all-peers step of
+        ``ompi_mpi_init.c:759-786``. Cross-process pairs are reached
+        through the wire router (shm handoff on one host, DCN staging
+        across hosts), never by a device copy."""
+        import dataclasses as _dc
+
+        from .wire import WireRouter
+
+        my_pidx = int(self.bootstrap["process_index"])
+        counts = [int(c["local_device_count"]) for c in peer_cards]
+        local_eps = self.endpoints
+        if counts[my_pidx] != len(local_eps):
+            raise MPIError(
+                ErrorCode.ERR_OTHER,
+                f"unified world needs the full local rank set: modex "
+                f"card advertised {counts[my_pidx]} ranks but the "
+                f"mesh holds {len(local_eps)}",
+            )
+        offsets = [0] * len(counts)
+        for p in range(1, len(counts)):
+            offsets[p] = offsets[p - 1] + counts[p - 1]
+        host = str(peer_cards[my_pidx].get("host", ""))
+        endpoints: List[mesh_mod.Endpoint] = []
+        for p, card in enumerate(peer_cards):
+            if p == my_pidx:
+                endpoints.extend(
+                    _dc.replace(ep, rank=offsets[p] + ep.rank,
+                                process_index=p, host=host)
+                    for ep in local_eps
+                )
+            else:
+                endpoints.extend(
+                    mesh_mod.Endpoint(
+                        rank=offsets[p] + li,
+                        device_id=li,
+                        process_index=p,
+                        platform=str(card.get("platform", "unknown")),
+                        device_kind="peer-process",
+                        coords=(li,),
+                        slice_index=0,
+                        host=str(card.get("host", "")),
+                    )
+                    for li in range(counts[p])
+                )
+        self.endpoints = endpoints
+        self.unified = True
+        self.local_rank_offset = offsets[my_pidx]
+        self.local_size = counts[my_pidx]
+        self.proc_spans = [(offsets[p], counts[p])
+                           for p in range(len(counts))]
+        self.wire = WireRouter(self)
+        _log.verbose(
+            1,
+            f"unified world: {sum(counts)} ranks over "
+            f"{len(counts)} processes; local span "
+            f"[{self.local_rank_offset}, "
+            f"{self.local_rank_offset + self.local_size})",
+        )
+
     def finalize(self) -> None:
         with _lock:
             if not self.initialized or self.finalized:
@@ -147,6 +243,16 @@ class Runtime:
 
             _progress.engine().shutdown()
             comm_mod.clear_comm_registry()
+            if self.agent is not None:
+                # report clean completion to the HNP (IOF_COMPLETE ->
+                # TERMINATED flow of plm_types.h:113-151) and drop the
+                # lifeline deliberately
+                try:
+                    self.agent.send_fin()
+                except MPIError:
+                    pass  # the launcher already tore the job down
+                self.agent.close()
+                self.agent = None
             self.job_state.activate(JobState.TERMINATED)
             self.finalized = True
             self.initialized = False

@@ -231,3 +231,78 @@ def test_main_exits_2_without_cuda():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 2
     assert res.stdout == "" and "no CUDA device" in res.stderr
+
+
+# -- the micro-suites (bench.py's steady_state / rma_steady one-process
+#    legs, _hier_micro_suite, _wire_micro_suite) -----------------------------
+
+@pytest.fixture
+def fresh_runtime():
+    from ompi_release_tpu_torch.runtime import runtime as trt
+
+    trt._reset_for_tests()
+    yield
+    trt._reset_for_tests()
+
+
+def _names(lines):
+    return [ln["metric"] for ln in lines]
+
+
+def test_steady_state_suite_lines_and_parity(fresh_runtime):
+    """The one-process legs of bench.py's _steady_state_micro_suite:
+    same cases, same line names; each planned leg is held bitwise to its
+    interpreted twin inside the suite (it raises otherwise)."""
+    lines = tbench.steady_state_suite(torch.device("cpu"), reps=2)
+    want = []
+    for label in ("allreduce_4KiB", "allreduce_256KiB", "allreduce_1MiB",
+                  "bcast_256KiB", "allgather_256KiB"):
+        want += [f"steady_orch_{label}_interpreted",
+                 f"steady_orch_{label}_compiled",
+                 f"compiled_{label}_orch_speedup"]
+        if label.startswith("allreduce"):
+            want.append(f"steady_orch_{label}_persistent")
+    assert _names(lines) == want
+    assert all(ln["suite"] == "steady_state" and ln["reps"] == 2
+               for ln in lines)
+
+
+def test_rma_steady_suite_lines_and_parity(fresh_runtime):
+    lines = tbench.rma_steady_suite(torch.device("cpu"), reps=2,
+                                    sizes=(4096, 65536),
+                                    heap_sizes=(4096,))
+    want = []
+    for label in ("rma_fence_4KiB", "rma_fence_64KiB"):
+        want += [f"steady_{label}_interpreted", f"steady_{label}_planned",
+                 f"compiled_{label}_orch_speedup"]
+    want += ["steady_shmem_put_4KiB_percall", "steady_shmem_put_4KiB_bulk",
+             "compiled_shmem_put_4KiB_bulk_speedup"]
+    assert _names(lines) == want
+
+
+def test_hier_suite_matches_bench_py():
+    """bench.py's _hier_micro_suite and the port's run a 4-process job
+    each: the per-process inter bytes of every schedule (a closed
+    function of the schedule) and the bcast root's sends agree."""
+    ours = tbench.hier_suite("cpu", 256 << 10)
+    theirs = jbench._hier_micro_suite("cpu-fallback")
+    assert _names(ours) == _names(theirs)
+    for a, b in zip(ours, theirs):
+        assert a["value"] == pytest.approx(b["value"]), a["metric"]
+    by = {ln["metric"]: ln["value"] for ln in ours}
+    assert by["hier_allreduce_256KiB_inter_bytes_linear"] == 3.0
+    assert by["hier_allreduce_256KiB_inter_bytes_ring"] < 3.0
+    assert by["hier_bcast_root_msgs"] == 2
+
+
+def test_wire_suite_lines():
+    lines = tbench.wire_suite("cpu", [1 << 20], 1, 1)
+    assert _names(lines) == [
+        "wire_p2p_1MiB", "wire_hol_2x1MiB_lanes4", "wire_hol_2x1MiB_lanes1",
+        "wire_allgatherv_1MiB_pipelined", "wire_allgatherv_1MiB_legacy_frames",
+        "wire_allgatherv_1MiB_sequential",
+        "wire_allgatherv_pipeline_speedup",
+        "wire_allgatherv_overlap_speedup",
+        "wire_skewed_first_data_overlap"]
+    assert lines[0]["value"] > 0
+    assert lines[-1]["pvars"]["wire_bytes_zero_copy"] > 0
