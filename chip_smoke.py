@@ -192,16 +192,44 @@ Run from the repository root on a machine with a card:
      call; ``stream_axpy[sum]`` must launch in every allreduce of >= 4
      MiB and in both folds (the shadow comm's alone, then the spanning
      call); the shadow comm's allreduce plans must be CUDA graphs and
-     the spanning comm must freeze none. Then per worker: allreduce ms
-     and bus GB/s per size beside the one-process tuned allreduce,
-     ``hier_inter_bytes`` per call, ping-pong GB/s 0 <-> 5, staging
-     GB/s each way, a profiler window of one 256 MiB allreduce, peak
-     memory and the card's memory in use. A second job with a distinct
-     ``OMPITPU_HOST_ID`` per worker runs a 64 MiB allreduce and send on
-     the DCN staging path (``wire_bytes_zero_copy`` > 0). Each job must
-     exit 0 and leave no worker and no shm segment behind.
-     ``python3 chip_smoke.py --slice10`` runs this phase alone (no
-     result line);
+     the spanning comm must freeze no in-process plan. Then per worker:
+     ping-pong GB/s 0 <-> 5, staging GB/s each way, peak memory and the
+     card's memory in use;
+   - slice 11, in the same workers right after slice 10: the spanning
+     fast path. nativewire must be the co-hosted peer's transport, its
+     byte counter must move, with no forced copy and no byte through a
+     shm segment; every plannable family (allreduce, bcast, allgather,
+     reduce, gather, scatter, reduce_scatter_block, reduce_scatter,
+     alltoall, scan, exscan) at 8 B, 1 MiB, 64 MiB and 256 MiB per rank,
+     and a bf16 SUM allreduce at 4 MiB and 256 MiB, is called
+     interpreted (its c_coll entry, what coll_compiled=0 runs), fired
+     once (the frozen wire plan recorded) and replayed 5 times (twice
+     for a 256 MiB signature other than allreduce), each bitwise the
+     closed form, then called with ``--mca op ^cuda``, bitwise the
+     closed form; ``cache_stats`` must count the spanning plans and
+     ``coll_compiled_cache_hits`` the replays; each signature's
+     executor (native, planned) and the reason a plan stayed on
+     PlannedXchg print, a planned replay must have a reason, and the
+     256 MiB allreduces must replay planned because their messages
+     exceed the shm ring; bench.py's native_rounds cases under
+     recursive doubling (allreduce 4 KiB / 256 KiB / 1 MiB, bcast 4 KiB /
+     256 KiB, allgather 64 KiB): the interpreted, PlannedXchg and C
+     executor legs bitwise equal, every replay fired by the C executor,
+     no fallback; a replayed 256 MiB allreduce must launch
+     ``stream_axpy[sum]`` as often as the interpreted call; iallreduce
+     and ibcast give the blocking bits, an allreduce_init follows its
+     buffer over 3 starts. Then: allreduce ms and bus GB/s per size
+     (slice 10's sizes), interpreted and replayed in turns, with
+     ``hier_inter_bytes`` per call; host µs per fire at 8 B; one
+     profiled replayed 256 MiB allreduce (busy share, top kernels, host
+     gaps); peak memory and the card's memory in use. A second job
+     with a distinct ``OMPITPU_HOST_ID`` per worker runs a 64 MiB
+     allreduce twice (record, replay) and a 64 MiB send on nativewire's
+     socket leg (``wire_native_bytes`` > 0, no forced copy,
+     ``wire_bytes_zero_copy`` > 0). Each job must exit 0 and leave no
+     worker, no shm segment and no shm ring behind.
+     ``python3 chip_smoke.py --slice10`` runs slices 10 and 11 alone and
+     ``--slice11`` slice 11 alone (no result line);
 4. times the kernels (CUDA events, median of 7) at the main path's
    shapes beside their bound, their plain twins and one PyTorch library
    call, the streaming kernels, the transpose and the eager chain hop in
@@ -3814,30 +3842,14 @@ def s10_schedules(w, tmvar, torch, off, dev):
               f"slice 10: the schedules differ at {nbytes} B")
 
 
-def s10_timings(w, tpvar, torch, off, dev, pidx):
-    """Allreduce ms and bus GB/s per size (median of 5, host clock
-    around a synchronize), hier_inter_bytes per call, ping-pong GB/s
-    0 <-> 5, staging GB/s each way, a profiler window of one 256 MiB
-    allreduce, peak memory and the card's memory in use."""
-    inter = tpvar.PVARS.lookup("hier_inter_bytes")
-    t = {"allreduce": {}}
-    for nbytes in S10_SIZES:
-        x = s10_rows(torch, max(1, nbytes // 4), off, dev)
-        w.allreduce(x)
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            b0 = inter.read()
-            t0 = time.perf_counter()
-            w.allreduce(x)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            sent = inter.read() - b0
-        ms = statistics.median(times) * 1e3
-        t["allreduce"][nbytes] = {
-            "ms": ms, "bus_GBps": 2 * (S10_N - 1) / S10_N * nbytes
-            / (ms * 1e-3) / 1e9, "hier_inter_bytes": sent}
-        del x
+def s10_timings(w, torch, dev, pidx):
+    """Ping-pong GB/s 0 <-> 5, staging GB/s each way, peak memory and the
+    card's memory in use. Slice 11 times the allreduce per size,
+    interpreted (slice 10's path) and replayed in turns, and profiles
+    the replayed 256 MiB call: a worker opens one profiler window only
+    (a second one in the same process recorded no device time on the
+    card)."""
+    t = {}
     t["pingpong"] = {}
     for nbytes in S10_PINGPONG:
         x = torch.ones(nbytes // 4, device=dev)
@@ -3873,21 +3885,421 @@ def s10_timings(w, tpvar, torch, off, dev, pidx):
         "device_to_host": P2P_BYTES / statistics.median(d2h) / 1e9,
         "host_to_device": P2P_BYTES / statistics.median(h2d) / 1e9}
     del x, h
-    x = s10_rows(torch, 64 * MIB, off, dev)
-    w.barrier()
-    prof = tbench.profile_window(lambda: w.allreduce(x), 1)
-    t["profile_allreduce_256MiB"] = {
-        **{k: prof[k] for k in ("window_ms", "device_busy_ms",
-                                "busy_share", "launches", "top")}}
     w.barrier()
     res = subprocess.run(["nvidia-smi", "--query-gpu=memory.used,"
                           "memory.total", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     t["card_memory_used"] = res.stdout.strip()
     w.barrier()
-    del x
     t["peak_device_memory_GiB"] = torch.cuda.max_memory_allocated() / 2**30
     return t
+
+
+#: slice 11: the frozen wire plans of every plannable family at these
+#: per-rank sizes, each fired once (record) and then replayed
+S11_FAMILIES = ("allreduce", "bcast", "allgather", "reduce", "gather",
+                "scatter", "reduce_scatter_block", "reduce_scatter",
+                "alltoall", "scan", "exscan")
+S11_SIZES = (8, MIB, 64 * MIB, 256 * MIB)
+#: the bf16 SUM allreduce's per-rank sizes (integer-valued, so exact)
+S11_BF16_SIZES = (4 * MIB, 256 * MIB)
+S11_REPLAYS = 5
+#: replays of a 256 MiB signature other than allreduce: the scans move
+#: 1 GiB between the workers per call (8-9 s each on an H100)
+S11_REPLAYS_LARGE = 2
+#: the cases bench.py's native_rounds app asserts native, under
+#: hier_inter_algorithm=recursive_doubling (bench.py:1437-1445)
+S11_NATIVE_CASES = (("allreduce", 4096), ("allreduce", 256 * 1024),
+                    ("allreduce", MIB), ("bcast", 4096),
+                    ("bcast", 256 * 1024), ("allgather", 64 * 1024))
+S11_HOST_FIRES = 200  # 8 B fires per host-time window
+
+
+def s11_signatures():
+    """(family, bytes per rank, dtype name or None for f32) of every
+    signature slice 11 records and replays."""
+    sigs = [(fam, size, None) for fam in S11_FAMILIES for size in S11_SIZES]
+    return sigs + [("allreduce", size, "bfloat16")
+                   for size in S11_BF16_SIZES]
+
+
+def s11_replays(fam, size):
+    return S11_REPLAYS if fam == "allreduce" or size < 256 * MIB \
+        else S11_REPLAYS_LARGE
+
+
+def s11_args(torch, ops, fam, size, off, dev, dtype=None):
+    """The blocking call's arguments for ``fam`` at ``size`` bytes per
+    rank: the reductions, bcast and the scans take ``size`` per rank;
+    the chunked families (allgather, gather, scatter, the reduce
+    scatters, alltoall) chunks of ``size / 8`` per rank, so no buffer
+    is larger than ``size`` per rank on either side. ``dtype`` (a
+    torch dtype name) applies to the allreduce only."""
+    dt = getattr(torch, dtype) if dtype else None
+    item = 2 if dtype else 4
+    c = max(1, size // item)
+    k = max(1, size // 32)
+
+    def rows(n):
+        return s10_rows(torch, n, off, dev, dt)
+
+    if fam == "alltoall":
+        n8 = S10_N * k
+        return (torch.stack([torch.arange(n8, device=dev, dtype=torch.int32)
+                             + (off + i) * n8 for i in range(S10_RANKS)]),)
+    return {
+        "allreduce": (rows(c), ops.SUM),
+        "bcast": (rows(c), 5),
+        "allgather": (rows(k),),
+        "reduce": (rows(c), ops.SUM, 6),
+        "gather": (rows(k), 2),
+        "scatter": (rows(S10_N * k), 6),
+        "reduce_scatter_block": (rows(S10_N * k), ops.SUM),
+        "reduce_scatter": (rows(S10_N * k), [k] * S10_N, ops.SUM),
+        "scan": (rows(c), ops.SUM),
+        "exscan": (rows(c), ops.SUM),
+    }[fam]
+
+
+def s11_want(torch, fam, size, off, dev, dtype=None):
+    """The closed form of ``fam`` on ``s11_args``' inputs (integer-valued,
+    at most 124 in bf16: exact under any fold order)."""
+    c = max(1, size // (2 if dtype else 4))
+    k = max(1, size // 32)
+    L, N = S10_RANKS, S10_N
+    ar = torch.arange(max(c, N * k), device=dev)
+    if fam == "allreduce":
+        want = s10_sum(torch, c, dev).expand(L, c).contiguous()
+        return want.to(getattr(torch, dtype)) if dtype else want
+    if fam == "bcast":
+        return s10_pattern(torch, c, 5, dev).expand(L, c).contiguous()
+    if fam == "allgather":
+        return torch.cat([s10_pattern(torch, k, r, dev) for r in range(N)]
+                         ).expand(L, N * k).contiguous()
+    if fam in ("reduce", "gather"):
+        root, n = (6, c) if fam == "reduce" else (2, N * k)
+        want = torch.zeros(L, n, device=dev)
+        if off <= root < off + L:
+            want[root - off] = s10_sum(torch, c, dev) if fam == "reduce" \
+                else torch.cat([s10_pattern(torch, k, r, dev)
+                                for r in range(N)])
+        return want
+    if fam == "scatter":
+        src = s10_pattern(torch, N * k, 6, dev)
+        return torch.stack([src[(off + b) * k:(off + b + 1) * k]
+                            for b in range(L)])
+    if fam == "reduce_scatter_block":
+        return s10_sum(torch, N * k, dev).view(N, k)[off:off + L].contiguous()
+    if fam == "reduce_scatter":
+        full = s10_sum(torch, N * k, dev)
+        return [full[(off + b) * k:(off + b + 1) * k].contiguous()
+                for b in range(L)]
+    if fam == "alltoall":
+        n8 = N * k
+        src = torch.arange(n8, device=dev, dtype=torch.int32)
+        return torch.stack([torch.cat([
+            src[(off + b) * k:(off + b + 1) * k] + j * n8 for j in range(N)])
+            for b in range(L)])
+    m = (ar[:c] % 13).float()
+    r = torch.arange(off, off + L, device=dev).float().unsqueeze(1)
+    if fam == "scan":
+        return (m * (r + 1) + r * (r + 1) / 2).contiguous()
+    return (m * r + r * (r - 1) / 2).contiguous()  # exscan
+
+
+def s11_equal(got, want):
+    if isinstance(want, list):
+        return len(got) == len(want) and all(
+            bits_equal(g, w) for g, w in zip(got, want))
+    return bits_equal(got, want)
+
+
+def s11_state(cplan, w, fam, args):
+    """The spanning plan state of ``fam`` with ``args``' first shape."""
+    desc = ("arr", tuple(args[0].shape), str(args[0].dtype))
+    sts = [s for k, s in cplan._span_states.items()
+           if k[0] == w.cid and k[1][0] == fam and k[1][1] == desc]
+    check(len(sts) == 1, f"slice 11: {len(sts)} plan states for {fam} "
+                         f"{desc}")
+    return sts[0]
+
+
+def s11_families(w, tmvar, torch, ops, off, dev):
+    """Every signature of ``s11_signatures``: the interpreted twin (the
+    c_coll entry called directly, what coll_compiled=0 runs), one
+    recording fire, then its replays (``s11_replays``); each bitwise the
+    closed form (so bitwise each other); then each signature's call
+    with ``--mca op ^cuda``, bitwise the closed form. A plan left on
+    PlannedXchg must say why; the 256 MiB allreduces, whose 128 MiB
+    messages exceed the shm ring, must replay planned for that reason.
+    Returns which executor fired each signature's replays and why."""
+    from ompi_release_tpu_torch.coll import plan as cplan
+
+    h0 = hits()
+    rows = []
+    replays = 0
+    for fam, size, dtype in s11_signatures():
+        args = s11_args(torch, ops, fam, size, off, dev, dtype)
+        want = s11_want(torch, fam, size, off, dev, dtype)
+        what = f"slice 11: {fam} {dtype or 'float32'} at {size} B"
+        check(s11_equal(w.c_coll[fam](w, *args), want),
+              f"{what}: the interpreted call differs from the closed "
+              "form")
+        method = getattr(w, fam)
+        t0 = time.perf_counter()
+        check(s11_equal(method(*args), want),
+              f"{what}: the recording fire differs")
+        t1 = time.perf_counter()
+        st = s11_state(cplan, w, fam, args)
+        check(st.plan is not None, f"{what}: no frozen plan")
+        n = s11_replays(fam, size)
+        for i in range(n):
+            check(s11_equal(method(*args), want),
+                  f"{what}: replay {i} differs")
+            check(st.last == "native" or (st.last == "planned" and st.why),
+                  f"{what}: replay {i} ran {st.last} ({st.why})")
+        if fam == "allreduce" and size == 256 * MIB:
+            check(st.last == "planned" and "exceeds" in str(st.why)
+                  and "shm ring" in str(st.why),
+                  f"{what}: replays ran {st.last} ({st.why}), not planned "
+                  "for a message larger than the shm ring")
+        replays += n
+        rows.append({"family": fam, "bytes": size,
+                     "dtype": dtype or "float32", "replays": n,
+                     "executor": st.last, "why": st.why,
+                     "rounds": len(st.plan.rounds),
+                     "record_s": t1 - t0,
+                     "replay_s": (time.perf_counter() - t1) / n})
+        del args, want
+    n, s = hits()
+    check(s - h0[1] >= replays,
+          f"slice 11: coll_compiled_cache_hits rose by {s - h0[1]} over "
+          f"{replays} replays")
+    spanning = cplan.cache_stats()["spanning_plans"]
+    check(spanning > 0, "slice 11: cache_stats reports no spanning plan")
+    tmvar.set_value("op", "^cuda")
+    try:
+        for fam, size, dtype in s11_signatures():
+            args = s11_args(torch, ops, fam, size, off, dev, dtype)
+            check(s11_equal(w.c_coll[fam](w, *args),
+                            s11_want(torch, fam, size, off, dev, dtype)),
+                  f"slice 11: {fam} {dtype or 'float32'} at {size} B with "
+                  "op ^cuda differs from the closed form")
+            del args
+    finally:
+        tmvar.VARS.unset("op")
+    torch.cuda.empty_cache()
+    return {"signatures": rows, "spanning_plans": spanning,
+            "compiled_hits": s - h0[1]}
+
+
+def s11_native_rounds(w, tmvar, tpvar, torch, off, dev):
+    """bench.py's native_rounds cases under recursive doubling: the
+    interpreted leg, the PlannedXchg leg (coll_plan_native=0) and the
+    native leg bitwise equal, and the native leg fired by the C
+    executor on every replay with no fallback."""
+    def pv(name):
+        p = tpvar.PVARS.lookup(name)
+        return float(p.read()) if p is not None else 0.0
+
+    rows = []
+    tmvar.set_value("hier_inter_algorithm", "recursive_doubling")
+    try:
+        for fam, nbytes in S11_NATIVE_CASES:
+            elems = max(1, nbytes // 4)
+            x = torch.stack([torch.arange(elems, device=dev).float() * 0.25
+                             + i for i in range(S10_RANKS)])
+
+            def call(fam=fam, x=x):
+                if fam == "allreduce":
+                    return w.allreduce(x)
+                if fam == "bcast":
+                    return w.bcast(x, root=0)
+                return w.allgather(x)
+
+            def leg():
+                call()  # record (+ the native compile)
+                return [call() for _ in range(S11_REPLAYS)]
+
+            tmvar.set_value("coll_compiled", 0)
+            want = leg()[-1]
+            tmvar.VARS.unset("coll_compiled")
+            tmvar.set_value("coll_plan_native", 0)
+            planned = leg()
+            tmvar.VARS.unset("coll_plan_native")
+            f0, fb0 = pv("plan_native_fires"), pv("plan_native_fallbacks")
+            native = leg()
+            fires = pv("plan_native_fires") - f0
+            fallbacks = pv("plan_native_fallbacks") - fb0
+            what = f"slice 11: native_rounds {fam} at {nbytes} B"
+            check(all(bits_equal(g, want) for g in planned + native),
+                  f"{what}: the legs differ bitwise")
+            check(fires >= S11_REPLAYS and fallbacks == 0,
+                  f"{what}: {fires} native fires, {fallbacks} fallbacks")
+            rows.append({"family": fam, "bytes": nbytes,
+                         "native_fires": fires, "fallbacks": fallbacks})
+    finally:
+        tmvar.VARS.unset("hier_inter_algorithm")
+    return rows
+
+
+def s11_launches(w, torch, cuda_op, off, dev):
+    """stream_axpy[sum] launches in one replayed 256 MiB spanning
+    allreduce against the interpreted call's."""
+    from ompi_release_tpu_torch import ops
+
+    x = s10_rows(torch, P2P_BYTES // 4, off, dev)
+    w.allreduce(x)  # the signature's plan exists: this is a replay
+    counts = {}
+    for leg in ("interpreted", "replayed"):
+        torch.cuda.synchronize()
+        n0 = cuda_op.LAUNCHES["sum"]
+        if leg == "interpreted":
+            w.c_coll["allreduce"](w, x, ops.SUM)
+        else:
+            w.allreduce(x)
+        torch.cuda.synchronize()
+        counts[leg] = cuda_op.LAUNCHES["sum"] - n0
+    check(counts["replayed"] == counts["interpreted"] > 0,
+          f"slice 11: stream_axpy[sum] launches in a 256 MiB allreduce: "
+          f"{counts}")
+    del x
+    return counts
+
+
+def s11_nbc(w, torch, off, dev):
+    """iallreduce and ibcast on the spanning world give the blocking
+    call's bits; an allreduce_init started 3 times follows its buffer's
+    current contents."""
+    count = MIB // 4
+    x = s10_rows(torch, count, off, dev)
+    r1, r2 = w.iallreduce(x), w.ibcast(x, root=5)
+    r1.wait()
+    r2.wait()
+    check(bits_equal(r1.value, w.allreduce(x))
+          and bits_equal(r2.value, w.bcast(x, root=5)),
+          "slice 11: iallreduce/ibcast differ from the blocking calls")
+    buf = x.clone()
+    req = w.allreduce_init(buf)
+    for k in range(3):
+        buf.copy_(x * (k + 1))
+        req.start()
+        req.wait()
+        check(bits_equal(req.value, s10_sum(torch, count, dev).expand(
+            S10_RANKS, count) * (k + 1)),
+            f"slice 11: allreduce_init start {k} did not follow its buffer")
+    return {"iallreduce": True, "ibcast": True, "persistent_starts": 3}
+
+
+def s11_timings(w, tpvar, torch, off, dev):
+    """Spanning allreduce ms and bus GB/s per size, the interpreted call
+    (the c_coll entry, slice 10's path) and the replay taken in turns
+    (median of 5 each, host clock around a synchronize), with
+    hier_inter_bytes per call; host µs per fire at 8 B; one profiled
+    256 MiB replay; peak memory."""
+    from ompi_release_tpu_torch import ops
+
+    inter = tpvar.PVARS.lookup("hier_inter_bytes")
+    t = {"allreduce": {}}
+    for nbytes in S10_SIZES:
+        x = s10_rows(torch, max(1, nbytes // 4), off, dev)
+        legs = {"interpreted": lambda: w.c_coll["allreduce"](w, x, ops.SUM),
+                "replayed": lambda: w.allreduce(x)}
+        legs["replayed"]()  # the plan is recorded before the turns
+        times = {k: [] for k in legs}
+        for r in range(5):
+            for name in (list(legs) if r % 2 == 0 else list(legs)[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                legs[name]()
+                torch.cuda.synchronize()
+                times[name].append(time.perf_counter() - t0)
+        b0 = inter.read()
+        legs["replayed"]()
+        row = {"hier_inter_bytes": inter.read() - b0}
+        for name, ts in times.items():
+            ms = statistics.median(ts) * 1e3
+            row[name] = {"ms": ms, "bus_GBps": 2 * (S10_N - 1) / S10_N
+                         * nbytes / (ms * 1e-3) / 1e9}
+        t["allreduce"][nbytes] = row
+        del x, legs
+    x = s10_rows(torch, 2, off, dev)
+    host = {}
+    for name, fn in (("interpreted",
+                      lambda: w.c_coll["allreduce"](w, x, ops.SUM)),
+                     ("replayed", lambda: w.allreduce(x))):
+        fn()
+        w.barrier()
+        t0 = time.perf_counter()
+        for _ in range(S11_HOST_FIRES):
+            fn()
+        host[name] = (time.perf_counter() - t0) / S11_HOST_FIRES * 1e6
+    t["host_us_per_fire_8B"] = host
+    x = s10_rows(torch, P2P_BYTES // 4, off, dev)
+    w.allreduce(x)
+    w.barrier()
+    prof = tbench.profile_window(lambda: w.allreduce(x), 1)
+    t["profile_replayed_allreduce_256MiB"] = {
+        **{k: prof[k] for k in ("window_ms", "device_busy_ms",
+                                "busy_share", "launches", "top")},
+        "host_gap_ms": prof["window_ms"] - prof["device_busy_ms"]}
+    res = subprocess.run(["nvidia-smi", "--query-gpu=memory.used,"
+                          "memory.total", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    t["card_memory_used"] = res.stdout.strip()
+    del x
+    w.barrier()
+    t["peak_device_memory_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    return t
+
+
+def s11_phase(w, rt, tmvar, tpvar, torch, cuda_op, off, dev, pidx):
+    """Slice 11 in one worker: the native datapath carries every
+    cross-process payload (nativewire selected for the co-hosted peer,
+    its byte counter moving, no forced copy, no shm segment), the wire
+    plans of every plannable family, the C executor's cases, the
+    256 MiB launch count, the nonblocking and persistent calls, then the
+    timings."""
+    from ompi_release_tpu_torch import ops
+
+    def pv(name):
+        p = tpvar.PVARS.lookup(name)
+        return float(p.read()) if p is not None else 0.0
+
+    router = rt.wire
+    peer = 1 - pidx
+    check(router._nw is not None and router._btl_for(peer) is router._nw,
+          f"slice 11: the co-hosted peer rides "
+          f"{type(router._btl_for(peer)).__name__}, not nativewire")
+    nb0 = pv("wire_native_bytes")
+    secs = {}
+    t0 = time.perf_counter()
+    out = {"families": s11_families(w, tmvar, torch, ops, off, dev)}
+    secs["families"] = time.perf_counter() - t0
+    out["native_rounds"] = s11_native_rounds(w, tmvar, tpvar, torch, off,
+                                             dev)
+    out["sum_launches_256MiB"] = s11_launches(w, torch, cuda_op, off, dev)
+    out["nbc"] = s11_nbc(w, torch, off, dev)
+    secs["native_rounds_launches_nbc"] = time.perf_counter() - t0 \
+        - secs["families"]
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["timings"] = s11_timings(w, tpvar, torch, off, dev)
+    secs["timings"] = time.perf_counter() - t1
+    out["phase_seconds"] = secs
+    out["wire_native_bytes"] = pv("wire_native_bytes") - nb0
+    out["wire_native_fallback_copies"] = pv("wire_native_fallback_copies")
+    out["wire_native_reaped_bytes"] = pv("wire_native_reaped_bytes")
+    out["btl_shm_bytes"] = pv("btl_shm_bytes")
+    check(out["wire_native_bytes"] > 0,
+          "slice 11: wire_native_bytes did not advance")
+    check(out["wire_native_fallback_copies"] == 0,
+          f"slice 11: {out['wire_native_fallback_copies']} forced copies "
+          "on the native datapath")
+    check(out["btl_shm_bytes"] == 0,
+          f"slice 11: {out['btl_shm_bytes']} bytes went through shm "
+          "segments")
+    return out
 
 
 def s10_worker():
@@ -3899,7 +4311,7 @@ def s10_worker():
 
     import torch
 
-    mode = os.environ["CHIP_SMOKE_S10_MODE"]
+    mode = os.environ["CHIP_SMOKE_S10_MODE"]  # main | s11 | dcn
     if mode == "dcn":
         # a distinct shm identity per worker: every payload rides the
         # DCN staging path (chunked frames over the OOB)
@@ -3926,13 +4338,23 @@ def s10_worker():
           f"slice 10: allreduce providers {w._coll_providers}")
     out = {"pidx": pidx, "pid": os.getpid(), "mode": mode}
     if mode == "dcn":
+        # slice 10's DCN leg, now the vectored-socket leg of the native
+        # datapath: a 64 MiB allreduce fired twice (record, replay) and
+        # a 64 MiB send
+        nw = rt.wire._nw
+        check(nw is not None and rt.wire._btl_for(1 - pidx) is nw
+              and not nw._same_host(1 - pidx),
+              "slice 11 (dcn): the peer does not ride nativewire's "
+              "socket leg")
         zc = tpvar.PVARS.lookup("wire_bytes_zero_copy")
-        z0 = zc.read()
+        nb = tpvar.PVARS.lookup("wire_native_bytes")
+        z0, n0 = zc.read(), nb.read()
         count = S10_DCN_BYTES // 4
-        got = w.allreduce(s10_rows(torch, count, off, dev))
-        check(bits_equal(got, s10_sum(torch, count, dev).expand(
-            S10_RANKS, count).contiguous()),
-            "slice 10 (dcn): the 64 MiB allreduce differs")
+        for _ in range(2):
+            got = w.allreduce(s10_rows(torch, count, off, dev))
+            check(bits_equal(got, s10_sum(torch, count, dev).expand(
+                S10_RANKS, count).contiguous()),
+                "slice 10 (dcn): the 64 MiB allreduce differs")
         if pidx == 0:
             w.send(s10_pattern(torch, count, 3, dev), dest=6, tag=5, rank=1)
         else:
@@ -3941,8 +4363,19 @@ def s10_worker():
                   "slice 10 (dcn): the 64 MiB send differs")
         w.barrier()
         out["wire_bytes_zero_copy"] = zc.read() - z0
+        out["wire_native_bytes"] = nb.read() - n0
+        copies = tpvar.PVARS.lookup("wire_native_fallback_copies").read()
+        out["wire_native_fallback_copies"] = copies
         check(out["wire_bytes_zero_copy"] > 0,
               "slice 10 (dcn): wire_bytes_zero_copy stayed 0")
+        check(out["wire_native_bytes"] > 0 and copies == 0,
+              f"slice 11 (dcn): native bytes {out['wire_native_bytes']}, "
+              f"forced copies {copies}")
+    elif mode == "s11":
+        cuda_op.reset_launches()
+        out["s11"] = s11_phase(w, rt, tmvar, tpvar, torch, cuda_op, off,
+                               dev, pidx)
+        out["s11_sum_launches"] = cuda_op.LAUNCHES["sum"]
     else:
         cuda_op.reset_launches()
         sums = []
@@ -3990,10 +4423,19 @@ def s10_worker():
                   f"slice 10: {name} differs from the op ^cuda call")
         del outs, plain
         torch.cuda.empty_cache()
-        out["timings"] = s10_timings(w, tpvar, torch, off, dev, pidx)
+        out["timings"] = s10_timings(w, torch, dev, pidx)
+        torch.cuda.synchronize()
+        out["s10_sum_launches"] = cuda_op.LAUNCHES["sum"]
+        cuda_op.reset_launches()
+        out["s11"] = s11_phase(w, rt, tmvar, tpvar, torch, cuda_op, off,
+                               dev, pidx)
+        torch.cuda.synchronize()
+        out["s11_sum_launches"] = cuda_op.LAUNCHES["sum"]
+    if mode != "dcn":
         # the local shadow comm's plans are CUDA graphs, as on one
-        # process (each size fired 6 times in one generation); the
-        # spanning comm's schedules stay interpreted
+        # process (slice 11's timings fire each size 11 times in one
+        # generation); the spanning comm's frozen plans are wire plans,
+        # never in-process device plans
         shadow = w._hier_module.shadow
         entries = {k: e for k, e in plan_entries(shadow).items()
                    if k[1][0] == "allreduce"}
@@ -4002,7 +4444,8 @@ def s10_worker():
             for e in entries.values()),
             f"slice 10: the shadow comm's allreduce plans are not all "
             f"graphs: {bad_plans(shadow)}")
-        check(not plan_entries(w), "slice 10: the spanning comm froze a plan")
+        check(not plan_entries(w), "slice 10: the spanning comm froze an "
+              "in-process plan")
         out["shadow_graphs"] = len(entries)
     out["seconds"] = time.perf_counter() - t_start
     with open(os.path.join(os.environ["CHIP_SMOKE_S10_OUT"],
@@ -4036,9 +4479,14 @@ def s10_job(mode, out_dir):
     pids = [p.pid for p in job.procs.values()]
     check(all(p.poll() is not None for p in job.procs.values()),
           f"slice 10 ({mode}): a worker outlived its job")
+    # shm segments carry their creator's pid; nativewire's rings the
+    # owner's token, which starts with its pid in hex (btl/nativewire
+    # _ring_name)
     leftovers = [f for pid in pids
-                 for f in glob.glob(f"/dev/shm/ompitpu-{pid}-*")]
-    check(not leftovers, f"slice 10 ({mode}): shm segments left {leftovers}")
+                 for f in glob.glob(f"/dev/shm/ompitpu-{pid}-*")
+                 + glob.glob(f"/dev/shm/onw-{pid:x}-*")]
+    check(not leftovers, f"slice 10 ({mode}): shm segments or rings left "
+                         f"{leftovers}")
     results = []
     for i in range(S10_PROCS):
         path = os.path.join(out_dir, f"worker{i}.json")
@@ -4049,14 +4497,15 @@ def s10_job(mode, out_dir):
     return rc, wall, pids, results
 
 
-def phase_slice10(cuda_op, torch):
-    """Slice 10's path: the parent builds the kernel library and the
-    native library, then runs a tpurun job of 2 workers x 4 virtual
-    ranks on cuda:0 (COMM_WORLD spans 8 ranks over 2 processes) and a
-    second, shorter job on the DCN staging path. The workers share the
-    card with this process, which releases its cached memory first.
-    Returns what ``report_slice10`` prints and the SUM launches summed
-    over the workers."""
+def phase_slice10(cuda_op, torch, mode="main"):
+    """Slices 10 and 11's path: the parent builds the kernel library and
+    the native library, then runs a tpurun job of 2 workers x 4 virtual
+    ranks on cuda:0 (COMM_WORLD spans 8 ranks over 2 processes; ``mode``
+    "main" runs slice 10's phase and then slice 11's in each worker,
+    "s11" slice 11's alone) and a second, shorter job on the DCN leg.
+    The workers share the card with this process, which releases its
+    cached memory first. Returns what ``report_slice10`` prints and the
+    SUM launches summed over the workers, per slice."""
     import gc
     import tempfile
 
@@ -4072,48 +4521,86 @@ def phase_slice10(cuda_op, torch):
     log(f"phase 3: slice 10: native library {so} (make ran: {built}) and "
         f"the kernels built in {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as td:
-        rc, wall, pids, res = s10_job("main", td)
+        rc, wall, pids, res = s10_job(mode, td)
     check(rc == 0, f"slice 10: the job exited {rc}")
-    sums = [r["launches"]["sum"] for r in res]
-    check(all(n > 0 for n in sums),
-          f"slice 10: stream_axpy[sum] launches per worker {sums}")
-    passes = sum(r["ring"][0] for r in res)
-    check(passes == (S10_N - 1) + 3 * S10_N
-          and [r["ring"][1] for r in res] == [0, None],
-          f"slice 10: ring passes {passes}, {[r['ring'] for r in res]}")
-    log(f"phase 3: slice-10 path: COMM_WORLD of {S10_N} ranks over "
-        f"{S10_PROCS} processes, every result bitwise its closed form and "
-        f"the op ^cuda call; stream_axpy[sum] launches {sums}; the job "
-        f"took {wall:.1f} s")
+    s11_sums = [r["s11_sum_launches"] for r in res]
+    check(all(n > 0 for n in s11_sums),
+          f"slice 11: stream_axpy[sum] launches per worker {s11_sums}")
+    sums = [0, 0]
+    if mode == "main":
+        sums = [r["s10_sum_launches"] for r in res]
+        check(all(n > 0 for n in sums),
+              f"slice 10: stream_axpy[sum] launches per worker {sums}")
+        passes = sum(r["ring"][0] for r in res)
+        check(passes == (S10_N - 1) + 3 * S10_N
+              and [r["ring"][1] for r in res] == [0, None],
+              f"slice 10: ring passes {passes}, {[r['ring'] for r in res]}")
+        log(f"phase 3: slice-10 path: COMM_WORLD of {S10_N} ranks over "
+            f"{S10_PROCS} processes, every result bitwise its closed form "
+            f"and the op ^cuda call; stream_axpy[sum] launches {sums}")
+    log(f"phase 3: slice-11 path: nativewire carries every payload, every "
+        f"plannable family's replays bitwise the interpreted call, the "
+        f"closed form and op ^cuda; native_rounds' cases fired by the C "
+        f"executor; stream_axpy[sum] launches {s11_sums}; the job took "
+        f"{wall:.1f} s")
+    for r in res:
+        for row in r["s11"]["families"]["signatures"]:
+            log(json.dumps({"s11_plan": row["family"],
+                            "bytes": row["bytes"], "dtype": row["dtype"],
+                            "replays": row["replays"], "worker": r["pidx"],
+                            "executor": row["executor"],
+                            "rounds": row["rounds"], "why": row["why"],
+                            "record_s": row["record_s"],
+                            "replay_s": row["replay_s"]}))
     with tempfile.TemporaryDirectory() as td:
         rc2, wall2, _, res2 = s10_job("dcn", td)
     check(rc2 == 0, f"slice 10 (dcn): the job exited {rc2}")
-    log(f"phase 3: slice 10 passed in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 3: slices 10 and 11 passed in "
+        f"{time.perf_counter() - t0:.1f} s")
     return {"res": res, "wall": wall, "res_dcn": res2, "wall_dcn": wall2,
-            "sum": sum(sums)}
+            "sum": sum(sums), "sum_s11": sum(s11_sums), "mode": mode}
 
 
 def report_slice10(s10, baseline=None):
-    """Slice 10's timings, each beside the card's name and power limit
-    and (when given) the one-process 8-rank tuned allreduce's ms."""
+    """Slices 10 and 11's timings, each beside the card's name and power
+    limit: the spanning allreduce per size interpreted (slice 10's path)
+    and replayed (slice 11's) beside, when given, the one-process 8-rank
+    tuned allreduce's ms."""
     card = card_line()
     for r in s10["res"]:
-        t = r["timings"]
-        for nbytes, row in t["allreduce"].items():
+        t11 = r["s11"]["timings"]
+        for nbytes, row in t11["allreduce"].items():
             one = (baseline or {}).get(int(nbytes))
-            log(json.dumps({"s10_allreduce_bytes_per_rank": int(nbytes),
+            log(json.dumps({"s11_allreduce_bytes_per_rank": int(nbytes),
                             "worker": r["pidx"], **row,
                             "one_process_8rank_ms": one, "card": card}))
-        log(json.dumps({"s10_worker": r["pidx"], "card": card,
-                        **{k: v for k, v in t.items()
-                           if k != "allreduce"},
-                        "sum_launches_by_call": r["sum_launches_by_call"],
-                        "sum_launches_local_vs_spanning_256MiB":
-                            r["sum_launches_local_vs_spanning_256MiB"],
-                        "seconds": r["seconds"]}))
-    log(json.dumps({"s10_dcn": [r["wire_bytes_zero_copy"]
-                                for r in s10["res_dcn"]],
-                    "job_wall_s": s10["wall_dcn"], "card": card}))
+        s11 = r["s11"]
+        log(json.dumps({
+            "s11_worker": r["pidx"], "card": card,
+            **{k: v for k, v in t11.items() if k != "allreduce"},
+            "native_rounds": s11["native_rounds"],
+            "sum_launches_256MiB": s11["sum_launches_256MiB"],
+            "spanning_plans": s11["families"]["spanning_plans"],
+            "compiled_hits": s11["families"]["compiled_hits"],
+            "wire_native_bytes": s11["wire_native_bytes"],
+            "wire_native_fallback_copies":
+                s11["wire_native_fallback_copies"],
+            "wire_native_reaped_bytes": s11["wire_native_reaped_bytes"],
+            "btl_shm_bytes": s11["btl_shm_bytes"],
+            "sum_launches": r["s11_sum_launches"],
+            "phase_seconds": s11["phase_seconds"],
+            "seconds": r["seconds"]}))
+        if "timings" in r:
+            log(json.dumps({
+                "s10_worker": r["pidx"], "card": card, **r["timings"],
+                "sum_launches_by_call": r["sum_launches_by_call"],
+                "sum_launches_local_vs_spanning_256MiB":
+                    r["sum_launches_local_vs_spanning_256MiB"]}))
+    log(json.dumps({"s10_dcn": [
+        {k: r[k] for k in ("wire_bytes_zero_copy", "wire_native_bytes",
+                           "wire_native_fallback_copies")}
+        for r in s10["res_dcn"]], "job_wall_s": s10["wall_dcn"],
+        "card": card}))
     log(json.dumps({"s10_job_wall_s": s10["wall"], "card": card}))
 
 
@@ -4137,11 +4624,13 @@ def main():
         return s10_worker()
     t_start = time.perf_counter()
     log(f"card: {card_line()}")
-    if sys.argv[1:] == ["--slice10"]:
-        # slice 10 alone (the builds, the two jobs and their timings);
-        # it prints no result line
-        report_slice10(phase_slice10(cuda_op, torch))
-        log(f"chip_smoke --slice10: passed in "
+    if sys.argv[1:] in (["--slice10"], ["--slice11"]):
+        # slices 10 and 11 alone (--slice10) or slice 11 alone
+        # (--slice11): the builds, the two jobs and their timings; it
+        # prints no result line
+        mode = "main" if sys.argv[1] == "--slice10" else "s11"
+        report_slice10(phase_slice10(cuda_op, torch, mode))
+        log(f"chip_smoke {sys.argv[1]}: passed in "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
     if sys.argv[1:] == ["--slice9"]:
@@ -4301,8 +4790,9 @@ def main():
     report_slice10(s10, one_process_ms)
     for row in rows:
         if row["name"] == "stream_axpy[sum]":
-            row["launches"] += s10["sum"]
+            row["launches"] += s10["sum"] + s10["sum_s11"]
             row["launches_by_path"]["slice10"] = s10["sum"]
+            row["launches_by_path"]["slice11"] = s10["sum_s11"]
     run_bench(torch, dev)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

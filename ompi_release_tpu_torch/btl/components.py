@@ -207,9 +207,8 @@ def _int64_rec(v: int) -> bytes:
 
 class FrameTemplate:
     """Precomposed SGH2/SGC2 framing for ONE fixed ``(shape, dtype,
-    segsize)`` transfer slot, cached across transfers (the JAX
-    package's frozen schedule plans use it too; the port's spanning
-    plans come with the native datapath slice).
+    segsize)`` transfer slot, cached across transfers and frozen into
+    the spanning schedule plans (``coll/plan.py``).
 
     Everything a header needs that does not depend on the send
     instant is packed ONCE here: the magic/dtype/shape/chunk-count
@@ -251,6 +250,27 @@ class FrameTemplate:
     def header(self, xfer: int, crc: int) -> bytes:
         return b"".join((self.pre, _int64_rec(xfer),
                          self.mid, _int64_rec(crc)))
+
+    def sg_lists(self, mv, xfer: int, crc: int):
+        """Yield each wire frame of one transfer as a scatter-gather
+        PART LIST instead of joined bytes: the header frame, then
+        ``[magic+xfer, idx_tail, source_slice]`` per fragment. The
+        nativewire datapath hands these lists to ``writev``/the shm
+        ring, so the fragment payload goes from the source buffer to
+        the wire without ever being joined into a Python bytes —
+        ``b"".join``-ing each list reproduces the staged frames
+        byte-identically (the identity the tests pin)."""
+        yield [self.header(xfer, crc)]
+        xb = _CHUNK2_MAGIC + int(xfer).to_bytes(8, "big")
+        chunk = self.chunk
+        for off, tail in zip(self.offsets, self.idx_tails):
+            yield [xb, tail, mv[off:off + chunk]]
+
+
+def plan_frame_template(shape, dtype, segsize: int) -> FrameTemplate:
+    """Build the frozen framing for one planned transfer slot (see
+    :class:`FrameTemplate`)."""
+    return FrameTemplate(shape, dtype, segsize)
 
 #: interpreted-path template cache: ``staged_frames`` used to re-pack
 #: the constant header records (magic, dtype, shape, chunking) through
@@ -490,6 +510,39 @@ class DcnBtl(base.BtlModule):
         xfer = next(_xfer_ids)
         # end-to-end payload CRC (the opal_datatype_checksum role):
         # one read pass over the source view, no copy
+        yield tpl.header(xfer, zlib.crc32(mv))
+        xb = _CHUNK2_MAGIC + int(xfer).to_bytes(8, "big")
+        chunk = tpl.chunk
+        for off, tail in zip(tpl.offsets, tpl.idx_tails):
+            sl = mv[off:off + chunk]
+            _sliced_bytes.add(len(sl))
+            yield b"".join((xb, tail, sl))
+            self.staged_chunks_pvar.add()
+        self.staged_bytes_pvar.add(tpl.nbytes)
+
+    def planned_frames(self, data, tpl: FrameTemplate):
+        """Yield the wire frames of one staged transfer from a frozen
+        :class:`FrameTemplate` — the steady-state send path of a
+        compiled schedule plan: precomposed header byte strings plus
+        memoryview slices at plan-time offsets. Byte-identical to
+        :meth:`staged_frames` for the same array, with the same pvar
+        accounting; only the per-send transfer id and payload CRC are
+        computed live. A shape/dtype mismatch is a loud plan-integrity
+        error, never a silently wrong header."""
+        import zlib
+
+        arr, dname = host_payload(data)
+        if not tpl.matches(arr, dname):
+            raise MPIError(
+                ErrorCode.ERR_INTERN,
+                f"planned staged transfer: buffer {arr.shape}/"
+                f"{dname} does not match the frozen frame template "
+                f"{tpl.shape}/{tpl.dtype} — schedule diverged from its "
+                "plan (rebuild the persistent request)",
+            )
+        mv = memoryview(arr.reshape(-1).view(np.uint8)) if arr.size \
+            else memoryview(b"")
+        xfer = next(_xfer_ids)
         yield tpl.header(xfer, zlib.crc32(mv))
         xb = _CHUNK2_MAGIC + int(xfer).to_bytes(8, "big")
         chunk = tpl.chunk

@@ -61,9 +61,15 @@ old fixed-process-order ``self._recv(p)`` loops. Per-peer FIFO order
 still holds (the OOB guarantees it), so multi-message rounds keep
 their member ordering.
 
-Not ported yet: the frozen-schedule plans of spanning comms (the
-plan layer's record/replay), the round-state table and flow ids the
-observability plane reads, and the watchdog.
+Frozen schedules: ``coll/plan.py`` records a schedule's rounds on its
+first fire and replays them later by swapping :attr:`_HierModule._xchg`
+for the duration of ONE schedule run (the schedule body itself still
+runs, folds on the card included); a replayed round sends through
+:meth:`_HierModule._send_all_planned` (precomposed frame templates) and
+reaps with the plan's timeout snapshot.
+
+Not ported yet: the round-state table and flow ids the observability
+plane reads, and the watchdog (ROADMAP item 16).
 """
 
 from __future__ import annotations
@@ -223,6 +229,10 @@ class _HierModule:
             _tuning_db.fingerprint_for(self.host_of, len(self.procs)),
             force=False)
         self._xchg = _XchgAdapter(self)
+        # handle for coll/plan's frozen-schedule record/replay: the
+        # plan layer swaps _xchg for the duration of ONE schedule run
+        # (ops on a comm are engine-serialized, so the swap is
+        # race-free) — it needs the module, which only closures hold
         comm._hier_module = self
 
     # -- plumbing ----------------------------------------------------------
@@ -310,13 +320,31 @@ class _HierModule:
                 _inter_msgs_sent.add()
                 _inter_bytes.add(int(a.nbytes))
 
+    def _send_all_planned(self, rnd, sends: Dict[int, list]) -> None:
+        """Steady-state planned round send (coll/plan frozen
+        schedules): channel tag, striping depth, and per-message frame
+        headers were precomposed at plan time, so this path is
+        memoryview slicing behind precomposed header bytes.
+        Inter-process pvar accounting matches :meth:`_send_all`
+        exactly."""
+        self.router.coll_send_planned(self.comm, rnd, sends)
+        for arrs in sends.values():
+            for a in arrs:
+                _inter_msgs_sent.add()
+                _inter_bytes.add(int(a.nbytes))
+
     def _reap(self, pending: Dict[int, int],
               on_arrival: Callable[[int, np.ndarray], None],
-              timeout_ms: Optional[int] = None) -> None:
+              timeout_ms: Optional[int] = None,
+              record: bool = True) -> None:
         """Reap ``pending[p]`` messages per peer in ARRIVAL order —
         a slow peer never blocks the reap of one whose data already
         landed (the posted-sends overlap the module docstring pins).
-        ``timeout_ms``: explicit wait bound; None = the live cvar."""
+        ``timeout_ms``: explicit wait bound (frozen-plan replays pass
+        their plan-time snapshot); None = the live cvar. ``record``
+        is the reference's span switch (replays pass False); spans
+        wait for the observability plane, so it changes nothing
+        here."""
         left = sum(pending.values())
         while left:
             src, arr = self.router.coll_recv_any(self.comm, pending,

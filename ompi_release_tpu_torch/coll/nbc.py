@@ -1,5 +1,4 @@
-"""Nonblocking & persistent collectives — the ``coll/libnbc`` analogue,
-in-process half.
+"""Nonblocking & persistent collectives — the ``coll/libnbc`` analogue.
 
 Counterpart of ``ompi_release_tpu/coll/nbc.py``. The reference runs
 ``MPI_Iallreduce``-class operations as round schedules advanced by the
@@ -20,6 +19,24 @@ by ``MPI_Start`` many times. On a communicator inside one process:
   :func:`coll.plan.dispatch`, as the blocking path does: a seen
   signature fires its frozen plan (on the card, a CUDA-graph replay).
 
+On a communicator that spans processes (a ``tpurun`` world), the hier
+collective's wire exchanges block, so the whole round schedule becomes
+a :class:`~runtime.progress.ScheduledOp` posted to the progress engine.
+Dispatch never touches the wire; execution happens in posting order —
+at ``wait()`` on the caller (polling mode) or off the caller on the
+progress thread (``progress_thread`` cvar). Each op carries a wire pump
+(:func:`_make_pump`) so engine ticks reap the comm's completed transfers
+into the router's early-transfer queue while the schedule is still
+queued or mid-round. Blocking spanning collectives go through the SAME
+machinery — :func:`run_blocking` posts the schedule and waits it — so
+there is exactly one round-advancing code path, and every spanning fire
+records or replays its frozen wire plan through :mod:`coll.plan`
+(:func:`~coll.plan.spanning_wrap`). The schedule body launches CUDA
+work (the shadow comm's collective, the folds): the op carries the
+comm's device and the stream current where it was posted, and runs with
+both current on whichever thread claims it, so the work is ordered
+exactly as if the caller had run it.
+
 Persistent requests build their plan once at ``*_init`` (resolved c_coll
 entry, op object, bound buffer, memoized signature); ``Request.start()``
 re-fires it against the buffer's CURRENT contents (the MPI persistent
@@ -28,14 +45,14 @@ buffer-reuse contract).
 Bitwise parity is structural: the nonblocking path runs the identical
 collective body the blocking path runs.
 
-Not ported yet: the spanning (multi-process) branches raise
-``ERR_NOT_AVAILABLE`` until the multi-process slice; the sentinel and
-observability hooks wait for ``obs``.
+Not ported yet: the sentinel hooks (``_inline_tpl``) and observability
+spans wait for the observability plane (ROADMAP item 16).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import time as _time
+from typing import Any, Callable, Dict, Optional, Tuple
 
 from ..mca import pvar
 from ..request.request import Request
@@ -48,6 +65,15 @@ _ops_posted = pvar.counter(
     "nonblocking/blocking collective schedules posted to the progress "
     "engine",
 )
+# the SAME registered timer coll/driver feeds (registration is
+# idempotent): here it covers the spanning POSTING prelude — op
+# construction, engine enqueue — before the schedule/wire takes over
+_orch = pvar.timer(
+    "coll_orchestration_seconds",
+    "Python orchestration seconds on the collective dispatch path "
+    "(decision, planning, validation, posting — before the compiled "
+    "program or wire transport takes over)",
+)
 _persistent_starts = pvar.counter(
     "nbc_persistent_starts",
     "persistent-collective start() fires (plans built once at *_init)",
@@ -58,14 +84,67 @@ def _comm_key(comm) -> Tuple[str, int]:
     return ("comm", comm.cid)
 
 
-def _in_process(comm) -> None:
-    if getattr(comm, "spans_processes", False):
+def _spanning(comm) -> bool:
+    """True for a comm whose schedules run over the wire router. A comm
+    that claims to span processes in a runtime with no router (not
+    launched under tpurun) has no way to reach its peers: refused."""
+    if not getattr(comm, "spans_processes", False):
+        return False
+    if getattr(getattr(comm, "runtime", None), "wire", None) is None:
         raise MPIError(
             ErrorCode.ERR_NOT_AVAILABLE,
-            f"{comm.name} spans controller processes: nonblocking "
-            "collectives there need the multi-process runtime, which is "
-            "not ported yet",
+            f"{comm.name} spans controller processes but this runtime "
+            "has no wire router (launch the job with tpurun)",
         )
+    return True
+
+
+def _make_pump(comm) -> Callable[[], int]:
+    """The op's receive-side wire tick: reap completed collective
+    transfers on this comm's payload channel into the router's
+    early-transfer queue (a no-op once the comm is freed)."""
+
+    def pump() -> int:
+        router = getattr(comm.runtime, "wire", None)
+        if router is None or getattr(comm, "_freed", False):
+            return 0
+        return router.coll_pump(comm)
+
+    return pump
+
+
+def _on_stream(fn: Callable, device) -> Callable:
+    """``fn`` run with the stream that is current HERE (the posting
+    thread) made current on whichever thread runs it: the schedule's
+    CUDA work is then ordered after the caller's earlier work, and the
+    caller's later work after it, as if the caller had run it."""
+    if getattr(device, "type", None) != "cuda":
+        return fn
+    import torch
+
+    stream = torch.cuda.current_stream(device)
+
+    def run(*a, **k):
+        with torch.cuda.stream(stream):
+            return fn(*a, **k)
+
+    return run
+
+
+def _make_op(comm, name: str, fn: Callable, args: Tuple,
+             kw: Optional[Dict]) -> _progress.ScheduledOp:
+    return _progress.ScheduledOp(
+        _comm_key(comm), name, _on_stream(fn, comm.device), cid=comm.cid,
+        args=args, kw=kw or {}, pump=_make_pump(comm), device=comm.device,
+    )
+
+
+def _post(op: _progress.ScheduledOp) -> None:
+    """Hand one fully-wired op to the engine. Completion callbacks
+    MUST be attached before this call: with the progress thread on,
+    the schedule can run to completion the instant it is posted."""
+    _ops_posted.add()
+    _progress.engine().post(op)
 
 
 def _resolve(comm, name: str) -> Callable:
@@ -95,6 +174,9 @@ def _op_request(op: _progress.ScheduledOp) -> Request:
         _eng.wait(_op)  # raises the schedule's error
 
     req = Request(progress_fn=prog, block_fn=block)
+    # expose the schedule handle: per-pass consumers (parallel/tree's
+    # hidden-time accounting) read its timing
+    req._sched_op = op
 
     def finish(o, _req=req) -> None:
         if o.error is None:
@@ -130,9 +212,11 @@ def async_request(value, device) -> Request:
 def ibarrier(comm) -> Request:
     """A barrier that really is nonblocking: in driver mode every rank's
     work is queued on the comm's device, so the barrier completes when
-    an event recorded behind it fires."""
+    an event recorded behind it fires. On a spanning comm it is a
+    schedule posted in the comm's collective order."""
     comm._check_alive()
-    _in_process(comm)
+    if _spanning(comm):
+        return icoll(comm, "barrier", ())
     return async_request(None, comm.device)
 
 
@@ -157,13 +241,49 @@ def _nested_inline(comm, fn, args, kw) -> Optional[Request]:
 def icoll(comm, name: str, args: Tuple, kw: Optional[Dict] = None
           ) -> Request:
     """Nonblocking collective: dispatch returns before completion for
-    every family (nothing on the dispatch path waits on the device); a
-    seen signature fires its frozen plan through coll/plan."""
+    every family (nothing on the dispatch path waits on the device or
+    the wire); a seen signature fires its frozen plan through
+    coll/plan."""
+    t0 = _time.perf_counter()
     comm._check_alive()
-    _in_process(comm)
     fn = _resolve(comm, name)
-    return async_request(_plan.dispatch(comm, name, fn, tuple(args), kw),
-                         comm.device)
+    if not _spanning(comm):
+        return async_request(
+            _plan.dispatch(comm, name, fn, tuple(args), kw), comm.device)
+    nested = _nested_inline(comm, fn, (comm,) + tuple(args), kw)
+    if nested is not None:
+        return nested
+    state = _plan.spanning_state_for(comm, name, args, kw)
+    run = _plan.spanning_wrap(state, fn)
+    op = _make_op(comm, name, run, (comm,) + tuple(args), kw)
+    req = _op_request(op)  # callback wired BEFORE the engine sees it
+    _post(op)
+    _orch.add(_time.perf_counter() - t0)
+    return req
+
+
+def run_blocking(comm, name: str, fn: Callable, args: Tuple,
+                 kw: Optional[Dict] = None) -> Any:
+    """A blocking spanning collective = fire the NBC schedule + wait —
+    the one round-advancing code path. A collective nested inside a
+    running schedule on the SAME comm runs inline on the executing
+    thread — sequential, so frames on the comm's channel cannot
+    interleave and the outer op still owns the queue head. A nested
+    call onto a DIFFERENT comm posts through that comm's queue like any
+    other (the engine's claim rule is the one arbiter of who runs on a
+    channel). ``args`` are the c_coll entry's (the comm first)."""
+    t0 = _time.perf_counter()
+    eng = _progress.engine()
+    cur = eng.executing()
+    if cur is not None and cur.key == _comm_key(comm):
+        return fn(*args, **(kw or {}))
+    user_args = args[1:] if args and args[0] is comm else args
+    state = _plan.spanning_state_for(comm, name, user_args, kw)
+    run = _plan.spanning_wrap(state, fn)
+    op = _make_op(comm, name, run, args, kw)
+    _post(op)
+    _orch.add(_time.perf_counter() - t0)
+    return eng.wait(op)
 
 
 def submit(comm, name: str, fn: Callable, args: Tuple,
@@ -173,15 +293,13 @@ def submit(comm, name: str, fn: Callable, args: Tuple,
     on the comm, runs at wait() (polling mode) or on the progress thread
     with the comm's device current."""
     comm._check_alive()
-    _in_process(comm)
+    _spanning(comm)
     nested = _nested_inline(comm, fn, args, kw)
     if nested is not None:
         return nested
-    op = _progress.ScheduledOp(_comm_key(comm), name, fn, cid=comm.cid,
-                               args=args, kw=kw or {}, device=comm.device)
+    op = _make_op(comm, name, fn, args, kw)
     req = _op_request(op)  # callback wired BEFORE the engine sees it
-    _ops_posted.add()
-    _progress.engine().post(op)
+    _post(op)
     return req
 
 
@@ -202,11 +320,36 @@ def persistent(comm, name: str, args: Tuple, kw: Optional[Dict] = None
     plan against the bound buffer's CURRENT contents without blocking.
     A buffer already on the comm's device is read in place by its frozen
     plan (no copy per start); any other buffer is copied to the device at
-    each start."""
+    each start. On a spanning comm each start posts a fresh schedule that
+    replays the signature's frozen wire plan (the first start records
+    it)."""
     comm._check_alive()
-    _in_process(comm)
     kw = kw or {}
-    if name == "barrier":
+    if _spanning(comm):
+        fn = _resolve(comm, name)
+
+        def bound_args() -> Tuple:
+            # the buffer as the blocking call passes it, read NOW (the
+            # MPI persistent buffer-reuse contract)
+            if not args:
+                return ()
+            return (comm._buf(args[0]),) + tuple(args[1:])
+
+        # the frozen wire plan is built ONCE per (cid, signature) — the
+        # blocking call's signature, so a start() replays a plan a
+        # blocking fire froze and vice versa: the first fire records
+        # the round structure, every later one replays (coll/plan)
+        state = _plan.spanning_state_for(comm, name, bound_args(), kw)
+
+        def fire() -> Request:
+            t0 = _time.perf_counter()
+            run = _plan.spanning_wrap(state, fn)
+            op = _make_op(comm, name, run, (comm,) + bound_args(), kw)
+            inner = _op_request(op)
+            _post(op)
+            _orch.add(_time.perf_counter() - t0)
+            return inner
+    elif name == "barrier":
         def fire() -> Request:
             return comm.ibarrier()
     else:

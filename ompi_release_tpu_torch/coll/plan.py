@@ -1,7 +1,8 @@
-"""Compiled whole-schedule collectives, in-process half: one frozen plan
-per call signature, fired with no decision path.
+"""Compiled whole-schedule collectives: one frozen plan per call
+signature, fired with no decision path.
 
-Counterpart of ``ompi_release_tpu/coll/plan.py:1-430``. The first fire
+Counterpart of ``ompi_release_tpu/coll/plan.py``. In-process half: the
+first fire
 of a signature runs the interpreted dispatch (component chain, decision
 rules, cvar reads) under :mod:`coll.driver` capture, which records the
 body the runner launched with its exact input and output tensors. When
@@ -49,12 +50,35 @@ Scope: plans engage only for the fixed-signature families
 (ragged v-variants and pair ops stay interpreted). Signatures key on the
 Op OBJECT: two ops sharing a name never share a plan.
 
+Spanning (wire) half, for communicators that span processes
+(``plan.py:442-834`` of the reference): the first run of a schedule
+records its ROUND STRUCTURE (peer lists, per-round send shapes/dtypes,
+receive counts and arrival shapes) through a :class:`RoundRecorder`
+wrapped around the hier exchange adapter; :func:`freeze_wire_plan` then
+resolves the wire tuning cvars ONCE and precomposes every round's SGH2
+frame headers and fragment offsets
+(:class:`~..btl.components.FrameTemplate`). Steady-state fires replay
+through :class:`PlannedXchg` — memoryview slicing behind precomposed
+header bytes, the arrival-order reap, no per-message dict lookups, tag
+math or header packing — or, when :mod:`coll.native_exec` can prove
+the byte provenance of every round, through the C plan executor. The
+wire bytes are identical to the interpreted path's, so results are
+bitwise identical and the receive side needs no changes. The schedule
+body still runs in Python on every fire (its local collective on the
+shadow comm, its folds on the card through ``ops.op.resolve``, so a
+>= 4 MiB f32/bf16 SUM launches ``stream_axpy`` in a replay exactly as
+in an interpreted call); only the exchanges are frozen. Any replay
+failure drops the plan, so the next fire re-records. bf16 crosses the
+hier schedules as its raw 2-byte words (numpy uint16), so its round
+metadata, templates and descriptor dtypes all name ``uint16``
+consistently.
+
 pvars: ``coll_compiled_cache_hits`` (1 = a frozen plan fired, 0 = a
-capturing run froze one; sum/count = the steady-state hit ratio) and
-``coll_graph_capture_failures``. Not ported yet: the spanning (wire)
-half (``plan.py:442-834``) waits for the multi-process slice; the obs
-ledger, the watchdog contributor and ``obs_trace_sample`` wait for
-``obs``.
+capturing run froze one; sum/count = the steady-state hit ratio),
+``coll_graph_capture_failures`` and ``coll_wire_rounds_frozen``. Not
+ported yet: the obs ledger records, the watchdog contributor and
+``obs_trace_sample`` wait for the observability plane (ROADMAP item
+16).
 """
 
 from __future__ import annotations
@@ -63,11 +87,13 @@ import threading
 import time as _time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..mca import pvar
 from ..mca import var as mca_var
 from ..utils import output
+from ..utils.errors import ErrorCode, MPIError
 from . import driver as _driver
 
 _log = output.stream("coll")
@@ -84,6 +110,11 @@ _capture_failures = pvar.counter(
     "frozen plans whose body could not be captured as a CUDA graph "
     "(they stay interpreted)",
 )
+_wire_rounds_frozen = pvar.counter(
+    "coll_wire_rounds_frozen",
+    "schedule rounds captured into frozen wire plans (peer lists, "
+    "frame headers, fragment offsets precomposed at plan time)",
+)
 
 
 def register_vars() -> None:
@@ -93,6 +124,15 @@ def register_vars() -> None:
         "CUDA graph, per plan signature) for persistent, blocking and "
         "i-family collectives in steady state; false restores the "
         "fully interpreted per-call dispatch",
+    )
+    mca_var.register(
+        "coll_plan_native", "bool", True,
+        "Fire eligible frozen wire plans through the native C plan "
+        "executor (one ctypes slice loop walks every round: striped "
+        "sends, pooled reassembly). Requires the native .so and a "
+        "nativewire card on every round peer; anything else — and "
+        "false — replays through the interpreted PlannedXchg path, "
+        "bitwise-identical",
     )
 
 
@@ -108,9 +148,9 @@ _PLANNABLE = frozenset({
     "exscan",
 })
 
-#: (generation, coll_compiled) snapshot, re-read only when the registry
-#: write generation moves
-_conf = (-1, True)
+#: (generation, coll_compiled, wire_overlap_exchange) snapshot, re-read
+#: only when the registry write generation moves
+_conf = (-1, True, True)
 
 _lock = threading.Lock()
 #: (cid, signature) -> {"gen", "frozen"|"bad"} (a persistent request
@@ -120,32 +160,52 @@ _device_plans: Dict[Tuple, Dict[str, Any]] = {}
 _plans_gen = -1
 #: cid -> the memory pool handle the communicator's live graphs share
 _pools: Dict[int, Any] = {}
+#: (cid, signature) -> SpanningPlanState
+_span_states: Dict[Tuple, "SpanningPlanState"] = {}
 
 
-def _enabled() -> bool:
+def _refresh_conf() -> Tuple[int, bool, bool]:
     global _conf
     gen = mca_var.VARS.generation
     if _conf[0] != gen:
-        _conf = (gen, bool(mca_var.get("coll_compiled", True)))
-    return _conf[1]
+        _conf = (gen, bool(mca_var.get("coll_compiled", True)),
+                 bool(mca_var.get("wire_overlap_exchange", True)))
+    return _conf
+
+
+def _enabled() -> bool:
+    return _refresh_conf()[1]
+
+
+def _overlap_on() -> bool:
+    # the planned replay path IS the striped/overlapped send path; an
+    # operator's wire_overlap_exchange=False opt-out (serialized sends)
+    # keeps spanning fires fully interpreted, where _XchgAdapter
+    # honours the flag
+    return _refresh_conf()[2]
 
 
 def clear_comm(cid: int) -> None:
-    """Drop every frozen plan of one communicator and its graph pool
-    (comm free: a reused cid must never fire a dead comm's plans)."""
+    """Drop every frozen plan of one communicator, its graph pool and
+    its native executors with their reassembly pools (comm free: a
+    reused cid must never fire a dead comm's plans)."""
     with _lock:
         for key in [k for k in _device_plans if k[0] == cid]:
             _device_plans.pop(key, None)
         _pools.pop(cid, None)
+        gone = [_span_states.pop(k) for k in list(_span_states)
+                if k[0] == cid]
+    for st in gone:
+        st.plan = None
+        st._drop_native()
 
 
 def cache_stats() -> Dict[str, int]:
-    """Operator-visible plan-cache counters (the reference's keys; the
-    spanning half is not ported, so ``spanning_plans`` is 0)."""
+    """Operator-visible plan-cache counters (the reference's keys)."""
     st = _compiled_hits.read()
     return {
         "device_plans": len(_device_plans),
-        "spanning_plans": 0,
+        "spanning_plans": len(_span_states),
         "fires": int(st["count"]),
         "hits": int(st["sum"]),
     }
@@ -155,6 +215,10 @@ def _reset_for_tests() -> None:
     with _lock:
         _device_plans.clear()
         _pools.clear()
+        gone = list(_span_states.values())
+        _span_states.clear()
+    for st in gone:
+        st._drop_native()
 
 
 def _drop_stale(gen: int) -> None:
@@ -419,3 +483,341 @@ def dispatch(comm, name: str, fn: Callable, args: Tuple,
         with _lock:
             _device_plans[key] = entry
     return out
+
+
+# ---------------------------------------------------------------------------
+# spanning: record the round structure, freeze the wire frames
+# ---------------------------------------------------------------------------
+
+def _as_nd(a) -> np.ndarray:
+    """A schedule payload as the host array the wire carries: numpy
+    passes through untouched (the common steady state: the hier
+    schedules hand host arrays); a tensor is staged to the host (bf16
+    as its raw 2-byte words)."""
+    if isinstance(a, np.ndarray):
+        return a
+    if isinstance(a, torch.Tensor):
+        from ..btl.components import host_payload
+
+        return host_payload(a)[0]
+    return np.asarray(a)
+
+
+def _round_meta(sends: Dict[int, list]) -> Tuple:
+    return tuple(
+        (p, tuple((a.shape, str(a.dtype))
+                  for a in map(_as_nd, sends[p])))
+        for p in sorted(sends) if sends[p]
+    )
+
+
+class RoundRecorder:
+    """Exchange-adapter wrapper: delegates every round to the real
+    transport and records its structure — (peer, shape, dtype) per
+    send, receive counts per peer, and the per-source arrival
+    shapes/dtypes (the native executor's reassembly-pool layout;
+    per-source order is deterministic: the wire is FIFO per peer)."""
+
+    __slots__ = ("inner", "rounds", "recv_metas")
+
+    def __init__(self, inner) -> None:
+        self.inner = inner
+        self.rounds: List[Tuple[Tuple, Tuple]] = []
+        self.recv_metas: List[Tuple] = []
+
+    def exchange(self, sends: Dict[int, list],
+                 recvs: Dict[int, int]) -> Dict[int, list]:
+        got = self.inner.exchange(sends, recvs)
+        self.rounds.append((
+            _round_meta(sends),
+            tuple(sorted((int(p), int(c)) for p, c in recvs.items()
+                         if int(c) > 0)),
+        ))
+        self.recv_metas.append(tuple(sorted(
+            (int(src), tuple((_as_nd(a).shape, str(_as_nd(a).dtype))
+                             for a in arrs))
+            for src, arrs in got.items() if arrs)))
+        return got
+
+
+class WireRound:
+    """One frozen schedule round: verification metadata plus the
+    resolved send slots (peer -> per-message FrameTemplates or None
+    for shm/legacy sends), channel tag, and striping depth.
+
+    ``recvs_meta`` (per-source arrival shapes/dtypes) sizes the
+    native executor's reassembly pool. (The reference's per-stream
+    frame counts gate the QoS arbiter, which waits for ROADMAP item
+    16.)"""
+
+    __slots__ = ("sends_meta", "recvs_t", "recvs", "peers",
+                 "peer_slots", "tag", "depth", "recvs_meta")
+
+    def __init__(self, sends_meta: Tuple, recvs_t: Tuple, peer_slots,
+                 tag: int, depth: int,
+                 recvs_meta: Optional[Tuple] = None) -> None:
+        self.sends_meta = sends_meta
+        self.recvs_t = recvs_t
+        self.recvs = dict(recvs_t)
+        self.peers = tuple(p for p, _ in sends_meta)
+        self.peer_slots = peer_slots
+        self.tag = tag
+        self.depth = depth
+        self.recvs_meta = recvs_meta
+
+
+class WirePlan:
+    """Frozen wire schedule: every round's structure and precomposed
+    frames (the segsize they were built from is baked into each
+    :class:`~..btl.components.FrameTemplate`), plus the plan-time
+    ``wire_coll_timeout_ms`` snapshot replay waits are bounded by."""
+
+    __slots__ = ("gen", "cid", "rounds", "timeout_ms")
+
+    def __init__(self, gen: int, cid: int, rounds: List[WireRound],
+                 timeout_ms: int) -> None:
+        self.gen = gen
+        self.cid = cid
+        self.rounds = rounds
+        self.timeout_ms = timeout_ms
+
+
+def freeze_wire_plan(comm, recorded: List[Tuple[Tuple, Tuple]],
+                     gen: int,
+                     recv_metas: Optional[List[Tuple]] = None,
+                     ) -> Optional[WirePlan]:
+    """Resolve one recorded round structure into a frozen
+    :class:`WirePlan`: wire tuning cvars snapshot once (a mid-job cvar
+    write lands here, at the NEXT plan), SGH2 headers and fragment
+    offsets precomposed per send slot.
+
+    ``recv_metas`` (parallel to ``recorded``, the recorder's
+    per-source arrival shapes/dtypes) is optional: plans frozen
+    without it stay fully replayable, they just never graduate to the
+    native executor (which needs arrival metas to size its pool)."""
+    router = getattr(comm.runtime, "wire", None)
+    if router is None:
+        return None
+    from ..btl import components as _btl
+
+    tuning = router.refresh_tuning()
+    tag = router._coll_tag(comm)
+    rounds: List[WireRound] = []
+    for i, item in enumerate(recorded):
+        sends_meta, recvs_t = item[0], item[1]
+        recvs_meta = (recv_metas[i] if recv_metas is not None
+                      and i < len(recv_metas) else None)
+        peer_slots = []
+        for p, arrs in sends_meta:
+            tpls = []
+            for shape, dtype in arrs:
+                tpl = None
+                btl = router._btl_for(p)
+                # every segsize-framed transport precomposes: dcn's
+                # interpreted SGH2 stream and nativewire's
+                # scatter-gather stream share the FrameTemplate (the
+                # byte-identity authority), each clamped to its OWN
+                # max frame size cvar
+                if tuning.segsize > 0 and (
+                        btl is router._dcn
+                        or (router._nw is not None
+                            and btl is router._nw)):
+                    seg = min(tuning.segsize,
+                              max(1, btl.max_send_size))
+                    tpl = _btl.plan_frame_template(shape, dtype, seg)
+                tpls.append(tpl)
+            peer_slots.append((p, tuple(tpls)))
+        rounds.append(WireRound(sends_meta, recvs_t, tuple(peer_slots),
+                                tag, tuning.depth, recvs_meta=recvs_meta))
+    _wire_rounds_frozen.add(len(rounds))
+    return WirePlan(gen, comm.cid, rounds, tuning.coll_timeout_ms)
+
+
+def _mismatch(module, i: int, detail: str) -> MPIError:
+    return MPIError(
+        ErrorCode.ERR_INTERN,
+        f"compiled schedule plan diverged mid-run on "
+        f"{module.comm.name} (round {i}): {detail}. The schedule no "
+        "longer matches its frozen plan — rebuild the persistent "
+        "request (or re-issue the collective) after changing "
+        "schedule-selection cvars",
+    )
+
+
+def check_round(module, plan: WirePlan, i: int, sends: Dict[int, list],
+                recvs: Dict[int, int]):
+    """Verify round ``i`` of a replay against its frozen structure;
+    returns ``(round, sends as host arrays)``. A mismatch is the loud
+    typed divergence error — frames from a wrong header would corrupt
+    the peer's reassembly."""
+    if i >= len(plan.rounds):
+        raise _mismatch(module, i, "more rounds than the plan recorded")
+    rnd = plan.rounds[i]
+    sends_f = {p: [_as_nd(a) for a in arrs]
+               for p, arrs in sends.items() if arrs}
+    meta = tuple(
+        (p, tuple((a.shape, str(a.dtype)) for a in sends_f[p]))
+        for p in sorted(sends_f))
+    recvs_l = {int(p): int(c) for p, c in recvs.items() if int(c) > 0}
+    if meta != rnd.sends_meta or recvs_l != rnd.recvs:
+        raise _mismatch(module, i,
+                        f"sends/recvs {meta}/{recvs_l} != frozen "
+                        f"{rnd.sends_meta}/{rnd.recvs}")
+    return rnd, sends_f
+
+
+class PlannedXchg:
+    """Exchange adapter replaying a frozen :class:`WirePlan`: each
+    round verifies its structure against the plan (cheap tuple
+    compare), then sends through the precomposed frame path and reaps
+    in arrival order."""
+
+    __slots__ = ("m", "plan", "i")
+
+    def __init__(self, module, plan: WirePlan) -> None:
+        self.m = module
+        self.plan = plan
+        self.i = 0
+
+    def exchange(self, sends: Dict[int, list],
+                 recvs: Dict[int, int]) -> Dict[int, list]:
+        # the whole replay round is Python orchestration (posting,
+        # striping, reap polling) — self-report it so the steady-state
+        # orchestration split sees the replay loop the native executor
+        # exists to eliminate
+        t0 = _time.perf_counter()
+        try:
+            return self._exchange(sends, recvs)
+        finally:
+            _driver._orch.add(_time.perf_counter() - t0)
+
+    def _exchange(self, sends: Dict[int, list],
+                  recvs: Dict[int, int]) -> Dict[int, list]:
+        rnd, sends_f = check_round(self.m, self.plan, self.i, sends,
+                                   recvs)
+        self.i += 1
+        m = self.m
+        if sends_f:
+            m._send_all_planned(rnd, sends_f)
+        got: Dict[int, list] = {p: [] for p in rnd.recvs}
+        if rnd.recvs:
+            m._reap(dict(rnd.recvs),
+                    lambda src, arr: got[src].append(arr),
+                    self.plan.timeout_ms, record=False)
+        return got
+
+
+class SpanningPlanState:
+    """Per-(cid, signature) frozen-wire-plan holder: first fire
+    records and freezes, later fires replay; a registry write
+    generation bump quietly re-records (cvar writes take effect at
+    the next plan, never mid-schedule); a replay that fails drops the
+    plan and its native executor."""
+
+    __slots__ = ("comm", "name", "plan", "sig", "native", "last", "why")
+
+    def __init__(self, comm, name: str, sig: Optional[Tuple] = None
+                 ) -> None:
+        self.comm = comm
+        self.name = name
+        self.plan: Optional[WirePlan] = None
+        #: the plan lowered into the C executor (coll/native_exec) —
+        #: None when ineligible; lives and dies with ``plan``
+        self.native = None
+        self.sig = sig
+        #: which executor ran the last fire: "interpreted" (recording,
+        #: or plans off), "planned" (PlannedXchg) or "native"
+        self.last: Optional[str] = None
+        #: why the plan stayed on PlannedXchg (the native compile's
+        #: _Ineligible/_ProbeFail text), None when it went native
+        self.why: Optional[str] = None
+
+    def _drop_native(self) -> None:
+        nx, self.native = self.native, None
+        if nx is not None:
+            nx.close()
+
+    def run(self, fn: Callable, args: Tuple,
+            kw: Optional[Dict]) -> Any:
+        kw = kw or {}
+        m = getattr(self.comm, "_hier_module", None)
+        if m is None or not _enabled() or not _overlap_on():
+            self.last = "interpreted"
+            return fn(*args, **kw)
+        gen = mca_var.VARS.generation
+        plan = self.plan
+        if plan is not None and plan.gen != gen:
+            plan = self.plan = None  # cvars moved: re-plan
+            self._drop_native()
+        old = m._xchg
+        if plan is None:
+            # recording rides the fully-interpreted transport (pvars
+            # untouched) — the recorder only watches
+            rec = RoundRecorder(old)
+            m._xchg = rec
+            try:
+                out = fn(*args, **kw)
+            finally:
+                m._xchg = old
+            self.last = "interpreted"
+            self.plan = freeze_wire_plan(self.comm, rec.rounds, gen,
+                                         rec.recv_metas)
+            if self.plan is not None:
+                _compiled_hits.observe(0)
+                # lower the fresh plan into the C executor (two
+                # wire-free probe runs + descriptor compile + ring
+                # bind); None = ineligible, replay stays interpreted
+                from . import native_exec as _native
+
+                self.native = _native.try_compile(self, m, fn, args, kw)
+            return out
+        nx = self.native
+        if nx is not None and nx.gen == plan.gen:
+            from . import native_exec as _native
+
+            px = _native.NativeXchg(m, plan, nx, args)
+        else:
+            px = PlannedXchg(m, plan)
+        m._xchg = px
+        try:
+            out = fn(*args, **kw)
+        except BaseException:
+            # ANY replay failure — structure divergence, a timeout
+            # mid-round — drops the frozen plan so the next fire
+            # re-records instead of replaying the same stale rounds
+            self.plan = None
+            self._drop_native()
+            raise
+        finally:
+            m._xchg = old
+        self.last = "native" if getattr(px, "fired", False) \
+            else "planned"
+        _compiled_hits.observe(1)
+        return out
+
+
+def spanning_state_for(comm, name: str, args: Tuple,
+                       kw: Optional[Dict]) -> Optional[SpanningPlanState]:
+    """The comm's plan state for this call signature (None = not
+    plannable: ragged buffers, non-deterministic families)."""
+    if name not in _PLANNABLE:
+        return None
+    sig = signature_of(name, args, kw)
+    if sig is None:
+        return None
+    key = (comm.cid, sig)
+    st = _span_states.get(key)
+    if st is None:
+        with _lock:
+            st = _span_states.setdefault(
+                key, SpanningPlanState(comm, name, sig))
+    return st
+
+
+def spanning_wrap(state: Optional[SpanningPlanState],
+                  fn: Callable) -> Callable:
+    """Wrap one schedule body so its execution (on whichever thread
+    the progress engine runs it) records/replays through ``state``."""
+    if state is None:
+        return fn
+    return lambda *a, **k: state.run(fn, a, k)

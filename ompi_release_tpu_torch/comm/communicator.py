@@ -299,11 +299,19 @@ class Communicator:
                            f"no {op_name} implementation installed on "
                            f"{self.name}")
         if self.spans_processes:
-            # spanning comms run the hier module's interpreted
-            # schedules (their frozen wire plans come with the native
-            # datapath slice); collectives are blocking and issued in
-            # the same order on every process, MPI's own rule
-            return fn
+            # spanning comms: EVERY collective — blocking or not — goes
+            # through the progress engine as "post schedule + wait", so
+            # blocking and nonblocking calls execute in posting order on
+            # every process (their wire exchanges share one per-cid
+            # channel, and two concurrently-running collectives would
+            # interleave frames on it) and there is ONE round-advancing
+            # code path, which records/replays the signature's frozen
+            # wire plan (coll/nbc + coll/plan). The ULFM fast-fail
+            # before posting waits for ROADMAP item 15.
+            from ..coll import nbc as _nbc
+
+            return lambda comm_, *a, **k: _nbc.run_blocking(
+                self, op_name, fn, (comm_,) + a, k)
         # steady-state dispatch (coll/plan): a signature seen before
         # fires its frozen plan — the interpreted decision path runs once
         # per (signature, cvar generation), not once per call
@@ -314,8 +322,14 @@ class Communicator:
 
     def _run_serialized(self, fn, *args, **kw):
         """Run ``fn`` in the comm's collective posting order, blocking:
-        a direct call on a comm inside one process."""
-        return fn(*args, **kw)
+        fire + wait through the progress engine on spanning comms, a
+        direct call otherwise."""
+        if not self.spans_processes:
+            return fn(*args, **kw)
+        from ..coll import nbc as _nbc
+
+        return _nbc.run_blocking(
+            self, getattr(fn, "__name__", "serialized"), fn, args, kw)
 
     def _submit_serialized(self, fn, *args, **kw):
         """Nonblocking run of ``fn`` in the comm's collective posting

@@ -8,10 +8,14 @@ own ignored ``ompi_release_tpu_torch/build/native/`` (see
 :func:`build_library`) and never writes under ``native/``.
 
 The ``wire_*``/``shmring_*``/``planexec_*`` datapath symbols stay
-declared as optional capabilities, as in the reference; the native
-datapath that uses them (``btl/nativewire``, the native plan
-executor, the endpoint's vectored send and fragment receive) is not
-ported yet.
+optional capabilities, as in the reference (a stale ``.so`` lacks
+them and the callers withdraw): :func:`wire_symbols_available`,
+:func:`telemetry_symbols_available` and
+:func:`planexec_symbols_available` probe them; ``OobEndpoint.sendv``/
+``recv_frag``/``wire_stats``, :class:`ShmRing` and :class:`PlanExec`
+wrap them for ``btl/nativewire`` and ``coll/native_exec``. The native
+event ring (``NativeEventRing``) waits for the observability plane
+(ROADMAP item 16).
 """
 
 from __future__ import annotations
@@ -287,11 +291,92 @@ def _declare(lib: ctypes.CDLL) -> None:
         lib.planexec_stash_clear.argtypes = [P]
 
 
+def wire_symbols_available() -> bool:
+    """True when the loaded .so carries the nativewire datapath ABI
+    (wire_sendv/shmring_*). False — never an exception — when the
+    library is stale, unbuildable, or the build toolchain is absent:
+    callers treat that as 'capability not present' and stay on the
+    portable staged path."""
+    try:
+        lib = load_library()
+    except Exception:
+        return False
+    return hasattr(lib, "wire_sendv") and hasattr(lib, "shmring_create")
+
+
+def telemetry_symbols_available() -> bool:
+    """True when the loaded .so carries the native telemetry ABI
+    (shmring_stat / wire_stats / nativeev_*). Same never-raises
+    discipline as :func:`wire_symbols_available`: a stale .so built
+    before the telemetry block means 'capability absent', and the
+    observability layers simply stay dark for the native plane."""
+    try:
+        lib = load_library()
+    except Exception:
+        return False
+    return (hasattr(lib, "shmring_stat") and hasattr(lib, "wire_stats")
+            and hasattr(lib, "nativeev_create"))
+
+
+def planexec_symbols_available() -> bool:
+    """True when the loaded .so carries the native plan-executor ABI
+    (planexec_*). Same never-raises discipline as
+    :func:`wire_symbols_available`: a stale .so means 'capability
+    absent' and compiled plans keep firing through the interpreted
+    PlannedXchg replay."""
+    try:
+        lib = load_library()
+    except Exception:
+        return False
+    return (hasattr(lib, "planexec_create")
+            and hasattr(lib, "wire_sendv")
+            and hasattr(lib, "shmring_create"))
+
+
 def _u8(data: bytes):
     return ctypes.cast(
         ctypes.create_string_buffer(data, len(data)),
         ctypes.POINTER(ctypes.c_uint8),
     )
+
+
+def _sg_arrays(parts):
+    """(void* array, int64 array, keepalive list) for a scatter-gather
+    list of bytes/bytearray/memoryview/ndarray parts — pointers into
+    the callers' existing buffers, NO staging copies (the whole point
+    of the native wire). The keepalive list must stay referenced until
+    the C call returns."""
+    import numpy as _np
+
+    n = len(parts)
+    ptrs = (ctypes.c_void_p * n)()
+    lens = (ctypes.c_int64 * n)()
+    keep = []
+    for i, p in enumerate(parts):
+        if isinstance(p, bytes):
+            # c_char_p aliases the bytes object's internal buffer
+            ptrs[i] = ctypes.cast(ctypes.c_char_p(p),
+                                  ctypes.c_void_p)
+            lens[i] = len(p)
+            keep.append(p)
+        else:
+            a = _np.frombuffer(p, dtype=_np.uint8)  # zero-copy view
+            ptrs[i] = ctypes.c_void_p(a.ctypes.data)
+            lens[i] = a.nbytes
+            keep.append(a)
+    return ptrs, lens, keep
+
+
+def _wbuf_ptr(buf):
+    """(void* base, nbytes, keepalive) for a WRITABLE reassembly
+    buffer (bytearray / writable memoryview / ndarray)."""
+    import numpy as _np
+
+    a = _np.frombuffer(buf, dtype=_np.uint8)
+    if not a.flags.writeable:
+        raise MPIError(ErrorCode.ERR_OTHER,
+                       "recv_into target buffer is read-only")
+    return ctypes.c_void_p(a.ctypes.data), a.nbytes, a
 
 
 class DssBuffer:
@@ -509,9 +594,50 @@ class OobEndpoint:
 
     # -- nativewire datapath (optional capability) ------------------------
 
+    def sendv(self, dst: int, tag: int, parts) -> None:
+        """Vectored send: one frame whose payload is the concatenation
+        of `parts`, written with writev straight from the parts'
+        buffers — no b"".join, no ctypes staging copy. Byte-identical
+        on the wire to ``send(dst, tag, b"".join(parts))``."""
+        ptrs, lens, keep = _sg_arrays(parts)
+        rc = self._lib.wire_sendv(self._handle(), dst, tag, ptrs, lens,
+                                  len(ptrs))
+        del keep
+        if rc != 0:
+            raise MPIError(
+                ErrorCode.ERR_OTHER,
+                f"wire sendv to {dst} failed (no connection or route)",
+            )
+
+    def recv_frag(self, src: int, tag: int, xfer: int, nchunks: int,
+                  chunk: int, buf, timeout_ms: int) -> int:
+        """Pop the next SGC2 fragment of (src, tag, xfer) straight
+        into writable `buf`. Returns the fragment index >= 0, or the
+        C status: -1 timeout, -2 malformed (consumed), -4 the next
+        matching frame belongs to the portable path (left queued)."""
+        base, nbytes, keep = _wbuf_ptr(buf)
+        rc = self._lib.wire_recv_frag(self._handle(), src, tag, xfer,
+                                      nchunks, chunk, base, nbytes,
+                                      timeout_ms)
+        del keep
+        return int(rc)
+
     def ttl_dropped(self) -> int:
         """Frames dropped by the routing-cycle ttl guard."""
         return self._lib.oob_ttl_dropped(self._handle())
+
+    #: wire_stats index names, in C-side order (native/btl_tcp.cc)
+    WIRE_STATS = ("tx_frames", "tx_bytes", "rx_frames", "rx_bytes",
+                  "rx_stalls", "rx_stall_ns")
+
+    def wire_stats(self) -> dict:
+        """The endpoint's native-wire telemetry block as a dict; all
+        zeros when the loaded .so predates the telemetry ABI."""
+        if not hasattr(self._lib, "wire_stats"):
+            return {k: 0 for k in self.WIRE_STATS}
+        h = self._handle()
+        return {k: int(self._lib.wire_stats(h, i))
+                for i, k in enumerate(self.WIRE_STATS)}
 
     def pending(self) -> int:
         return self._lib.oob_pending(self._handle())
@@ -519,6 +645,285 @@ class OobEndpoint:
     def close(self) -> None:
         if self._h:
             self._lib.oob_destroy(self._h)
+            self._h = None
+
+    def __del__(self) -> None:
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class ShmRing:
+    """SPSC shared-memory byte ring (btl/sm FIFO analogue).
+
+    Mechanical wrapper: status ints pass through unchanged; mapping
+    -3 (peer process gone) onto the typed fault-tolerance error is the
+    btl component's job, not the binding's. Ring protocol status codes
+    (native/btl_shm.cc): writev 0/-1 timeout/-2 never-fits/-3 dead;
+    read_frag idx/-1/-2 consumed-bad/-3 dead/-4 stale-dropped/-5
+    other-tag-left; read_into len/-1/-2 too-small/-3 dead."""
+
+    def __init__(self, handle, name: str) -> None:
+        self._lib = load_library()
+        self._h = handle
+        self.name = name
+
+    @classmethod
+    def create(cls, name: str, capacity: int,
+               producer_pid: int) -> Optional["ShmRing"]:
+        """O_CREAT|O_EXCL producer-side create; None when the name
+        already exists (another sender won the race) or shm failed."""
+        lib = load_library()
+        h = lib.shmring_create(name.encode(), capacity, producer_pid)
+        return cls(h, name) if h else None
+
+    @classmethod
+    def attach(cls, name: str,
+               consumer_pid: int = 0) -> Optional["ShmRing"]:
+        """Consumer-side attach; None while the ring does not exist
+        yet (callers retry — the producer creates lazily)."""
+        lib = load_library()
+        h = lib.shmring_attach(name.encode(), consumer_pid)
+        return cls(h, name) if h else None
+
+    @staticmethod
+    def unlink(name: str) -> None:
+        try:
+            load_library().shmring_unlink(name.encode())
+        except Exception:
+            pass  # best-effort cleanup
+
+    def _handle(self):
+        h = self._h
+        if not h:
+            raise MPIError(ErrorCode.ERR_OTHER, "shm ring is closed")
+        return h
+
+    @property
+    def capacity(self) -> int:
+        return self._lib.shmring_capacity(self._handle())
+
+    def pending(self) -> int:
+        return self._lib.shmring_pending(self._handle())
+
+    def producer_pid(self) -> int:
+        return self._lib.shmring_producer_pid(self._handle())
+
+    def consumer_pid(self) -> int:
+        return self._lib.shmring_consumer_pid(self._handle())
+
+    def writev(self, tag: int, parts, timeout_ms: int) -> int:
+        ptrs, lens, keep = _sg_arrays(parts)
+        rc = self._lib.shmring_writev(self._handle(), tag, ptrs, lens,
+                                      len(ptrs), timeout_ms)
+        del keep
+        return int(rc)
+
+    def read_frag(self, tag: int, xfer: int, nchunks: int, chunk: int,
+                  buf, timeout_ms: int) -> int:
+        base, nbytes, keep = _wbuf_ptr(buf)
+        rc = self._lib.shmring_read_frag(self._handle(), tag, xfer,
+                                         nchunks, chunk, base, nbytes,
+                                         timeout_ms)
+        del keep
+        return int(rc)
+
+    def read_into(self, buf, timeout_ms: int):
+        """Generic pop of the head record: (status_or_len, tag)."""
+        base, nbytes, keep = _wbuf_ptr(buf)
+        tag = ctypes.c_int32()
+        rc = self._lib.shmring_read_into(self._handle(),
+                                         ctypes.byref(tag), base,
+                                         nbytes, timeout_ms)
+        del keep
+        return int(rc), tag.value
+
+    #: shmring_stat index names, in C-side order (native/btl_shm.cc)
+    STATS = ("w_frames", "w_bytes", "w_stalls", "w_stall_ns", "hwm",
+             "r_frames", "r_bytes", "r_stalls", "r_stall_ns")
+
+    def stats(self) -> dict:
+        """The ring header's telemetry block as a dict; all zeros when
+        the loaded .so predates the telemetry ABI (pre-v2 rings can't
+        exist then either — the magic changed with the layout)."""
+        if not hasattr(self._lib, "shmring_stat"):
+            return {k: 0 for k in self.STATS}
+        h = self._handle()
+        return {k: int(self._lib.shmring_stat(h, i))
+                for i, k in enumerate(self.STATS)}
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.shmring_close(self._h)
+            self._h = None
+
+    def __del__(self) -> None:
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class PlanExec:
+    """Native executor for ONE frozen wire plan (coll/plan analogue of
+    the reference's posted-descriptor progress loop).
+
+    coll/native_exec.py compiles a WirePlan into a flat descriptor
+    blob (rounds, peers, precomposed header bytes, scatter-gather
+    payload maps, pool placements), creates a PlanExec once, binds the
+    live endpoint/ring handles once, and then every steady-state fire
+    is ``fire_begin`` + a ``fire_step`` loop: all rounds walk C-side,
+    Python re-enters only between ~100 ms slices (to honour the
+    plan's timeout and the job's abort; the ULFM failure detector
+    waits for ROADMAP item 15) and at completion or typed error.
+
+    Return codes (native/planexec.cc): 0 done, 1 slice expired
+    (call ``fire_step`` again), 2 fault-word stop (run check_wait,
+    then resume), -1 bad call, -2 peer dead (``err_peer`` names the
+    pidx), -3 plan timeout, -4 inbound header diverged from the
+    frozen expectation, -5 reassembled payload failed CRC."""
+
+    RC_DONE = 0
+    RC_AGAIN = 1
+    RC_FTSTOP = 2
+    RC_BADARG = -1
+    RC_PEERDEAD = -2
+    RC_TIMEOUT = -3
+    RC_DIVERGED = -4
+    RC_TRUNCATED = -5
+
+    def __init__(self, blob: bytes) -> None:
+        lib = load_library()
+        if not hasattr(lib, "planexec_create"):
+            raise MPIError(ErrorCode.ERR_OTHER,
+                           "planexec symbols not available")
+        self._lib = lib
+        self._h = lib.planexec_create(_u8(blob), len(blob))
+        if not self._h:
+            raise MPIError(ErrorCode.ERR_OTHER,
+                           "plan descriptor blob rejected")
+        self._ftword = None  # keepalive for the fault-word buffer
+
+    def _handle(self):
+        h = self._h
+        if not h:
+            raise MPIError(ErrorCode.ERR_OTHER, "plan executor closed")
+        return h
+
+    def bind(self, ep_handle, my_nid: int, peer_nids,
+             tx_ring_handles, rx_ring_handles) -> None:
+        """Attach the live endpoint + per-peer ring handles (entries
+        may be None → that peer uses the vectored-socket leg)."""
+        n = len(peer_nids)
+        nids = (ctypes.c_int64 * n)(*[int(v) for v in peer_nids])
+        tx = (ctypes.c_void_p * n)(*[h or None
+                                     for h in tx_ring_handles])
+        rx = (ctypes.c_void_p * n)(*[h or None
+                                     for h in rx_ring_handles])
+        rc = self._lib.planexec_bind(self._handle(), ep_handle,
+                                     my_nid, nids, tx, rx, n)
+        if rc != 0:
+            raise MPIError(ErrorCode.ERR_OTHER,
+                           "plan executor bind rejected")
+
+    def set_ftword(self, word_buf) -> None:
+        """Point the executor at a 1-element int64 fault word (a
+        ctypes int64 array owned by the caller; nonzero aborts waits
+        with RC_FTSTOP within the polling interval)."""
+        self._ftword = word_buf
+        self._lib.planexec_set_ftword(
+            self._handle(),
+            ctypes.cast(word_buf, ctypes.POINTER(ctypes.c_int64)))
+
+    def fire_begin(self, input_arrays, xfer_base: int,
+                   timeout_ms: int) -> int:
+        """Arm a fire with the round-0 input regions (contiguous
+        ndarrays, pointers live until the fire completes)."""
+        n = len(input_arrays)
+        ptrs = (ctypes.c_void_p * n)()
+        lens = (ctypes.c_int64 * n)()
+        for i, a in enumerate(input_arrays):
+            ptrs[i] = ctypes.c_void_p(a.ctypes.data)
+            lens[i] = int(a.nbytes)
+        self._fire_keep = input_arrays
+        return int(self._lib.planexec_fire_begin(
+            self._handle(), ptrs, lens, n, xfer_base, timeout_ms))
+
+    def fire_step(self, slice_ms: int) -> int:
+        return int(self._lib.planexec_fire_step(self._handle(),
+                                                slice_ms))
+
+    @property
+    def pool_total(self) -> int:
+        return int(self._lib.planexec_pool_total(self._handle()))
+
+    @property
+    def pool_count(self) -> int:
+        return int(self._lib.planexec_pool_count(self._handle()))
+
+    @property
+    def round_count(self) -> int:
+        return int(self._lib.planexec_round_count(self._handle()))
+
+    @property
+    def input_count(self) -> int:
+        return int(self._lib.planexec_input_count(self._handle()))
+
+    def pool_view(self):
+        """Zero-copy uint8 ndarray over the reassembly slab (valid
+        until close; reused across fires — consumers copy out)."""
+        import numpy as _np
+
+        total = self.pool_total
+        if total == 0:
+            return _np.empty(0, dtype=_np.uint8)
+        ptr = self._lib.planexec_pool_ptr(self._handle())
+        buf = (ctypes.c_uint8 * total).from_address(ptr)
+        return _np.frombuffer(buf, dtype=_np.uint8)
+
+    def round_ts(self):
+        """Per-round CLOCK_MONOTONIC end stamps from the last fire —
+        the same clock as time.perf_counter, so the obs ledger record
+        consumes them unchanged."""
+        n = self.round_count
+        p = self._lib.planexec_ts_ptr(self._handle())
+        return [float(p[i]) for i in range(n)]
+
+    def err_peer(self) -> int:
+        return int(self._lib.planexec_err_peer(self._handle()))
+
+    def err_round(self) -> int:
+        return int(self._lib.planexec_err_round(self._handle()))
+
+    def drain_stash(self):
+        """Pop any foreign frames the executor met on the coll
+        channel: list of (kind, peer_pidx, tag, bytes) with kind 0 =
+        endpoint-queue frame, 1 = shm-ring record. The caller
+        re-injects them into the btl stashes so cross-channel traffic
+        survives a native fire untouched."""
+        h = self._handle()
+        out = []
+        n = int(self._lib.planexec_stash_count(h))
+        kind = ctypes.c_int64()
+        peer = ctypes.c_int64()
+        tag = ctypes.c_int64()
+        for i in range(n):
+            ln = int(self._lib.planexec_stash_info(
+                h, i, ctypes.byref(kind), ctypes.byref(peer),
+                ctypes.byref(tag)))
+            if ln < 0:
+                continue
+            ptr = self._lib.planexec_stash_data(h, i)
+            data = ctypes.string_at(ptr, ln) if ln else b""
+            out.append((int(kind.value), int(peer.value),
+                        int(tag.value), data))
+        self._lib.planexec_stash_clear(h)
+        return out
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.planexec_destroy(self._h)
             self._h = None
 
     def __del__(self) -> None:

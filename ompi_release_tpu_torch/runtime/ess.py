@@ -146,6 +146,12 @@ class TpurunEss(mca_component.Component):
             "local_device_count": len(mesh_mod.rank_devices(devices)),
             "platform": "gpu" if devices[0].type == "cuda" else "cpu",
         }
+        # nativewire capability advertisement (ring token/geometry):
+        # empty when the native datapath is absent or disabled, and the
+        # card then stays portable-only
+        from ..btl import nativewire as _nativewire
+
+        card.update(_nativewire.modex_entry())
         cards = agent.run_modex(card)  # launcher mode: workers only
         agent.setup_tree(num_workers + 1, cards)
         # FULL wire-up (superset of the tree edges): connect to every

@@ -48,11 +48,17 @@ left of the head-of-line wait.
 Channel tags live far above ``USER_TAG_BASE`` so they can never shadow
 the coordinator/pubsub control plane or hand-rolled staged transfers.
 
-Not ported yet: the native zero-copy datapath (``btl/nativewire``),
-frozen-schedule plan sends (``coll_send_planned``), the progress
-engine's wire pump (``coll_pump``), the ULFM bounded
-waits (failure notices, revocation), the QoS lane classes and the
-observability spans and watchdog.
+The native zero-copy datapath (``btl/nativewire``: shm rings between
+co-hosted processes, vectored sockets across hosts) carries the payload
+whenever both ends' modex cards advertise it (:meth:`_btl_for`); frozen
+schedule plans send their rounds through :meth:`coll_send_planned`
+(precomposed frame templates), and the progress engine's wire tick
+(:meth:`coll_pump`) completes landed collective transfers ahead of the
+round that reaps them.
+
+Not ported yet: the ULFM bounded waits (failure notices, revocation;
+ROADMAP item 15), the QoS lane classes and the observability spans and
+watchdog (item 16).
 
 Thread model: driver-mode processes issue wire operations from the
 main thread (plus completion threads polling acks and the nbc worker);
@@ -102,6 +108,13 @@ _hol_wait = pvar.timer(
     "seconds senders spent waiting behind another transfer's wire "
     "channel lock (head-of-line wait)",
 )
+
+_coll_pumped = pvar.counter(
+    "wire_coll_pumped",
+    "collective transfers completed by the progress engine's wire "
+    "pump (coll_pump) ahead of the round that reaps them",
+)
+
 
 def register_vars() -> None:
     from ..btl.components import register_pipeline_vars
@@ -208,6 +221,13 @@ class WireRouter:
         self.spans: List[Tuple[int, int]] = runtime.proc_spans
         self._shm = ShmBtl()
         self._dcn = DcnBtl()
+        # the zero-copy native datapath (btl/nativewire): None when the
+        # native library lacks the wire_*/shmring_* symbols or the
+        # component is disabled — every routing site below then falls
+        # back to the portable shm/dcn transports structurally
+        from ..btl import nativewire as _nativewire
+
+        self._nw = _nativewire.module_for(self.cards, self.my_pidx)
         self._seq = itertools.count(1)
         self._acks: set = set()
         self._ack_lock = threading.Lock()
@@ -238,6 +258,17 @@ class WireRouter:
         # (cid, src_pidx) -> FIFO of arrays
         self._coll_early: Dict[Tuple[int, int], List] = {}
         self._coll_early_lock = threading.Lock()
+        #: cids whose progress-engine pump hit a mid-transfer failure:
+        #: the channel stream is unrecoverable, so pumps stand down and
+        #: the round's own reap surfaces the loud error
+        self._pump_dead: set = set()
+        #: per-cid pump backoff: an empty pump probe costs a ~1 ms
+        #: blocking OOB recv (ep.pending() counts frames on EVERY tag,
+        #: so unrelated p2p traffic defeats the cheap fast path) —
+        #: after an empty probe the pump skips this cid briefly so a
+        #: busy endpoint cannot turn the progress thread into a
+        #: continuous blocking-recv loop
+        self._pump_idle: Dict[int, float] = {}
         #: hot-path cvars resolved once at init (satellite of the
         #: compiled-schedule PR): refreshed only when the registry
         #: write generation moves — see WireTuning
@@ -249,6 +280,13 @@ class WireRouter:
         t = self._tuning
         if t.gen != mca_var.VARS.generation:
             t = self._tuning = WireTuning()
+        return t
+
+    def refresh_tuning(self) -> WireTuning:
+        """Force a fresh snapshot NOW (plan-freeze entry: a frozen
+        schedule plan must capture post-write values even if the
+        generation bookkeeping ever lagged)."""
+        t = self._tuning = WireTuning()
         return t
 
     def _chan_lock(self, kind: str, key) -> threading.Lock:
@@ -271,10 +309,16 @@ class WireRouter:
                        f"world rank {world_rank} outside every span")
 
     def _btl_for(self, peer_pidx: int):
-        """Transport choice, deterministic on BOTH sides: same machine
-        (modex card host identity) -> shm handoff, else DCN staging —
-        exactly the per-peer eligibility add_procs computes from
-        business cards (``btl.h:810-816``)."""
+        """Transport choice, deterministic on BOTH sides: when both
+        ends' modex cards advertise the native datapath, nativewire
+        carries the payload (shm rings co-hosted, vectored sockets
+        cross-host); otherwise same machine (modex card host identity)
+        -> shm handoff, else DCN staging — exactly the per-peer
+        eligibility add_procs computes from business cards
+        (``btl.h:810-816``)."""
+        nw = self._nw
+        if nw is not None and nw.peer_capable(peer_pidx):
+            return nw
         same_host = (
             self.cards[self.my_pidx].get("host")
             and self.cards[self.my_pidx].get("host")
@@ -667,15 +711,96 @@ class WireRouter:
         finally:
             lk.release()
 
-    def _peer_frames(self, peer: int, tag: int, arrs: List):
+    def coll_pump(self, comm, budget: int = 8) -> int:
+        """Nonblocking receive-side progress on ``comm``'s collective
+        payload channel — the progress engine's wire tick: complete up
+        to ``budget`` landed transfers into the early-transfer queue so
+        the round's reap (or the round that raced ahead) finds them
+        without parking. Skips out instantly when the endpoint is idle
+        or a reap already owns the channel (a parked reap IS the
+        progress for that channel). A pump only STARTS on a transfer
+        whose first frame already landed; it may then ride out the
+        transfer's in-flight tail (bounded by the sender's streaming —
+        the opal_progress discipline: completing in-flight fragments
+        IS the progress). A transfer that FAILS mid-pump (peer died)
+        leaves the channel stream unrecoverable for any consumer, so
+        the pump marks this cid poisoned and stands down — the round's
+        own reap surfaces the loud ERR_TRUNCATE instead of every tick
+        re-paying the timeout. The channel lock is held per TRANSFER,
+        not across the whole budget, so a reap arriving mid-pump
+        queues behind at most one in-flight tail."""
+        from ..btl.components import stashed_recv
+
+        if comm.cid in self._pump_dead or self.ep.pending() == 0:
+            return 0
+        if time.monotonic() < self._pump_idle.get(comm.cid, 0.0):
+            return 0  # recent empty probe: let the backoff expire
+        tag = self._coll_tag(comm)
+        lk = self._chan_lock("collrx", comm.cid)
+        n = 0
+        while n < budget:
+            if not lk.acquire(blocking=False):
+                return n  # a reap owns the channel: it IS the progress
+            try:
+                try:
+                    src_nid, raw = stashed_recv(
+                        self.ep, None, tag, time.monotonic() + 0.001)
+                except MPIError:
+                    if n == 0:
+                        self._pump_idle[comm.cid] = \
+                            time.monotonic() + 0.005
+                    return n  # nothing pending on this channel
+                src = src_nid - 1
+                try:
+                    # the finish budget matches the reaps' 60 s default
+                    # deliberately: a SHORTER pump deadline would strand
+                    # the popped frames and fail a transfer the round's
+                    # own reap budget would have absorbed
+                    arr = self._finish_transfer(
+                        src, tag, raw, time.monotonic() + 60.0)
+                except MPIError:
+                    self._pump_dead.add(comm.cid)
+                    raise
+                with self._coll_early_lock:
+                    self._coll_early.setdefault(
+                        (comm.cid, src), []).append(arr)
+                _coll_pumped.add()
+                n += 1
+            finally:
+                lk.release()
+        return n
+
+    def _peer_frames(self, peer: int, tag: int, arrs: List,
+                     templates=None):
         """Side-effecting generator: each ``next()`` puts ONE wire
         frame of this peer's transfer queue on the OOB. DCN transfers
         above the pipeline segsize stream as fragments sliced off the
         host copy; shm handoffs and legacy/small transfers count as
-        one frame."""
+        one frame. ``templates`` (a frozen plan's per-array
+        FrameTemplates, None entries = generic path) selects the
+        precomposed-header send: no per-message cvar read or header
+        packing."""
         btl = self._btl_for(peer)
         nid = self._nid(peer)
-        for a in arrs:
+        for k, a in enumerate(arrs):
+            tpl = templates[k] if templates is not None else None
+            if btl is self._nw and btl is not None:
+                # native datapath: the stream does its own sends (ring
+                # writev / vectored sockets) with its own retry + typed
+                # fault mapping; frames and yields stay 1:1 with the
+                # portable stream so striping sees the same shape
+                for _ in btl.frame_stream(self.ep, peer, tag, a,
+                                          tpl=tpl):
+                    yield
+                continue
+            if tpl is not None and btl is self._dcn:
+                for frame in self._dcn.planned_frames(a, tpl):
+                    self._retry(
+                        lambda f=frame: self.ep.send(nid, tag, f),
+                        f"pipelined fragment to process {peer}",
+                    )
+                    yield
+                continue
             seg = self._dcn.pipeline_segsize() if btl is self._dcn else 0
             if seg > 0:
                 # pvar accounting happens inside staged_frames — the
@@ -700,6 +825,20 @@ class WireRouter:
         streams = [self._peer_frames(p, tag, arrs_for[p])
                    for p in sorted(arrs_for) if arrs_for[p]]
         self._stripe(streams, self.tuning().depth)
+
+    def coll_send_planned(self, comm, rnd, sends: Dict[int, List]) -> None:
+        """Steady-state round send from a frozen schedule plan
+        (:mod:`coll.plan`): the round's peer list, per-peer templates
+        (precomposed SGH2 headers + fragment offsets), striping depth
+        and channel tag were all resolved at plan time — this path
+        streams memoryview slices behind precomposed header bytes.
+        Same frames, same striping discipline, same FIFO-per-peer
+        ordering as :meth:`coll_send_all`."""
+        streams = [
+            self._peer_frames(p, rnd.tag, sends[p], templates=tpls)
+            for p, tpls in rnd.peer_slots
+        ]
+        self._stripe(streams, rnd.depth)
 
     @staticmethod
     def _stripe(streams: List, depth: int) -> None:

@@ -492,18 +492,21 @@ class Job:
 
 
     def _reap_segments(self) -> None:
-        """Unlink the shm handoff segments the job's local workers
-        created and no receiver consumed (a worker that died between a
-        peer's handoff and its receive, or an aborted job): every
-        segment is named ``ompitpu-<creator pid>-…`` (``btl/components.py``),
-        and once the job has ended none of its workers' segments can
-        still be in flight — the orte-clean duty, run at every job end."""
+        """Unlink the shm handoff segments and nativewire rings the
+        job's local workers left (a worker that died between a peer's
+        handoff and its receive, or an aborted job killed before its
+        rings were released): every segment is named ``ompitpu-<creator
+        pid>-…`` (``btl/components.py``), every ring ``onw-<owner pid in
+        hex>-…`` (``btl/nativewire.py`` ``_ring_name``), and once the
+        job has ended none of its workers' segments or rings can still
+        be in flight — the orte-clean duty, run at every job end."""
         import glob
 
         for nid, p in self.procs.items():
             if not self.rank_hosts[nid - 1].is_local or p.poll() is None:
                 continue
-            for path in glob.glob(f"/dev/shm/ompitpu-{p.pid}-*"):
+            for path in (glob.glob(f"/dev/shm/ompitpu-{p.pid}-*")
+                         + glob.glob(f"/dev/shm/onw-{p.pid:x}-*")):
                 try:
                     os.unlink(path)
                 except FileNotFoundError:
