@@ -203,7 +203,7 @@ Run from the repository root on a machine with a card:
      alltoall, scan, exscan) at 8 B, 1 MiB, 64 MiB and 256 MiB per rank,
      and a bf16 SUM allreduce at 4 MiB and 256 MiB, is called
      interpreted (its c_coll entry, what coll_compiled=0 runs), fired
-     once (the frozen wire plan recorded) and replayed 5 times (twice
+     once (the frozen wire plan recorded) and replayed 3 times (once
      for a 256 MiB signature other than allreduce), each bitwise the
      closed form, then called with ``--mca op ^cuda``, bitwise the
      closed form; ``cache_stats`` must count the spanning plans and
@@ -230,6 +230,37 @@ Run from the repository root on a machine with a card:
      worker, no shm segment and no shm ring behind.
      ``python3 chip_smoke.py --slice10`` runs slices 10 and 11 alone and
      ``--slice11`` slice 11 alone (no result line);
+   - slice 12, right after slices 10 and 11, in a job of its own (2
+     workers x 4 virtual ranks of ``cuda:0``): the rest of the
+     multi-process plane. A parameter-server wire window of 8 x 64 MiB
+     f32 (5 fence epochs, each worker accumulating 64 MiB into each of
+     the other worker's 4 slices, plus a get): the window and every get
+     equal to the closed form, the home's epoch plans CUDA graphs, one
+     frozen batch template rendering the later batches; a bf16 KV-cache
+     fill (16 MiB a rank) by indexed puts in PSCW epochs across the
+     boundary; 2 threads per worker incrementing rank 0's counter under
+     its exclusive lock (each thread a window of its own; no lost
+     update); 256 fetch_and_op and 256 compare_and_swap on one remote
+     int32; SHMEM with a 16 MiB heap (put, get, atomic_fetch_add to a
+     remote PE, ``shmem_ptr`` of it raising ERR_RMA_SHARED) and
+     ``sum_to_all`` at 64 MiB a PE (the closed form, op ^cuda,
+     ``stream_axpy[sum]`` launching); ``write_at_all`` of a 256 MiB file
+     in per-rank blocks interleaving the workers, then ``read_at_all``,
+     the file's bytes the closed form; ``dropless_moe`` over ranks 2-5
+     at slice 6's MoE shapes, bitwise expert_fn per token; the tree pass
+     over the TpuLM's 66 gradients (integer-valued), blocking and under
+     the progress thread, bitwise the per-leaf allreduce with
+     ``stream_axpy[sum]`` launching; ``HostPipeline`` with one stage per
+     rank, 8 microbatches of (8 x 2048, 512) f32, nonblocking bitwise
+     blocking and the closed form; dpm: publish/lookup, accept/connect
+     between the workers' local comms, an intercomm send and an
+     allreduce over its merge, lookups of closed ports raising
+     ERR_PROC_FAILED; ``comm_spawn`` of one child (``--slice12-child``)
+     that echoes bytes and exits 0. Then per worker: ms per 64 MiB
+     remote-accumulate epoch interpreted and replayed in turns, µs per
+     remote AMO, two-phase write and read GB/s, ``stream_axpy[sum]``
+     launches and peak memory. ``python3 chip_smoke.py --slice12`` runs
+     it alone (no result line);
 4. times the kernels (CUDA events, median of 7) at the main path's
    shapes beside their bound, their plain twins and one PyTorch library
    call, the streaming kernels, the transpose and the eager chain hop in
@@ -3903,10 +3934,12 @@ S11_FAMILIES = ("allreduce", "bcast", "allgather", "reduce", "gather",
 S11_SIZES = (8, MIB, 64 * MIB, 256 * MIB)
 #: the bf16 SUM allreduce's per-rank sizes (integer-valued, so exact)
 S11_BF16_SIZES = (4 * MIB, 256 * MIB)
-S11_REPLAYS = 5
+#: replays per signature (5 until slice 12 joined the script: 3 keep the
+#: whole script under 700 s)
+S11_REPLAYS = 3
 #: replays of a 256 MiB signature other than allreduce: the scans move
 #: 1 GiB between the workers per call (8-9 s each on an H100)
-S11_REPLAYS_LARGE = 2
+S11_REPLAYS_LARGE = 1
 #: the cases bench.py's native_rounds app asserts native, under
 #: hier_inter_algorithm=recursive_doubling (bench.py:1437-1445)
 S11_NATIVE_CASES = (("allreduce", 4096), ("allreduce", 256 * 1024),
@@ -4302,6 +4335,644 @@ def s11_phase(w, rt, tmvar, tpvar, torch, cuda_op, off, dev, pidx):
     return out
 
 
+#: slice 12: the rest of the multi-process plane in a job of its own
+#: (2 workers x 4 virtual ranks of cuda:0)
+S12_PS_ELEMS = 64 * MIB // 4  # a parameter-server window's rank slice
+S12_PS_EPOCHS = 5  # fence epochs: 1 interpreted, 1 capture, 3 replays
+S12_KV_ELEMS = 16 * MIB // 2  # the bf16 cache window's rank slice
+S12_KV_PUTS = 32  # indexed puts per PSCW epoch
+S12_KV_EPOCHS = 4
+S12_LOCK_INCS = 20  # exclusive-lock increments per thread
+S12_AMO_CALLS = 256
+S12_SHMEM_ELEMS = 16 * MIB // 4  # the symmetric heap's block per PE
+S12_SUM_ELEMS = 64 * MIB // 4  # sum_to_all's block per PE
+S12_IO_ELEMS = 256 * MIB // 4 // S10_N  # a rank's block of a 256 MiB file
+S12_PP_MICRO = 8
+S12_PP_ROWS = 8 * 2048
+S12_PP_WIDTH = 512
+S12_TIMING_REPS = 2
+#: the dropless MoE over ranks 2-5: 2 in each worker
+S12_MOE_RANKS = (2, 3, 4, 5)
+S12_SPAWN_TAG = 101  # spawn message tags start at USER_TAG_BASE (100)
+
+
+def s12_pattern(torch, elems, k, dev):
+    """An integer-valued f32 payload (exact under every SUM)."""
+    return (torch.arange(elems, device=dev, dtype=torch.float32) % 251
+            + float(k))
+
+
+def s12_param_server(w, torch, dev, pidx):
+    """8 x 64 MiB f32 window; each fence epoch accumulates 64 MiB into
+    each of the other worker's 4 slices (one batch of 4 accumulates and
+    a get per home): the home's plans must be CUDA graphs, the second
+    and later batches rendered from their frozen template, the window
+    and every get equal to the closed form."""
+    from ompi_release_tpu_torch.osc import plan as oplan
+    from ompi_release_tpu_torch.osc import win_allocate
+
+    other = [r for r in range(S10_N) if r // S10_RANKS != pidx]
+    win = win_allocate(w, (S12_PS_ELEMS,))
+    f0 = oplan.cache_stats()["batch_templates"]
+    gets = []
+    for k in range(S12_PS_EPOCHS):
+        win.fence()
+        pay = s12_pattern(torch, S12_PS_ELEMS, k + pidx, dev)
+        for t in other:
+            win.accumulate(pay, t)
+        gets.append(win.get(other[0]))
+        win.fence()
+    win.fence_end()
+    # each of my slices received every epoch's payload of the other
+    # worker, whose pattern is shifted by its process index
+    peer = 1 - pidx
+    base = s12_pattern(torch, S12_PS_ELEMS, 0, dev)
+    want = base * S12_PS_EPOCHS + float(sum(k + peer for k in
+                                            range(S12_PS_EPOCHS)))
+    data = win.read()
+    check(all(bits_equal(data[i], want) for i in range(S10_RANKS)),
+          "slice 12: parameter-server slices != the closed form")
+    for k, g in enumerate(gets):
+        acc = base * (k + 1) + float(sum(j + pidx for j in range(k + 1)))
+        check(bits_equal(g.value.to(dev), acc),
+              f"slice 12: parameter-server get of epoch {k} != the closed "
+              "form")
+    if dev.type == "cuda":
+        osc_plans_are_graphs(win, "slice 12: the home's epoch plans")
+    frozen = oplan.cache_stats()["batch_templates"] - f0
+    check(len(win._batch_templates) == 1 and frozen == 1,
+          f"slice 12: {len(win._batch_templates)} batch templates, "
+          f"{frozen} frozen: later batches were not rendered from the "
+          "frozen template")
+    plans = len(win._access_plans)
+    win.free()
+    return {"epochs": S12_PS_EPOCHS, "home_plans": plans}
+
+
+def s12_kv_fill(w, torch, dev, pidx):
+    """A bf16 window (16 MiB a rank) filled across the boundary by
+    indexed puts in PSCW epochs, each read back by a get: every get and
+    the final page equal the puts (the port alone: the JAX package's home
+    cannot apply a bf16 batch)."""
+    from ompi_release_tpu_torch.comm.group import Group
+    from ompi_release_tpu_torch.osc import win_allocate
+
+    pos = [j * (S12_KV_ELEMS // S12_KV_PUTS) + 17
+           for j in range(S12_KV_PUTS)]
+    mine = Group(list(range(pidx * S10_RANKS, (pidx + 1) * S10_RANKS)))
+    theirs = Group([r for r in range(S10_N) if r // S10_RANKS != pidx])
+    t_mine = pidx * S10_RANKS + 1  # the peer puts into my rank +1
+    t_theirs = (1 - pidx) * S10_RANKS + 1
+    win = win_allocate(w, (S12_KV_ELEMS,), torch.bfloat16)
+    gens = {p: torch.Generator(device=dev).manual_seed(120 + p)
+            for p in (0, 1)}
+    for k in range(S12_KV_EPOCHS):
+        vals = {p: torch.randn(S12_KV_PUTS, generator=gens[p],
+                               device=dev).to(torch.bfloat16)
+                for p in (0, 1)}
+        win.post(theirs)
+        win.start(theirs)
+        for j, i in enumerate(pos):
+            win.put(vals[pidx][j], target=t_theirs, index=i)
+        get = win.get(target=t_theirs)
+        win.complete()
+        win.wait()
+        page = get.value.to(dev)[pos]
+        check(bits_equal(page, vals[pidx]),
+              f"slice 12: KV epoch {k}: the get != the puts")
+    final = win.read()[t_mine - pidx * S10_RANKS][pos]
+    check(bits_equal(final, vals[1 - pidx]),
+          "slice 12: the KV page != the peer's last puts")
+    if dev.type == "cuda":
+        osc_plans_are_graphs(win, "slice 12: KV-cache home epochs")
+    check(len(win._batch_templates) == 1,
+          f"slice 12: KV batches froze {len(win._batch_templates)} "
+          "templates")
+    win.free()
+
+
+def s12_lock_contention(w, torch, dev, pidx):
+    """2 threads per worker, each on a window of its own (threads of one
+    process use separate windows, as in the reference's two-thread
+    program), increment a counter homed on the OTHER worker under its
+    exclusive lock: get, flush, put. Every increment is remote; the two
+    threads of a worker share its wire and the other worker's window
+    service, and each home serves its own app thread's remote traffic
+    at the same time. No lost update: every counter is exactly the
+    increments."""
+    import threading
+
+    from ompi_release_tpu_torch.osc import win_allocate
+
+    wins = [win_allocate(w, (1,), torch.int32) for _ in range(2)]
+    tgt = (1 - pidx) * S10_RANKS
+    errs = []
+
+    def bump(win):
+        try:
+            for _ in range(S12_LOCK_INCS):
+                win.lock(tgt)
+                req = win.get(tgt)
+                win.flush(tgt)
+                cur = int(req.value.reshape(-1)[0])
+                win.put(torch.tensor([cur + 1], dtype=torch.int32), tgt)
+                win.unlock(tgt)
+        except Exception as e:  # surfaced after join
+            errs.append(e)
+
+    t0 = time.perf_counter()
+    ths = [threading.Thread(target=bump, args=(x,)) for x in wins]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=300)
+    check(not errs and not any(th.is_alive() for th in ths),
+          f"slice 12: lock contention: {errs}")
+    secs = time.perf_counter() - t0
+    w.barrier()
+    # this worker homes the other worker's counters on its first rank
+    totals = [int(x.read()[0, 0]) for x in wins]
+    check(totals == [S12_LOCK_INCS] * 2,
+          f"slice 12: locked counters {totals}, want {S12_LOCK_INCS} "
+          "each (a lost update)")
+    w.barrier()
+    for x in wins:
+        x.free()
+    return {"seconds": secs, "increments": 2 * S12_LOCK_INCS}
+
+
+def s12_amo(w, torch, dev, pidx):
+    """256 fetch_and_op(SUM) and 256 compare_and_swap, each flushed, on
+    one int32 element of a remote rank: the fetched values and the
+    window equal the closed form. Returns µs per remote AMO, and the
+    wire window's span timers over the loop in µs per AMO: this
+    worker's requests (pack, round trip) and, since the other worker
+    runs the same loop at the same time, its home's service of the
+    other's (wait for the locks, the epoch close, the drain, the
+    reply)."""
+    import numpy as np
+
+    from ompi_release_tpu_torch import ops as tops
+    from ompi_release_tpu_torch.mca import pvar as tpvar
+    from ompi_release_tpu_torch.osc import win_allocate
+
+    spans = ("pack", "request", "home_batch", "home_recv", "home_unpack",
+             "home_apply", "home_wait", "home_close", "home_drain",
+             "reply")
+
+    def span_totals():
+        return {k: tpvar.PVARS.lookup(f"osc_wire_{k}_seconds").read()
+                for k in spans}
+
+    win = win_allocate(w, (AMO_ELEMS,), torch.int32)
+    tgt_f = (1 - pidx) * S10_RANKS + 2
+    tgt_c = (1 - pidx) * S10_RANKS + 3
+    win.lock_all()
+    fetched, swapped = [], []
+    w.barrier()
+    before = span_totals()
+    t0 = time.perf_counter()
+    for _ in range(S12_AMO_CALLS):
+        req = win.fetch_and_op(np.int32(3), tgt_f, op=tops.SUM, index=12345)
+        win.flush(tgt_f)
+        fetched.append(req.value)
+    for k in range(S12_AMO_CALLS):
+        req = win.compare_and_swap(np.int32(k + 1), np.int32(k), tgt_c,
+                                   index=777)
+        win.flush(tgt_c)
+        swapped.append(req.value)
+    us = (time.perf_counter() - t0) / (2 * S12_AMO_CALLS) * 1e6
+    w.barrier()  # the other worker's loop, served here, is over too
+    after = span_totals()
+    per_us = {k: (after[k] - before[k]) / (2 * S12_AMO_CALLS) * 1e6
+              for k in spans}
+    win.unlock_all()
+    k = np.arange(S12_AMO_CALLS, dtype=np.int32)
+    check(np.array_equal(torch.stack(fetched).cpu().numpy(), 3 * k),
+          "slice 12: remote fetch_and_op values != 3k")
+    check(np.array_equal(torch.stack(swapped).cpu().numpy(), k),
+          "slice 12: remote compare_and_swap values != k")
+    w.barrier()
+    data = win.read()
+    check(int(data[2, 12345]) == 3 * S12_AMO_CALLS
+          and int(data[3, 777]) == S12_AMO_CALLS
+          and int(data.sum()) == 4 * S12_AMO_CALLS,
+          "slice 12: the AMO window != the closed form")
+    win.free()
+    return {"us_per_call": us, "spans_us_per_amo": per_us}
+
+
+def s12_shmem(w, tmvar, cuda_op, torch, dev, pidx):
+    """A 16 MiB symmetric heap: put, get and atomic_fetch_add to a PE in
+    the other worker; shmem_ptr of that PE raises ERR_RMA_SHARED;
+    sum_to_all at 64 MiB a PE (the hier allreduce) equals the closed form
+    and the op ^cuda call and launches stream_axpy[sum]."""
+    from ompi_release_tpu_torch.oshmem import ShmemCtx
+    from ompi_release_tpu_torch.utils.errors import ErrorCode, MPIError
+
+    ctx = ShmemCtx(w)
+    sym = ctx.malloc((S12_SHMEM_ELEMS,))
+    remote = (1 - pidx) * S10_RANKS + 1
+    vals = s12_pattern(torch, S12_SHMEM_ELEMS, 7 + pidx, dev)
+    ctx.put(sym, vals, remote)
+    ctx.quiet()
+    w.barrier()
+    got = ctx.get(sym, remote).to(dev)
+    check(bits_equal(got, vals), "slice 12: SHMEM get != the put")
+    old = ctx.atomic_fetch_add(sym, torch.ones(S12_SHMEM_ELEMS, device=dev),
+                               remote).to(dev)
+    check(bits_equal(old, vals), "slice 12: SHMEM fetch-add's old value")
+    w.barrier()
+    mine = sym.local(pidx * S10_RANKS + 1)
+    peer_vals = s12_pattern(torch, S12_SHMEM_ELEMS, 7 + (1 - pidx), dev)
+    check(bits_equal(mine, peer_vals + 1),
+          "slice 12: my PE's block != the peer's put + 1")
+    try:
+        sym.local(remote)
+        raise AssertionError("chip_smoke: slice 12: shmem_ptr of a PE in "
+                             "another process did not raise")
+    except MPIError as e:
+        check(e.code is ErrorCode.ERR_RMA_SHARED,
+              f"slice 12: shmem_ptr raised {e.code}")
+    off = pidx * S10_RANKS
+    x = torch.stack([s12_pattern(torch, S12_SUM_ELEMS, off + i, dev)
+                     for i in range(S10_RANKS)])
+    want = (s12_pattern(torch, S12_SUM_ELEMS, 0, dev) * S10_N
+            + float(sum(range(S10_N))))
+    n0 = cuda_op.LAUNCHES["sum"]
+    out = ctx.sum_to_all(x)
+    launches = cuda_op.LAUNCHES["sum"] - n0
+    check(all(bits_equal(out[i], want) for i in range(S10_RANKS)),
+          "slice 12: sum_to_all at 64 MiB != the closed form")
+    plain = with_op_excluded(tmvar, lambda: ctx.sum_to_all(x))
+    check(bits_equal(out, plain), "slice 12: sum_to_all != op ^cuda")
+    check(launches > 0, "slice 12: sum_to_all launched no stream_axpy[sum]")
+    del x, out, plain
+    sym.free()
+    ctx.finalize()
+    return {"sum_to_all_sum_launches": launches}
+
+
+def s12_io(w, torch, dev, pidx, tmp):
+    """write_at_all of a 256 MiB file whose per-rank blocks interleave
+    the two workers (rank r's block at position 2 i + process index),
+    then read_at_all: the file's bytes equal the closed form and every
+    block reads back; returns write and read GB/s."""
+    import os
+
+    import numpy as np
+
+    from ompi_release_tpu_torch.io import File
+
+    path = os.path.join(tmp, "s12_two_phase.bin")
+    n = S12_IO_ELEMS
+    off = pidx * S10_RANKS
+    blocks = [s12_pattern(torch, n, 1000 * (off + i), dev)
+              for i in range(S10_RANKS)]
+    offsets = [(2 * i + pidx) * n for i in range(S10_RANKS)]
+    f = File(w, path)
+    f.set_view(etype=np.float32)
+    w.barrier()
+    t0 = time.perf_counter()
+    total = f.write_at_all(offsets, blocks)
+    t_write = time.perf_counter() - t0
+    check(total == S10_N * n, f"slice 12: write_at_all counted {total}")
+    w.barrier()
+    t0 = time.perf_counter()
+    back = f.read_at_all(offsets, [n] * S10_RANKS)
+    t_read = time.perf_counter() - t0
+    f.close()
+    for i in range(S10_RANKS):
+        check(np.array_equal(back[i], blocks[i].cpu().numpy()),
+              f"slice 12: read_at_all block {i} != the written block")
+    w.barrier()
+    if pidx == 0:
+        raw = np.fromfile(path, np.float32)
+        base = (np.arange(n, dtype=np.float32) % 251)
+        for pos in range(S10_N):
+            i, p = divmod(pos, 2)
+            rank = p * S10_RANKS + i
+            check(np.array_equal(raw[pos * n:(pos + 1) * n],
+                                 base + np.float32(1000 * rank)),
+                  f"slice 12: the file's block {pos} != rank {rank}'s")
+    w.barrier()
+    nbytes = S10_N * n * 4
+    return {"write_GBps": nbytes / t_write / 1e9,
+            "read_GBps": nbytes / t_read / 1e9, "file_bytes": nbytes}
+
+
+def s12_dropless(w, torch, dev, pidx):
+    """dropless_moe over ranks 2-5 (2 in each worker) at slice 6's MoE
+    shapes and seed-0 router: each acting rank's output bitwise
+    expert_fn per token, what s6_dropless's one-process run gives."""
+    from ompi_release_tpu_torch.parallel.ep import dropless_moe
+
+    emb, assign = moe_assignments(torch, dev)
+    colors = [0 if r in S12_MOE_RANKS else 1 for r in range(S10_N)]
+    sub = w.split(colors)[S12_MOE_RANKS[0]]
+    check(sub.spans_processes and len(sub.local_comm_ranks) == 2,
+          "slice 12: the MoE comm does not span the workers")
+    per = emb.shape[0] // len(S12_MOE_RANKS)
+    acting = list(sub.local_comm_ranks)
+    tokens = [emb[i * per:(i + 1) * per] for i in acting]
+    assigns = [assign[i * per:(i + 1) * per] for i in acting]
+
+    def expert_fn(e, x):
+        return x * (e + 1) + e
+
+    outs = dropless_moe(sub, tokens, assigns, expert_fn, MOE_EXPERTS)
+    for i in range(len(acting)):
+        want = torch.empty_like(tokens[i])
+        for e in range(MOE_EXPERTS):
+            sel = assigns[i] == e
+            want[sel] = expert_fn(e, tokens[i][sel])
+        check(bits_equal(outs[i].to(dev), want),
+              f"slice 12: dropless_moe acting rank {acting[i]} != "
+              "expert_fn per token")
+    del emb, assign, tokens, outs
+
+
+def s12_tree(w, tmvar, cuda_op, torch, dev, pidx):
+    """The TpuLM's 66 gradients (integer-valued, so every fold order
+    gives the same bits) on the spanning world: the planned tree pass,
+    blocking and under the progress thread, bitwise the per-leaf
+    allreduce; stream_axpy[sum] launches in the planned pass."""
+    from ompi_release_tpu_torch.mca import pvar as tpvar
+    from ompi_release_tpu_torch.parallel import tree as tree_mod
+
+    off = pidx * S10_RANKS
+    grads = {f"g{i:02d}": g[off:off + S10_RANKS].contiguous()
+             for i, g in enumerate(grad_list(torch, dev, integer=True))}
+    sync = tree_mod.TreeSync(w, mean=False)
+    n0 = cuda_op.LAUNCHES["sum"]
+    out = sync.issue(grads).wait()
+    launches = cuda_op.LAUNCHES["sum"] - n0
+    tmvar.set_value("progress_thread", True)
+    try:
+        hidden0 = tpvar.PVARS.lookup("nbc_hidden_seconds").read()
+        out_bg = sync.issue(grads).wait()
+        hidden = tpvar.PVARS.lookup("nbc_hidden_seconds").read() - hidden0
+    finally:
+        tmvar.VARS.unset("progress_thread")
+    for k, g in grads.items():
+        ref = w.allreduce(g)
+        check(bits_equal(out[k].to(dev), ref.to(dev))
+              and bits_equal(out_bg[k].to(dev), ref.to(dev)),
+              f"slice 12: tree pass {k} != the per-leaf allreduce")
+    check(launches > 0, "slice 12: the tree pass launched no "
+                        "stream_axpy[sum]")
+    nbytes = sum(g[0].numel() * 4 for g in grads.values())
+    del grads, out, out_bg
+    return {"sum_launches": launches, "leaves": 66,
+            "bytes_per_rank": nbytes, "nbc_hidden_s": hidden}
+
+
+def s12_pipeline(w, torch, dev, pidx):
+    """HostPipeline with one stage per rank, 8 microbatches of
+    (8 x 2048, 512) f32 through x @ (0.5 I), at the default
+    ``pml_eager_limit``: each worker runs its 4 local stages in stage
+    order (one controller plays its ranks; a 32 MiB boundary to a stage
+    of the same worker is handed over by a standard send), and the
+    boundary between the workers rides the wire. The legs run in turns
+    (nonblocking, blocking, blocking, nonblocking: the first pass pays
+    the first calls' costs); every pass bitwise the closed form
+    x * 0.5^8, so the nonblocking leg is bitwise the blocking leg.
+    Returns each leg's seconds per pass."""
+    from ompi_release_tpu_torch.parallel import pp as pp_mod
+
+    W = torch.eye(S12_PP_WIDTH, device=dev) * 0.5
+    mbs = [torch.full((S12_PP_ROWS, S12_PP_WIDTH), float(k + 1), device=dev)
+           for k in range(S12_PP_MICRO)]
+    legs = {"nonblocking": [], "blocking": []}
+    for leg in ("nonblocking", "blocking", "blocking", "nonblocking"):
+        w.barrier()
+        t0 = time.perf_counter()
+        outs = None
+        for s in w.local_comm_ranks:
+            outs = pp_mod.HostPipeline(
+                w, lambda x: torch.as_tensor(x, device=dev) @ W,
+                stage=s, nonblocking=leg == "nonblocking").run(mbs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        legs[leg].append(time.perf_counter() - t0)
+        if pidx == 1:
+            check(len(outs) == S12_PP_MICRO,
+                  f"slice 12: HostPipeline ({leg}) outputs")
+            for k, a in enumerate(outs):
+                want = torch.full_like(mbs[k], float(k + 1) * 0.5 ** S10_N)
+                check(bits_equal(a, want),
+                      f"slice 12: HostPipeline ({leg}) microbatch {k} != "
+                      "the closed form")
+    w.barrier()
+    return legs
+
+
+def s12_dpm(w, torch, dev, pidx):
+    """publish_name/lookup_name, comm_accept/comm_connect between the two
+    workers' local comms (the rendezvous crosses the processes), a send
+    over the intercommunicator and an allreduce over its merge; a lookup
+    of a closed port raises ERR_PROC_FAILED in both workers."""
+    from ompi_release_tpu_torch.comm import dpm
+    from ompi_release_tpu_torch.utils.errors import ErrorCode, MPIError
+
+    subs = w.split([0] * S10_RANKS + [1] * S10_RANKS)
+    mine = subs[pidx * S10_RANKS]
+    if pidx == 0:
+        port = dpm.open_port()
+        dpm.publish_name("s12-svc", port)
+        dead = dpm.open_port()
+        dpm.publish_name("s12-dead", dead)
+        dpm.close_port(dead)
+    w.barrier()
+    port = dpm.lookup_name("s12-svc", timeout_s=60)
+    inter = (dpm.comm_accept(mine, port, timeout_s=120) if pidx == 0
+             else dpm.comm_connect(mine, port, timeout_s=120))
+    check(inter.remote_size == S10_RANKS, "slice 12: intercomm size")
+    x = torch.arange(S10_RANKS * 4, dtype=torch.int32, device=dev)
+    if pidx == 0:
+        inter.send(x, dest=2, tag=3, rank=1)
+        v, st = inter.recv(source=2, tag=4, rank=1)
+        check(bits_equal(v.to(dev), x * 2) and st.source == 2,
+              "slice 12: the intercomm's reply")
+    else:
+        v, st = inter.recv(source=1, tag=3, rank=2)
+        check(bits_equal(v.to(dev), x) and st.source == 1,
+              "slice 12: the intercomm's send")
+        inter.send(v * 2, dest=1, tag=4, rank=2)
+    merged = inter.merge(high=(pidx == 1))
+    off = pidx * S10_RANKS
+    rows = torch.stack([torch.full((1024,), float(off + i), device=dev)
+                        for i in range(S10_RANKS)])
+    got = merged.allreduce(rows)
+    check(bits_equal(got, torch.full_like(rows, float(sum(range(S10_N))))),
+          "slice 12: allreduce over intercomm_merge != the closed form")
+    failed = {}
+    for name in ("s12-dead",):
+        try:
+            dpm.lookup_name(name, timeout_s=10)
+            failed[name] = None
+        except MPIError as e:
+            failed[name] = e.code
+    w.barrier()
+    if pidx == 0:
+        dpm.close_port(port)
+    w.barrier()
+    try:
+        dpm.lookup_name("s12-svc", timeout_s=10)
+        failed["s12-svc"] = None
+    except MPIError as e:
+        failed["s12-svc"] = e.code
+    check(all(c is ErrorCode.ERR_PROC_FAILED for c in failed.values()),
+          f"slice 12: lookups of closed ports gave {failed}")
+    w.barrier()
+
+
+def s12_spawn(w, pidx):
+    """comm_spawn of one child (this script with ``--slice12-child``)
+    from worker 0: bytes there and back over the child's lifeline; the
+    child must exit 0."""
+    import os
+
+    from ompi_release_tpu_torch.comm import comm_spawn
+
+    if pidx == 0:
+        t0 = time.perf_counter()
+        job = comm_spawn([sys.executable, os.path.abspath(__file__),
+                          "--slice12-child"], 1, timeout_s=300)
+        job.wait_running(timeout_s=240)
+        payload = bytes(range(256)) * 64
+        job.send(0, S12_SPAWN_TAG, payload)
+        rank, back = job.recv(S12_SPAWN_TAG + 1, timeout_ms=120_000)
+        check(rank == 0 and back == payload[::-1],
+              "slice 12: the spawned child's reply")
+        rc = job.wait(timeout_s=240)
+        check(rc == 0, f"slice 12: the spawned child exited {rc}")
+        check(all(p.poll() is not None for p in job.job.procs.values()),
+              "slice 12: the spawned child outlived its job")
+        secs = time.perf_counter() - t0
+    else:
+        secs = None
+    w.barrier()
+    return secs
+
+
+def s12_child():
+    """The child ``comm_spawn`` launches: one rank under its parent's
+    coordinator, echoing the parent's bytes reversed."""
+    import ompi_release_tpu_torch as mpi
+    from ompi_release_tpu_torch.runtime.runtime import Runtime
+
+    mpi.init()
+    rt = Runtime.current()
+    _src, _tag, payload = rt.agent.ep.recv(tag=S12_SPAWN_TAG,
+                                           timeout_ms=120_000)
+    rt.agent.ep.send(0, S12_SPAWN_TAG + 1, bytes(payload)[::-1])
+    mpi.finalize()
+    return 0
+
+
+def s12_timings(w, tmvar, torch, dev, pidx):
+    """ms per 64 MiB remote-accumulate fence epoch, interpreted
+    (``osc_compiled`` false: the batch packed per call, the home's close
+    interpreted) and replayed (the frozen template, the home's graph), in
+    turns; µs per remote AMO comes from ``s12_amo``."""
+    from ompi_release_tpu_torch.osc import win_allocate
+
+    win = win_allocate(w, (S12_PS_ELEMS,))
+    tgt = (1 - pidx) * S10_RANKS
+    pay = s12_pattern(torch, S12_PS_ELEMS, pidx, dev)
+
+    def epoch():
+        win.fence()
+        win.accumulate(pay, tgt)
+        win.fence()
+
+    def leg(compiled):
+        if not compiled:
+            tmvar.set_value("osc_compiled", False)
+        try:
+            # a cvar write re-plans: the first close freezes, the second
+            # captures (replayed leg); two warm-up epochs either way
+            epoch()
+            epoch()
+            samples = []
+            for _ in range(S12_TIMING_REPS):
+                w.barrier()
+                t0 = time.perf_counter()
+                epoch()
+                samples.append((time.perf_counter() - t0) * 1e3)
+            return samples
+        finally:
+            if not compiled:
+                tmvar.VARS.unset("osc_compiled")
+
+    win.fence()
+    epoch()
+    out = {"replayed": [], "interpreted": []}
+    for r in range(2):
+        order = ("replayed", "interpreted") if r == 0 else \
+            ("interpreted", "replayed")
+        for name in order:
+            out[name] += leg(name == "replayed")
+    win.fence_end()
+    win.free()
+    return {name: {"median_ms": statistics.median(v), "samples_ms": v}
+            for name, v in out.items()}
+
+
+def s12_phase(w, rt, tmvar, torch, cuda_op, dev, pidx):
+    """Slice 12 in one worker: every step, then its timings."""
+    import tempfile
+
+    secs = {}
+    out = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        secs[name] = time.perf_counter() - t0
+
+    step("param_server", lambda: s12_param_server(w, torch, dev, pidx))
+    step("kv_fill", lambda: s12_kv_fill(w, torch, dev, pidx))
+    step("lock_contention", lambda: s12_lock_contention(w, torch, dev, pidx))
+    step("amo", lambda: s12_amo(w, torch, dev, pidx))
+    step("shmem", lambda: s12_shmem(w, tmvar, cuda_op, torch, dev, pidx))
+    with tempfile.TemporaryDirectory() as td:
+        # one directory both workers see: worker 0's, broadcast by name
+        name = td if pidx == 0 else None
+        shared = s12_shared_dir(w, name, pidx)
+        step("io", lambda: s12_io(w, torch, dev, pidx, shared))
+        w.barrier()
+    step("dropless_moe", lambda: s12_dropless(w, torch, dev, pidx))
+    step("tree", lambda: s12_tree(w, tmvar, cuda_op, torch, dev, pidx))
+    step("host_pipeline_s", lambda: s12_pipeline(w, torch, dev, pidx))
+    step("dpm", lambda: s12_dpm(w, torch, dev, pidx))
+    step("spawn_s", lambda: s12_spawn(w, pidx))
+    t0 = time.perf_counter()
+    out["epoch_64MiB_ms"] = s12_timings(w, tmvar, torch, dev, pidx)
+    secs["timings"] = time.perf_counter() - t0
+    out["phase_seconds"] = secs
+    return out
+
+
+def s12_shared_dir(w, name, pidx):
+    """Worker 0's directory name, sent to worker 1 (both workers run on
+    one host in this job)."""
+    import numpy as np
+
+    buf = np.zeros(256, np.uint8)
+    if pidx == 0:
+        raw = name.encode()
+        buf[:len(raw)] = np.frombuffer(raw, np.uint8)
+        w.send(buf, dest=S10_RANKS, tag=31, rank=0)
+        return name
+    got, _ = w.recv(source=0, tag=31, rank=S10_RANKS)
+    arr = np.asarray(got.cpu()).astype(np.uint8)
+    return bytes(arr[arr != 0]).decode()
+
+
 def s10_worker():
     """One worker of the slice-10 job (``chip_smoke.py --slice10-worker``
     under ``tools.tpurun``): writes its results as JSON to
@@ -4311,7 +4982,7 @@ def s10_worker():
 
     import torch
 
-    mode = os.environ["CHIP_SMOKE_S10_MODE"]  # main | s11 | dcn
+    mode = os.environ["CHIP_SMOKE_S10_MODE"]  # main | s11 | dcn | s12
     if mode == "dcn":
         # a distinct shm identity per worker: every payload rides the
         # DCN staging path (chunked frames over the OOB)
@@ -4376,6 +5047,14 @@ def s10_worker():
         out["s11"] = s11_phase(w, rt, tmvar, tpvar, torch, cuda_op, off,
                                dev, pidx)
         out["s11_sum_launches"] = cuda_op.LAUNCHES["sum"]
+    elif mode == "s12":
+        torch.cuda.reset_peak_memory_stats(dev)
+        cuda_op.reset_launches()
+        out["s12"] = s12_phase(w, rt, tmvar, torch, cuda_op, dev, pidx)
+        torch.cuda.synchronize()
+        out["s12_sum_launches"] = cuda_op.LAUNCHES["sum"]
+        out["peak_device_memory_GiB"] = \
+            torch.cuda.max_memory_allocated(dev) / 2 ** 30
     else:
         cuda_op.reset_launches()
         sums = []
@@ -4431,7 +5110,7 @@ def s10_worker():
                                dev, pidx)
         torch.cuda.synchronize()
         out["s11_sum_launches"] = cuda_op.LAUNCHES["sum"]
-    if mode != "dcn":
+    if mode in ("main", "s11"):
         # the local shadow comm's plans are CUDA graphs, as on one
         # process (slice 11's timings fire each size 11 times in one
         # generation); the spanning comm's frozen plans are wire plans,
@@ -4561,6 +5240,62 @@ def phase_slice10(cuda_op, torch, mode="main"):
             "sum": sum(sums), "sum_s11": sum(s11_sums), "mode": mode}
 
 
+def phase_slice12(cuda_op, torch):
+    """Slice 12's path: a tpurun job of its own, 2 workers x 4 virtual
+    ranks on cuda:0 (the libraries are built by then), every step of
+    ``s12_phase`` in each worker; the job must exit 0 and leave no
+    worker, shm segment or ring behind (``s10_job`` checks). Returns the
+    workers' results and the SUM launches summed over them."""
+    import gc
+    import tempfile
+
+    from ompi_release_tpu_torch.native import build_library
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cuda_op.build()
+    build_library()
+    with tempfile.TemporaryDirectory() as td:
+        rc, wall, _, res = s10_job("s12", td)
+    check(rc == 0, f"slice 12: the job exited {rc}")
+    sums = [r["s12_sum_launches"] for r in res]
+    check(all(n > 0 for n in sums),
+          f"slice 12: stream_axpy[sum] launches per worker {sums}")
+    log(f"phase 3: slice-12 path: wire windows (home epochs as CUDA "
+        f"graphs, frozen batch templates), a bf16 KV fill, lock "
+        f"contention, remote AMOs, SHMEM across processes, two-phase IO, "
+        f"the spanning dropless MoE, the tree pass, HostPipeline, dpm and "
+        f"comm_spawn, each equal to its closed form; stream_axpy[sum] "
+        f"launches {sums}; the job took {wall:.1f} s, the phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"res": res, "wall": wall, "sum": sum(sums)}
+
+
+def report_slice12(s12):
+    """Slice 12's numbers per worker, each beside the card's name and
+    power limit."""
+    card = card_line()
+    for r in s12["res"]:
+        o = r["s12"]
+        log(json.dumps({
+            "s12_worker": r["pidx"], "card": card,
+            "epoch_64MiB_remote_accumulate_ms": o["epoch_64MiB_ms"],
+            "remote_amo_us_per_call": o["amo"]["us_per_call"],
+            "remote_amo_spans_us": o["amo"]["spans_us_per_amo"],
+            "two_phase_write_GBps": o["io"]["write_GBps"],
+            "two_phase_read_GBps": o["io"]["read_GBps"],
+            "lock_contention": o["lock_contention"],
+            "shmem": o["shmem"], "tree": o["tree"],
+            "host_pipeline_s": o["host_pipeline_s"],
+            "spawn_s": o["spawn_s"],
+            "stream_axpy_sum_launches": r["s12_sum_launches"],
+            "peak_device_memory_GiB": r["peak_device_memory_GiB"],
+            "phase_seconds": o["phase_seconds"],
+            "seconds": r["seconds"]}))
+    log(json.dumps({"s12_job_wall_s": s12["wall"], "card": card}))
+
+
 def report_slice10(s10, baseline=None):
     """Slices 10 and 11's timings, each beside the card's name and power
     limit: the spanning allreduce per size interpreted (slice 10's path)
@@ -4622,8 +5357,17 @@ def main():
     dev = torch.device("cuda", 0)
     if sys.argv[1:] == ["--slice10-worker"]:
         return s10_worker()
+    if sys.argv[1:] == ["--slice12-child"]:
+        return s12_child()
     t_start = time.perf_counter()
     log(f"card: {card_line()}")
+    if sys.argv[1:] == ["--slice12"]:
+        # slice 12 alone: the builds, its job and its numbers; it prints
+        # no result line
+        report_slice12(phase_slice12(cuda_op, torch))
+        log(f"chip_smoke --slice12: passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     if sys.argv[1:] in (["--slice10"], ["--slice11"]):
         # slices 10 and 11 alone (--slice10) or slice 11 alone
         # (--slice11): the builds, the two jobs and their timings; it
@@ -4659,6 +5403,7 @@ def main():
     # slice 10 runs while this process holds little on the card: its two
     # worker processes share it (their timings print beside slice 1's)
     s10 = phase_slice10(cuda_op, torch)
+    s12 = phase_slice12(cuda_op, torch)
 
     cuda_op.reset_launches()
     world, tuned, runs = drive_main_path(mpi, tmvar, torch, dev)
@@ -4793,6 +5538,9 @@ def main():
             row["launches"] += s10["sum"] + s10["sum_s11"]
             row["launches_by_path"]["slice10"] = s10["sum"]
             row["launches_by_path"]["slice11"] = s10["sum_s11"]
+            row["launches"] += s12["sum"]
+            row["launches_by_path"]["slice12"] = s12["sum"]
+    report_slice12(s12)
     run_bench(torch, dev)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

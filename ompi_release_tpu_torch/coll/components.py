@@ -48,9 +48,16 @@ def _resolve_op(op: Op, x) -> Op:
 
 def _sync(comm) -> None:
     """Barrier completion in driver mode: every rank's work queued on the
-    comm's device has finished."""
+    comm's device has finished. The device-wide wait holds the capture
+    lock (``coll/plan.py``): it must not overlap a CUDA-graph capture on
+    another thread (a spanning window's service thread captures the
+    home's epoch plans while app threads run collectives), since it
+    would wait on the capturing stream."""
     if comm.device.type == "cuda":
-        torch.cuda.synchronize(comm.device)
+        from .plan import capture_lock
+
+        with capture_lock:
+            torch.cuda.synchronize(comm.device)
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,10 @@ mode: a split builds each color's comm everywhere, with or without
 local members). Runtime-private comms (the ``hier`` module's
 process-local shadow) exist only where they have members, so they draw
 NEGATIVE cids from a counter of their own and never desynchronize the
-shared one.
+shared one. A family of comms that only some processes create (a
+``comm/dpm.py`` accept/connect pair and every comm derived from it)
+draws from a :class:`CidBlock` its port's owner reserved above
+:data:`CID_BAND`, so the shared counter stays identical everywhere.
 """
 
 from __future__ import annotations
@@ -60,10 +63,55 @@ _comm_registry: Dict[int, "Communicator"] = {}
 
 _comm_count = pvar.counter("comm_active_count", "live communicators")
 
+#: cids from here up to :data:`CID_LIMIT` are reserved for
+#: :class:`CidBlock`\ s; the shared counter stays below
+CID_BAND = 1 << 19
+#: the wire's collective tags hold a cid below this bound
+CID_LIMIT = 1 << 20
+
 
 def _next_cid(internal: bool = False) -> int:
     with _cid_lock:
-        return next(_internal_cid_counter if internal else _cid_counter)
+        cid = next(_internal_cid_counter if internal else _cid_counter)
+    if cid >= CID_BAND:
+        raise MPIError(ErrorCode.ERR_INTERN,
+                       f"the job's cid space is exhausted ({CID_BAND})")
+    return cid
+
+
+class CidBlock:
+    """A run of cids ``[base, base + size)`` for one family of
+    communicators that only some processes create: a dpm pair, its
+    bridge, and every comm derived from them (merge, dup, split). The
+    processes taking part create the family in the same order, so they
+    draw the same cids, and the shared counter of the other processes
+    never falls behind."""
+
+    def __init__(self, base: int, size: int) -> None:
+        if base < CID_BAND or base + size > CID_LIMIT:
+            raise MPIError(ErrorCode.ERR_INTERN,
+                           f"cid block [{base}, {base + size}) lies "
+                           f"outside [{CID_BAND}, {CID_LIMIT})")
+        self.base, self.size = base, size
+        self._next = base
+
+    def take(self) -> int:
+        with _cid_lock:
+            cid = self._next
+            if cid >= self.base + self.size:
+                raise MPIError(
+                    ErrorCode.ERR_INTERN,
+                    f"cid block [{self.base}, {self.base + self.size}) "
+                    "is exhausted: too many comms derived from one "
+                    "connect/accept pair")
+            self._next += 1
+        return cid
+
+
+def cids_in_use(base: int, size: int) -> bool:
+    """Whether a live communicator of this process holds a cid in
+    ``[base, base + size)``."""
+    return any(base <= c < base + size for c in list(_comm_registry))
 
 
 def clear_comm_registry() -> None:
@@ -98,10 +146,17 @@ class Communicator:
 
     def __init__(self, runtime, group: Group, *, name: str = "",
                  parent: Optional["Communicator"] = None,
-                 internal: bool = False) -> None:
+                 internal: bool = False,
+                 cid_block: Optional[CidBlock] = None) -> None:
         self.runtime = runtime
         self.group = group
-        self.cid = _next_cid(internal)
+        if cid_block is None and not internal:
+            cid_block = getattr(parent, "cid_block", None)
+        #: where this comm and the comms derived from it draw their cids
+        #: (None: the shared counter)
+        self.cid_block = None if internal else cid_block
+        self.cid = (self.cid_block.take() if self.cid_block is not None
+                    else _next_cid(internal))
         self.name = name or f"comm{self.cid}"
         self.errhandler: Errhandler = (
             parent.errhandler if parent else ERRORS_ARE_FATAL

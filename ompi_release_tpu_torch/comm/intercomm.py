@@ -17,8 +17,11 @@ plays every rank, so cross-group ops take both sides' buffers (leading
 axis = that group's size) and results are reported from the handle's
 perspective (what *local* ranks receive). Every intercommunicator is
 created as a mirrored pair sharing one bridge; ``mirror`` is the remote
-side's handle. Not ported yet: ``comm/dpm.py``'s connect/accept and name
-publishing wait for the multi-process slice.
+side's handle. ``comm/dpm.py``'s connect/accept builds its pairs through
+:meth:`Intercommunicator.create` with a ``cid_block`` under tpurun: only
+the processes taking part build such a pair, so its cids (and those of
+every comm derived from it) come from a block the port's owner reserved
+and sent to the connector, never from the shared counter.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 
 from ..utils import output
 from ..utils.errors import ErrorCode, MPIError
-from .communicator import Communicator
+from .communicator import CidBlock, Communicator
 from .group import Group
 
 _log = output.stream("comm")
@@ -47,7 +50,8 @@ class Intercommunicator(Communicator):
 
     def __init__(self, runtime, local_group: Group, remote_group: Group,
                  *, name: str = "", parent: Optional[Communicator] = None,
-                 _bridge: Optional[Communicator] = None) -> None:
+                 _bridge: Optional[Communicator] = None,
+                 cid_block: Optional[CidBlock] = None) -> None:
         overlap = set(local_group.world_ranks) & set(remote_group.world_ranks)
         if overlap:
             raise MPIError(
@@ -58,7 +62,8 @@ class Intercommunicator(Communicator):
             raise MPIError(ErrorCode.ERR_GROUP,
                            "intercomm groups must be non-empty")
         self.remote_group = remote_group
-        super().__init__(runtime, local_group, name=name, parent=parent)
+        super().__init__(runtime, local_group, name=name, parent=parent,
+                         cid_block=cid_block)
         # the bridge is an ordinary intra-communicator over local+remote
         # in that order — the substrate both perspectives share
         if _bridge is None:
@@ -66,6 +71,7 @@ class Intercommunicator(Communicator):
                 runtime,
                 Group(local_group.world_ranks + remote_group.world_ranks),
                 name=f"bridge({self.name})", parent=parent,
+                cid_block=self.cid_block,
             )
         self._bridge = _bridge
         self.mirror: Optional["Intercommunicator"] = None  # set by create
@@ -79,12 +85,14 @@ class Intercommunicator(Communicator):
     @classmethod
     def create(cls, runtime, group_a: Group, group_b: Group, *,
                name: str = "", parent: Optional[Communicator] = None,
+               cid_block: Optional[CidBlock] = None,
                ) -> Tuple["Intercommunicator", "Intercommunicator"]:
-        """Build the mirrored pair (side A's handle, side B's handle)."""
+        """Build the mirrored pair (side A's handle, side B's handle);
+        three cids in this order: A, the bridge, B."""
         ia = cls(runtime, group_a, group_b, name=name or "intercomm",
-                 parent=parent)
+                 parent=parent, cid_block=cid_block)
         ib = cls(runtime, group_b, group_a, name=f"{ia.name}~mirror",
-                 parent=parent, _bridge=ia._bridge)
+                 parent=parent, _bridge=ia._bridge, cid_block=cid_block)
         ia.mirror, ib.mirror = ib, ia
         return ia, ib
 

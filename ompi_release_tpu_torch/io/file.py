@@ -16,10 +16,10 @@ contiguous run. Nonblocking ops (``iwrite_at``/``iread_at``/
 ``iwrite_at_all``/``iread_at_all``) run on a per-file thread pool and
 return Requests whose errors surface at ``wait``. A tensor on the card
 is read to the host per block (``utils/arrays.to_numpy``). On a
-communicator spanning controller processes the collective calls need
-the two-phase exchange over the wire (``io/two_phase.py`` of the
-reference), which is not ported yet (ROADMAP queue 1 item 14): they
-raise ``ERR_NOT_AVAILABLE``.
+communicator spanning controller processes the collective calls take one
+entry per LOCAL member and run the two-phase exchange over the wire
+(``io/two_phase.py``) in the comm's collective posting order; the shared
+file pointer stays refused there, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -175,24 +175,24 @@ class File:
                 else np.concatenate(parts))
 
     # -- collective (fcoll) ------------------------------------------------
-    def _in_process(self, what: str) -> None:
-        if getattr(self.comm, "spans_processes", False):
-            raise MPIError(
-                ErrorCode.ERR_NOT_AVAILABLE,
-                f"{what} on {self.comm.name}: a communicator spanning "
-                "controller processes needs the two-phase exchange over "
-                "the wire, which is not ported yet (ROADMAP queue 1 item "
-                "14)",
-            )
-
     def write_at_all(self, offsets, blocks) -> int:
         """Collective write: rank i's block at element offset i
         (driver mode: per-rank lists). Disjoint contiguous extents per
         rank = the post-aggregation phase of fcoll/two_phase. The
         per-rank pwrites are issued concurrently (os.pwrite releases
-        the GIL), matching the aggregators-write-in-parallel phase."""
+        the GIL), matching the aggregators-write-in-parallel phase.
+
+        On a communicator spanning controller processes the lists carry
+        one entry per LOCAL member and the two-phase exchange runs over
+        the wire (``io/two_phase.py``)."""
         self._check()
-        self._in_process("write_at_all")
+        if getattr(self.comm, "spans_processes", False):
+            from . import two_phase
+
+            # through the comm's collective posting order: the exchange
+            # shares the comm's wire channel with every other collective
+            return self.comm._run_serialized(
+                two_phase.write_at_all, self, offsets, blocks)
         if len(offsets) != self.comm.size or len(blocks) != self.comm.size:
             raise MPIError(
                 ErrorCode.ERR_ARG,
@@ -210,7 +210,11 @@ class File:
 
     def read_at_all(self, offsets, counts):
         self._check()
-        self._in_process("read_at_all")
+        if getattr(self.comm, "spans_processes", False):
+            from . import two_phase
+
+            return self.comm._run_serialized(
+                two_phase.read_at_all, self, offsets, counts)
         if len(offsets) != self.comm.size or len(counts) != self.comm.size:
             raise MPIError(
                 ErrorCode.ERR_ARG,
@@ -272,17 +276,27 @@ class File:
         """Nonblocking collective write (MPI_File_iwrite_at_all): the
         whole fcoll exchange runs on the pool thread; collective
         ordering across the communicator is the caller's duty, as in
-        MPI."""
+        MPI. On a spanning comm it posts to the comm's schedule queue
+        (the 4-worker io pool would reorder two outstanding collectives
+        between posting and execution)."""
         self._check()
-        self._in_process("iwrite_at_all")
         blocks = [self._host(b) for b in blocks]
+        if getattr(self.comm, "spans_processes", False):
+            from . import two_phase
+
+            return self.comm._submit_serialized(
+                two_phase.write_at_all, self, offsets, blocks)
         return self._future_request(
             self._io_pool().submit(self.write_at_all, offsets, blocks)
         )
 
     def iread_at_all(self, offsets, counts) -> Request:
         self._check()
-        self._in_process("iread_at_all")
+        if getattr(self.comm, "spans_processes", False):
+            from . import two_phase
+
+            return self.comm._submit_serialized(
+                two_phase.read_at_all, self, offsets, counts)
         return self._future_request(
             self._io_pool().submit(self.read_at_all, offsets, counts)
         )

@@ -36,9 +36,15 @@ Plans live on the window (``win._access_plans``) and are evicted at
 ``win.free()``. Callers hold the window's ``_op_lock``; device work runs
 under ``window._dispatch_lock``.
 
-Not ported yet: ``BatchTemplate`` and ``batch_payload`` (the spanning
-window's wire frames, ROADMAP queue 1 item 14) and the ledger record and
-obs spans of a replay (item 16).
+For the spanning window's remote side, :class:`BatchTemplate`
+precomposes a batch signature's wire request records (the per-op meta
+JSON) at freeze time and re-renders only the payload arrays, so a frame
+is byte-identical to ``osc/wire_win._pack_batch``'s; a home applies an
+arriving batch through the same access-plan cache (``close_epoch``), so
+a peer's steady-state epochs replay as CUDA graphs on the card.
+
+Not ported yet: the ledger record and obs spans of a replay (ROADMAP
+item 16).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from __future__ import annotations
 import time as _time
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..coll.plan import arg_desc, capture_graph
@@ -92,6 +99,11 @@ _orch = pvar.timer(
     "osc_orchestration_seconds",
     "host time from epoch-close entry to the device work's handoff "
     "(both the interpreted and the planned path feed it)",
+)
+_templates_frozen = pvar.counter(
+    "osc_batch_templates_frozen",
+    "remote-batch wire frame templates frozen (one per new (window, "
+    "batch signature))",
 )
 _capture_failures = pvar.counter(
     "osc_graph_capture_failures",
@@ -266,7 +278,7 @@ class EpochPlan:
         for p in todo:
             if p.request is not None:
                 p.request.complete(value=next(ri),
-                                   status=Status(source=p.target))
+                                   status=Status(source=p.source))
 
 
 def close_epoch(win, todo: List, t0: float) -> bool:
@@ -314,18 +326,79 @@ def close_epoch(win, todo: List, t0: float) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# plan-time wire frames (the remote side)
+# ---------------------------------------------------------------------------
+
+class BatchTemplate:
+    """Precomposed wire frame for one remote-batch signature: the per-op
+    request records (the meta JSON ``_pack_batch`` builds per call) are
+    composed ONCE at freeze time; :meth:`render` packs only the payload
+    arrays through the same deterministic writer, so the frame is
+    byte-identical to ``_pack_batch``'s."""
+
+    __slots__ = ("gen", "meta_arr", "picks")
+
+    def __init__(self, gen: int, todo: List) -> None:
+        from .wire_win import _meta_array
+
+        self.gen = gen
+        self.meta_arr = _meta_array(todo)
+        self.picks = tuple(
+            (i, p.data is not None, p.compare is not None)
+            for i, p in enumerate(todo)
+        )
+
+    def render(self, todo: List) -> np.ndarray:
+        from .wire_win import _savez_bytes, _wire_array
+
+        arrays = {}
+        for i, has_d, has_c in self.picks:
+            p = todo[i]
+            if has_d:
+                arrays[f"d{i}"] = _wire_array(p.data)
+            if has_c:
+                arrays[f"c{i}"] = _wire_array(p.compare)
+        arrays["meta"] = self.meta_arr
+        return np.frombuffer(_savez_bytes(arrays), dtype=np.uint8)
+
+
+def batch_payload(win, todo: List) -> np.ndarray:
+    """Serialize one remote batch: render the signature's frozen
+    :class:`BatchTemplate` in steady state, else pack interpreted and
+    freeze. The bytes are identical either way."""
+    from .wire_win import _pack_batch
+
+    gen, enabled, max_ops = _refresh_conf()
+    if not enabled or len(todo) > max_ops:
+        return _pack_batch(todo)
+    sig = epoch_signature(todo)
+    if sig is None:
+        return _pack_batch(todo)
+    tpls = win._batch_templates
+    tpl = tpls.get(sig)
+    if tpl is not None and tpl.gen == gen:
+        _plan_hits.observe(1)
+        return tpl.render(todo)
+    # the interpreted pack runs first: it owns the predefined-op check,
+    # so an unshippable batch raises before any freeze
+    payload = _pack_batch(todo)
+    tpls[sig] = BatchTemplate(gen, todo)
+    _templates_frozen.add()
+    _plan_hits.observe(0)
+    return payload
+
+
+# ---------------------------------------------------------------------------
 # operator surface
 # ---------------------------------------------------------------------------
 
 def cache_stats() -> dict:
     """Operator-visible plan-cache counters. Plans live per window, so
-    totals are the monotone freeze/build counters, not a live census;
-    ``batch_templates`` (the spanning window's wire frames) is 0 until
-    that half is ported."""
+    totals are the monotone freeze/build counters, not a live census."""
     st = _plan_hits.read()
     return {
         "epoch_plans": int(_plans_frozen.read()),
-        "batch_templates": 0,
+        "batch_templates": int(_templates_frozen.read()),
         "programs": int(_plan_programs.read()),
         "fires": int(st["count"]),
         "hits": int(st["sum"]),

@@ -36,10 +36,11 @@ reference's scalar-broadcast fix). Payloads cast to the window's dtype (a float 
 int32 window truncates toward zero, as ``astype`` does).
 
 Epoch rules enforced (``ompi/win/win.c`` access-epoch checks): RMA
-outside any epoch raises; fence/lock/PSCW cannot be mixed. A window on a
-communicator spanning controller processes needs the wire window
-(``osc/wire_win.py`` of the reference), which is not ported yet
-(ROADMAP queue 1 item 14): constructing one raises ``ERR_NOT_AVAILABLE``.
+outside any epoch raises; fence/lock/PSCW cannot be mixed. On a
+communicator spanning controller processes, ``win_create`` and
+``win_allocate`` build the wire window (``osc/wire_win.py``): this
+process stores its LOCAL members' slices, and RMA to a target in another
+process ships to that target's home at synchronization.
 """
 
 from __future__ import annotations
@@ -94,10 +95,10 @@ class _EpochKind(enum.Enum):
 
 class _PendingOp:
     __slots__ = ("kind", "target", "data", "op", "request", "compare",
-                 "index")
+                 "index", "status_rank")
 
     def __init__(self, kind, target, data=None, op=None, request=None,
-                 compare=None, index=None) -> None:
+                 compare=None, index=None, status_rank=None) -> None:
         self.kind = kind
         self.target = target
         self.data = data
@@ -107,6 +108,13 @@ class _PendingOp:
         # flat element offset within the target slot (MPI target_disp
         # for single-element ops); None = whole-slot operation
         self.index = index
+        # the COMM rank a read's Status reports when ``target`` was
+        # remapped to a storage row (spanning windows)
+        self.status_rank = status_rank
+
+    @property
+    def source(self) -> int:
+        return self.target if self.status_rank is None else self.status_rank
 
 
 # predefined window attributes (mpi.h MPI_WIN_BASE..MPI_WIN_MODEL)
@@ -124,16 +132,6 @@ FLAVOR_SHARED = 4
 # MPI_WIN_UNIFIED semantics
 MODEL_SEPARATE = 1
 MODEL_UNIFIED = 2
-
-
-def _in_process(comm) -> None:
-    if getattr(comm, "spans_processes", False):
-        raise MPIError(
-            ErrorCode.ERR_NOT_AVAILABLE,
-            f"{comm.name} spans controller processes: its windows need "
-            "the wire window, which is not ported yet (ROADMAP queue 1 "
-            "item 14)",
-        )
 
 
 def _elem(pay: torch.Tensor, idx: int) -> torch.Tensor:
@@ -175,18 +173,32 @@ class Window:
                  _owned: bool = False) -> None:
         """``base``: the per-rank buffers, copied onto the comm's device
         (``_owned``: a fresh contiguous tensor there, taken as is)."""
-        _in_process(comm)
+        if getattr(comm, "spans_processes", False):
+            # comm.device holds only the LOCAL members' rows on a
+            # spanning comm: the wire window stores those and ships
+            # remote RMA to its home (osc/wire_win.py)
+            raise MPIError(
+                ErrorCode.ERR_WIN,
+                f"{comm.name} spans controller processes; construct "
+                "windows through win_create/win_allocate (the wire "
+                "window), not Window() directly",
+            )
         if base.shape[0] != comm.size:
             raise MPIError(
                 ErrorCode.ERR_WIN,
                 f"window base leading axis {base.shape[0]} != comm size "
                 f"{comm.size}",
             )
+        self._init_state(comm, base, name, _owned)
+
+    def _init_state(self, comm, base, name: str, owned: bool) -> None:
+        """Shared field setup (the spanning wire window, whose leading
+        axis is its LOCAL members, reuses it)."""
         self.comm = comm
         self.name = name or f"win{id(self):x}"
         #: the window's memory: one address for its life (plans' graphs
         #: write it in place)
-        self._data = base if _owned else \
+        self._data = base if owned else \
             copy_to(base, comm.device).contiguous()
         self._epoch = _EpochKind.NONE
         self._locked: Dict[int, int] = {}  # target -> lock type
@@ -201,8 +213,10 @@ class Window:
         self._flavor = FLAVOR_CREATE  # constructors override
         self._attrs: Dict[int, object] = {}  # user keyvals (win_keyval)
         # frozen per-epoch-signature access plans (osc/plan), each with
-        # its graph and static buffers on the card; evicted at free()
+        # its graph and static buffers on the card, and the spanning
+        # window's frozen remote-batch frames; evicted at free()
         self._access_plans: Dict[Tuple, Any] = {}
+        self._batch_templates: Dict[Tuple, Any] = {}
 
     # -- queries -----------------------------------------------------------
     @property
@@ -429,11 +443,13 @@ class Window:
         # a freed window's plans, their graphs and static buffers die
         # with it
         self._access_plans.clear()
+        self._batch_templates.clear()
         self._freed = True
 
     # -- RMA operations ----------------------------------------------------
-    def _payload(self, x) -> torch.Tensor:
-        """The call-time copy of a payload on the window's device."""
+    def _payload(self, x, target: int) -> torch.Tensor:
+        """The call-time copy of a payload bound for ``target``, on the
+        window's device."""
         return copy_to(x, self._data.device)
 
     def _queue(self, op: _PendingOp) -> Optional[Request]:
@@ -472,8 +488,8 @@ class Window:
     def put(self, data, target: int, index: Optional[int] = None) -> None:
         """Put a whole slot, or (``index`` given) a single element at a
         flat offset within the slot (MPI target_disp addressing)."""
-        self._queue(_PendingOp("put", target, self._payload(data), REPLACE,
-                               index=index))
+        self._queue(_PendingOp("put", target, self._payload(data, target),
+                               REPLACE, index=index))
 
     def get(self, target: int) -> Request:
         req = self._rma_request(target)
@@ -482,14 +498,15 @@ class Window:
 
     def accumulate(self, data, target: int, op: Op = SUM,
                    index: Optional[int] = None) -> None:
-        self._queue(_PendingOp("acc", target, self._payload(data), op,
-                               index=index))
+        self._queue(_PendingOp("acc", target, self._payload(data, target),
+                               op, index=index))
 
     def get_accumulate(self, data, target: int, op: Op = SUM,
                        index: Optional[int] = None) -> Request:
         req = self._rma_request(target)
-        self._queue(_PendingOp("get_acc", target, self._payload(data), op,
-                               req, index=index))
+        self._queue(_PendingOp("get_acc", target,
+                               self._payload(data, target), op, req,
+                               index=index))
         return req
 
     def fetch_and_op(self, value, target: int, op: Op = SUM,
@@ -505,15 +522,15 @@ class Window:
     def rput(self, data, target: int,
              index: Optional[int] = None) -> Request:
         req = self._rma_request(target)
-        self._queue(_PendingOp("put", target, self._payload(data), REPLACE,
-                               request=req, index=index))
+        self._queue(_PendingOp("put", target, self._payload(data, target),
+                               REPLACE, request=req, index=index))
         return req
 
     def raccumulate(self, data, target: int, op: Op = SUM,
                     index: Optional[int] = None) -> Request:
         req = self._rma_request(target)
-        self._queue(_PendingOp("acc", target, self._payload(data), op,
-                               request=req, index=index))
+        self._queue(_PendingOp("acc", target, self._payload(data, target),
+                               op, request=req, index=index))
         return req
 
     def rget(self, target: int) -> Request:
@@ -531,8 +548,8 @@ class Window:
         extension)."""
         req = self._rma_request(target)
         self._queue(
-            _PendingOp("cas", target, self._payload(value), None, req,
-                       compare=self._payload(compare), index=index)
+            _PendingOp("cas", target, self._payload(value, target), None, req,
+                       compare=self._payload(compare, target), index=index)
         )
         return req
 
@@ -681,7 +698,7 @@ class Window:
         for p in todo:
             if p.request is not None:
                 p.request.complete(value=next(ri),
-                                   status=Status(source=p.target))
+                                   status=Status(source=p.source))
 
 
 def _close_program(branch_fns: List[Callable]) -> Callable:
@@ -700,20 +717,31 @@ def _close_program(branch_fns: List[Callable]) -> Callable:
 
 
 def win_create(comm, base, name: str = "") -> Window:
-    """MPI_Win_create: wrap per-rank buffers (leading rank axis). The
-    window copies them onto the comm's device, as the JAX package's
-    ``device_put`` does."""
+    """MPI_Win_create: wrap per-rank buffers (leading rank axis; one
+    slice per LOCAL member on a spanning comm). The window copies them
+    onto the comm's device, as the JAX package's ``device_put`` does."""
+    if getattr(comm, "spans_processes", False):
+        from .wire_win import WireWindow
+
+        return WireWindow(comm, base, name)
     return Window(comm, base, name)
 
 
 def win_allocate(comm, shape: Tuple[int, ...], dtype=torch.float32,
                  name: str = "") -> Window:
     """MPI_Win_allocate: fresh zeroed window, one ``shape`` block per
-    rank."""
-    _in_process(comm)
-    win = Window(comm, torch.zeros((comm.size,) + tuple(shape),
-                                   dtype=torch_dtype(dtype),
-                                   device=comm.device), name, _owned=True)
+    rank (this process's LOCAL members' blocks on a spanning comm)."""
+    if getattr(comm, "spans_processes", False):
+        from .wire_win import WireWindow
+
+        local_n = len(comm.local_comm_ranks)
+        win = WireWindow(comm, torch.zeros(
+            (local_n,) + tuple(shape), dtype=torch_dtype(dtype),
+            device=comm.device), name, _owned=True)
+    else:
+        win = Window(comm, torch.zeros(
+            (comm.size,) + tuple(shape), dtype=torch_dtype(dtype),
+            device=comm.device), name, _owned=True)
     win._flavor = FLAVOR_ALLOCATE
     return win
 
@@ -916,6 +944,6 @@ class DynamicWindow:
 
 def win_create_dynamic(comm, name: str = "") -> DynamicWindow:
     """MPI_Win_create_dynamic: an empty window; memory attaches later
-    (``ompi/mpi/c/win_create_dynamic.c``)."""
-    _in_process(comm)
+    (``ompi/mpi/c/win_create_dynamic.c``); on a spanning comm each
+    attached region is a wire window."""
     return DynamicWindow(comm, name)

@@ -27,9 +27,13 @@ component), with one controller playing every PE:
   (what ``scoll/mpi`` does to OMPI): ``sum_to_all`` is
   ``comm.allreduce(x, SUM)``, whose large f32/bf16 local reductions run
   the op framework's CUDA SUM kernel on the card.
+- On a communicator spanning controller processes the heap rides the
+  wire window (``osc/wire_win.py``): this process stores its own PEs'
+  blocks, and puts, gets and AMOs to a PE in another process ship to its
+  home. ``sum_to_all`` there is the ``hier`` allreduce, whose folds run
+  the SUM kernel at >= 4 MiB.
 
-Not ported yet: the obs span of a bulk drain (ROADMAP queue 1 item 16)
-and PEs spread over controller processes (item 14).
+Not ported yet: the obs span of a bulk drain (ROADMAP queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -109,11 +113,23 @@ class SymmetricArray:
         return self._win.dtype
 
     def local(self, pe: int) -> torch.Tensor:
-        """PE ``pe``'s local block (the shmem_ptr analogue; one
-        controller sees every PE): a snapshot, unchanged by later
-        puts."""
+        """PE ``pe``'s local block (the shmem_ptr analogue): a snapshot,
+        unchanged by later puts. One controller sees every PE; on a
+        communicator spanning processes only this process's PEs are
+        addressable — the reference's shmem_ptr returns NULL for a PE
+        without a load/store path (``oshmem/shmem/c/shmem_ptr.c``), so a
+        PE in another process raises ``ERR_RMA_SHARED``: use
+        :meth:`ShmemCtx.get` for it."""
         self._ctx._drain(self)
         self._win.flush_all()
+        comm = self._win.comm
+        if getattr(comm, "spans_processes", False) \
+                and pe not in comm.local_comm_ranks:
+            raise MPIError(
+                ErrorCode.ERR_RMA_SHARED,
+                f"shmem_ptr: PE {pe} lives in another controller process "
+                "(no load/store path); use get()",
+            )
         return self._win._read_row(pe)
 
     def free(self) -> None:

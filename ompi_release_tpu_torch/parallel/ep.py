@@ -11,8 +11,8 @@ the ep rank dim with the queue's leading dim) and the aux loss is
 ``pmean``'d over ep; the experts of every rank run as one batched
 product. Outside a mesh the layer is the one-rank math with one product
 per expert. ``dropless_moe`` (``:100-189``) is the exact-count
-alternative over ``alltoallv``, for communicators inside one process; a
-communicator spanning processes waits for the cross-process transport.
+alternative over ``alltoallv``; on a communicator spanning processes
+each process acts as its local ranks (``comm.local_comm_ranks``).
 
 The dispatch and combine einsums are f32 products over one-hot tensors:
 each expert slot holds at most one token and each token sits in at most
@@ -27,7 +27,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.errors import ErrorCode, MPIError
 from . import axes
 
 
@@ -122,24 +121,27 @@ def dropless_moe(comm, tokens, assignments, expert_fn: Callable,
     ``e // (n_experts // n)``. ``expert_fn(e, x)`` applies expert e to
     (K, D) tokens. Returns per-rank (T_i, D) outputs in original token
     order, on the comm's device. The counts are computed on the host;
-    tokens move only on the device.
+    tokens move only on the device (and over the wire between
+    processes).
+
+    On a communicator SPANNING controller processes (the unified
+    ``tpurun`` world) each process acts only as its LOCAL member ranks:
+    pass one tokens/assignments entry per local member (the hier
+    v-collective convention); the count matrix is completed with an
+    allgather before routing.
     """
-    if getattr(comm, "spans_processes", False):
-        raise MPIError(
-            ErrorCode.ERR_NOT_AVAILABLE,
-            "dropless_moe over a communicator spanning processes needs "
-            "the cross-process transport, which is not ported",
-        )
     from ..coll.driver import as_rank_buffer
 
     n = comm.size
     if n_experts % n:
         raise ValueError(f"{n_experts} experts not divisible by {n} ranks")
     e_local = n_experts // n
-    if len(tokens) != n or len(assignments) != n:
+    acting = (list(comm.local_comm_ranks)
+              if getattr(comm, "spans_processes", False) else list(range(n)))
+    if len(tokens) != len(acting) or len(assignments) != len(acting):
         raise ValueError(
             f"dropless_moe: need one tokens and assignments entry per "
-            f"rank ({n}), got {len(tokens)} tokens / "
+            f"acting rank ({len(acting)}), got {len(tokens)} tokens / "
             f"{len(assignments)} assignments"
         )
     dev = comm.device
@@ -152,8 +154,17 @@ def dropless_moe(comm, tokens, assignments, expert_fn: Callable,
     # order within a destination, which the inverse permutation needs)
     owners = [a // e_local for a in assign]
     order = [np.argsort(o, kind="stable") for o in owners]
-    counts = np.stack([np.bincount(o, minlength=n) for o in owners]
-                      ).astype(np.int64)
+    local_counts = np.stack([np.bincount(o, minlength=n) for o in owners]
+                            ).astype(np.int64)
+    if len(acting) == n:
+        counts = local_counts
+    else:
+        # complete the (n, n) matrix: every process contributes its
+        # members' rows in comm-rank order (int32 on the wire, as the
+        # JAX package sends them)
+        gathered = comm.allgather(local_counts.astype(np.int32))
+        counts = np.asarray(torch.as_tensor(gathered)[0].cpu()).reshape(
+            n, n).astype(np.int64)
     order_dev = [torch.from_numpy(o).to(dev) for o in order]
     sendbufs = [t.reshape(-1, d).index_select(0, o).reshape(-1)
                 for t, o in zip(toks, order_dev)]
@@ -163,11 +174,11 @@ def dropless_moe(comm, tokens, assignments, expert_fn: Callable,
         [torch.from_numpy(a[o]).to(dev) for a, o in zip(assign, order)],
         counts)
 
-    # each rank runs its local experts on the exact token set
+    # each acting rank runs its local experts on the exact token set
     processed = []
-    for j in range(n):
-        rt = recv[j].reshape(-1, d)
-        ids = recv_ids[j]
+    for pos, j in enumerate(acting):
+        rt = recv[pos].reshape(-1, d)
+        ids = recv_ids[pos]
         out = torch.empty_like(rt)
         for e in range(j * e_local, (j + 1) * e_local):
             sel = (ids == e).nonzero().reshape(-1)
@@ -178,7 +189,7 @@ def dropless_moe(comm, tokens, assignments, expert_fn: Callable,
     # route back: the return count matrix is the transpose
     back = comm.alltoallv(processed, counts.T * d)
     outputs = []
-    for pos in range(n):
+    for pos in range(len(acting)):
         inv = torch.empty_like(order_dev[pos])
         inv[order_dev[pos]] = torch.arange(order_dev[pos].numel(),
                                            device=dev)

@@ -122,9 +122,15 @@ class HostPipeline:
     ``nonblocking=False`` is the blocking leg: each boundary send and
     recv runs between two computes. The results are identical between
     the two legs (the same ``stage_fn`` calls in the same order; the
-    transfers move data only). In one process the stages run one after
-    another (driver mode: the acting rank is explicit); stages in
-    separate processes wait for the multi-process transport."""
+    transfers move data only). One controller runs the stages it plays
+    one after another in stage order (driver mode: the acting rank is
+    explicit), so a boundary to a stage of the same controller is handed
+    over by a standard send, whatever its size: it returns at once (an
+    eager copy, or a snapshot awaiting the receive), where an ``isend``
+    above ``pml_eager_limit`` would wait for a receive that cannot post
+    before this stage ends. Under tpurun each process runs its local
+    ranks' stages and the boundaries between processes ride the wire
+    PML's nonblocking sends."""
 
     def __init__(self, comm, stage_fn: Callable, *,
                  stage: Optional[int] = None, tag: int = 71,
@@ -146,6 +152,7 @@ class HostPipeline:
         n_stages = comm.size
         m = len(microbatches)
         nb = self.nonblocking
+        played = set(getattr(comm, "local_comm_ranks", range(n_stages)))
         recvs: List[Any] = []
         if s > 0 and nb:
             # every boundary irecv posts before the first compute
@@ -167,7 +174,7 @@ class HostPipeline:
             y = self.stage_fn(x)
             if s < n_stages - 1:
                 _boundary_msgs.add()
-                if nb:
+                if nb and s + 1 not in played:
                     # fire and keep computing; drained at schedule end
                     sends.append(comm.isend(y, s + 1, tag, rank=s))
                 else:

@@ -344,8 +344,9 @@ def unpublish_name(service: str) -> None:
 
 
 def lookup_name(service: str, *, timeout_s: float = 10.0) -> str:
-    """``MPI_Lookup_name``: blocks until the name is published or
-    ``timeout_s`` passes (ERR_NAME)."""
+    """``MPI_Lookup_name``'s table lookup: blocks until the name is
+    published or ``timeout_s`` passes (ERR_NAME). ``comm/dpm.py``'s
+    ``lookup_name`` adds the port check on the value."""
     agent = _job_agent()
     if agent is not None:
         return agent.lookup_name(service,
@@ -360,3 +361,10 @@ def lookup_name(service: str, *, timeout_s: float = 10.0) -> str:
                                f"within {timeout_s}s")
             _local_cv.wait(left)
         return _local_names[service]
+
+
+def clear_local() -> None:
+    """Finalize-time teardown of a singleton's name table."""
+    with _local_cv:
+        _local_names.clear()
+        _local_cv.notify_all()

@@ -242,7 +242,14 @@ class Runtime:
             from . import progress as _progress
 
             _progress.engine().shutdown()
+            from ..comm import dpm as dpm_mod
+
+            dpm_mod.clear()
             comm_mod.clear_comm_registry()
+            svc = getattr(self, "_win_service", None)
+            if svc is not None:
+                svc.stop()
+                self._win_service = None
             if self.agent is not None:
                 # report clean completion to the HNP (IOF_COMPLETE ->
                 # TERMINATED flow of plm_types.h:113-151) and drop the

@@ -432,9 +432,15 @@ class TestShmHandoff:
     def test_gc_inside_registration_does_not_hang(self):
         """A garbage collection that runs a collected ShmBtl's finalizer
         while another instance is registering (the reaper lock held on
-        this thread) must re-enter the lock, not deadlock on it."""
+        this thread) must re-enter the lock, not deadlock on it. The
+        automatic collector stays off while the case runs, so each cycle
+        is collected by the ``gc.collect()`` inside registration and by
+        nothing else (a collection on another thread could otherwise
+        reach it first)."""
         done = threading.Event()
         errors = []
+        gc.collect()
+        gc.disable()
 
         class CollectingSet(weakref.WeakSet):
             def add(self, item):
@@ -461,7 +467,11 @@ class TestShmHandoff:
 
         t = threading.Thread(target=run, daemon=True)
         t.start()
-        assert done.wait(20), "ShmBtl registration hung in a GC finalizer"
+        try:
+            assert done.wait(20), \
+                "ShmBtl registration hung in a GC finalizer"
+        finally:
+            gc.enable()
         assert not errors, errors
         with btl_comps.ShmBtl._reaper_lock:
             orphaned = [n for n, _ in btl_comps.ShmBtl._orphaned]

@@ -1,8 +1,8 @@
 """Intercommunicators of the PyTorch port held against the JAX package.
 
 Every case of ``tests/test_intercomm.py`` but the ``comm/dpm.py`` ones
-(connect/accept, name publishing, ports: they wait for the
-multi-process slice) runs on both packages on the same numpy inputs:
+(connect/accept, name publishing, ports: ``tests/test_torch_dpm.py``)
+runs on both packages on the same numpy inputs:
 construction and validation, merge ordering, the inter-collectives
 (blocking, nonblocking and ragged), p2p remote addressing and the
 intra-only rejections. Data movement is bitwise; the reductions run the

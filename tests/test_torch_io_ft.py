@@ -619,20 +619,39 @@ def test_checkpoint_rejects_donated_state(tmp_path):
 
 
 def test_spanning_comm_refused(worlds, tmp_path):
+    """On a communicator spanning processes the collective calls run the
+    two-phase exchange (``io/two_phase.py``, held in
+    ``tests/test_torch_spanning_jobs.py``) in the comm's collective
+    posting order, blocking or posted; the shared file pointer and a
+    Checkpointer without ``private_dir`` stay refused, as in the JAX
+    package."""
+    from ompi_release_tpu_torch.io import two_phase
+
+    routed = []
+
     class Spanning:
         spans_processes = True
         name = "spanning"
         size = N
 
+        def _run_serialized(self, fn, *args):
+            routed.append(("run", fn))
+
+        def _submit_serialized(self, fn, *args):
+            routed.append(("submit", fn))
+
     f = tio.File(Spanning(), str(tmp_path / "x.bin"))
-    for call in (lambda: f.write_at_all([0] * N, [np.ones(1)] * N),
-                 lambda: f.read_at_all([0] * N, [1] * N),
-                 lambda: f.iwrite_at_all([0] * N, [np.ones(1)] * N),
-                 lambda: f.iread_at_all([0] * N, [1] * N),
-                 lambda: f.write_shared(np.ones(1))):
-        with pytest.raises(TMPIError) as ei:
-            call()
-        assert ei.value.code.name == "ERR_NOT_AVAILABLE"
+    f.write_at_all([0] * 4, [np.ones(1)] * 4)
+    f.read_at_all([0] * 4, [1] * 4)
+    f.iwrite_at_all([0] * 4, [np.ones(1)] * 4)
+    f.iread_at_all([0] * 4, [1] * 4)
+    assert routed == [("run", two_phase.write_at_all),
+                      ("run", two_phase.read_at_all),
+                      ("submit", two_phase.write_at_all),
+                      ("submit", two_phase.read_at_all)]
+    with pytest.raises(TMPIError) as ei:
+        f.write_shared(np.ones(1))
+    assert ei.value.code.name == "ERR_NOT_AVAILABLE"
     f.close()
     with pytest.raises(TMPIError):
         TCheckpointer(str(tmp_path / "c"), comm=Spanning())

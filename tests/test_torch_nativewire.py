@@ -711,7 +711,13 @@ class TestNativeJobs:
         for me in range(3):
             assert f"NW_PARITY_OK {me}" in out, out
         assert job.job_state.visited(JobState.TERMINATED)
-        assert set(glob.glob("/dev/shm/onw-*")) <= before
+        # this job's rings (named by their owner's pid): other test
+        # files' jobs, running at the same time, make and free their own
+        owners = tuple(f"/dev/shm/onw-{p.pid:x}-"
+                       for p in job.procs.values())
+        left = {r for r in set(glob.glob("/dev/shm/onw-*")) - before
+                if r.startswith(owners)}
+        assert not left
 
     def test_mixed_fleet_per_peer_fallback(self, tmp_path, capfd):
         """One worker opts out (OMPITPU_NATIVEWIRE=0): capable pairs

@@ -600,17 +600,32 @@ def test_numpy_payload_copied_at_call_time(worlds):
 
 
 def test_spanning_comm_raises_not_available(worlds):
+    """A communicator spanning processes gets the wire window
+    (``osc/wire_win.py``, held in ``tests/test_torch_wire_win.py``):
+    without the runtime's wire router it is refused with ERR_WIN, as a
+    direct ``Window()`` over it is, and a dynamic window's regions are
+    wire windows too."""
+    import torch
+
+    class Runtime:
+        wire = None
+
     class Spanning:
         spans_processes = True
         name = "spanning"
         size = N
+        local_comm_ranks = [0, 1]
+        device = torch.device("cpu")
+        runtime = Runtime()
 
-    for ctor in (tosc.win_allocate, tosc.win_create_dynamic):
+    dyn = tosc.win_create_dynamic(Spanning())
+    for call in (lambda: tosc.win_allocate(Spanning(), (2,)),
+                 lambda: tosc.win_create(Spanning(), np.zeros((2, 2))),
+                 lambda: tosc.Window(Spanning(), torch.zeros(N, 2)),
+                 lambda: dyn.attach((2,))):
         with pytest.raises(TMPIError) as ei:
-            ctor(Spanning(), (2,)) if ctor is tosc.win_allocate \
-                else ctor(Spanning())
-        assert ei.value.code.name == "ERR_NOT_AVAILABLE"
-        assert "item 14" in str(ei.value)
+            call()
+        assert ei.value.code.name == "ERR_WIN"
 
 
 def test_concurrent_closes_on_one_window(worlds):

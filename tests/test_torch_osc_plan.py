@@ -14,8 +14,8 @@ BITWISE: against the JAX package's planned closes, and against the
 port's own interpreted close (``osc_compiled`` off). On the CPU a plan
 is the unrolled close; its CUDA-graph leg runs on the card
 (``tests/test_torch_cuda_kernels.py``, ``chip_smoke.py``). The wire
-legs (``BatchTemplate``, ``_pack_batch``, ``OscTuning``, the 3-process
-job) wait for the multi-process slice.
+legs (``BatchTemplate``, ``_pack_batch``, ``OscTuning``, the
+cross-process job) are in ``tests/test_torch_wire_win.py``.
 """
 
 import numpy as np

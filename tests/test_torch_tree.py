@@ -17,7 +17,7 @@ blocking collectives, bitwise, and against JAX's ``TreeSync``;
 ``HostPipeline`` against its blocking leg and the ``pp.pipeline`` ring;
 and the in-process leg of ``tests/test_compiled_plan.py``'s
 ``test_compiled_whole_tree_pass`` (one cached program per signature).
-The 3-process ``TestTreeJob`` waits for the multi-process slice.
+The 3-process ``TestTreeJob`` is in ``tests/test_torch_spanning_jobs.py``.
 """
 
 import numpy as np
@@ -501,6 +501,25 @@ class TestHostPipeline:
         host = np.stack([N_(o) for o in outs])
         np.testing.assert_allclose(host, ring, rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(host, jring, rtol=1e-5, atol=1e-6)
+
+    def test_one_controller_hands_over_above_the_eager_limit(self, world):
+        """At the default ``pml_eager_limit`` (1 MiB) a boundary larger
+        than the limit still passes between stages one controller plays
+        in turn: the nonblocking leg equals the blocking leg."""
+        width = (1 << 17) + 16  # 2 rows: just over 1 MiB of f32
+        mbs = [torch.full((2, width), float(k + 1)) for k in range(2)]
+        half = np.float32(0.5)
+        outs = {}
+        for nb in (True, False):
+            for s in range(world.size):
+                r = pp.HostPipeline(world, lambda x: x * half, stage=s,
+                                    nonblocking=nb).run(mbs)
+            outs[nb] = r
+        for k, (a, b) in enumerate(zip(outs[True], outs[False])):
+            assert N_(a).tobytes() == N_(b).tobytes()
+            np.testing.assert_array_equal(
+                N_(a), np.full((2, width), (k + 1) * 0.5 ** world.size,
+                               np.float32))
 
     def test_boundary_pvars_count(self, world):
         before = _pv("pp_boundary_msgs")

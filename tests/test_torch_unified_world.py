@@ -130,6 +130,22 @@ def _parity(tmp_path_factory, body, name, n=2, nvirt=4, mca=PARITY_MCA):
     return out
 
 
+def _assert_bitwise_each(dumps, prefix):
+    """Every worker's results under ``prefix`` bitwise across the two
+    packages, for bodies whose workers record different keys (each acts
+    as its own ranks)."""
+    seen = 0
+    for p, (jd, td) in enumerate(zip(dumps["jax"], dumps["torch"])):
+        keys = sorted(k for k in jd if k.startswith(prefix))
+        assert keys == sorted(k for k in td if k.startswith(prefix)), p
+        for k in keys:
+            a, b = jd[k], td[k]
+            assert a.shape == b.shape and a.dtype == b.dtype, (p, k)
+            assert a.tobytes() == b.tobytes(), (p, k)
+        seen += len(keys)
+    assert seen, f"no results under {prefix!r}"
+
+
 def _assert_bitwise(dumps, prefix=""):
     keys = [k for k in dumps["jax"][0] if k.startswith(prefix)]
     assert keys, f"no results under {prefix!r}"

@@ -274,6 +274,10 @@ class TestDroplessEp:
             np.testing.assert_array_equal(outs[i].numpy(), want)
 
     def test_dropless_moe_spanning_comm_not_available(self, worlds):
+        """On a communicator spanning processes each process acts as its
+        local ranks only (the spanning run is held in
+        ``tests/test_torch_spanning_jobs.py``): one entry per rank of
+        the whole comm is refused."""
         from ompi_release_tpu_torch.parallel.ep import dropless_moe
 
         _, tw = worlds
@@ -281,10 +285,11 @@ class TestDroplessEp:
         class Spanning:
             spans_processes = True
             size = N
+            local_comm_ranks = [0, 1]
 
-        with pytest.raises(MPIError) as e:
-            dropless_moe(Spanning(), [], [], None, N)
-        assert e.value.code == ErrorCode.ERR_NOT_AVAILABLE
+        tokens = [np.ones((2, 4), np.float32)] * N
+        with pytest.raises(ValueError, match="acting rank \\(2\\)"):
+            dropless_moe(Spanning(), tokens, [np.zeros(2)] * N, None, N)
 
 
 class TestAlltoallvSkew:
