@@ -261,6 +261,36 @@ Run from the repository root on a machine with a card:
      remote AMO, two-phase write and read GB/s, ``stream_axpy[sum]``
      launches and peak memory. ``python3 chip_smoke.py --slice12`` runs
      it alone (no result line);
+   - slice 13, right after slice 12: fault tolerance, in three
+     ``tools.tpurun`` jobs of 3 workers x 2 virtual ranks of ``cuda:0``
+     (this script with ``--slice13-worker``), heartbeats every 0.3 s,
+     miss limit 3. Job C (``--ft-continue``): a 16 B allreduce frozen
+     and fired by the C plan executor, then worker 2 dies between fires;
+     both survivors' next fire raises ERR_PROC_FAILED or ERR_REVOKED
+     within 5 s of the kill, a C fire stopped by its raised fault word.
+     Jobs A and B run ``ElasticStep`` over a data-parallel train step
+     of the full-width TpuLM (seed-0 weights, flash attention): each
+     rank's (1, 2048) Zipf-drawn tokens from the seed (step, world rank),
+     the 66 per-layer f32 gradients summed by the tree pass over the
+     spanning world under ``tuned,basic,self,hier``, AdamW; each rank's
+     (step + 1) * (world rank + 1) and loss ride a 16 B allreduce;
+     checkpoints every 2 steps into a temporary directory. Job A
+     (``--ft-continue --ft-inject 2:5``, 8 steps): the survivors raise
+     the typed error within 5 s of the kill, shrink to 4 ranks over 2
+     workers on a cid of the FT band, restore step 4 bitwise, end with
+     the degraded closed-form integer sum, bitwise equal parameters, a
+     finite loss below step 0's and one failure and one recovery in the
+     ``ft_*`` pvars; the revoked world's plans are gone and the capture
+     lock is free. Job B (``--enable-recovery``, 2 restarts, ``--ft-inject
+     2:3``, 6 steps): the replacement rejoins, ``recover("respawn")``
+     rebuilds 6 ranks, the integer sum is the no-failure closed form,
+     and steps 3 and 4's losses and parameter checksums are bitwise job
+     A's; exactly one restart. Every job exits 0 and leaves no worker,
+     segment or ring. Then per job and worker: kill -> typed error,
+     ``ft_recovery_seconds``, ``steps_lost``, kill -> replacement
+     rejoined and its cold start, ms per step before and after the
+     recovery, launches and peak memory. ``python3 chip_smoke.py
+     --slice13`` runs it alone (no result line);
 4. times the kernels (CUDA events, median of 7) at the main path's
    shapes beside their bound, their plain twins and one PyTorch library
    call, the streaming kernels, the transpose and the eager chain hop in
@@ -5339,6 +5369,532 @@ def report_slice10(s10, baseline=None):
     log(json.dumps({"s10_job_wall_s": s10["wall"], "card": card}))
 
 
+# ---------------------------------------------------------------------------
+# slice 13: fault tolerance — ULFM detection, revoke/shrink, respawn and
+# the C executor's fault word, under ElasticStep training the TpuLM
+# ---------------------------------------------------------------------------
+
+S13_PROCS = 3
+S13_RANKS = 2  # virtual ranks a worker owns on cuda:0
+S13_N = S13_PROCS * S13_RANKS
+S13_SEQ = 2048  # tokens per rank per step: (1, 2048)
+S13_HEARTBEAT_S = 0.3
+S13_MISS_LIMIT = 3
+S13_CKPT_EVERY = 2
+#: job A: shrink; (steps, the step inside which worker 2 is killed)
+S13_A = (8, 5)
+#: job B: respawn
+S13_B = (6, 3)
+S13_LR = 1e-3
+#: seconds from the kill to the survivors' typed error (the gate)
+S13_DETECT_S = 5.0
+
+
+def s13_batch(torch, cfg, step, wr, dev):
+    """Rank ``wr``'s (1, S13_SEQ) tokens of ``step``, from the seed
+    (step, wr), and their next-token targets. The ids are drawn by a
+    Zipf law (p(k) ~ 1 / (k + 1)), as words are: uniform ids leave a
+    model nothing to learn, and AdamW's first steps then only add noise
+    (the loss rose over 8 steps on the card)."""
+    g = torch.Generator().manual_seed(step * 4096 + wr)
+    zipf = 1.0 / torch.arange(1, cfg.vocab + 1, dtype=torch.float64)
+    tok = torch.multinomial(zipf, S13_SEQ, replacement=True,
+                            generator=g).view(1, S13_SEQ)
+    return tok.to(dev), torch.roll(tok, -1, dims=1).to(dev)
+
+
+def s13_checksum(torch, params):
+    """Two exact integer sums over the parameters' bits (plain and
+    position-weighted): equal iff bitwise equal, up to a collision."""
+    from ompi_release_tpu_torch.optim import leaves
+
+    s1 = s2 = 0
+    for p in leaves(params):
+        iv = p.detach().reshape(-1).view(
+            torch.int16 if p.element_size() == 2 else torch.int32).long()
+        w = torch.arange(iv.numel(), device=iv.device) % 65521 + 1
+        s1 += int(iv.sum())
+        s2 += int((iv * w).sum())
+    return [s1, s2]
+
+
+def s13_unstack(grads):
+    """The 66 per-layer leaves a data-parallel trainer hands over, one
+    row per local rank: embed, ln_f and each stacked layer tensor's
+    slices (the layer axis follows the rank axis)."""
+    out = {"embed": grads["embed"], "ln_f": grads["ln_f"]}
+    for name, t in sorted(grads["layers"].items()):
+        for layer in range(t.shape[1]):
+            out[f"{name}{layer}"] = t[:, layer]
+    return out
+
+
+def s13_adamw(torch, state, grads, lr=S13_LR):
+    """optax.adamw's update (betas 0.9/0.999, eps 1e-8, weight decay
+    1e-4) with f32 moments, the parameters rounded to their dtype."""
+    from ompi_release_tpu_torch.optim import (
+        ADAMW_BETAS, ADAMW_EPS, ADAMW_WEIGHT_DECAY)
+    from ompi_release_tpu_torch.utils import pytree
+
+    b1, b2 = ADAMW_BETAS
+    t = int(state["t"]) + 1
+    ps, treedef = pytree.flatten(state["params"])
+    ms, vs = pytree.leaves(state["m"]), pytree.leaves(state["v"])
+    gs = pytree.leaves(grads)
+    new_p, new_m, new_v = [], [], []
+    for p, m, v, g in zip(ps, ms, vs, gs):
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        u = (m / (1 - b1 ** t)) / ((v / (1 - b2 ** t)).sqrt() + ADAMW_EPS)
+        p32 = p.float()
+        new_p.append((p32 - lr * (u + ADAMW_WEIGHT_DECAY * p32)).to(p.dtype))
+        new_m.append(m)
+        new_v.append(v)
+    return {"params": pytree.unflatten(treedef, new_p),
+            "m": pytree.unflatten(treedef, new_m),
+            "v": pytree.unflatten(treedef, new_v),
+            "t": torch.full_like(state["t"], t),
+            "isum": state["isum"]}
+
+
+def s13_train(w, mode, rt, tpvar, torch, cuda_op, dev, pidx, out_dir):
+    """Jobs A and B: ElasticStep over a data-parallel train step of the
+    full-width TpuLM (seed-0 weights, flash attention). Each local rank
+    takes its own (1, 2048) batch, the 66 per-layer f32 gradients are
+    summed over the spanning comm by the tree pass, AdamW ends the step;
+    each rank's (step + 1) * (world rank + 1) and loss ride a 16-byte
+    allreduce. Checkpoints every S13_CKPT_EVERY steps into this process's
+    own directory."""
+    import os
+
+    from ompi_release_tpu_torch.coll import plan as cplan
+    from ompi_release_tpu_torch.ft import Checkpointer, ulfm
+    from ompi_release_tpu_torch.ft.sensor import FtTester
+    from ompi_release_tpu_torch.models.transformer import (
+        ModelConfig, TpuLM, forward_loss)
+    from ompi_release_tpu_torch.optim import leaves
+    from ompi_release_tpu_torch.parallel import tree as tree_mod
+    from ompi_release_tpu_torch.parallel.elastic import ElasticStep
+    from ompi_release_tpu_torch.utils import pytree
+
+    steps = (S13_A if mode == "A" else S13_B)[0]
+    cfg = ModelConfig()
+    ps, treedef = pytree.flatten(TpuLM(cfg, seed=0, device=dev).params())
+
+    def moments():
+        return pytree.unflatten(treedef, [
+            torch.zeros(p.shape, dtype=torch.float32, device=dev)
+            for p in ps])
+
+    state0 = {"params": pytree.unflatten(treedef,
+                                         [p.detach() for p in ps]),
+              "m": moments(), "v": moments(),
+              "t": torch.zeros((), dtype=torch.int64, device=dev),
+              "isum": torch.zeros((), dtype=torch.float64, device=dev)}
+    rec = {"loss": {}, "ck": {}, "entry_ck": {}, "ms": {}, "err": []}
+
+    def step_fn(step, state, comm):
+        t0 = time.perf_counter()
+        rec["entry_ck"].setdefault(step, []).append(
+            s13_checksum(torch, state["params"]))
+        wrs = [comm.group.world_rank(i) for i in comm.local_comm_ranks]
+        ps, treedef = pytree.flatten(state["params"])
+        live = [p.detach().requires_grad_(True) for p in ps]
+        P = pytree.unflatten(treedef, live)
+        per_rank, losses = [], []
+        for wr in wrs:
+            tok, tgt = s13_batch(torch, cfg, step, wr, dev)
+            loss = forward_loss(cfg, P, tok, tgt)
+            per_rank.append(torch.autograd.grad(loss, live))
+            losses.append(loss.detach().double())
+        # the 66 per-layer gradients, f32, one row per local rank
+        g_tree = pytree.unflatten(treedef, [
+            torch.stack([g[i].float() for g in per_rank])
+            for i in range(len(live))])
+        flat = s13_unstack(g_tree)
+        try:
+            red = tree_mod.TreeSync(comm, mean=False).issue(flat).wait()
+            small = torch.stack([torch.stack([
+                torch.tensor(float((step + 1) * (wr + 1)),
+                             dtype=torch.float64, device=dev), lo])
+                for wr, lo in zip(wrs, losses)])
+            tot = comm.allreduce(small)[0]
+        except Exception:
+            rec["err"].append(time.time())
+            raise
+        n = comm.size
+        layers = {name: torch.stack([red[f"{name}{l}"][0] / n
+                                     for l in range(t.shape[1])])
+                  for name, t in g_tree["layers"].items()}
+        grads = {"embed": red["embed"][0] / n, "ln_f": red["ln_f"][0] / n,
+                 "layers": layers}
+        new = s13_adamw(torch, state, grads)
+        new["isum"] = state["isum"] + tot[0]
+        torch.cuda.synchronize(dev)
+        rec["loss"][step] = float(tot[1]) / n
+        rec["ck"][step] = s13_checksum(torch, new["params"])
+        rec["ms"][step] = (time.perf_counter() - t0) * 1e3
+        return new
+
+    tester = FtTester.from_cvars(pidx)
+    if tester.kill_step >= 0:
+        kill = tester.kill_now
+
+        def kill_now(why=""):
+            with open(os.path.join(out_dir, f"kill-{mode}"), "w") as f:
+                f.write(repr(time.time()))
+            kill(why)
+
+        tester.kill_now = kill_now
+    ck = Checkpointer(os.path.join(out_dir, "ckpt", f"rank{pidx}"))
+    es = ElasticStep(w, step_fn, ck,
+                     policy="shrink" if mode == "A" else "respawn",
+                     checkpoint_every=S13_CKPT_EVERY, recover_timeout_s=180,
+                     tester=tester)
+    world_cids = (w.cid, w._hier_module.shadow.cid)
+    cuda_op.reset_launches()
+    state, stats = es.run(state0, steps)
+    torch.cuda.synchronize(dev)
+    launches = dict(cuda_op.LAUNCHES)
+    c = es.comm
+    # the revoked world's plans (its own and its hier shadow's) are gone
+    left = ([k for k in cplan._device_plans if k[0] in world_cids]
+            + [k for k in cplan._span_states if k[0] in world_cids]
+            + [c_ for c_ in cplan._pools if c_ in world_cids])
+    if stats["recoveries"]:
+        check(not left, f"slice 13 ({mode}): the revoked world's frozen "
+                        f"plans outlived it: {left}")
+        check(cplan.capture_lock.acquire(blocking=False),
+              f"slice 13 ({mode}): the capture lock is held after the "
+              "recovery")
+        cplan.capture_lock.release()
+    return {
+        "steps": steps, "recoveries": stats["recoveries"],
+        "failures": [f for _s, f in stats["failures"]],
+        "failure_steps": [s for s, _f in stats["failures"]],
+        "steps_lost": stats["steps_lost"],
+        "comm_size": c.size, "comm_local": len(c.local_comm_ranks),
+        "comm_cid": c.cid, "comm_name": c.name,
+        "ft_band": [ulfm.FT_CID_BASE, ulfm.FT_CID_LIMIT],
+        "isum": float(state["isum"]),
+        "loss": rec["loss"], "ck": rec["ck"], "entry_ck": rec["entry_ck"],
+        "ms": rec["ms"], "err_time": rec["err"],
+        "final_ck": s13_checksum(torch, state["params"]),
+        "launches": {k: launches[k] for k in
+                     ("sum", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+        "pv": {n: float(tpvar.PVARS.lookup(n).read()) for n in (
+            "ft_failures_detected", "ft_recoveries", "ft_revokes",
+            "ft_recovery_seconds", "ft_steps_lost")},
+    }
+
+
+def s13_native(w, tpvar, torch, dev, pidx, out_dir):
+    """Job C: a 16 B allreduce (the smallest payload the C executor's
+    provenance probe takes: 16-byte windows) frozen and fired by the C
+    executor, then worker 2 dies between fires; the survivors' next fire
+    must surface the typed error, the C loop stopped by its raised fault
+    word."""
+    import os
+    import signal
+
+    def row(r):
+        return [r + 1, 2 * r, 3, r * r]
+
+    off = pidx * S13_RANKS
+    x = torch.tensor([row(off + i) for i in range(S13_RANKS)],
+                     dtype=torch.int32, device=dev)
+    want = torch.tensor([sum(c) for c in zip(*map(row, range(S13_N)))],
+                        dtype=torch.int32, device=dev)
+    for _ in range(4):  # record, freeze, then replays in C
+        got = w.allreduce(x)
+        check(bits_equal(got[0], want), "slice 13 (C): the 16 B allreduce "
+                                        "differs from its closed form")
+    fires = float(tpvar.PVARS.lookup("plan_native_fires").read())
+    check(fires >= 1, f"slice 13 (C): the C executor fired {fires} times")
+    w.barrier()
+    if pidx == 2:
+        time.sleep(0.5)  # the survivors are inside their next fire
+        with open(os.path.join(out_dir, "kill-C"), "w") as f:
+            f.write(repr(time.time()))
+        os.kill(os.getpid(), signal.SIGKILL)
+    from ompi_release_tpu_torch.utils.errors import MPIError
+
+    try:
+        for _ in range(200):
+            w.allreduce(x)
+        check(False, "slice 13 (C): fires with a dead peer kept running")
+    except MPIError as e:
+        t_err = time.time()
+        code, msg = e.code.name, str(e)
+    check(code in ("ERR_PROC_FAILED", "ERR_REVOKED"),
+          f"slice 13 (C): the fire raised {code}: {msg}")
+    return {"code": code, "message": msg[:160], "err_time": t_err,
+            "native_fires": fires,
+            "ft_stops": float(
+                tpvar.PVARS.lookup("plan_native_ft_stops").read())}
+
+
+def s13_process_start():
+    """This process's start on the wall clock: now, less its age (the
+    clock since boot less its start in clock ticks since boot, both
+    from boot, so good to a tick, 10 ms)."""
+    import os
+
+    with open("/proc/self/stat") as f:
+        start = int(f.read().rsplit(")", 1)[1].split()[19])
+    age = (time.clock_gettime(time.CLOCK_BOOTTIME)
+           - start / os.sysconf("SC_CLK_TCK"))
+    return time.time() - age
+
+
+def s13_worker():
+    """One worker of a slice-13 job (``chip_smoke.py --slice13-worker``
+    under ``tools.tpurun``): writes its results as JSON to
+    ``$CHIP_SMOKE_S13_OUT/worker<process index>-<incarnation>.json``."""
+    import os
+
+    t_proc = s13_process_start()
+    import torch
+
+    import ompi_release_tpu_torch as mpi
+    from ompi_release_tpu_torch.mca import pvar as tpvar
+    from ompi_release_tpu_torch.ops import cuda_op
+    from ompi_release_tpu_torch.runtime.runtime import Runtime
+
+    mode = os.environ["CHIP_SMOKE_S13_MODE"]  # A | B | C
+    out_dir = os.environ["CHIP_SMOKE_S13_OUT"]
+    w = mpi.init(cli_args=["--mca", "runtime_virtual_ranks", str(S13_RANKS),
+                           "--mca", "coll", "tuned,basic,self,hier"])
+    t_init = time.time()
+    rt = Runtime.current()
+    pidx = int(rt.bootstrap["process_index"])
+    dev = w.device
+    inc = int(os.environ.get("OMPITPU_INCARNATION", "0") or 0)
+    check(w.size == S13_N and w.spans_processes and dev.type == "cuda",
+          f"slice 13: WORLD {w.size} ranks on {dev}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"pidx": pidx, "pid": os.getpid(), "mode": mode,
+           "incarnation": inc, "t_proc": t_proc, "t_init": t_init}
+    if mode == "C":
+        out.update(s13_native(w, tpvar, torch, dev, pidx, out_dir))
+    else:
+        out.update(s13_train(w, mode, rt, tpvar, torch, cuda_op, dev, pidx,
+                             out_dir))
+    torch.cuda.synchronize(dev)
+    out["peak_device_memory_GiB"] = \
+        torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out["seconds"] = time.time() - t_proc
+    with open(os.path.join(out_dir, f"worker{pidx}-{inc}.json"), "w") as f:
+        json.dump(out, f)
+    mpi.finalize()
+    return 0
+
+
+def s13_job(mode, job_kw, out_dir):
+    """One slice-13 tpurun job (3 workers x 2 virtual ranks on cuda:0,
+    heartbeats every 0.3 s, miss limit 3); returns (rc, wall seconds,
+    the job, {(pidx, incarnation): results})."""
+    import glob
+    import os
+
+    from ompi_release_tpu_torch.tools.tpurun import Job
+
+    env_keep = dict(os.environ)
+    os.environ["CHIP_SMOKE_S13_MODE"] = mode
+    os.environ["CHIP_SMOKE_S13_OUT"] = out_dir
+    t0 = time.perf_counter()
+    try:
+        job = Job(S13_PROCS, [sys.executable, os.path.abspath(__file__),
+                              "--slice13-worker"], [],
+                  heartbeat_s=S13_HEARTBEAT_S, miss_limit=S13_MISS_LIMIT,
+                  **job_kw)
+        rc = job.run(timeout_s=400)
+    finally:
+        os.environ.clear()
+        os.environ.update(env_keep)
+    wall = time.perf_counter() - t0
+    check(all(p.poll() is not None for p in job.procs.values()),
+          f"slice 13 ({mode}): a worker outlived its job")
+    leftovers = [f for pid in job._local_pids
+                 for f in glob.glob(f"/dev/shm/ompitpu-{pid}-*")
+                 + glob.glob(f"/dev/shm/onw-{pid:x}-*")]
+    check(not leftovers, f"slice 13 ({mode}): shm segments or rings left "
+                         f"{leftovers}")
+    res = {}
+    for path in glob.glob(os.path.join(out_dir, "worker*.json")):
+        with open(path) as f:
+            r = json.load(f)
+        res[(r["pidx"], r["incarnation"])] = r
+    kill = None
+    if os.path.exists(os.path.join(out_dir, f"kill-{mode}")):
+        with open(os.path.join(out_dir, f"kill-{mode}")) as f:
+            kill = float(f.read())
+    return rc, wall, job, res, kill
+
+
+def s13_closed_isum(steps, kill, degraded):
+    """The integer contributions' sum: every step on the 6 ranks (sum of
+    wr + 1 = 21), or from the killed step on the 4 survivors (10)."""
+    cut = kill if degraded else steps
+    return float(sum((s + 1) * 21 for s in range(cut))
+                 + sum((s + 1) * 10 for s in range(cut, steps)))
+
+
+def phase_slice13(cuda_op, torch):
+    """Slice 13's path: jobs C (the C executor's fault word), A (shrink)
+    and B (respawn), each held to the checks the module docstring lists; the
+    checkpoint directories live in a temporary directory removed with
+    it. Returns what ``report_slice13`` prints and the launches per
+    kernel row summed over the workers."""
+    import gc
+    import tempfile
+
+    from ompi_release_tpu_torch.native import build_library
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cuda_op.build()
+    build_library()
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        rc, wall, job, res, kill = s13_job(
+            "C", {"on_failure": "continue"}, td)
+    check(rc == 0, f"slice 13 (C): the job exited {rc}")
+    check(sorted(res) == [(0, 0), (1, 0)] and job._ft_failed_ranks == {3},
+          f"slice 13 (C): results {sorted(res)}, promoted "
+          f"{job._ft_failed_ranks}")
+    check(sum(r["ft_stops"] for r in res.values()) >= 1,
+          "slice 13 (C): no C fire stopped on its raised fault word")
+    out["C"] = {"wall": wall, "kill": kill, "res": res}
+    for r in res.values():
+        check(r["err_time"] - kill < S13_DETECT_S,
+              f"slice 13 (C): worker {r['pidx']} saw the typed error "
+              f"{r['err_time'] - kill:.2f} s after the kill")
+
+    with tempfile.TemporaryDirectory() as td:
+        rc, wall, job, res, kill = s13_job(
+            "A", {"on_failure": "continue", "ft_inject": (2, S13_A[1])}, td)
+    check(rc == 0, f"slice 13 (A): the job exited {rc}")
+    check(sorted(res) == [(0, 0), (1, 0)] and kill is not None,
+          f"slice 13 (A): results {sorted(res)}, kill {kill}")
+    steps, kstep = S13_A
+    isum = s13_closed_isum(steps, kstep, True)
+    for r in res.values():
+        w_ = r["pidx"]
+        check(r["recoveries"] == 1 and r["failure_steps"] == [kstep]
+              and any(c in r["failures"][0] for c in
+                      ("ERR_PROC_FAILED", "ERR_REVOKED")),
+              f"slice 13 (A): worker {w_} failures {r['failures']}")
+        check(r["err_time"] and r["err_time"][0] - kill < S13_DETECT_S,
+              f"slice 13 (A): worker {w_} detected "
+              f"{r['err_time'][0] - kill:.2f} s after the kill")
+        lo, hi = r["ft_band"]
+        check(r["comm_size"] == 4 and r["comm_local"] == 2
+              and lo <= r["comm_cid"] < hi,
+              f"slice 13 (A): shrunk comm size {r['comm_size']} cid "
+              f"{r['comm_cid']}")
+        last = str(kstep - 1)  # the committed step before the kill
+        check(all(ck == r["ck"][last] for ck in r["entry_ck"][str(kstep)]),
+              f"slice 13 (A): worker {w_}: the rollback did not restore "
+              "step {last} bitwise")
+        check(r["isum"] == isum,
+              f"slice 13 (A): integer sum {r['isum']} != {isum}")
+        losses = [r["loss"][str(s)] for s in range(steps)]
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0],
+              f"slice 13 (A): worker {w_} losses {losses}")
+        check(r["pv"]["ft_failures_detected"] == 1
+              and r["pv"]["ft_recoveries"] == 1,
+              f"slice 13 (A): worker {w_} pvars {r['pv']}")
+    finals = {tuple(r["final_ck"]) for r in res.values()}
+    check(len(finals) == 1, f"slice 13 (A): survivors' final parameters "
+                            f"differ: {finals}")
+    out["A"] = {"wall": wall, "kill": kill, "res": res}
+
+    with tempfile.TemporaryDirectory() as td:
+        rc, wall, job, res, kill = s13_job(
+            "B", {"on_failure": "restart", "max_restarts": 2,
+                  "ft_inject": (2, S13_B[1])}, td)
+    check(rc == 0, f"slice 13 (B): the job exited {rc}")
+    check(sorted(res) == [(0, 0), (1, 0), (2, 1)] and kill is not None
+          and job._restarts == {3: 1},
+          f"slice 13 (B): results {sorted(res)}, restarts {job._restarts}")
+    steps, kstep = S13_B
+    isum = s13_closed_isum(steps, kstep, False)
+    a_any = next(iter(out["A"]["res"].values()))
+    for r in res.values():
+        w_ = r["pidx"]
+        check(r["comm_size"] == S13_N and r["comm_name"].startswith(
+              "rebuild"), f"slice 13 (B): worker {w_} comm "
+                          f"{r['comm_name']} size {r['comm_size']}")
+        check(r["isum"] == isum,
+              f"slice 13 (B): integer sum {r['isum']} != {isum}")
+        for s in (str(kstep), str(kstep + 1)):
+            check(r["loss"][s] == a_any["loss"][s]
+                  and r["ck"][s] == a_any["ck"][s],
+                  f"slice 13 (B): worker {w_} step {s}: loss "
+                  f"{r['loss'][s]} / checksum {r['ck'][s]} are not job "
+                  f"A's {a_any['loss'][s]} / {a_any['ck'][s]}")
+    rep = res[(2, 1)]
+    out["B"] = {"wall": wall, "kill": kill, "res": res,
+                "rejoin_s": rep["t_init"] - kill,
+                "cold_start_s": rep["t_init"] - rep["t_proc"]}
+    sums = {name: sum(r["launches"][name] for j in ("A", "B")
+                      for r in out[j]["res"].values())
+            for name in ("sum", "flash_fwd", "flash_bwd_dq",
+                         "flash_bwd_dkv")}
+    for name, n in sums.items():
+        check(n > 0, f"slice 13: {name} launched no time")
+    out["launches"] = sums
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 3: slice-13 path: C (fault word), A (shrink) and B "
+        f"(respawn) passed; launches {sums}; the phase took "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def report_slice13(s13):
+    """Slice 13's numbers per job and worker, each beside the card's name
+    and power limit."""
+    card = card_line()
+    for job in ("C", "A", "B"):
+        j = s13[job]
+        for (pidx, inc), r in sorted(j["res"].items()):
+            row = {"s13_job": job, "worker": pidx, "incarnation": inc,
+                   "card": card,
+                   "peak_device_memory_GiB": r["peak_device_memory_GiB"],
+                   "seconds": r["seconds"]}
+            if job == "C":
+                row.update(detect_s=r["err_time"] - j["kill"],
+                           code=r["code"], ft_stops=r["ft_stops"],
+                           native_fires=r["native_fires"])
+            else:
+                kstep = (S13_A if job == "A" else S13_B)[1]
+                ms = {int(s): v for s, v in r["ms"].items()}
+                before = [v for s, v in ms.items() if s < kstep]
+                after = [v for s, v in ms.items() if s > kstep]
+                row.update(
+                    detect_s=(r["err_time"][0] - j["kill"]
+                              if r["err_time"] else None),
+                    ft_recovery_seconds=r["pv"]["ft_recovery_seconds"],
+                    steps_lost=r["steps_lost"],
+                    ms_per_step_before=(statistics.median(before)
+                                        if before else None),
+                    ms_per_step_after=(statistics.median(after)
+                                       if after else None),
+                    losses=[r["loss"][str(s)] for s in
+                            sorted(int(k) for k in r["loss"])],
+                    launches=r["launches"], pv=r["pv"])
+            log(json.dumps(row))
+        extra = {}
+        if job == "B":
+            extra = {"kill_to_rejoined_s": j["rejoin_s"],
+                     "replacement_cold_start_s": j["cold_start_s"]}
+        log(json.dumps({"s13_job": job, "job_wall_s": j["wall"], **extra,
+                        "card": card}))
+
+
 def main():
     import torch
 
@@ -5359,8 +5915,17 @@ def main():
         return s10_worker()
     if sys.argv[1:] == ["--slice12-child"]:
         return s12_child()
+    if sys.argv[1:] == ["--slice13-worker"]:
+        return s13_worker()
     t_start = time.perf_counter()
     log(f"card: {card_line()}")
+    if sys.argv[1:] == ["--slice13"]:
+        # slice 13 alone: the builds, its three jobs and their numbers;
+        # it prints no result line
+        report_slice13(phase_slice13(cuda_op, torch))
+        log(f"chip_smoke --slice13: passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     if sys.argv[1:] == ["--slice12"]:
         # slice 12 alone: the builds, its job and its numbers; it prints
         # no result line
@@ -5404,6 +5969,7 @@ def main():
     # worker processes share it (their timings print beside slice 1's)
     s10 = phase_slice10(cuda_op, torch)
     s12 = phase_slice12(cuda_op, torch)
+    s13 = phase_slice13(cuda_op, torch)
 
     cuda_op.reset_launches()
     world, tuned, runs = drive_main_path(mpi, tmvar, torch, dev)
@@ -5540,7 +6106,16 @@ def main():
             row["launches_by_path"]["slice11"] = s10["sum_s11"]
             row["launches"] += s12["sum"]
             row["launches_by_path"]["slice12"] = s12["sum"]
+    s13_by_row = {"stream_axpy[sum]": "sum", "flash_fwd": "flash_fwd",
+                  "flash_bwd_dq": "flash_bwd_dq",
+                  "flash_bwd_dkv": "flash_bwd_dkv"}
+    for row in rows:  # slice 13's workers train the TpuLM over the wire
+        key = s13_by_row.get(row["name"])
+        if key is not None:
+            row["launches"] += s13["launches"][key]
+            row["launches_by_path"]["slice13"] = s13["launches"][key]
     report_slice12(s12)
+    report_slice13(s13)
     run_bench(torch, dev)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

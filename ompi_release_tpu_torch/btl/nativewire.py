@@ -366,11 +366,15 @@ def module_for(cards, my_pidx: int) -> Optional["NativeWireBtl"]:
         return None
 
 
-def _ring_name(token: str, src_pidx: int, slot: int) -> str:
+def _ring_name(token: str, src_pidx: int, slot: int, inc: int = 0) -> str:
     """The /dev/shm name of the ring src_pidx -> the card's owner: the
     owner's token namespaces it, so a leak check can find every ring a
-    job made by the ``/onw-`` prefix."""
-    return f"/onw-{token}-{src_pidx}-{slot}"
+    job made by the ``/onw-`` prefix. ``inc`` is the producer's
+    incarnation (its card's ``incarnation``, set for a respawned
+    worker): a replacement's rings get names of their own and never
+    meet a ring its dead predecessor left."""
+    src = f"{src_pidx}i{inc}" if inc else f"{src_pidx}"
+    return f"/onw-{token}-{src}-{slot}"
 
 
 def _slot_of(tag: int, slots: int) -> int:
@@ -519,6 +523,34 @@ class NativeWireBtl(DcnBtl):
                 and self._cap(peer_pidx) is not None
                 and self._cap(self.my_pidx) is not None)
 
+    def _inc(self, pidx: int) -> int:
+        """The incarnation ``pidx``'s card advertises (0: the first)."""
+        try:
+            return int(self.cards[pidx].get("incarnation", 0) or 0)
+        except Exception:
+            return 0
+
+    def _peer_gone(self, peer_pidx: int) -> bool:
+        """Whether the peer is dead: the job epoch marks it failed, or
+        its card's pid no longer exists (authoritative on one host)."""
+        from ..ft import ulfm
+
+        if peer_pidx in ulfm.STATE.failed:
+            return True
+        try:
+            pid = int(self.cards[peer_pidx].get("pid", 0) or 0)
+        except Exception:
+            return False
+        if not pid:
+            return False
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return True
+        except PermissionError:
+            pass  # alive under another uid
+        return False
+
     def _same_host(self, peer_pidx: int) -> bool:
         try:
             mine = self.cards[self.my_pidx].get("host")
@@ -539,7 +571,8 @@ class NativeWireBtl(DcnBtl):
             if ent is None:
                 from ..native import ShmRing
 
-                name = _ring_name(token, self.my_pidx, slot)
+                name = _ring_name(token, self.my_pidx, slot,
+                                  self._inc(self.my_pidx))
                 ring = ShmRing.create(name, ring_bytes, os.getpid())
                 if ring is None:
                     # leftover name from a crashed earlier run: the
@@ -556,7 +589,8 @@ class NativeWireBtl(DcnBtl):
         after attach (the mapping lives on) so /dev/shm stays clean.
         A producer that died before creating surfaces as the typed
         ERR_PROC_FAILED — pid liveness is authoritative on one host."""
-        name = _ring_name(self._cap(self.my_pidx)[0], src_pidx, slot)
+        name = _ring_name(self._cap(self.my_pidx)[0], src_pidx, slot,
+                          self._inc(src_pidx))
         peer_pid = 0
         try:
             peer_pid = int(self.cards[src_pidx].get("pid", 0) or 0)
@@ -597,7 +631,8 @@ class NativeWireBtl(DcnBtl):
             return ent
         from ..native import ShmRing
 
-        name = _ring_name(self._cap(self.my_pidx)[0], src_pidx, slot)
+        name = _ring_name(self._cap(self.my_pidx)[0], src_pidx, slot,
+                          self._inc(src_pidx))
         ring = ShmRing.attach(name, os.getpid())
         if ring is None:
             return None
@@ -685,8 +720,11 @@ class NativeWireBtl(DcnBtl):
                   parts) -> None:
         """Write one fragment record into the tx ring. While the ring
         is full, reap this process's own receive rings (see the module
-        docstring): the peer may be waiting on a ring toward us."""
+        docstring): the peer may be waiting on a ring toward us; and
+        every ~100 ms check that the peer lives, so a sender parked on
+        a ring toward a dead peer stops with ERR_PROC_FAILED."""
         deadline = _time.monotonic() + _SEND_TIMEOUT_MS / 1000
+        next_check = _time.monotonic() + 0.1
         while True:
             with lk:
                 rc = ring.writev(tag, parts, 1)
@@ -704,7 +742,17 @@ class NativeWireBtl(DcnBtl):
                     f"shm ring to process {peer_pidx} refused a "
                     f"fragment record (rc {rc})",
                 )
-            if _time.monotonic() >= deadline:
+            now = _time.monotonic()
+            if now >= next_check:
+                next_check = now + 0.1
+                if self._peer_gone(peer_pidx):
+                    raise MPIError(
+                        ErrorCode.ERR_PROC_FAILED,
+                        f"shm ring to process {peer_pidx} stayed full "
+                        "and its consumer is dead — peer died "
+                        "mid-transfer",
+                    )
+            if now >= deadline:
                 raise MPIError(
                     ErrorCode.ERR_PENDING,
                     f"shm ring to process {peer_pidx} stayed full for "

@@ -53,12 +53,17 @@ reason is :attr:`SpanningPlanState.why`'s text, and is printed with
 frames or ring-lock contention falls back for THAT fire only
 (``plan_native_fallbacks``).
 
-A dead peer during a C fire: the executor returns every ``slice_ms``;
-its own deadline is the plan's ``wire_coll_timeout_ms`` snapshot (a
-typed ``ERR_PENDING``), and a ring whose other end is gone reports the
-typed ``ERR_PROC_FAILED``; the job's abort policy then ends the job.
-The ULFM fault word and ``check_wait`` between slices wait for ROADMAP
-item 15; the obs records for item 16.
+A dead peer during a C fire: the executor returns every ``slice_ms``
+and Python runs the ULFM ``check_wait`` between slices, so a peer the
+job epoch marks failed, or a revoked cid, surfaces as the usual typed
+error within one detection interval. Each plan also hands the executor
+a fault word: an ``FtState`` listener raises every live plan's word
+when the failure picture changes, the executor stops at its next poll
+(``RC_FTSTOP``), and Python runs ``check_wait`` — raising, or clearing
+the word and resuming when the change concerns other processes. The
+plan's own deadline is its ``wire_coll_timeout_ms`` snapshot (a typed
+``ERR_PENDING``), and a ring whose other end is gone reports the typed
+``ERR_PROC_FAILED``. The obs records wait for ROADMAP item 16.
 """
 from __future__ import annotations
 
@@ -68,13 +73,16 @@ import struct
 import sys
 import threading
 import time as _time
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..btl.components import storage_dtype
+from ..ft import ulfm as _ulfm
 from ..mca import pvar
+from ..runtime.wire import _ft
 from ..mca import var as mca_var
 from ..utils.errors import ErrorCode, MPIError
 from .plan import _as_nd, check_round
@@ -96,6 +104,11 @@ _native_fires = pvar.counter(
     "plan_native_fires",
     "frozen wire plans fired end-to-end by the C executor (one "
     "ctypes slice loop instead of per-round Python orchestration)",
+)
+_ft_stops = pvar.counter(
+    "plan_native_ft_stops",
+    "C fires stopped by their raised fault word (a change of the ULFM "
+    "failure picture) to run check_wait",
 )
 _native_fallbacks = pvar.counter(
     "plan_native_fallbacks",
@@ -477,14 +490,33 @@ class NativePlan:
         "r0_specs", "pool_rounds", "timeout_ms", "ftword", "router",
         "rx_entries", "fire_locks", "send_msgs", "send_bytes",
         "recv_msgs", "recv_bytes", "send_frames", "recv_frames",
-        "xfer_total", "pool_count", "pool_total",
+        "xfer_total", "pool_count", "pool_total", "busy", "__weakref__",
     )
 
     def close(self) -> None:
-        """Destroy the executor and free its reassembly pool."""
-        px, self.px = self.px, None
+        """Destroy the executor and free its reassembly pool — after a
+        fire in flight on another thread has returned (a revoke drops
+        the plans from the FT watcher's thread; the fire sees the
+        raised fault word and stops within a slice)."""
+        with self.busy:
+            px, self.px = self.px, None
+            _live.discard(self)
         if px is not None:
             px.close()
+
+
+#: every bound executor's plan: the FT listener raises their fault words
+_live: "weakref.WeakSet[NativePlan]" = weakref.WeakSet()
+
+
+def _raise_fault_words(_doc) -> None:
+    """``FtState`` listener: the failure picture changed — stop every
+    running C fire at its next poll so Python re-checks it."""
+    for npl in list(_live):
+        npl.ftword[0] = 1
+
+
+_ulfm.state().add_listener(_raise_fault_words)
 
 
 def _check_ring_fit(plan, nw) -> None:
@@ -733,7 +765,7 @@ def _compile(state, m, fn, args, kw):
         if rx is not None:
             fire_locks.append((p, 1, rx[1]))
             rx_entries[p] = rx
-    # the fault word stays 0: ULFM (ROADMAP item 15) would raise it
+    # raised by the FT listener on every change of the failure picture
     word = (ctypes.c_int64 * 1)(0)
     px.bind(router.ep._h, router._nid(m.my_pidx),
             [router._nid(p) for p in peers], tx_h, rx_h)
@@ -763,7 +795,9 @@ def _compile(state, m, fn, args, kw):
     npl.xfer_total = max(1, send_msgs)
     npl.pool_count = len(pool_sizes)
     npl.pool_total = px.pool_total
+    npl.busy = threading.Lock()
     _pool_bytes.add(npl.pool_total)
+    _live.add(npl)
     return npl
 
 
@@ -882,11 +916,19 @@ class NativeXchg:
         if inputs is None:
             return False
         held: List[threading.Lock] = []
+        if not npl.busy.acquire(blocking=False):
+            return False
+        held.append(npl.busy)
+        if npl.px is None:  # dropped by a revoke since the replay began
+            npl.busy.release()
+            return False
         chan = router._chan_lock("collrx", npl.cid)
         if not chan.acquire(blocking=False):
+            npl.busy.release()
             return False
         held.append(chan)
         fired = False
+        epoch0 = getattr(self.m.comm, "_ft_epoch0", 0)
         try:
             for _p, _kind, lk in npl.fire_locks:
                 if not lk.acquire(blocking=False):
@@ -897,6 +939,8 @@ class NativeXchg:
             for _src, (_ring, _lk, rstash) in npl.rx_entries.items():
                 if rstash.get(npl.tag):
                     return False
+            _ft().check_wait(npl.cid, npl.peers, "native plan fire",
+                             epoch0=epoch0)
             from ..btl import components as _btlc
 
             base = next(_btlc._xfer_ids)
@@ -907,7 +951,7 @@ class NativeXchg:
             if px.fire_begin(inputs, base, npl.timeout_ms) != 0:
                 return False
             fired = True
-            self._run(px, npl)
+            self._run(px, npl, epoch0)
             self._harvest(px, npl)
             self.fired = True
             return True
@@ -919,7 +963,7 @@ class NativeXchg:
             for lk in reversed(held):
                 lk.release()
 
-    def _run(self, px, npl: NativePlan) -> None:
+    def _run(self, px, npl: NativePlan, epoch0: int) -> None:
         t_w = _time.perf_counter()
         try:
             while True:
@@ -927,7 +971,16 @@ class NativeXchg:
                 if rc == px.RC_DONE:
                     return
                 if rc in (px.RC_AGAIN, px.RC_FTSTOP):
-                    continue  # a slice boundary: the C deadline holds
+                    if rc == px.RC_FTSTOP:
+                        _ft_stops.add()
+                    # the detection interval: a dead member process or
+                    # a revoked cid surfaces typed; a change that
+                    # concerns other processes clears the word and the
+                    # fire resumes where it stopped
+                    _ft().check_wait(npl.cid, npl.peers,
+                                     "native plan fire", epoch0=epoch0)
+                    npl.ftword[0] = 0
+                    continue
                 self._raise_rc(px, npl, rc)
         finally:
             self._c_wait = _time.perf_counter() - t_w

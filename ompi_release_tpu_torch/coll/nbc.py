@@ -214,7 +214,7 @@ def ibarrier(comm) -> Request:
     work is queued on the comm's device, so the barrier completes when
     an event recorded behind it fires. On a spanning comm it is a
     schedule posted in the comm's collective order."""
-    comm._check_alive()
+    comm._check_usable()
     if _spanning(comm):
         return icoll(comm, "barrier", ())
     return async_request(None, comm.device)
@@ -245,11 +245,12 @@ def icoll(comm, name: str, args: Tuple, kw: Optional[Dict] = None
     the wire); a seen signature fires its frozen plan through
     coll/plan."""
     t0 = _time.perf_counter()
-    comm._check_alive()
+    comm._check_usable()
     fn = _resolve(comm, name)
     if not _spanning(comm):
         return async_request(
             _plan.dispatch(comm, name, fn, tuple(args), kw), comm.device)
+    comm._ft_fastfail(name)
     nested = _nested_inline(comm, fn, (comm,) + tuple(args), kw)
     if nested is not None:
         return nested
@@ -292,7 +293,7 @@ def submit(comm, name: str, fn: Callable, args: Tuple,
     comm's schedule queue: keeps posting order with every other schedule
     on the comm, runs at wait() (polling mode) or on the progress thread
     with the comm's device current."""
-    comm._check_alive()
+    comm._check_usable()
     _spanning(comm)
     nested = _nested_inline(comm, fn, args, kw)
     if nested is not None:
@@ -323,7 +324,7 @@ def persistent(comm, name: str, args: Tuple, kw: Optional[Dict] = None
     each start. On a spanning comm each start posts a fresh schedule that
     replays the signature's frozen wire plan (the first start records
     it)."""
-    comm._check_alive()
+    comm._check_usable()
     kw = kw or {}
     if _spanning(comm):
         fn = _resolve(comm, name)

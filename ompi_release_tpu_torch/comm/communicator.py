@@ -24,7 +24,11 @@ rank is the keyword ``rank=``), and the spanning branches of the
 unified multi-process world: a communicator whose members live in
 several ``tpurun`` workers knows its ``local_comm_ranks``, reports
 ``spans_processes``, and selects the ``hier`` collectives and the wire
-PML. The fault-tolerance hooks come with a later slice.
+PML. ULFM: ``revoke`` poisons a comm (its frozen plans are dropped with
+it), ``agree`` and ``shrink`` go through the coordinator, and every
+communication entry point of a revoked comm raises ``ERR_REVOKED``; a
+spanning collective whose member process the job epoch marks failed
+raises ``ERR_PROC_FAILED`` before it is posted.
 
 CID allocation: the reference's agreement (``comm_cid.c``) reduces to
 a deterministic monotone counter, identical on every process because
@@ -35,8 +39,11 @@ process-local shadow) exist only where they have members, so they draw
 NEGATIVE cids from a counter of their own and never desynchronize the
 shared one. A family of comms that only some processes create (a
 ``comm/dpm.py`` accept/connect pair and every comm derived from it)
-draws from a :class:`CidBlock` its port's owner reserved above
-:data:`CID_BAND`, so the shared counter stays identical everywhere.
+draws from a :class:`CidBlock` its port's owner reserved, so the shared
+counter stays identical everywhere. A rebuilt communicator (ULFM shrink
+or respawn) takes the cid ``ft_cid`` derives from the agreed epoch and
+its lineage. The bands of the cid space and ``ft_cid`` are laid out in
+``utils/cids.py``.
 """
 
 from __future__ import annotations
@@ -47,9 +54,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..ft import ulfm as _ulfm
 from ..mca import pvar
 from ..runtime.mesh import build_submesh
 from ..utils import output
+from ..utils.cids import CID_BAND, CID_LIMIT, DPM_CID_BASE
 from ..utils.errors import Errhandler, ErrorCode, MPIError, ERRORS_ARE_FATAL
 from .group import Group, UNDEFINED
 
@@ -62,12 +71,6 @@ _fusion_create_lock = threading.Lock()
 _comm_registry: Dict[int, "Communicator"] = {}
 
 _comm_count = pvar.counter("comm_active_count", "live communicators")
-
-#: cids from here up to :data:`CID_LIMIT` are reserved for
-#: :class:`CidBlock`\ s; the shared counter stays below
-CID_BAND = 1 << 19
-#: the wire's collective tags hold a cid below this bound
-CID_LIMIT = 1 << 20
 
 
 def _next_cid(internal: bool = False) -> int:
@@ -88,10 +91,10 @@ class CidBlock:
     never falls behind."""
 
     def __init__(self, base: int, size: int) -> None:
-        if base < CID_BAND or base + size > CID_LIMIT:
+        if base < DPM_CID_BASE or base + size > CID_LIMIT:
             raise MPIError(ErrorCode.ERR_INTERN,
                            f"cid block [{base}, {base + size}) lies "
-                           f"outside [{CID_BAND}, {CID_LIMIT})")
+                           f"outside [{DPM_CID_BASE}, {CID_LIMIT})")
         self.base, self.size = base, size
         self._next = base
 
@@ -112,6 +115,34 @@ def cids_in_use(base: int, size: int) -> bool:
     """Whether a live communicator of this process holds a cid in
     ``[base, base + size)``."""
     return any(base <= c < base + size for c in list(_comm_registry))
+
+
+def _evict_for(cid: int) -> None:
+    """Make room for a comm built at the explicit ``cid``. A REVOKED or
+    freed occupant (the epoch-wrapped slot of this lineage's own
+    poisoned ancestor) is evicted — ULFM never lets it be used again —
+    with a real free, so its teardown hooks run and its frozen plans go;
+    a LIVE occupant is a real collision and a loud error. Any stale
+    revocation record for the slot belongs to an ancestor and is
+    forgotten, or every wire wait on the fresh comm would raise
+    ERR_REVOKED at once."""
+    occupant = _comm_registry.get(cid)
+    if occupant is not None and (occupant._revoked or occupant._freed):
+        if not occupant._freed:
+            try:
+                occupant.free()
+            except MPIError:
+                # a poisoned drain must not block the rebuild; its plans
+                # go all the same
+                occupant._drop_plans()
+        _comm_registry.pop(cid, None)
+        occupant = None
+    if occupant is not None:
+        raise MPIError(
+            ErrorCode.ERR_COMM,
+            f"explicit cid {cid} already registered ({occupant.name}) "
+            "— free it before rebuilding at the same epoch")
+    _ulfm.state().clear_revoked(cid)
 
 
 def clear_comm_registry() -> None:
@@ -147,7 +178,8 @@ class Communicator:
     def __init__(self, runtime, group: Group, *, name: str = "",
                  parent: Optional["Communicator"] = None,
                  internal: bool = False,
-                 cid_block: Optional[CidBlock] = None) -> None:
+                 cid_block: Optional[CidBlock] = None,
+                 cid: Optional[int] = None) -> None:
         self.runtime = runtime
         self.group = group
         if cid_block is None and not internal:
@@ -155,8 +187,30 @@ class Communicator:
         #: where this comm and the comms derived from it draw their cids
         #: (None: the shared counter)
         self.cid_block = None if internal else cid_block
-        self.cid = (self.cid_block.take() if self.cid_block is not None
-                    else _next_cid(internal))
+        if cid is not None:
+            # explicit cid: the ULFM shrink/rebuild path derives it from
+            # the HNP-agreed epoch (ft/ulfm.ft_cid)
+            _evict_for(cid)
+            self.cid = cid
+        elif self.cid_block is not None:
+            self.cid = self.cid_block.take()
+        else:
+            self.cid = _next_cid(internal)
+        self._revoked = False  # ULFM revocation flag (see revoke())
+        # ULFM lineage anchor: shrink/rebuild children inherit the
+        # ORIGINAL comm's identity, so across ANY number of recoveries
+        # every participant — a survivor holding rebuild#N, a fresh
+        # replacement holding only its world — keys the recovery
+        # agreement and the epoch-derived cid on the same value
+        if cid is not None and parent is not None:
+            self._ft_lineage = getattr(parent, "_ft_lineage", parent.cid)
+        else:
+            self._ft_lineage = self.cid
+        # the job epoch this comm was born at: ULFM failures are
+        # permanent per communicator, so bounded waits compare each
+        # peer's failure episode against THIS epoch — a replacement
+        # incarnation is visible only to comms built after its rejoin
+        self._ft_epoch0 = _ulfm.state().epoch
         self.name = name or f"comm{self.cid}"
         self.errhandler: Errhandler = (
             parent.errhandler if parent else ERRORS_ARE_FATAL
@@ -222,6 +276,20 @@ class Communicator:
     def _check_alive(self) -> None:
         if self._freed:
             raise MPIError(ErrorCode.ERR_COMM, f"{self.name} already freed")
+
+    def _check_usable(self) -> None:
+        """Alive AND not revoked: every communication entry point runs
+        this (ULFM: all ops except agree/shrink/get_failed fail with
+        ERR_REVOKED on a revoked communicator). The flag is set by
+        revoke() locally and by the FT watcher when a peer's poison
+        frame arrives."""
+        self._check_alive()
+        if self._revoked:
+            raise MPIError(
+                ErrorCode.ERR_REVOKED,
+                f"{self.name} (cid {self.cid}) has been revoked — "
+                "shrink() or rebuild it to continue",
+            )
 
     # -- construction ------------------------------------------------------
     def dup(self, name: str = "") -> "Communicator":
@@ -318,6 +386,19 @@ class Communicator:
         self._freed = True
         _comm_count.add(-1)
 
+    def _drop_plans(self) -> None:
+        """Drop the frozen plans of this comm and of its hier shadow:
+        their CUDA graphs and pool, wire plans and C executors (a
+        revoked comm never fires again, and a rebuild that reuses the
+        cid must record afresh)."""
+        from ..coll import plan as _coll_plan
+
+        _coll_plan.clear_comm(self.cid)
+        m = getattr(self, "_hier_module", None)
+        shadow = getattr(m, "shadow", None)
+        if shadow is not None:
+            _coll_plan.clear_comm(shadow.cid)
+
     # -- attributes (MPI keyvals) ------------------------------------------
     def set_attr(self, keyval: Keyval, value: Any) -> None:
         self._check_alive()
@@ -345,9 +426,145 @@ class Communicator:
         """MPI_Abort analogue."""
         raise SystemExit(f"MPI_Abort on {self.name} with errorcode {errorcode}")
 
+    # -- ULFM fault tolerance (MPIX_Comm_revoke/shrink/agree) --------------
+    def _member_procs(self) -> List[int]:
+        """Process indices owning this comm's ranks (spanning comms;
+        [my process] otherwise)."""
+        if not self.spans_processes:
+            return [int(self.runtime.bootstrap.get("process_index", 0))]
+        from ..runtime.wire import proc_topology
+
+        return proc_topology(self).procs
+
+    @property
+    def revoked(self) -> bool:
+        return self._revoked
+
+    def revoke(self) -> None:
+        """``MPIX_Comm_revoke``: epoch-stamped poison. Marks the comm
+        revoked locally (every pending bounded wait on its wire
+        channels raises ERR_REVOKED within one slice, queued
+        progress-engine schedules complete in error without running,
+        its frozen plans are dropped), then pushes TAG_FT_REVOKE frames
+        to every live peer process so THEIR pending ops are
+        interrupted too. Idempotent; never raises on a dead peer — a
+        corpse needs no poison."""
+        self._check_alive()
+        st = _ulfm.state()
+        self._revoked = True
+        first = st.apply_revoke(self.cid, st.epoch)
+        agent = getattr(self.runtime, "agent", None)
+        if not first or agent is None or not self.spans_processes:
+            return
+        from ..runtime.wire import proc_topology
+
+        for p in proc_topology(self).peers:
+            if p in st.failed:
+                continue
+            try:
+                agent.ft_revoke_notify(p, self.cid, st.epoch)
+            except MPIError:
+                pass  # peer died between the check and the send
+        _log.verbose(1, f"{self.name} revoked (epoch {st.epoch})")
+
+    def get_failed(self) -> List[int]:
+        """``MPIX_Comm_get_failed``: this comm's ranks owned by
+        processes the job epoch marks failed."""
+        self._check_alive()
+        if not self.spans_processes:
+            return []
+        from ..runtime.wire import proc_topology
+
+        topo = proc_topology(self)
+        dead = set(_ulfm.state().dead_for(set(topo.owner),
+                                          self._ft_epoch0))
+        return [i for i in range(self.size) if topo.owner[i] in dead]
+
+    def agree(self, flag: bool = True, *, aseq: Optional[int] = None,
+              timeout_ms: int = 60_000) -> bool:
+        """``MPIX_Comm_agree``: fault-tolerant AND of ``flag`` across
+        the comm's LIVE member processes, arbitrated by the HNP
+        coordinator (failed contributors are excused as the epoch
+        marks them). Works on a revoked communicator — it is the one
+        collective ULFM guarantees through failures."""
+        self._check_alive()
+        agent = getattr(self.runtime, "agent", None)
+        if agent is None or not self.spans_processes:
+            return bool(flag)
+        if aseq is None:
+            aseq = self._agree_counter = getattr(
+                self, "_agree_counter", 0) + 1
+        doc = agent.ft_agree(self.cid, aseq, 1 if flag else 0,
+                             self._member_procs(), timeout_ms=timeout_ms)
+        return bool(doc.get("flag", 0))
+
+    def shrink(self, name: str = "", *,
+               timeout_ms: int = 60_000) -> "Communicator":
+        """``MPIX_Comm_shrink``: agree on the surviving group through
+        the coordinator (every survivor receives ONE consistent
+        epoch/failed snapshot), build a new communicator over it with a
+        fresh epoch-derived cid — fresh wire channels, rebuilt hier
+        topology via the normal per-comm coll selection — and barrier
+        the survivors on it to prove the wiring. Valid on a revoked (or
+        failure-poisoned) communicator; the parent is left revoked."""
+        self._check_alive()
+        agent = getattr(self.runtime, "agent", None)
+        if agent is None or not self.spans_processes:
+            # no failure domain beyond this process: ULFM shrink of a
+            # fault-free comm is a plain dup
+            return self.dup(name or f"shrink({self.name})")
+        from ..runtime.wire import proc_topology
+
+        topo = proc_topology(self)
+        aseq = self._agree_counter = getattr(
+            self, "_agree_counter", 0) + 1
+        doc = agent.ft_agree(self._ft_lineage, aseq, 1, topo.procs,
+                             timeout_ms=timeout_ms)
+        epoch = int(doc.get("epoch", 0))
+        # dead FOR THIS COMM, from the agreement's ONE shared snapshot:
+        # the transient failed set PLUS every process whose failure
+        # episode began at/after this comm's birth epoch — under the
+        # restart policy a corpse moves failed->restarted within
+        # milliseconds of promotion, and a shrink that re-included it
+        # would park the survivor barrier on a process that never
+        # builds this cid
+        failed = set(int(p) for p in doc.get("failed", ()))
+        failed |= {p for p, e in _ulfm.failed_at_of(doc).items()
+                   if e >= self._ft_epoch0}
+        survivors = Group([
+            self.group.world_rank(i) for i in range(self.size)
+            if topo.owner[i] not in failed
+        ])
+        if survivors.size == 0:
+            raise MPIError(ErrorCode.ERR_GROUP,
+                           f"shrink({self.name}): no survivors")
+        new = Communicator(
+            self.runtime, survivors,
+            name=name or f"shrink({self.name})", parent=self,
+            cid=_ulfm.ft_cid(epoch, self._ft_lineage),
+        )
+        if new.spans_processes:
+            self.runtime.wire.proc_barrier(
+                new, proc_topology(new).procs, timeout_ms=timeout_ms)
+        _log.verbose(
+            1, f"shrink({self.name}) -> {new.name} cid={new.cid} "
+               f"size={new.size} (epoch {epoch}, "
+               f"failed procs {sorted(failed)})")
+        return new
+
+    def _ft_fastfail(self, op_name: str) -> None:
+        """ULFM fast fail before a spanning collective is posted: it
+        involves every member, so a known-failed member process fails
+        the op NOW with the typed error instead of posting a schedule
+        doomed to park."""
+        _ulfm.state().check_wait(
+            self.cid, self._member_procs(),
+            f"collective {op_name} on {self.name} with member process",
+            epoch0=self._ft_epoch0)
+
     # -- collectives (dispatch through the installed c_coll table) ---------
     def _coll(self, op_name: str) -> Callable:
-        self._check_alive()
+        self._check_usable()
         fn = self.c_coll.get(op_name)
         if fn is None:
             raise MPIError(ErrorCode.ERR_INTERN,
@@ -361,8 +578,8 @@ class Communicator:
             # channel, and two concurrently-running collectives would
             # interleave frames on it) and there is ONE round-advancing
             # code path, which records/replays the signature's frozen
-            # wire plan (coll/nbc + coll/plan). The ULFM fast-fail
-            # before posting waits for ROADMAP item 15.
+            # wire plan (coll/nbc + coll/plan)
+            self._ft_fastfail(op_name)
             from ..coll import nbc as _nbc
 
             return lambda comm_, *a, **k: _nbc.run_blocking(
@@ -642,39 +859,39 @@ class Communicator:
     def isend(self, data, dest: int, tag: int = 0, *, rank: int, **kw):
         """Nonblocking send issued by ``rank`` (driver mode: the acting
         rank is explicit because one controller plays every rank)."""
-        self._check_alive()
+        self._check_usable()
         return self.pml.isend(data, dest, tag, src=rank, **kw)
 
     def send(self, data, dest: int, tag: int = 0, *, rank: int, **kw):
-        self._check_alive()
+        self._check_usable()
         return self.pml.send(data, dest, tag, src=rank, **kw)
 
     def irecv(self, source: int = -1, tag: int = -1, *, rank: int):
-        self._check_alive()
+        self._check_usable()
         return self.pml.irecv(source, tag, dst=rank)
 
     def recv(self, source: int = -1, tag: int = -1, *, rank: int):
-        self._check_alive()
+        self._check_usable()
         return self.pml.recv(source, tag, dst=rank)
 
     def iprobe(self, source: int = -1, tag: int = -1, *, rank: int):
-        self._check_alive()
+        self._check_usable()
         return self.pml.iprobe(source, tag, dst=rank)
 
     def improbe(self, source: int = -1, tag: int = -1, *, rank: int):
-        self._check_alive()
+        self._check_usable()
         return self.pml.improbe(source, tag, dst=rank)
 
     def mrecv(self, message, *, rank: int):
-        self._check_alive()
+        self._check_usable()
         return self.pml.mrecv(message, dst=rank)
 
     def send_init(self, data, dest: int, tag: int = 0, *, rank: int):
-        self._check_alive()
+        self._check_usable()
         return self.pml.send_init(data, dest, tag, src=rank)
 
     def recv_init(self, source: int = -1, tag: int = -1, *, rank: int):
-        self._check_alive()
+        self._check_usable()
         return self.pml.recv_init(source, tag, dst=rank)
 
     def sendrecv(self, sendbufs, dests, sendtag: int = 0,
@@ -688,7 +905,7 @@ class Communicator:
         sendbufs/dests (and optional sources): sequences of length
         ``size``. Returns (values, statuses) lists.
         """
-        self._check_alive()
+        self._check_usable()
         if self.spans_processes:
             raise MPIError(
                 ErrorCode.ERR_NOT_AVAILABLE,

@@ -41,9 +41,11 @@ in the job's table (published by ``open_port``, withdrawn by
 ``close_port``), so a worker's lookup of another worker's port sees its
 closure.
 
-Not ported yet: ULFM (ROADMAP item 15). Until then ``_ft_epoch`` reads
-epoch 0 and ``_check_counterpart`` sees revocation only as a freed or
-``_revoked`` communicator.
+ULFM: a port remembers the job epoch it was opened at and refuses
+joiners whose plan predates it; a parked rendezvous whose counterpart
+communicator was revoked or freed, or whose member process the job
+epoch marks failed, fails at once with the typed error
+(``_check_counterpart``).
 """
 
 from __future__ import annotations
@@ -57,10 +59,9 @@ from ..native import DssBuffer
 from ..runtime import pubsub as _pubsub
 from ..runtime.pubsub import publish_name, unpublish_name
 from ..utils import output
+from ..utils.cids import DPM_CID_BLOCK, dpm_block_base
 from ..utils.errors import ErrorCode, MPIError
-from .communicator import (
-    CID_BAND, CID_LIMIT, CidBlock, Communicator, cids_in_use,
-)
+from .communicator import CidBlock, Communicator, cids_in_use
 from .group import Group
 from .intercomm import Intercommunicator
 
@@ -93,9 +94,6 @@ TAG_DPM_REPLY = (9 << 20) + 1
 _DPM_MAGIC = "DPM1"
 _token = itertools.count(1)
 
-#: cids per connect/accept pair: the pair's three, and room for the
-#: comms derived from it (merge, dup, split)
-_CID_BLOCK = 256
 _block_counter = itertools.count(0)
 
 
@@ -149,17 +147,18 @@ class _Rendezvous:
 
 
 def _ft_epoch() -> int:
-    """The job's failure epoch. ULFM is not ported yet (ROADMAP item
-    15): every communicator lives in epoch 0."""
-    return 0
+    """The job's failure epoch (``ft/ulfm``)."""
+    from ..ft import ulfm
+
+    return ulfm.state().epoch
 
 
 def _check_counterpart(comm: Optional[Communicator],
                        port: str, side: str) -> None:
     """Fast-fail instead of burning the caller's whole timeout: a
-    rendezvous whose registered counterpart communicator was revoked or
-    freed is dead. The failed-process picture joins this check with
-    ULFM (ROADMAP item 15)."""
+    rendezvous whose registered counterpart communicator has been
+    revoked (or belongs to a failed process picture) is DEAD — raise
+    the typed ULFM error now."""
     if comm is None:
         return
     if getattr(comm, "_revoked", False) or getattr(comm, "_freed", False):
@@ -168,6 +167,11 @@ def _check_counterpart(comm: Optional[Communicator],
             f"{side} on '{port}': the parked peer's communicator "
             f"({comm.name}) was revoked/freed — the rendezvous is dead",
         )
+    from ..ft import ulfm
+
+    ulfm.state().check_wait(comm.cid, comm._member_procs(),
+                            f"{side} on '{port}' awaiting process",
+                            epoch0=getattr(comm, "_ft_epoch0", 0))
 
 
 def _check_disjoint(a: Group, b: Group) -> None:
@@ -211,13 +215,9 @@ def _new_cid_block() -> Optional[CidBlock]:
         return None
     nproc = int(_runtime().bootstrap["process_count"])
     for n in _block_counter:
-        base = CID_BAND + (n * nproc + pidx) * _CID_BLOCK
-        if base + _CID_BLOCK > CID_LIMIT:
-            raise MPIError(ErrorCode.ERR_INTERN,
-                           "the cid band of connect/accept pairs is "
-                           "exhausted")
-        if not cids_in_use(base, _CID_BLOCK):
-            return CidBlock(base, _CID_BLOCK)
+        base = dpm_block_base(n * nproc + pidx)
+        if not cids_in_use(base, DPM_CID_BLOCK):
+            return CidBlock(base, DPM_CID_BLOCK)
     raise AssertionError("unreachable")
 
 
@@ -495,15 +495,15 @@ def _remote_connect(comm: Communicator, port: str, owner: int,
             continue  # a reply to an earlier, timed-out connect
         if not ok:
             raise MPIError(ErrorCode.ERR_PORT, msg)
-        if cids_in_use(int(cid_base), _CID_BLOCK):
+        if cids_in_use(int(cid_base), DPM_CID_BLOCK):
             raise MPIError(
                 ErrorCode.ERR_PORT,
                 f"connect on '{port}': the owner's cid block "
-                f"[{int(cid_base)}, +{_CID_BLOCK}) is in use here")
+                f"[{int(cid_base)}, +{DPM_CID_BLOCK}) is in use here")
         _, client_side = Intercommunicator.create(
             comm.runtime, Group(acc), comm.group,
             name=f"accept({port})",
-            cid_block=CidBlock(int(cid_base), _CID_BLOCK))
+            cid_block=CidBlock(int(cid_base), DPM_CID_BLOCK))
         return client_side
 
 

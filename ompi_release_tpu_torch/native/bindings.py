@@ -775,8 +775,8 @@ class PlanExec:
     live endpoint/ring handles once, and then every steady-state fire
     is ``fire_begin`` + a ``fire_step`` loop: all rounds walk C-side,
     Python re-enters only between ~100 ms slices (to honour the
-    plan's timeout and the job's abort; the ULFM failure detector
-    waits for ROADMAP item 15) and at completion or typed error.
+    plan's timeout and run the ULFM ``check_wait``), when the fault
+    word is raised, and at completion or typed error.
 
     Return codes (native/planexec.cc): 0 done, 1 slice expired
     (call ``fire_step`` again), 2 fault-word stop (run check_wait,

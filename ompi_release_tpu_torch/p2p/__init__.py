@@ -7,10 +7,12 @@ Two paths:
   the path for fixed communication patterns (rings, halos);
 - ``pml``: MPI dynamic semantics — (rank, tag, comm) matching with
   wildcards, unexpected-message queue, eager/rendezvous/pipelined
-  transfer scheduling — executed as host-orchestrated device copies.
+  transfer scheduling — executed as host-orchestrated device copies;
+- ``vprotocol``: pessimistic message logging over the PML, replayed
+  against a fresh engine.
 """
 
-from . import pml, spmd  # noqa: F401
+from . import pml, spmd, vprotocol  # noqa: F401
 from .pml import (  # noqa: F401
     ANY_SOURCE, ANY_TAG, PmlEngine,
 )

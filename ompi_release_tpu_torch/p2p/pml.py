@@ -31,9 +31,16 @@ Communicators spanning ``tpurun`` worker processes get the
 ``WirePmlEngine``: pairs crossing a process boundary ride the runtime's
 wire router, and wire arrivals are fed into the same matching queues.
 
-Not ported here: the watchdog and observability hooks (obs slice), the
-ULFM bounded waits, message logging (``vprotocol.py``) and PERUSE
-events (``peruse.py``).
+A blocking wire receive parks in 100 ms slices and re-checks the ULFM
+failure picture between them (``ft/ulfm``): a sender whose process the
+job epoch marks failed, or a revoked comm, raises the typed error
+within one slice instead of after ``pml_wire_timeout``. Message logging
+(``p2p/vprotocol.py``) hooks in through ``_logger``: every send, wire
+arrival, recv posting and matched probe is recorded under the matching
+lock, so the log's order is the match order.
+
+Not ported here: the watchdog and observability hooks and PERUSE
+events (``peruse.py``; ROADMAP item 16).
 """
 
 from __future__ import annotations
@@ -168,6 +175,7 @@ class PmlEngine:
         self._posted: Dict[int, Deque[_RecvEntry]] = (
             collections.defaultdict(collections.deque)
         )
+        self._logger = None  # vprotocol message log, when attached
 
     # -- helpers -----------------------------------------------------------
     def _purge_cancelled(self, dst: int) -> None:
@@ -229,6 +237,11 @@ class PmlEngine:
         req = Request()
         entry = _SendEntry(src, dst, tag, data, req, sync)
         with self._lock:
+            if self._logger is not None:
+                # logged UNDER the matching lock like recv postings:
+                # the log's event order must equal the queue order or
+                # replay swaps same-(src, tag) deliveries
+                self._logger.record(src, dst, tag, data, sync)
             self._purge_cancelled(dst)
             posted = self._posted[dst]
             match = next(
@@ -288,6 +301,11 @@ class PmlEngine:
         req = Request()
         entry = _RecvEntry(dst, source, tag, req)
         with self._lock:
+            if self._logger is not None:
+                # pessimist determinant: logged UNDER the matching lock
+                # so the event order equals the match order; the
+                # matched (src, tag) is filled in at completion
+                self._logger.record_recv_post(dst, source, tag, req)
             self._purge_cancelled(dst)
             unex = self._unexpected[dst]
             match = next(
@@ -339,6 +357,11 @@ class PmlEngine:
             if match is None:
                 return None
             unex.remove(match)
+            if self._logger is not None:
+                # improbe IS the nondeterministic match decision the
+                # pessimist log exists to capture
+                self._logger.record_matched_recv(
+                    dst, source, tag, match.src, match.tag)
             return match  # the message handle
 
     def mrecv(self, message: _SendEntry, *, dst: int):
@@ -466,6 +489,9 @@ class WirePmlEngine(PmlEngine):
         # is on the host when send_p2p returns, so the caller's buffer
         # is reusable at once.
         data = _as_device_payload(data, self.comm.device)
+        if self._logger is not None:
+            with self._lock:
+                self._logger.record(src, dst, tag, data, sync)
         seq = self._router.send_p2p(self.comm, src, dst, tag, data, sync)
         if not sync:
             req = Request()
@@ -539,10 +565,25 @@ class WirePmlEngine(PmlEngine):
             def block() -> None:
                 import time as _time
 
+                from ..ft import ulfm as _ulfm
+                from ..runtime.wire import proc_topology
+
+                comm = engine.comm
+                if source == ANY_SOURCE:
+                    ft_peers = list(proc_topology(comm).peers)
+                else:
+                    ft_peers = [proc_topology(comm).owner[source]]
                 limit = float(mca_var.get("pml_wire_timeout", 30.0))
                 deadline = _time.monotonic() + limit
                 while (not req.is_complete
                        and _time.monotonic() < deadline):
+                    # ULFM bound: a recv whose (possible) sender died —
+                    # or whose comm was revoked — raises the typed
+                    # error within one drain slice
+                    _ulfm.state().check_wait(
+                        comm.cid, ft_peers,
+                        f"p2p recv(source={source}) awaiting",
+                        epoch0=getattr(comm, "_ft_epoch0", 0))
                     engine._drain(dst, timeout_ms=100)
                 if not req.is_complete:
                     raise MPIError(
@@ -584,6 +625,12 @@ class WirePmlEngine(PmlEngine):
         entry = _SendEntry(src_rank, dst_rank, user_tag, data, req, False)
         entry.transferred = True
         with self._lock:
+            if self._logger is not None:
+                # a wire arrival IS a send landing in this process's
+                # queues: log it under the matching lock exactly like a
+                # local isend, or replay would deliver fewer messages
+                self._logger.record(src_rank, dst_rank, user_tag, data,
+                                    False)
             self._purge_cancelled(dst_rank)
             posted = self._posted[dst_rank]
             match = next(

@@ -14,10 +14,11 @@ with the mesh axes as leading dims) and the axis collectives of
   EP   — expert token routing over all-to-all (``ep``)
   ZeRO — reduce_scatter gradient / optimizer sharding (``zero``)
 
-``elastic`` waits for the fault-tolerance slice.
+``elastic`` drives a train step through a rank's death: detect, revoke,
+recover (shrink or respawn), roll back to the agreed checkpoint.
 """
 
-from . import axes, cp, dp, ep, pp, sp, tp, tree, zero  # noqa: F401
+from . import axes, cp, dp, elastic, ep, pp, sp, tp, tree, zero  # noqa: F401
 from .mesh_axes import (  # noqa: F401
     AXIS_DP, AXIS_EP, AXIS_PP, AXIS_SP, AXIS_TP, CANONICAL_ORDER, P,
     ParallelMesh, PartitionSpec, axis_size_or_1, build_parallel_mesh,

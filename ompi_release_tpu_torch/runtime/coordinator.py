@@ -22,9 +22,15 @@ periodically; the HNP-side monitor marks a worker failed after
 ``miss_limit`` silent intervals and invokes the registered callback
 (the errmgr hook).
 
-Not ported yet: the ULFM detection/agreement plane (epoch notices,
-``ft_agree``, revocation), the rejoin/migrate/ps/clock/series
-responders (restart, ``tpu_ps`` and the observability plane).
+The ULFM plane rides the same endpoints: the HNP bumps the job epoch
+and pushes a ``TAG_PROC_FAILED`` notice to every live worker whenever
+the failure picture changes (a promotion, a respawn grant, a rejoin),
+answers ``TAG_FT`` state queries and parks fault-tolerant agreements
+until every live participant contributed; workers push
+``TAG_FT_REVOKE`` poison frames to each other. The rejoin service
+re-runs the wire-up for a respawned worker, and the migrate responder
+serves ``tpu-migrate``. Waiting for the observability plane (ROADMAP
+item 16): the ps, clock and series responders (tags 13, 16 and 17).
 
 Tags mirror the RML usage pattern (``rml.h:318`` tagged send/recv).
 """
@@ -52,7 +58,16 @@ TAG_FIN = 6
 TAG_HEARTBEAT = 7
 TAG_XCAST_ORPHAN = 8  # worker->HNP: deliver xcast to unreachable child
 #                       (9-12 are the pubsub name-service tags)
+TAG_MIGRATE = 14      # migrate client->HNP: move ranks off a host
 TAG_DIE = 15          # HNP->worker: exit immediately (odls kill)
+TAG_PROC_FAILED = 18  # HNP->worker: job-epoch failure notice (ULFM
+#                       detection plane: epoch + failed/restarted/
+#                       rejoined process-index sets, JSON)
+TAG_FT = 19           # worker->HNP RPC: failure-state query + the
+#                       fault-tolerant agreement (MPIX_Comm_agree)
+TAG_FT_REVOKE = 20    # worker->worker: comm-revocation poison frame
+#                       ({cid, epoch, origin} JSON, sent direct over
+#                       the full wire-up — no tree relay involved)
 
 # pubsub tags + protocol live in runtime/pubsub.py; re-exported here
 # for the worker-facing API
@@ -133,11 +148,37 @@ class HnpCoordinator:
         self._barrier_seq = 0
         self._monitor: Optional[threading.Thread] = None
         self._monitor_stop = threading.Event()
+        # shared stop for the ft and migrate responders: created here
+        # so either can be started standalone, in any order
+        self._resp_stop = threading.Event()
         self._finished: set = set()
         self._failed: set = set()
         self._hb_lock = threading.Lock()
+        # ULFM detection plane: the job epoch is bumped (and a
+        # TAG_PROC_FAILED notice pushed to every live worker) whenever
+        # the failure picture changes — promotion to failed, a respawn
+        # grant, a replacement's rejoin
+        self._ft_epoch = 0
+        self._ft_restarted: set = set()   # node ids granted a respawn
+        self._ft_rejoined: set = set()    # replacements re-wired
+        #: nid -> epoch at which its current failure episode began:
+        #: the AUTHORITATIVE episode record consumers like shrink()
+        #: need — the transient `failed` set empties milliseconds
+        #: after promotion under the restart policy, but the episode
+        #: epoch is what decides deadness per communicator
+        self._ft_failed_at: Dict[int, int] = {}
+        # parked fault-tolerant agreements: (cid, aseq) -> slot
+        self._ft_agree_lock = threading.Lock()
+        self._ft_pending: Dict[tuple, Dict[str, Any]] = {}
         self._resusage: Dict[int, Dict[str, int]] = {}
         self._last_beat: Dict[int, float] = {}
+        #: nid -> deadline until which SILENCE is excused: a respawned
+        #: worker's first beat is gated on full process startup
+        #: (interpreter + torch import + the card's context can exceed
+        #: the whole interval*miss_limit window cold), so the monitor
+        #: must not re-promote the replacement before it had any chance
+        #: to beat — cleared by its first beat, bounded by the grace
+        self._hb_restart_grace: Dict[int, float] = {}
         # Orphaned-subtree xcast fallback is the HNP's OWN duty, not an
         # optional caller poll: any HnpCoordinator user (tpurun,
         # participant-mode rank 0, direct tests) gets the drain.
@@ -233,6 +274,9 @@ class HnpCoordinator:
                     )
                     with self._hb_lock:
                         last[src] = time.monotonic()
+                        # first beat of a respawned incarnation ends
+                        # its startup grace: normal monitoring resumes
+                        self._hb_restart_grace.pop(src, None)
                         if raw:  # piggybacked resusage sample
                             try:
                                 self._resusage[src] = json.loads(raw)
@@ -246,6 +290,12 @@ class HnpCoordinator:
                     for nid in self._worker_ids:
                         if nid in self._finished or nid in self._failed:
                             continue
+                        grace = self._hb_restart_grace.get(nid)
+                        if grace is not None:
+                            if now < grace:
+                                continue  # still booting: excused
+                            # grace expired with no beat: judge below
+                            self._hb_restart_grace.pop(nid, None)
                         if now - last[nid] > interval_s * miss_limit:
                             self._failed.add(nid)
                             newly_failed.append(nid)
@@ -256,6 +306,12 @@ class HnpCoordinator:
                     _log.verbose(
                         1, f"worker {nid} heartbeat lost "
                            f"({now - last[nid]:.1f}s silent)")
+                    # ULFM promotion FIRST: bump the job epoch and push
+                    # the TAG_PROC_FAILED notice before the errmgr
+                    # policy runs, so survivors' bounded waits start
+                    # raising ERR_PROC_FAILED even while the policy
+                    # (teardown/respawn) is still deciding
+                    self._ft_note_change(failed_nid=nid)
                     on_failure(nid)
 
         self._monitor = threading.Thread(target=run, daemon=True)
@@ -265,6 +321,162 @@ class HnpCoordinator:
         """Stop expecting beats from a cleanly-finished worker."""
         with self._hb_lock:
             self._finished.add(nid)
+
+    # -- ULFM detection/agreement plane ------------------------------------
+    def promote_failed(self, nid: int) -> bool:
+        """Promote a worker to *failed* from an out-of-band observer
+        (the launcher's waitpid loop seeing a nonzero exit long before
+        the heartbeat window closes). Idempotent with the heartbeat
+        monitor's own promotion; returns True when this call changed
+        the picture (epoch bumped + notice pushed)."""
+        with self._hb_lock:
+            if nid in self._failed or nid in self._finished:
+                return False
+            self._failed.add(nid)
+        self._ft_note_change(failed_nid=nid)
+        return True
+
+    def _ft_doc(self) -> Dict[str, Any]:
+        """The authoritative failure picture as PROCESS indices (node
+        ids and pidx differ by one — workers think in pidx)."""
+        with self._hb_lock:
+            return {
+                "epoch": self._ft_epoch,
+                "failed": sorted(n - 1 for n in self._failed),
+                "restarted": sorted(n - 1 for n in self._ft_restarted),
+                "rejoined": sorted(n - 1 for n in self._ft_rejoined),
+                "failed_at": {str(n - 1): e for n, e
+                              in sorted(self._ft_failed_at.items())},
+            }
+
+    def _ft_note_change(self, failed_nid: Optional[int] = None,
+                        what: str = "") -> None:
+        """Bump the job epoch and push a TAG_PROC_FAILED notice to
+        every live worker (``failed_nid``, when given, is marked
+        failed as part of the same epoch bump — callers that already
+        marked it are unaffected, the add is idempotent). Notices go
+        DIRECTLY over the lifelines (the HNP holds a link to every
+        worker), not down the binomial tree: the dead worker may be
+        exactly the relay node a tree descent would depend on."""
+        with self._hb_lock:
+            self._ft_epoch += 1
+            if failed_nid is not None:
+                self._failed.add(failed_nid)
+                self._ft_failed_at[failed_nid] = self._ft_epoch
+            live = [n for n in self._worker_ids
+                    if n not in self._failed and n not in self._finished]
+        if failed_nid is not None:
+            # lifeline loss evicts the dead worker's published names:
+            # a stale name must never be looked up by a later joiner
+            # (the pubsub owner/TTL hygiene rule)
+            tbl = getattr(self, "_ns_table", None)
+            if tbl is not None:
+                try:
+                    tbl.evict_owner(failed_nid)
+                except Exception:
+                    pass  # name hygiene must not block the FT notice
+        doc = self._ft_doc()
+        payload = json.dumps(doc).encode()
+        for nid in live:
+            try:
+                self.ep.send(nid, TAG_PROC_FAILED, payload)
+            except MPIError:
+                pass  # a link mid-death: that worker is next to fail
+        _log.verbose(1, f"ft epoch {doc['epoch']}"
+                        + (f" ({what})" if what else "")
+                        + f": failed={doc['failed']} "
+                          f"restarted={doc['restarted']} "
+                          f"rejoined={doc['rejoined']}")
+        # the failure picture changed: parked agreements may have lost
+        # a participant they were waiting on
+        self._ft_eval_agreements()
+
+    def start_ft_responder(self) -> None:
+        """Serve TAG_FT RPCs: ``{"op": "state"}`` queries answer with
+        the current epoch/failed/restarted/rejoined picture; ``{"op":
+        "agree"}`` contributions park until every live process of the
+        agreement's group contributed (failed processes are excluded
+        as they fail — re-evaluated on every epoch change), then every
+        contributor gets the AND of the flags plus ONE consistent
+        failure snapshot — the MPIX_Comm_agree contract that makes
+        shrink's survivor group identical on every process. Shares the
+        migrate responder's stop event (created in __init__), so start
+        order does not matter."""
+
+        def run() -> None:
+            while not self._resp_stop.is_set():
+                try:
+                    src, _, raw = self.ep.recv(tag=TAG_FT,
+                                               timeout_ms=200)
+                except MPIError:
+                    self._ft_eval_agreements()
+                    continue
+                try:
+                    req = json.loads(raw or b"{}")
+                except ValueError:
+                    continue  # malformed frame: never kill the plane
+                if req.get("op") == "agree":
+                    try:
+                        self._ft_park_agreement(src, req)
+                    except Exception:
+                        pass  # a garbled field costs that frame only
+                    self._ft_eval_agreements()
+                    continue
+                doc = self._ft_doc()
+                doc["seq"] = req.get("seq")
+                try:
+                    self.ep.send(src, TAG_FT, json.dumps(doc).encode())
+                except MPIError:
+                    pass  # client vanished between query and reply
+
+        self._ft_thread = threading.Thread(
+            target=run, daemon=True, name="hnp-ft")
+        self._ft_thread.start()
+
+    def _ft_park_agreement(self, src: int, req: Dict[str, Any]) -> None:
+        key = (int(req["cid"]), int(req["aseq"]))
+        pidx = int(req["pidx"])
+        with self._ft_agree_lock:
+            slot = self._ft_pending.setdefault(key, {
+                "flags": {}, "src": {}, "seq": {},
+                "procs": set(int(p) for p in req.get("procs", ())),
+                "t": time.monotonic(),
+            })
+            slot["procs"] |= set(int(p) for p in req.get("procs", ()))
+            slot["flags"][pidx] = int(req.get("flag", 0))
+            slot["src"][pidx] = src
+            slot["seq"][pidx] = req.get("seq")
+
+    def _ft_eval_agreements(self) -> None:
+        """Complete every parked agreement whose live participants all
+        contributed (failed ones excused), and prune abandoned slots.
+        The AND folds every flag that ARRIVED — including one from a
+        process that failed after contributing, per the ULFM rule."""
+        now = time.monotonic()
+        done = []
+        with self._hb_lock:
+            failed_pidx = set(n - 1 for n in self._failed)
+        with self._ft_agree_lock:
+            for key, slot in list(self._ft_pending.items()):
+                live = slot["procs"] - failed_pidx
+                if live and not live.issubset(slot["flags"].keys()):
+                    if now - slot["t"] > 120:
+                        del self._ft_pending[key]  # abandoned
+                    continue
+                done.append(slot)
+                del self._ft_pending[key]
+        for slot in done:
+            flag = 1
+            for f in slot["flags"].values():
+                flag &= int(f)
+            doc = self._ft_doc()
+            doc["flag"] = flag
+            for pidx, src in slot["src"].items():
+                doc["seq"] = slot["seq"].get(pidx)
+                try:
+                    self.ep.send(src, TAG_FT, json.dumps(doc).encode())
+                except MPIError:
+                    pass  # contributor died since; excused above next time
 
     def serve_orphan_relay(self, timeout_ms: int = 50) -> bool:
         """Drain one orphaned-subtree relay request: a worker whose
@@ -287,6 +499,104 @@ class HnpCoordinator:
                             f"{child} failed")
         return True
 
+    # -- rejoin service (resilient-restart wire-up) ------------------------
+    def start_rejoin_service(self, cards: List[Dict[str, Any]]) -> None:
+        """After the initial wire-up, keep serving JOIN + init-barrier
+        frames so a RESTARTED worker (rmaps/resilient respawn) can run
+        the normal ESS bootstrap against a live job: its JOIN updates
+        its card in place and gets the current card list back; its
+        barrier ENTER is released immediately (the collective init
+        barrier already happened — a lone rejoiner must not hang on
+        it). Post-init ENTERs only ever come from rejoiners: the
+        in-job data plane barriers ride the wire router, not the HNP.
+        """
+        self._rejoin_cards = cards
+        self._rejoin_stop = threading.Event()
+
+        def run() -> None:
+            while not self._rejoin_stop.is_set():
+                served = False
+                try:
+                    _, _, raw = self.ep.recv(tag=TAG_JOIN,
+                                             timeout_ms=100)
+                    served = True
+                    try:
+                        nid, card = _unpack_card(raw)
+                    except Exception:
+                        # a malformed JOIN must not kill the service:
+                        # every later restart would hang at bootstrap
+                        _log.verbose(1, "rejoin: dropping malformed "
+                                        "JOIN frame")
+                        continue
+                    if not 1 <= nid <= len(self._rejoin_cards):
+                        _log.verbose(1, f"rejoin: JOIN from unknown "
+                                        f"node {nid}; dropped")
+                        continue
+                    self._rejoin_cards[nid - 1] = card
+                    payload = DssBuffer().pack_string(
+                        json.dumps(self._rejoin_cards)).tobytes()
+                    self.ep.send(nid, TAG_MODEX, payload)
+                    _log.verbose(1, f"rejoin: node {nid} re-wired")
+                    # a RESPAWNED worker's rejoin completes the
+                    # recovery wire-up: mark it and bump the epoch so
+                    # survivors waiting in errmgr.recover() proceed.
+                    # Survivors also re-JOIN (to refresh their card
+                    # list) — those are not marked, only respawns.
+                    with self._hb_lock:
+                        respawned = (nid in self._ft_restarted
+                                     and nid not in self._ft_rejoined)
+                        if respawned:
+                            self._ft_rejoined.add(nid)
+                    if respawned:
+                        self._ft_note_change(
+                            what=f"worker {nid} rejoined")
+                except MPIError:
+                    pass
+                try:
+                    src, _, _ = self.ep.recv(tag=TAG_BARRIER_ENTER,
+                                             timeout_ms=100)
+                    rel = DssBuffer().pack_int64(-1).tobytes()
+                    self.ep.send(src, TAG_BARRIER_RELEASE, rel)
+                    served = True
+                except MPIError:
+                    pass
+                if not served:
+                    time.sleep(0.02)
+
+        self._rejoin_thread = threading.Thread(target=run, daemon=True)
+        self._rejoin_thread.start()
+
+    def stop_rejoin_service(self) -> None:
+        stop = getattr(self, "_rejoin_stop", None)
+        if stop is not None:
+            stop.set()
+            self._rejoin_thread.join(timeout=2)
+
+    #: seconds a respawned worker gets to deliver its FIRST beat
+    #: before the monitor may judge it silent (cold process startup —
+    #: interpreter, torch import, the card's context, the native
+    #: libraries — routinely exceeds a sub-second heartbeat window; a
+    #: replacement that stays silent past this is genuinely stuck and
+    #: fails the normal way)
+    RESTART_GRACE_S = 60.0
+
+    def note_restarted(self, nid: int) -> None:
+        """Forget a worker's failure/finish marks and reset its beat
+        clock: the respawned incarnation is monitored afresh, with a
+        startup grace until its first beat (see RESTART_GRACE_S).
+        Bumps the job epoch (failed -> restarted) so survivors parked
+        in recovery learn a replacement is on its way."""
+        with self._hb_lock:
+            self._failed.discard(nid)
+            self._finished.discard(nid)
+            self._resusage.pop(nid, None)
+            self._ft_restarted.add(nid)
+            self._ft_rejoined.discard(nid)
+            self._hb_restart_grace[nid] = (time.monotonic()
+                                           + self.RESTART_GRACE_S)
+            if self._last_beat:
+                self._last_beat[nid] = time.monotonic()
+        self._ft_note_change(what=f"worker {nid} respawning")
 
     def kill_worker(self, node_id: int, code: int = 143) -> None:
         """Order a worker to exit via its die watcher (the odls kill
@@ -294,6 +604,51 @@ class HnpCoordinator:
         through an ssh conduit whose local client process is all the
         launcher could otherwise signal)."""
         self.ep.send(node_id, TAG_DIE, str(code).encode())
+
+    def start_migrate_responder(self, migrate_fn: Callable) -> None:
+        """Serve TAG_MIGRATE requests (the ``orte-migrate`` command
+        path): payload is JSON ``{"off": host}``; ``migrate_fn`` is
+        the launcher's policy hook and its dict return is the reply.
+        Runs on its own thread; shares the ft responder's stop event
+        (created in __init__, so start order does not matter) and is
+        stopped by the same stop_responders call."""
+
+        def run() -> None:
+            while not self._resp_stop.is_set():
+                try:
+                    src, _, raw = self.ep.recv(tag=TAG_MIGRATE,
+                                               timeout_ms=200)
+                except MPIError:
+                    continue
+                try:
+                    req = json.loads(raw or b"{}")
+                    reply = migrate_fn(req)
+                except Exception as exc:  # never kill the responder
+                    reply = {"ok": False, "error": str(exc)}
+                try:
+                    self.ep.send(src, TAG_MIGRATE,
+                                 json.dumps(reply).encode())
+                except MPIError:
+                    pass
+
+        self._migrate_thread = threading.Thread(
+            target=run, daemon=True, name="hnp-migrate")
+        self._migrate_thread.start()
+
+    def stop_responders(self) -> None:
+        self._resp_stop.set()
+        # the migrate thread gets a much longer budget:
+        # an in-flight migrate_fn kills/respawns ranks (seconds of
+        # process teardown/launch) and mutates Job state — shutdown
+        # must wait for it, not race it with ep.close()
+        for name, budget in (("_migrate_thread", 30), ("_ft_thread", 2)):
+            t = getattr(self, name, None)
+            if t is not None:
+                t.join(timeout=budget)
+                if t.is_alive():
+                    _log.verbose(
+                        1, f"{name} still running after {budget}s join "
+                           "at shutdown; proceeding")
 
 
     # -- name service (pubsub_orte / orte-server analogue) -----------------
@@ -332,6 +687,8 @@ class HnpCoordinator:
         self._monitor_stop.set()
         self._orphan_stop.set()
         self.stop_name_server()
+        self.stop_responders()
+        self.stop_rejoin_service()
         try:
             # teardown release goes to every worker directly: tree
             # relays may already be gone at shutdown
@@ -345,7 +702,6 @@ class HnpCoordinator:
                 self._monitor.join(timeout=2)
             self._orphan_thread.join(timeout=2)
             self.ep.close()
-
 
 
 class WorkerAgent:
@@ -374,6 +730,12 @@ class WorkerAgent:
         # lazy check-then-set would mint two locks and defeat the
         # reply serialization pubsub_rpc requires
         self._pubsub_lock = threading.Lock()
+        # TAG_FT RPCs (state queries + agreements): one outstanding
+        # per process, seq-correlated because a parked agreement's
+        # reply can arrive arbitrarily late
+        self._ft_lock = threading.Lock()
+        self._ft_seq = 0
+        self._ft_watcher: Optional[threading.Thread] = None
 
     def run_modex(self, my_card: Dict[str, Any], *,
                   timeout_ms: int = 30_000) -> List[Dict[str, Any]]:
@@ -486,6 +848,106 @@ class WorkerAgent:
             raise MPIError(ErrorCode.ERR_NAME,
                            f"unpublish '{service}': not published")
 
+    # -- ULFM failure plane ------------------------------------------------
+    def start_ft_watcher(self, on_notice, on_revoke=None) -> None:
+        """Watch the failure plane: TAG_PROC_FAILED notices from the
+        HNP (epoch bumps) are handed to ``on_notice(doc)``, and
+        TAG_FT_REVOKE poison frames from peer workers to
+        ``on_revoke(cid, epoch)``. One thread alternates bounded
+        receives on both tags (the OOB recv is tag-filtered, so this
+        coexists with the heartbeat/die-watcher threads on the same
+        endpoint); worst-case delivery latency is one loop pass —
+        far inside the heartbeat detection interval. Stops with the
+        heartbeat stop event (both are the process-management
+        channel)."""
+        if self._ft_watcher is not None and self._ft_watcher.is_alive():
+            return
+
+        def run() -> None:
+            from ..utils.errors import ErrorCode as _EC
+
+            while not self._hb_stop.is_set():
+                for tag, timeout in ((TAG_PROC_FAILED, 150),
+                                     (TAG_FT_REVOKE, 50)):
+                    try:
+                        _, _, raw = self.ep.recv(tag=tag,
+                                                 timeout_ms=timeout)
+                    except MPIError as e:
+                        if e.code == _EC.ERR_PENDING:
+                            continue  # plain timeout: keep watching
+                        return        # endpoint closed/torn down
+                    except Exception:
+                        return
+                    try:
+                        doc = json.loads(raw or b"{}")
+                    except ValueError:
+                        continue  # malformed frame: never kill the plane
+                    try:
+                        if tag == TAG_PROC_FAILED:
+                            on_notice(doc)
+                        elif on_revoke is not None:
+                            on_revoke(int(doc["cid"]),
+                                      int(doc.get("epoch", -1)))
+                    except Exception as e:
+                        _log.verbose(1, f"ft watcher handler "
+                                        f"failed: {e}")
+
+        self._ft_watcher = threading.Thread(
+            target=run, daemon=True, name="ft-watcher")
+        self._ft_watcher.start()
+
+    def _ft_rpc(self, req: Dict[str, Any], *,
+                timeout_ms: int = 10_000) -> Dict[str, Any]:
+        """One seq-correlated TAG_FT round trip. Replies carrying a
+        stale seq (an agreement abandoned by an earlier timeout) are
+        drained and dropped."""
+        with self._ft_lock:
+            self._ft_seq += 1
+            seq = f"{self.node_id}:{self._ft_seq}"
+            req = dict(req)
+            req["seq"] = seq
+            self.ep.send(0, TAG_FT, json.dumps(req).encode())
+            deadline = time.monotonic() + timeout_ms / 1000
+            while True:
+                left = max(1, int((deadline - time.monotonic()) * 1000))
+                _, _, raw = self.ep.recv(tag=TAG_FT, timeout_ms=left)
+                try:
+                    doc = json.loads(raw)
+                except ValueError:
+                    continue
+                if doc.get("seq") == seq:
+                    return doc
+
+    def ft_query(self, *, timeout_ms: int = 10_000) -> Dict[str, Any]:
+        """The authoritative failure picture from the HNP: epoch,
+        failed/restarted/rejoined process indices. Raises ERR_PENDING
+        when the ft responder is not running."""
+        return self._ft_rpc({"op": "state"}, timeout_ms=timeout_ms)
+
+    def ft_agree(self, cid: int, aseq: int, flag: int, procs,
+                 *, timeout_ms: int = 60_000) -> Dict[str, Any]:
+        """Fault-tolerant agreement (MPIX_Comm_agree): contribute
+        ``flag`` for agreement ``(cid, aseq)`` among ``procs`` and
+        block until every live participant contributed. The reply
+        carries the AND of the contributed flags plus ONE consistent
+        epoch/failed snapshot shared by all participants — the
+        foundation shrink builds its survivor group on."""
+        return self._ft_rpc(
+            {"op": "agree", "cid": int(cid), "aseq": int(aseq),
+             "pidx": self.node_id - 1, "flag": int(flag),
+             "procs": [int(p) for p in procs]},
+            timeout_ms=timeout_ms)
+
+    def ft_revoke_notify(self, peer_pidx: int, cid: int,
+                         epoch: int) -> None:
+        """Push one revocation poison frame to a peer worker (the
+        revoke propagation step; best-effort — a dead peer needs no
+        poison)."""
+        doc = {"cid": int(cid), "epoch": int(epoch),
+               "origin": self.node_id - 1}
+        self.ep.send(peer_pidx + 1, TAG_FT_REVOKE,
+                     json.dumps(doc).encode())
+
     # -- health ------------------------------------------------------------
     def heartbeat(self) -> None:
         """Beat, piggybacking a resource-usage sample (the
@@ -493,7 +955,9 @@ class WorkerAgent:
         ``sensor_resusage.c`` feeding the HNP): pid + vmsize/rss ride
         every beat, so the HNP always holds a fresh per-rank sample
         without a second sampling channel."""
-        ru = _resource_usage()
+        from ..ft.sensor import resource_usage
+
+        ru = resource_usage()
         ru["pid"] = os.getpid()
         self.ep.send(0, TAG_HEARTBEAT, json.dumps(ru).encode())
 
@@ -554,14 +1018,3 @@ class WorkerAgent:
         self.stop_heartbeats()
         self.ep.close()
 
-
-def _resource_usage() -> Dict[str, int]:
-    """This process's vmsize/rss in bytes (``/proc/self/statm``; zeros
-    where it is missing) — the sample every heartbeat carries."""
-    try:
-        with open("/proc/self/statm") as f:
-            vm, rss = (int(v) for v in f.read().split()[:2])
-        page = os.sysconf("SC_PAGE_SIZE")
-        return {"vmsize": vm * page, "rss": rss * page}
-    except (OSError, ValueError):
-        return {"vmsize": 0, "rss": 0}

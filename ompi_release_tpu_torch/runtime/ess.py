@@ -145,6 +145,11 @@ class TpurunEss(mca_component.Component):
                     or socket.gethostname(),
             "local_device_count": len(mesh_mod.rank_devices(devices)),
             "platform": "gpu" if devices[0].type == "cuda" else "cpu",
+            # a respawned worker's incarnation (tpurun exports it into
+            # replacements only): its nativewire rings take names of
+            # their own
+            "incarnation": int(os.environ.get("OMPITPU_INCARNATION",
+                                              "0") or 0),
         }
         # nativewire capability advertisement (ring token/geometry):
         # empty when the native datapath is absent or disabled, and the
@@ -157,14 +162,32 @@ class TpurunEss(mca_component.Component):
         # FULL wire-up (superset of the tree edges): connect to every
         # lower-id peer so ANY worker pair holds a live OOB link — the
         # data plane the unified COMM_WORLD's cross-process transports
-        # (runtime/wire.py) ride. The HIGHER id dials; a dead peer
-        # address fails the launch loudly.
+        # (runtime/wire.py) ride. The HIGHER id dials.
         parent = coord.binomial_parent(node_id)
+        from ..utils.errors import MPIError as _MPIError
+
+        recovery = os.environ.get("OMPITPU_RECOVERY") == "1"
         for nid in range(1, node_id):
             if nid == parent:
                 continue  # tree link already exists
             peer = cards[nid - 1]
-            agent.ep.connect(nid, peer["oob_host"], int(peer["oob_port"]))
+            try:
+                agent.ep.connect(nid, peer["oob_host"],
+                                 int(peer["oob_port"]))
+            except _MPIError:
+                if not recovery:
+                    # default policy: a dead peer address (typo'd
+                    # hostfile, firewalled port) must fail the launch
+                    # loudly, not surface later as a missing link
+                    raise
+                # resilient policy: the peer may have finished or be
+                # mid-restart — the wire router raises a clear
+                # ERR_UNREACH if this link is ever actually used
+                _log.verbose(
+                    1, f"wire-up: peer {nid} unreachable at "
+                       f"{peer['oob_host']}:{peer['oob_port']} "
+                       "(finished or restarting); continuing without "
+                       "the link")
         agent.barrier()  # every tree+wire edge live; init gate
         agent.start_heartbeats(
             float(mca_var.get("ess_tpurun_heartbeat_interval", 0.5)))

@@ -2,8 +2,9 @@
 
 Counterpart of ``ompi_release_tpu/runtime/runtime.py``, init/finalize,
 the async progress engine's thread, the ``runtime_timing`` init report
-and the unified multi-process world under ``tpurun`` (the observability,
-ULFM and retune arms are not ported yet). The bring-up sequence mirrors
+the unified multi-process world under ``tpurun`` and its ULFM watcher
+(the observability and retune arms are not ported yet). The bring-up
+sequence mirrors
 ``ompi_mpi_init.c``:
 
   1. config/core var registration        (opal_init_util)
@@ -121,6 +122,18 @@ class Runtime:
             self.bootstrap = ess.bootstrap(device)
             self.agent = self.bootstrap.get("agent")  # tpurun WorkerAgent
             self.job_state.activate(JobState.ALLOCATE, self.bootstrap)
+
+            if self.agent is not None:
+                # ULFM detection plane: TAG_PROC_FAILED epoch notices
+                # and TAG_FT_REVOKE poison frames feed the process-
+                # local failure picture the wire router's bounded
+                # waits consult — armed before the first collective so
+                # a failure during bring-up is already visible
+                from ..ft import ulfm as _ulfm
+
+                _ft = _ulfm.state()
+                self.agent.start_ft_watcher(_ft.apply_notice,
+                                            _ft.apply_revoke)
 
             # 3. rank mapping
             self.mesh = mesh_mod.build_mesh(

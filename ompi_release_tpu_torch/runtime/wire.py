@@ -56,9 +56,16 @@ schedule plans send their rounds through :meth:`coll_send_planned`
 (:meth:`coll_pump`) completes landed collective transfers ahead of the
 round that reaps them.
 
-Not ported yet: the ULFM bounded waits (failure notices, revocation;
-ROADMAP item 15), the QoS lane classes and the observability spans and
-watchdog (item 16).
+ULFM bounded waits: every blocking wire wait (collective reaps,
+peer-specific receives, ctl tokens) parks in ``_FT_SLICE_S`` slices
+and re-checks the process-local failure picture (``ft/ulfm``) between
+them, and every send checks it first, so a revoked cid raises
+``ERR_REVOKED`` and a peer the job epoch marks failed for the comm
+raises ``ERR_PROC_FAILED`` naming the process within one detection
+interval, instead of the ``wire_coll_timeout_ms`` bound.
+
+Not ported yet: the QoS lane classes and the observability spans and
+watchdog (ROADMAP item 16).
 
 Thread model: driver-mode processes issue wire operations from the
 main thread (plus completion threads polling acks and the nbc worker);
@@ -114,6 +121,31 @@ _coll_pumped = pvar.counter(
     "collective transfers completed by the progress engine's wire "
     "pump (coll_pump) ahead of the round that reaps them",
 )
+
+
+#: bounded-wait slice: every blocking collective/ctl wait re-checks
+#: the ULFM failure picture (revoked cid, known-failed peers) at this
+#: period, so a dead peer turns a would-be indefinite hang into
+#: ERR_PROC_FAILED within one detection interval
+_FT_SLICE_S = 0.1
+
+
+def _ft():
+    """The process-local ULFM state."""
+    from ..ft import ulfm
+
+    return ulfm.STATE
+
+
+def _ft_split_awaiting(procs) -> Dict[str, List[int]]:
+    """Postmortem annotation: known-failed peers are NAMED as failed
+    instead of listed as merely 'awaiting'."""
+    procs = list(procs)
+    dead = set(_ft().dead_for(procs))
+    return {
+        "awaiting_procs": sorted(q for q in procs if q not in dead),
+        "known_failed_procs": sorted(dead),
+    }
 
 
 def register_vars() -> None:
@@ -344,22 +376,32 @@ class WireRouter:
         return WIRE_P2P_BASE + lane * _LANE_STRIDE + dst_world
 
     # -- payload channel ---------------------------------------------------
-    def _retry(self, fn, what: str):
+    def _retry(self, fn, what: str, peer: Optional[int] = None,
+               epoch0: int = 0):
         """First contact over an accepted fd can race the peer's
         announce processing on our reader thread (the same window
         recv_xcast retries around) — back off briefly before treating
-        the link as dead."""
+        the link as dead. A peer the job epoch marks FAILED is not
+        retried: the send fails fast with ERR_PROC_FAILED instead of
+        burning the whole backoff against a corpse."""
         last = None
         for attempt in range(5):
+            if peer is not None and attempt:
+                _ft().check_peer(peer, what, epoch0)
             try:
                 return fn()
             except MPIError as e:
+                if e.code == ErrorCode.ERR_PROC_FAILED:
+                    raise  # a confirmed process failure is not transient
                 last = e
                 time.sleep(0.05 * (attempt + 1))
+        if peer is not None:
+            _ft().check_peer(peer, what, epoch0)
         raise MPIError(ErrorCode.ERR_UNREACH,
                        f"{what} failed after retries: {last}")
 
-    def _send_payload(self, peer_pidx: int, tag: int, arr) -> None:
+    def _send_payload(self, peer_pidx: int, tag: int, arr,
+                      epoch0: int = 0) -> None:
         """One payload (a tensor — on the card or the host — or a numpy
         array) to ``peer_pidx``; the btl stages a card tensor through
         host memory with a blocking copy."""
@@ -370,12 +412,14 @@ class WireRouter:
                 lambda: btl.send_shm(self.ep, self._nid(peer_pidx), tag,
                                      host),
                 f"shm handoff to process {peer_pidx}",
+                peer=peer_pidx, epoch0=epoch0,
             )
         else:
             self._retry(
                 lambda: btl.send_staged(self.ep, self._nid(peer_pidx),
                                         tag, host),
                 f"staged transfer to process {peer_pidx}",
+                peer=peer_pidx, epoch0=epoch0,
             )
 
     def _recv_payload(self, tag: int, src_pidx: int,
@@ -404,6 +448,8 @@ class WireRouter:
         still shares the per-destination delivery order."""
         dst_world = comm.group.world_rank(dst_rank)
         peer = self.owner_of(dst_world)
+        epoch0 = getattr(comm, "_ft_epoch0", 0)
+        _ft().check_wait(comm.cid, (peer,), "p2p send", epoch0=epoch0)
         seq = next(self._seq)
         lane = self._lane_of(user_tag, comm)
         tag = self._p2p_tag(dst_world, lane)
@@ -442,7 +488,7 @@ class WireRouter:
                         # later slot while we hold the order chan lock
                         self._order[dst_world] = order - 1
                     raise
-            self._send_payload(peer, tag, data)
+            self._send_payload(peer, tag, data, epoch0=epoch0)
         finally:
             lock.release()
         return seq
@@ -548,6 +594,12 @@ class WireRouter:
         try:
             data = self._recv_payload(tag, src_pidx)
         except MPIError as e:
+            if e.code == ErrorCode.ERR_PROC_FAILED:
+                # the transport already issued the typed ULFM verdict
+                # (the shm ring's pid-liveness check is authoritative
+                # on one host) — recovery policies key on the code, so
+                # it must not be laundered into a generic truncation
+                raise
             raise MPIError(
                 ErrorCode.ERR_TRUNCATE,
                 f"wire message from process {src_pidx} (comm cid "
@@ -673,7 +725,11 @@ class WireRouter:
         return None
 
     def coll_send(self, comm, peer_pidx: int, arr) -> None:
-        self._send_payload(peer_pidx, self._coll_tag(comm), arr)
+        epoch0 = getattr(comm, "_ft_epoch0", 0)
+        _ft().check_wait(comm.cid, (peer_pidx,), "collective send",
+                         epoch0=epoch0)
+        self._send_payload(peer_pidx, self._coll_tag(comm), arr,
+                           epoch0=epoch0)
 
     def coll_recv(self, comm, src_pidx: int,
                   timeout_ms: Optional[int] = None):
@@ -704,10 +760,13 @@ class WireRouter:
             # landed, the transfer is committed to completion against
             # the caller's full deadline
             _, raw = self._sliced_recv(
-                self._nid(src_pidx), tag, deadline,
+                self._nid(src_pidx), tag, deadline, comm,
+                lambda: (src_pidx,), "collective receive from",
                 f"collective receive from process {src_pidx} timed "
                 f"out after {timeout_ms} ms")
-            return self._finish_transfer(src_pidx, tag, raw, deadline)
+            return self._finish_checked(
+                src_pidx, tag, raw, deadline,
+                epoch0=getattr(comm, "_ft_epoch0", 0))
         finally:
             lk.release()
 
@@ -771,7 +830,7 @@ class WireRouter:
         return n
 
     def _peer_frames(self, peer: int, tag: int, arrs: List,
-                     templates=None):
+                     epoch0: int = 0, templates=None):
         """Side-effecting generator: each ``next()`` puts ONE wire
         frame of this peer's transfer queue on the OOB. DCN transfers
         above the pipeline segsize stream as fragments sliced off the
@@ -812,7 +871,7 @@ class WireRouter:
                     )
                     yield
             else:
-                self._send_payload(peer, tag, a)
+                self._send_payload(peer, tag, a, epoch0=epoch0)
                 yield
 
     def coll_send_all(self, comm, arrs_for: Dict[int, List]) -> None:
@@ -822,7 +881,8 @@ class WireRouter:
         side starts reassembling while the round is still being sent,
         instead of peer P+1 waiting for peer P's full payload."""
         tag = self._coll_tag(comm)
-        streams = [self._peer_frames(p, tag, arrs_for[p])
+        epoch0 = getattr(comm, "_ft_epoch0", 0)
+        streams = [self._peer_frames(p, tag, arrs_for[p], epoch0)
                    for p in sorted(arrs_for) if arrs_for[p]]
         self._stripe(streams, self.tuning().depth)
 
@@ -831,11 +891,16 @@ class WireRouter:
         (:mod:`coll.plan`): the round's peer list, per-peer templates
         (precomposed SGH2 headers + fragment offsets), striping depth
         and channel tag were all resolved at plan time — this path
-        streams memoryview slices behind precomposed header bytes.
-        Same frames, same striping discipline, same FIFO-per-peer
-        ordering as :meth:`coll_send_all`."""
+        does ONE ULFM check for the round and then streams memoryview
+        slices behind precomposed header bytes. Same frames, same
+        striping discipline, same FIFO-per-peer ordering as
+        :meth:`coll_send_all`."""
+        epoch0 = getattr(comm, "_ft_epoch0", 0)
+        _ft().check_wait(comm.cid, rnd.peers, "collective send",
+                         epoch0=epoch0)
         streams = [
-            self._peer_frames(p, rnd.tag, sends[p], templates=tpls)
+            self._peer_frames(p, rnd.tag, sends[p], epoch0,
+                              templates=tpls)
             for p, tpls in rnd.peer_slots
         ]
         self._stripe(streams, rnd.depth)
@@ -900,11 +965,15 @@ class WireRouter:
                 # bounded wait, holding the channel lock, so the pump
                 # cannot add early transfers behind our back mid-wait
                 src_nid, raw = self._sliced_recv(
-                    None, tag, deadline,
+                    None, tag, deadline, comm,
+                    lambda: [q for q, c in pending.items() if c > 0],
+                    "collective reap awaiting",
                     f"collective any-source receive on "
                     f"{comm.name} timed out")
                 src = src_nid - 1
-                arr = self._finish_transfer(src, tag, raw, deadline)
+                arr = self._finish_checked(
+                    src, tag, raw, deadline,
+                    epoch0=getattr(comm, "_ft_epoch0", 0))
                 if pending.get(src, 0) > 0:
                     return src, arr
                 with self._coll_early_lock:
@@ -927,28 +996,64 @@ class WireRouter:
                                timeout_ms=left_ms, first=first)
 
     def _sliced_recv(self, want_src, tag: int, deadline: float,
-                     timeout_msg: str):
-        """THE bounded wait shared by every blocking wire consumer
-        (collective reaps, peer-specific receives, ctl tokens):
-        deadline expiry raises ERR_PENDING with ``timeout_msg``.
-        Returns the ``(src_nid, raw)`` of the first matching frame."""
+                     comm, peers_fn, what: str, timeout_msg: str):
+        """THE bounded-slice wait shared by every blocking wire
+        consumer (collective reaps, peer-specific receives, ctl
+        tokens): each ~100 ms slice re-checks the ULFM failure
+        picture — revoked cid, peers dead for this comm's birth
+        epoch — so a dead peer or a revoke interrupts the wait with
+        the typed error within one detection interval; deadline
+        expiry raises ERR_PENDING with ``timeout_msg``. Returns the
+        ``(src_nid, raw)`` of the first matching frame."""
         from ..btl.components import stashed_recv
 
-        if deadline - time.monotonic() <= 0:
-            raise MPIError(ErrorCode.ERR_PENDING, timeout_msg)
+        epoch0 = getattr(comm, "_ft_epoch0", 0)
+        while True:
+            _ft().check_wait(comm.cid, peers_fn(), what, epoch0=epoch0)
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise MPIError(ErrorCode.ERR_PENDING, timeout_msg)
+            try:
+                return stashed_recv(
+                    self.ep, want_src, tag,
+                    time.monotonic() + min(left, _FT_SLICE_S))
+            except MPIError as e:
+                if e.code != ErrorCode.ERR_PENDING:
+                    raise  # endpoint torn down: surface it
+                # slice expired: re-check the picture and re-park
+
+    def _finish_checked(self, src_pidx: int, tag: int, first_raw,
+                        deadline: float, epoch0: int = 0):
+        """`_finish_transfer` with the ULFM mapping: a transfer whose
+        tail never completes because the SENDER is (or becomes) dead
+        FOR THIS COMM (its failure episode started at/after the comm's
+        birth epoch) surfaces as ERR_PROC_FAILED — the typed error
+        recovery policies key on — instead of a generic truncation. A
+        rejoined replacement's flaky transfer on a post-recovery comm
+        stays a flake."""
         try:
-            return stashed_recv(self.ep, want_src, tag, deadline)
+            return self._finish_transfer(src_pidx, tag, first_raw,
+                                         deadline)
         except MPIError as e:
-            if e.code != ErrorCode.ERR_PENDING:
-                raise  # endpoint torn down: surface it
-            raise MPIError(ErrorCode.ERR_PENDING, timeout_msg)
+            if _ft().dead_for((src_pidx,), epoch0):
+                raise MPIError(
+                    ErrorCode.ERR_PROC_FAILED,
+                    f"collective transfer from process {src_pidx} "
+                    f"broke off mid-stream and the job epoch "
+                    f"({_ft().epoch}) marks that process failed ({e})",
+                )
+            raise
 
     def ctl_send(self, comm, peer_pidx: int, payload: bytes = b"") -> None:
+        epoch0 = getattr(comm, "_ft_epoch0", 0)
+        _ft().check_wait(comm.cid, (peer_pidx,), "ctl send",
+                         epoch0=epoch0)
         self._retry(
             lambda: self.ep.send(self._nid(peer_pidx),
                                  WIRE_CTL_BASE + comm.cid,
                                  payload),
             f"ctl token to process {peer_pidx}",
+            peer=peer_pidx, epoch0=epoch0,
         )
 
     def ctl_recv(self, comm, src_pidx: int,
@@ -958,7 +1063,7 @@ class WireRouter:
         deadline = time.monotonic() + timeout_ms / 1000
         _, raw = self._sliced_recv(
             self._nid(src_pidx), WIRE_CTL_BASE + comm.cid,
-            deadline,
+            deadline, comm, lambda: (src_pidx,), "ctl wait on",
             f"ctl wait on process {src_pidx} timed out after "
             f"{timeout_ms} ms")
         return raw

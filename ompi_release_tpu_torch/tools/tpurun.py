@@ -27,11 +27,18 @@ The job/proc state machines are the real ``runtime/state.py`` ones, so
 tests (and ``ft_tester``-style kills) can assert the exact state path
 the reference defines (``plm_types.h:113-151``).
 
-Failure policy here is the errmgr default (abort: tear the job down on
-the first abnormal exit or heartbeat loss). Not ported yet: restart,
-remap, migration and resilient resume (``--enable-recovery``,
-``tpu-migrate``), the ULFM degraded world (``--ft-continue``), chaos
-injection, and the ``tpu_ps`` responder with its session contact file.
+Failure policies (errmgr): ``abort`` (the default: tear the job down
+on the first abnormal exit or heartbeat loss), ``restart``
+(``--enable-recovery``: respawn the failed rank on a surviving slot,
+rmaps/resilient; the app resumes from its checkpoint or rebuilds its
+communicator through ``ft.errmgr.recover``) and ``continue``
+(``--ft-continue``: the ULFM degraded world — the failed rank is
+promoted through the job epoch and the survivors shrink and carry on).
+``--ft-inject RANK:STEP`` arms the sensor's SIGKILL in one worker's
+first incarnation. ``tpu-migrate`` moves ranks off a host of a live
+job through the HNP's migrate responder; it finds the job through the
+session contact file. Waiting for the observability plane (ROADMAP
+item 16): the ``tpu_ps`` responder and the clock and series planes.
 """
 
 from __future__ import annotations
@@ -54,6 +61,14 @@ from ..utils.errors import ErrorCode, MPIError
 _log = output.stream("tpurun")
 
 _LOCAL_NAMES = ("localhost", "127.0.0.1")
+
+#: session contact directory (the orterun session-dir analogue:
+#: ``tpu-migrate`` discovers live jobs by reading the contact files
+#: under the session dir)
+SESSION_DIR = os.path.join(
+    os.environ.get("TMPDIR", "/tmp"),
+    f"ompitpu-sessions-{os.getuid()}",
+)
 
 # ---------------------------------------------------------------------------
 # rmaps-lite: hostfile + rank->host mapping (orte/mca/rmaps analogue)
@@ -309,7 +324,10 @@ class Job:
                  hosts: Optional[List[HostSpec]] = None,
                  map_by: str = "slot",
                  rankfile: Optional[str] = None,
-                 launch_agent: str = "ssh") -> None:
+                 launch_agent: str = "ssh",
+                 on_failure: str = "abort",
+                 max_restarts: int = 2,
+                 ft_inject: Optional[tuple] = None) -> None:
         self.n = num_procs
         self.argv = argv
         self.mca = mca
@@ -324,9 +342,10 @@ class Job:
         if rankfile is not None:
             self.rank_hosts = parse_rankfile(rankfile, num_procs, hosts)
             if hosts is None:
-                # the rankfile's named hosts ARE the allocation, so
-                # the phantom localhost spec must not survive
-                # (parse_rankfile reuses one HostSpec per
+                # the rankfile's named hosts ARE the allocation: the
+                # remapper/migrator key host load by identity over
+                # self.hosts, so the phantom localhost spec must not
+                # survive (parse_rankfile reuses one HostSpec per
                 # name, so dedup by id works)
                 seen: Dict[int, HostSpec] = {}
                 for h in self.rank_hosts:
@@ -336,6 +355,39 @@ class Job:
             self.rank_hosts = map_ranks(self.hosts, num_procs, map_by)
         self.remote = any(not h.is_local for h in self.rank_hosts)
         self.launch_agent = launch_agent
+        # errmgr policy: 'abort' = default_hnp teardown; 'restart' =
+        # rmaps/resilient respawn of the failed rank on a surviving
+        # slot (the app resumes from its last committed checkpoint);
+        # 'continue' = the ULFM degraded world — the failed rank is
+        # promoted through the job epoch (TAG_PROC_FAILED) and the
+        # survivors keep running (they shrink and carry on); the job
+        # exits 0 iff every SURVIVOR finished clean
+        if on_failure not in ("abort", "restart", "continue"):
+            raise MPIError(ErrorCode.ERR_ARG,
+                           f"unknown failure policy '{on_failure}'")
+        self.on_failure = on_failure
+        self.max_restarts = max_restarts
+        # chaos injection (--ft-inject rank:step): arm the sensor's
+        # hard kill in EXACTLY the chosen child via its env cvars
+        if ft_inject is not None:
+            r, s = int(ft_inject[0]), int(ft_inject[1])
+            if not 0 <= r < num_procs:
+                raise MPIError(ErrorCode.ERR_ARG,
+                               f"--ft-inject rank {r} out of range "
+                               f"for -n {num_procs}")
+            if s < 0:
+                raise MPIError(ErrorCode.ERR_ARG,
+                               f"--ft-inject step {s} must be >= 0")
+            ft_inject = (r, s)
+        self.ft_inject = ft_inject
+        #: node ids promoted to failed under the 'continue' policy:
+        #: their exit codes never fail the job, and the FIN collector
+        #: stops expecting them
+        self._ft_failed_ranks: set = set()
+        self._restarts: Dict[int, int] = {}
+        self._respawned: List[int] = []  # drained by the waitpid loop
+        self._restarting: set = set()    # ranks mid-respawn (dedupe)
+        self._respawn_lock = threading.Lock()
         self.job_state = StateMachine("tpurun-job")
         self.proc_state: Dict[int, int] = {}
         self.hnp: Optional[coord.HnpCoordinator] = None
@@ -345,6 +397,18 @@ class Job:
         self._failed = threading.Event()
         self._fin: set = set()
         self._fin_lock = threading.Lock()
+        #: every pid a local rank ran under, respawned incarnations
+        #: included: their shm segments and rings are reaped at job end
+        self._local_pids: set = set()
+        # hosts evacuated by tpu-migrate: the remapper never places a
+        # rank (migrated OR failure-respawned) back on one of these
+        self._excluded_hosts: set = set()
+        # serializes rank_hosts read-modify-write: concurrent moves
+        # (multi-rank migration, or migration racing a failure
+        # restart) must each see the other's placement or two ranks
+        # can double-book one free slot
+        self._map_lock = threading.Lock()
+        # per-job control-plane secret (opal/mca/sec analogue): the
         # HNP endpoint picks it up from the environment, every worker
         # inherits it (fork env / the rsh env assignments), and the
         # OOB refuses unauthenticated inbound connections — a foreign
@@ -377,6 +441,25 @@ class Job:
                 self.heartbeat_s
             ),
         }
+        if self.on_failure == "restart":
+            # workers under the resilient policy tolerate unreachable
+            # peers at wire-up (a peer may be mid-restart or finished)
+            env["OMPITPU_RECOVERY"] = "1"
+        if self._restarts.get(node_id, 0):
+            # authoritative incarnation marker: a RESPAWNED process
+            # knows it is a replacement without racing the failure
+            # picture (the rejoin epoch bump can land before or after
+            # any point the app samples it — the env cannot)
+            env["OMPITPU_INCARNATION"] = str(self._restarts[node_id])
+        if self.ft_inject is not None and node_id - 1 == self.ft_inject[0] \
+                and not self._restarts.get(node_id, 0):
+            # chaos: arm the sensor's SIGKILL at the chosen step in
+            # THIS child only (FtTester.from_cvars reads it) — and
+            # only in the FIRST incarnation: --ft-inject injects ONE
+            # failure, so a respawned replacement must not re-kill
+            # itself at the same step
+            env["OMPITPU_MCA_sensor_ft_kill_step"] = str(
+                self.ft_inject[1])
         for k, v in self.mca:
             env[f"OMPITPU_MCA_{k}"] = str(v)
         return env
@@ -430,6 +513,8 @@ class Job:
             except OSError:
                 pass  # a dead child surfaces through the waitpid loop
         self.procs[node_id] = p
+        if host.is_local:
+            self._local_pids.add(p.pid)
         self.proc_state[node_id] = ProcState.RUNNING
         for stream, out in ((p.stdout, sys.stdout), (p.stderr, sys.stderr)):
             t = threading.Thread(
@@ -439,17 +524,256 @@ class Job:
             self._iof_threads.append(t)
 
     # -- failure policy (errmgr default_hnp teardown / resilient) ----------
-    # -- failure policy (errmgr default_hnp teardown) ----------------------
     def _on_worker_failure(self, node_id: int, state: int) -> None:
         self.proc_state[node_id] = state
         if self._failed.is_set():
             return
+        if self.on_failure == "continue" and self.job_state.visited(
+                JobState.RUNNING):
+            # ULFM degraded world (only once the job is RUNNING — a
+            # child that dies during bring-up must abort the launch
+            # loudly, like the restart policy's guard, or survivors
+            # would park in wire-up masking the real startup error):
+            # promote through the job epoch (the
+            # waitpid loop usually observes the corpse long before the
+            # heartbeat window closes — promote_failed is idempotent
+            # with the monitor's own promotion) and keep running; the
+            # survivors revoke/shrink and carry on
+            with self._fin_lock:
+                first = node_id not in self._ft_failed_ranks
+                if first:
+                    self._ft_failed_ranks.add(node_id)
+            if first:
+                try:
+                    self.hnp.promote_failed(node_id)
+                except MPIError:
+                    pass  # links torn down at job end
+                # a WEDGED worker (heartbeat-promoted, process still
+                # alive) must be reaped or the waitpid loop would spin
+                # to the job timeout: control-plane kill first (the
+                # odls path that reaches ssh-launched workers), then
+                # SIGKILL the local handle — the rc<0 signal death is
+                # exactly what the exit-code policy excuses
+                p = self.procs.get(node_id)
+                if p is not None and p.poll() is None:
+                    try:
+                        self.hnp.kill_worker(node_id)
+                    except MPIError:
+                        pass
+                    try:
+                        p.wait(timeout=1)
+                    except subprocess.TimeoutExpired:
+                        pass
+                    if p.poll() is None:
+                        p.kill()
+                _log.verbose(
+                    0, f"worker {node_id} failed "
+                       f"({ProcState(state).name}); continuing "
+                       "degraded (--ft-continue)")
+            return
+        if self.on_failure == "restart" and self.job_state.visited(
+                JobState.RUNNING):
+            # one restart per failure: the heartbeat monitor and the
+            # waitpid loop can BOTH observe the same dead incarnation —
+            # the budget is read-modify-written and deduped under the
+            # lock, and the (slow: terminate+wait+spawn) respawn runs
+            # off-thread so the monitor keeps draining beats
+            with self._respawn_lock:
+                if node_id in self._restarting:
+                    return  # the other observer is already handling it
+                used = self._restarts.get(node_id, 0)
+                granted = used < self.max_restarts
+                if granted:
+                    self._restarts[node_id] = used + 1
+                    self._restarting.add(node_id)
+            if granted:
+                # promote through the job epoch FIRST: survivors'
+                # bounded waits must raise ERR_PROC_FAILED and enter
+                # recovery while the (slow) respawn runs; the respawn
+                # path's note_restarted then moves the rank from
+                # failed to restarted at the next epoch
+                try:
+                    self.hnp.promote_failed(node_id)
+                except MPIError:
+                    pass
+                threading.Thread(
+                    target=self._restart_rank, args=(node_id, state),
+                    daemon=True,
+                ).start()
+                return
+            _log.verbose(1, f"worker {node_id}: restart budget "
+                            f"({self.max_restarts}) exhausted")
         self._failed.set()
         self.job_state.activate(JobState.ABORTED, {"node": node_id,
                                                    "state": int(state)})
         _log.verbose(1, f"worker {node_id} failed "
                         f"({ProcState(state).name}); tearing down")
         self.terminate()
+
+    def _remap_rank(self, node_id: int) -> None:
+        """rmaps/resilient remap: move the failed rank to the
+        least-loaded surviving slot, preferring a DIFFERENT host when
+        one exists (``rmaps_resilient.c``'s move-off-the-fault-node
+        policy; on a single-host allocation the same host is the only
+        slot pool)."""
+        with self._map_lock:
+            failed_host = self.rank_hosts[node_id - 1]
+            load: Dict[int, int] = {id(h): 0 for h in self.hosts}
+            for i, h in enumerate(self.rank_hosts):
+                if i != node_id - 1:
+                    load[id(h)] += 1
+            candidates = sorted(
+                (h for h in self.hosts
+                 if h.slots - load[id(h)] > 0
+                 and h.name not in self._excluded_hosts),
+                key=lambda h: (h.name == failed_host.name, load[id(h)]),
+            )
+            if candidates:
+                self.rank_hosts[node_id - 1] = candidates[0]
+            elif failed_host.name in self._excluded_hosts:
+                # nowhere to put an evacuated rank: surface rather
+                # than silently respawning on the host being drained
+                raise MPIError(
+                    ErrorCode.ERR_UNREACH,
+                    f"no surviving slot for rank {node_id - 1} off "
+                    f"evacuated host {failed_host.name}",
+                )
+
+    def _restart_rank(self, node_id: int, state: int) -> None:
+        """Respawn the failed rank (same node id = same rank identity;
+        the rejoin service re-runs its wire-up) and hand it back to
+        the waitpid loop. The app's own checkpoint/restore logic
+        (ft.run_with_restart / Checkpointer) resumes its work."""
+        _log.verbose(
+            0, f"worker {node_id} failed ({ProcState(state).name}); "
+               f"restarting (attempt "
+               f"{self._restarts[node_id]}/{self.max_restarts})")
+        self._move_rank(node_id, f"respawn of worker {node_id}")
+
+    def _move_rank(self, node_id: int, what: str) -> None:
+        """Terminate the rank's current incarnation, remap it to a
+        surviving slot, respawn it. Caller must already hold the
+        rank in ``_restarting`` (that flag is what stops the waitpid
+        loop and heartbeat monitor from treating the deliberate
+        terminate as a new failure)."""
+        try:
+            old = self.procs.get(node_id)
+            if old is not None and old.poll() is None:
+                # kill through the control plane FIRST: under an ssh
+                # launch, procs[nid] is the LOCAL ssh client —
+                # terminating it orphans the remote worker, which
+                # then runs to completion on the host being drained.
+                # TAG_DIE reaches the worker itself (odls kill); the
+                # signal path below stays as the fallback for workers
+                # that died before wiring up their die watcher.
+                try:
+                    self.hnp.kill_worker(node_id)
+                    old.wait(timeout=3)
+                except (MPIError, subprocess.TimeoutExpired):
+                    pass
+            if old is not None and old.poll() is None:
+                old.terminate()
+                try:
+                    old.wait(timeout=5)
+                except subprocess.TimeoutExpired:
+                    old.kill()
+            self._remap_rank(node_id)
+            if self.rank_hosts[node_id - 1].name in self._excluded_hosts:
+                # this move's placement raced a concurrent evacuation
+                # (its remap ran before the exclusion landed): place
+                # again now that the exclusion is visible
+                self._remap_rank(node_id)
+            self.hnp.note_restarted(node_id)
+            self._spawn(node_id)
+        except Exception as exc:
+            # a failed respawn (Popen error, dead launch agent) must
+            # abort the job promptly, not spin the waitpid loop until
+            # the wall-clock timeout with the rank parked mid-respawn
+            with self._respawn_lock:
+                self._restarting.discard(node_id)
+            _log.verbose(0, f"{what} failed: {exc}; aborting job")
+            self.abort(f"{what} failed")
+            return
+        with self._respawn_lock:
+            self._respawned.append(node_id)
+            self._restarting.discard(node_id)
+
+    # -- proactive migration (orte-migrate analogue) -----------------------
+    def migrate_off(self, req: Dict) -> Dict:
+        """Evacuate every rank currently mapped to ``req['off']``:
+        mark the host excluded, then move each rank through the same
+        terminate->remap->respawn path the resilient errmgr uses (the
+        ``orte-migrate`` + ``rmaps/resilient`` composition; reference
+        ``orte/tools/orte-migrate/orte-migrate.c``). Each moved app
+        resumes from its last COMMITTED checkpoint — the same
+        restart-from-checkpoint contract as failure recovery; there is
+        no pre-migration snapshot barrier, so work since the last
+        commit is recomputed (documented, not hidden).
+
+        Does not touch the per-rank failure-restart budget: an
+        operator-requested move is not a failure."""
+        off = req.get("off")
+        if not off:
+            return {"ok": False, "error": "missing 'off' host"}
+        if self.on_failure != "restart":
+            # without the recovery machinery (rejoin service,
+            # OMPITPU_RECOVERY env) a respawned incarnation can never
+            # rejoin — accepting would kill a rank and hang the job
+            return {"ok": False,
+                    "error": "job launched without --enable-recovery; "
+                             "migration needs the rejoin service"}
+        if self.job_state.current != int(JobState.RUNNING) or \
+                self._failed.is_set():
+            # CURRENT state, not visited(): a request landing after
+            # completion must not spawn an unreaped stray worker
+            return {"ok": False, "error": "job is not running"}
+        with self._map_lock:  # consistent placement snapshot
+            targets = [i + 1 for i, h in enumerate(self.rank_hosts)
+                       if h.name == off]
+            if not targets:
+                return {"ok": False,
+                        "error": f"no ranks mapped to host '{off}'"}
+            # capacity check BEFORE evacuating: surviving slots must
+            # absorb every moved rank or the request is refused whole
+            self._excluded_hosts.add(off)
+            free = sum(h.slots for h in self.hosts
+                       if h.name not in self._excluded_hosts)
+            staying = sum(1 for h in self.rank_hosts
+                          if h.name not in self._excluded_hosts)
+            if free - staying < len(targets):
+                self._excluded_hosts.discard(off)
+                return {"ok": False,
+                        "error": f"cannot evacuate {off}: "
+                                 f"{len(targets)} rank(s) need slots "
+                                 f"but only {free - staying} remain "
+                                 "free"}
+        moved = []
+        skipped = []
+        for nid in targets:
+            with self._respawn_lock:
+                if nid in self._restarting:
+                    # already mid-move (failure respawn in flight) —
+                    # its placement may predate the exclusion, so the
+                    # mover rechecks before spawning; still REPORT it
+                    # so the operator knows this rank was not handled
+                    # by this request
+                    skipped.append(nid - 1)
+                    continue
+                self._restarting.add(nid)
+            threading.Thread(
+                target=self._move_rank,
+                args=(nid, f"migration of worker {nid} off {off}"),
+                daemon=True,
+            ).start()
+            moved.append(nid - 1)
+        _log.verbose(0, f"migrating rank(s) "
+                        f"{', '.join(map(str, moved))} off {off}")
+        reply = {"ok": True, "off": off, "ranks": moved}
+        if skipped:
+            reply["skipped"] = skipped
+            reply["note"] = ("skipped rank(s) were mid-respawn; "
+                             "verify placement with tpu-ps")
+        return reply
 
     def abort(self, reason: str = "aborted") -> None:
         """Public abort: the errmgr teardown path with state-machine
@@ -490,6 +814,40 @@ class Job:
             except subprocess.TimeoutExpired:
                 p.kill()
 
+    def _write_contact_file(self) -> None:
+        import json
+
+        try:
+            os.makedirs(SESSION_DIR, mode=0o700, exist_ok=True)
+            self._contact_path = os.path.join(
+                SESSION_DIR, f"{os.getpid()}.json"
+            )
+            # the contact file carries the job secret so same-user
+            # tools (tpu-migrate) can authenticate — 0600, like the
+            # reference's session-dir contact files
+            fd = os.open(self._contact_path,
+                         os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o600)
+            with os.fdopen(fd, "w") as f:
+                json.dump({
+                    "pid": os.getpid(),
+                    "host": self.hnp_host,
+                    "port": self.hnp.port,
+                    "n": self.n,
+                    "argv": self.argv,
+                    "started": time.time(),
+                    "secret": self.secret,
+                }, f)
+        except OSError as e:
+            _log.verbose(1, f"could not write contact file: {e}")
+            self._contact_path = None
+
+    def _remove_contact_file(self) -> None:
+        path = getattr(self, "_contact_path", None)
+        if path:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
 
     def _reap_segments(self) -> None:
         """Unlink the shm handoff segments and nativewire rings the
@@ -499,14 +857,15 @@ class Job:
         pid>-…`` (``btl/components.py``), every ring ``onw-<owner pid in
         hex>-…`` (``btl/nativewire.py`` ``_ring_name``), and once the
         job has ended none of its workers' segments or rings can still
-        be in flight — the orte-clean duty, run at every job end."""
+        be in flight — the orte-clean duty, run at every job end. Every
+        pid a local rank ran under counts: a respawned rank's dead
+        incarnations left theirs too."""
         import glob
 
-        for nid, p in self.procs.items():
-            if not self.rank_hosts[nid - 1].is_local or p.poll() is None:
-                continue
-            for path in (glob.glob(f"/dev/shm/ompitpu-{p.pid}-*")
-                         + glob.glob(f"/dev/shm/onw-{p.pid:x}-*")):
+        live = {p.pid for p in self.procs.values() if p.poll() is None}
+        for pid in sorted(self._local_pids - live):
+            for path in (glob.glob(f"/dev/shm/ompitpu-{pid}-*")
+                         + glob.glob(f"/dev/shm/onw-{pid:x}-*")):
                 try:
                     os.unlink(path)
                 except FileNotFoundError:
@@ -568,7 +927,25 @@ class Job:
             # pubsub name service (MPI_Publish_name/Lookup_name over
             # the lifeline — the orte-server role lives in the HNP)
             self.hnp.start_name_server()
-            while not self._failed.is_set() and len(self._fin) < self.n:
+            # tpu-migrate's responder + the session contact file it
+            # discovers this live job through
+            self.hnp.start_migrate_responder(self.migrate_off)
+            # ULFM plane: failure-state queries + fault-tolerant
+            # agreements (shrink's survivor-group consensus) — always
+            # on; costs one idle thread when the app never asks
+            self.hnp.start_ft_responder()
+            self._write_contact_file()
+            if self.on_failure == "restart":
+                # a respawned worker re-runs its full ESS wire-up
+                # against the live job (JOIN + init barrier)
+                self.hnp.start_rejoin_service(cards)
+
+            def _done_count() -> int:
+                with self._fin_lock:  # _ft_failed_ranks mutates on
+                    #                   the monitor/waitpid threads
+                    return len(self._fin | self._ft_failed_ranks)
+
+            while not self._failed.is_set() and _done_count() < self.n:
                 nid = self.hnp.recv_fin(timeout_ms=200)
                 if nid is not None:
                     with self._fin_lock:
@@ -588,8 +965,26 @@ class Job:
         # seen. Give each such worker one heartbeat interval of grace
         # before declaring LIFELINE_LOST.
         grace: Dict[int, float] = {}
-        while (pending or grace) and time.monotonic() < deadline:
+
+        def respawn_pending() -> bool:
+            with self._respawn_lock:
+                return bool(self._respawned or self._restarting)
+
+        while ((pending or grace or respawn_pending())
+               and time.monotonic() < deadline):
+            # respawned ranks re-enter the waitpid loop (their failed
+            # incarnation's exit code no longer counts)
+            with self._respawn_lock:
+                respawned, self._respawned = self._respawned, []
+            for nid in respawned:
+                pending.add(nid)
+                exit_codes.pop(nid, None)
+                grace.pop(nid, None)
+            with self._respawn_lock:
+                restarting = set(self._restarting)
             for nid in list(pending):
+                if nid in restarting:
+                    continue  # mid-respawn: the new proc is coming
                 rc = self.procs[nid].poll()
                 if rc is None:
                     continue
@@ -642,6 +1037,7 @@ class Job:
                 exit_codes[nid] = self.procs[nid].poll() or 124
 
         server.join(timeout=5)
+        self._remove_contact_file()
         self.hnp.shutdown()
         for t in self._iof_threads:
             t.join(timeout=2)
@@ -650,7 +1046,18 @@ class Job:
         if self._failed.is_set():
             rc = next((c for c in exit_codes.values() if c), 1)
             return rc
-        leftover = next((c for c in exit_codes.values() if c), 0)
+        # a nonzero code can linger without _failed when a restart was
+        # granted but its respawn never cleanly completed — that is a
+        # failure, not success. Ranks promoted under the 'continue'
+        # policy are the exception — their death is the EXPECTED event
+        # the survivors recovered from — but ONLY signal deaths (rc<0:
+        # SIGKILL'd by the fault, or job-end terminate of a wedged
+        # proc): a promoted rank that exited with a nonzero CODE is an
+        # app crash (e.g. a survivor whose recovery failed) and must
+        # fail the job.
+        leftover = next(
+            (c for nid, c in exit_codes.items()
+             if c and not (nid in self._ft_failed_ranks and c < 0)), 0)
         if leftover:
             self.job_state.activate(JobState.ABORTED, "nonzero exit")
             return leftover
@@ -726,6 +1133,27 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "--map-by, rmaps rank_file analogue)")
     ap.add_argument("--launch-agent", default="ssh",
                     help="remote launch command (plm_rsh agent)")
+    ap.add_argument("--enable-recovery", action="store_true",
+                    help="restart a failed rank on a surviving slot "
+                         "instead of aborting the job "
+                         "(rmaps/resilient + errmgr recovery)")
+    ap.add_argument("--max-restarts", type=int, default=2,
+                    help="per-rank restart budget with "
+                         "--enable-recovery")
+    ap.add_argument("--ft-continue", action="store_true",
+                    help="ULFM degraded-world policy: on a rank "
+                         "failure, bump the job epoch and xcast "
+                         "TAG_PROC_FAILED but keep the job running — "
+                         "survivors revoke()/shrink() and continue; "
+                         "exit 0 iff every survivor finishes clean "
+                         "(mutually exclusive with --enable-recovery)")
+    ap.add_argument("--ft-inject", default=None, metavar="RANK:STEP",
+                    help="chaos mode: arm the ft sensor's SIGKILL in "
+                         "worker RANK at training step STEP (exports "
+                         "OMPITPU_MCA_sensor_ft_kill_step into that "
+                         "child only; the app's ElasticStep/FtTester "
+                         ".step() clock fires it) — used by the "
+                         "recovery job tests and chaos runs")
     ap.add_argument("command", nargs=argparse.REMAINDER,
                     help="program and arguments to launch")
     args = ap.parse_args(argv)
@@ -735,17 +1163,36 @@ def main(argv: Optional[List[str]] = None) -> int:
         ap.error("-n must be >= 1")
     if args.hostfile and args.host:
         ap.error("--hostfile and --host are mutually exclusive")
+    if args.enable_recovery and args.ft_continue:
+        ap.error("--enable-recovery and --ft-continue are mutually "
+                 "exclusive (respawn vs degraded-world policy)")
+    ft_inject = None
+    if args.ft_inject:
+        try:
+            r, s = args.ft_inject.split(":", 1)
+            ft_inject = (int(r), int(s))
+        except ValueError:
+            ap.error(f"--ft-inject expects RANK:STEP, got "
+                     f"'{args.ft_inject}'")
     hosts = None
     if args.hostfile:
         hosts = parse_hostfile(args.hostfile)
     elif args.host:
         hosts = parse_host_list(args.host)
 
+    on_failure = "abort"
+    if args.enable_recovery:
+        on_failure = "restart"
+    elif args.ft_continue:
+        on_failure = "continue"
     job = Job(args.np, args.command, [tuple(m) for m in args.mca],
               heartbeat_s=args.heartbeat,
               tag_output=not args.no_tag_output,
               hosts=hosts, map_by=args.map_by, rankfile=args.rankfile,
-              launch_agent=args.launch_agent)
+              launch_agent=args.launch_agent,
+              on_failure=on_failure,
+              max_restarts=args.max_restarts,
+              ft_inject=ft_inject)
 
     def on_signal(signum, frame):
         job._failed.set()

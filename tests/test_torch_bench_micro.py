@@ -11,6 +11,8 @@
   same line names in the same order, the C executor firing every replay.
 - ``native_wire_suite``, ``overlap_suite`` and ``steady_spanning_suite``
   emit bench.py's line names (the QoS and obs legs wait for item 16).
+- ``ft_suite`` emits ``_ft_micro_suite``'s line names from one real
+  recovery (a 3-process ``--ft-continue`` job).
 """
 
 import numpy as np
@@ -97,3 +99,23 @@ def test_overlap_and_steady_spanning_lines():
         "steady_orch_spanning_allreduce_256KiB_compiled",
         "compiled_spanning_allreduce_orch_speedup"]
     assert all(ln["suite"] == "steady_state" for ln in span)
+
+
+def test_ft_suite_matches_bench_py_names():
+    """The port's ``ft`` lines carry ``_ft_micro_suite``'s names: one
+    recovery of a 3-process ``--ft-continue`` job whose worker 2 the
+    sensor kills at step 3, detected once and recovered once in-app."""
+    import inspect
+
+    ours = tbench.ft_suite(torch.device("cpu"))
+    src = inspect.getsource(jbench) + jbench._FT_BENCH_APP
+    want = ["ft_recovery_seconds", "ft_steps_lost"]
+    assert _names(ours) == want
+    for name in want:
+        assert f'"metric": "{name}"' in src
+    by = {ln["metric"]: ln for ln in ours}
+    rec = by["ft_recovery_seconds"]
+    assert rec["suite"] == by["ft_steps_lost"]["suite"] == "ft_recovery"
+    assert rec["failures_detected"] == 1.0 and rec["recoveries"] == 1.0
+    assert 0 < rec["value"] < 30
+    assert by["ft_steps_lost"]["value"] == 0  # checkpoint_every 1

@@ -19,8 +19,9 @@ package's functions.
   with a result of fire k unchanged by fire k+1; a mixed fleet (one
   worker with ``coll_plan_native`` off) interoperates bitwise; a worker
   killed between native fires ends the job with a non-zero exit code
-  quickly, never a hang (the typed ERR_PROC_FAILED of the reference's
-  ULFM case waits for ROADMAP item 15).
+  quickly, never a hang under the abort policy (the reference's ULFM
+  case, typed ERR_PROC_FAILED under ``--ft-continue``, is
+  ``tests/test_torch_ft_jobs.py``).
 """
 
 import os
