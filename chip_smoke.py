@@ -291,6 +291,47 @@ Run from the repository root on a machine with a card:
      rejoined and its cold start, ms per step before and after the
      recovery, launches and peak memory. ``python3 chip_smoke.py
      --slice13`` runs it alone (no result line);
+   - slice 14, right after slice 13: the observability plane. A
+     ``tools.tpurun`` job of 2 workers x 4 virtual ranks of ``cuda:0``
+     (this script with ``--slice14-worker``) under ``obs_enable=1``,
+     ``obs_sentinel=2`` (the inline contract check), the sampler pushing
+     to the HNP every 0.25 s, ``btl_nativewire_events=1`` (the C event
+     ring) and dump and postmortem directories. Once both workers are
+     up the parent queries the live job with ``tpu_ps`` (both workers
+     with pid, state and rss) and sends worker 1 a SIGUSR1 (its
+     postmortem carries every contributor, the job goes on). Each
+     worker: the spanning allreduce at 8 B, 256 KiB, 4 MiB and 256 MiB
+     f32, interpreted then replayed from frozen wire plans, and the
+     tuned allreduce on its shadow comm, every output bitwise its
+     closed form and the same calls' output after ``obs.disable()``
+     (check 1); a fresh signature fired interpreted then replayed,
+     whose journal message spans and ledger record (expanded) agree by
+     kind and count (check 7); one allreduce worker 1 reaches 2 s late;
+     the full-width TpuLM (seed 0, flash): an eval forward and 2
+     data-parallel AdamW steps at (1, 2048) Zipf tokens a rank through
+     the tree pass, its loss and parameter checksum bitwise the same
+     run after ``obs.disable()``; the replayed 256 KiB allreduce with
+     the plane on and off, and 8 MiB shm-ring ping-pongs with the event
+     ring installed and not, 7 interleaved turns each. The parent then
+     holds the finalize dumps (``journal``, ``series``, ``ledger``,
+     ``nativeev`` of both workers; check 2), merges them with
+     ``tpu_doctor`` into one trace with cross-process and paired native
+     fragment flows, finds worker 1 the slowest of the late round and
+     the contracts aligned (check 3), the HNP's series pushes of both
+     workers and each worker's TAG_CLOCK offset (check 4). A second
+     job: worker 1 posts ``bcast`` where worker 0 posts ``allreduce``,
+     both raise ERR_COLL_MISMATCH within the round naming the other
+     process and both call sites, the next round matches; under
+     ``obs_stall_timeout=1.5`` worker 1 sleeps 3 s and worker 0's
+     watchdog dumps a postmortem naming the allreduce and worker 1's
+     ranks (check 6). Every check is fatal; launches of
+     ``stream_axpy[sum]`` and ``flash_*`` and the journal's spans by
+     layer print per worker (check 7). Later, in this process: the 1
+     MiB allreduce on 8 virtual ranks with the sentinel at 0 and at 1,
+     and the one-card TpuLM train step with the plane off and on, 7
+     turns each; the four ratios print beside their budgets.
+     ``python3 chip_smoke.py --slice14`` runs it alone (no result
+     line);
 4. times the kernels (CUDA events, median of 7) at the main path's
    shapes beside their bound, their plain twins and one PyTorch library
    call, the streaming kernels, the transpose and the eager chain hop in
@@ -5164,46 +5205,56 @@ def s10_worker():
     return 0
 
 
-def s10_job(mode, out_dir):
-    """One tpurun job of the port (2 workers running this script's
-    worker phase); returns (rc, wall seconds, worker pids, results)."""
+def run_slice_job(n, mode, procs, out_dir, mca=(), job_kw=None,
+                  heartbeat_s=0.5, miss_limit=20, timeout_s=400,
+                  every=True):
+    """One tpurun job of the port running this script's slice-``n``
+    worker phase (``--slice<n>-worker``; ``procs`` workers on cuda:0,
+    the mode and ``out_dir`` in ``CHIP_SMOKE_S<n>_MODE`` / ``_OUT``).
+    Fails if a worker outlived the job or any process the job started
+    left a shm segment, a nativewire ring or an event ring behind, and,
+    with ``every``, unless each of the ``procs`` workers wrote one
+    ``worker<i>.json``. Returns (rc, wall seconds, the job, the
+    workers' results sorted by process index and incarnation)."""
     import glob
     import os
 
     from ompi_release_tpu_torch.tools.tpurun import Job
 
     env_keep = dict(os.environ)
-    os.environ["CHIP_SMOKE_S10_MODE"] = mode
-    os.environ["CHIP_SMOKE_S10_OUT"] = out_dir
+    os.environ[f"CHIP_SMOKE_S{n}_MODE"] = mode
+    os.environ[f"CHIP_SMOKE_S{n}_OUT"] = out_dir
     t0 = time.perf_counter()
     try:
-        job = Job(S10_PROCS, [sys.executable, os.path.abspath(__file__),
-                              "--slice10-worker"], [],
-                  heartbeat_s=0.5, miss_limit=20)
-        rc = job.run(timeout_s=600)
+        job = Job(procs, [sys.executable, os.path.abspath(__file__),
+                          f"--slice{n}-worker"], list(mca),
+                  heartbeat_s=heartbeat_s, miss_limit=miss_limit,
+                  **(job_kw or {}))
+        rc = job.run(timeout_s=timeout_s)
     finally:
         os.environ.clear()
         os.environ.update(env_keep)
     wall = time.perf_counter() - t0
-    pids = [p.pid for p in job.procs.values()]
     check(all(p.poll() is not None for p in job.procs.values()),
-          f"slice 10 ({mode}): a worker outlived its job")
-    # shm segments carry their creator's pid; nativewire's rings the
-    # owner's token, which starts with its pid in hex (btl/nativewire
-    # _ring_name)
-    leftovers = [f for pid in pids
-                 for f in glob.glob(f"/dev/shm/ompitpu-{pid}-*")
-                 + glob.glob(f"/dev/shm/onw-{pid:x}-*")]
-    check(not leftovers, f"slice 10 ({mode}): shm segments or rings left "
-                         f"{leftovers}")
-    results = []
-    for i in range(S10_PROCS):
-        path = os.path.join(out_dir, f"worker{i}.json")
-        check(os.path.exists(path), f"slice 10 ({mode}): worker {i} wrote "
-                                    f"no result (job rc {rc})")
+          f"slice {n} ({mode}): a worker outlived its job")
+    # shm segments carry their creator's pid; nativewire's rings and
+    # event rings the owner's token, which starts with its pid in hex
+    # (btl/nativewire _ring_name)
+    leftovers = [f for pid in job._local_pids
+                 for pat in (f"ompitpu-{pid}-*", f"onw-{pid:x}-*",
+                             f"onwev-{pid:x}-*")
+                 for f in glob.glob(os.path.join("/dev/shm", pat))]
+    check(not leftovers, f"slice {n} ({mode}): shm segments or rings "
+                         f"left {leftovers}")
+    res = []
+    for path in glob.glob(os.path.join(out_dir, "worker*.json")):
         with open(path) as f:
-            results.append(json.load(f))
-    return rc, wall, pids, results
+            res.append(json.load(f))
+    res.sort(key=lambda r: (r["pidx"], r.get("incarnation", 0)))
+    check(not every or [r["pidx"] for r in res] == list(range(procs)),
+          f"slice {n} ({mode}): workers {[r['pidx'] for r in res]} of "
+          f"{procs} wrote a result (job rc {rc})")
+    return rc, wall, job, res
 
 
 def phase_slice10(cuda_op, torch, mode="main"):
@@ -5230,7 +5281,8 @@ def phase_slice10(cuda_op, torch, mode="main"):
     log(f"phase 3: slice 10: native library {so} (make ran: {built}) and "
         f"the kernels built in {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as td:
-        rc, wall, pids, res = s10_job(mode, td)
+        rc, wall, _, res = run_slice_job(10, mode, S10_PROCS, td,
+                                         timeout_s=600)
     check(rc == 0, f"slice 10: the job exited {rc}")
     s11_sums = [r["s11_sum_launches"] for r in res]
     check(all(n > 0 for n in s11_sums),
@@ -5262,7 +5314,8 @@ def phase_slice10(cuda_op, torch, mode="main"):
                             "record_s": row["record_s"],
                             "replay_s": row["replay_s"]}))
     with tempfile.TemporaryDirectory() as td:
-        rc2, wall2, _, res2 = s10_job("dcn", td)
+        rc2, wall2, _, res2 = run_slice_job(10, "dcn", S10_PROCS, td,
+                                            timeout_s=600)
     check(rc2 == 0, f"slice 10 (dcn): the job exited {rc2}")
     log(f"phase 3: slices 10 and 11 passed in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -5274,7 +5327,7 @@ def phase_slice12(cuda_op, torch):
     """Slice 12's path: a tpurun job of its own, 2 workers x 4 virtual
     ranks on cuda:0 (the libraries are built by then), every step of
     ``s12_phase`` in each worker; the job must exit 0 and leave no
-    worker, shm segment or ring behind (``s10_job`` checks). Returns the
+    worker, shm segment or ring behind (``run_slice_job`` checks). Returns the
     workers' results and the SUM launches summed over them."""
     import gc
     import tempfile
@@ -5287,7 +5340,8 @@ def phase_slice12(cuda_op, torch):
     cuda_op.build()
     build_library()
     with tempfile.TemporaryDirectory() as td:
-        rc, wall, _, res = s10_job("s12", td)
+        rc, wall, _, res = run_slice_job(10, "s12", S10_PROCS, td,
+                                         timeout_s=600)
     check(rc == 0, f"slice 12: the job exited {rc}")
     sums = [r["s12_sum_launches"] for r in res]
     check(all(n > 0 for n in sums),
@@ -5691,45 +5745,21 @@ def s13_worker():
 
 
 def s13_job(mode, job_kw, out_dir):
-    """One slice-13 tpurun job (3 workers x 2 virtual ranks on cuda:0,
+    """One slice-13 job (3 workers x 2 virtual ranks on cuda:0,
     heartbeats every 0.3 s, miss limit 3); returns (rc, wall seconds,
-    the job, {(pidx, incarnation): results})."""
-    import glob
+    the job, {(pidx, incarnation): results}, the kill time or None)."""
     import os
 
-    from ompi_release_tpu_torch.tools.tpurun import Job
-
-    env_keep = dict(os.environ)
-    os.environ["CHIP_SMOKE_S13_MODE"] = mode
-    os.environ["CHIP_SMOKE_S13_OUT"] = out_dir
-    t0 = time.perf_counter()
-    try:
-        job = Job(S13_PROCS, [sys.executable, os.path.abspath(__file__),
-                              "--slice13-worker"], [],
-                  heartbeat_s=S13_HEARTBEAT_S, miss_limit=S13_MISS_LIMIT,
-                  **job_kw)
-        rc = job.run(timeout_s=400)
-    finally:
-        os.environ.clear()
-        os.environ.update(env_keep)
-    wall = time.perf_counter() - t0
-    check(all(p.poll() is not None for p in job.procs.values()),
-          f"slice 13 ({mode}): a worker outlived its job")
-    leftovers = [f for pid in job._local_pids
-                 for f in glob.glob(f"/dev/shm/ompitpu-{pid}-*")
-                 + glob.glob(f"/dev/shm/onw-{pid:x}-*")]
-    check(not leftovers, f"slice 13 ({mode}): shm segments or rings left "
-                         f"{leftovers}")
-    res = {}
-    for path in glob.glob(os.path.join(out_dir, "worker*.json")):
-        with open(path) as f:
-            r = json.load(f)
-        res[(r["pidx"], r["incarnation"])] = r
+    rc, wall, job, res = run_slice_job(
+        13, mode, S13_PROCS, out_dir, job_kw=job_kw,
+        heartbeat_s=S13_HEARTBEAT_S, miss_limit=S13_MISS_LIMIT,
+        every=False)
     kill = None
     if os.path.exists(os.path.join(out_dir, f"kill-{mode}")):
         with open(os.path.join(out_dir, f"kill-{mode}")) as f:
             kill = float(f.read())
-    return rc, wall, job, res, kill
+    return rc, wall, job, {(r["pidx"], r["incarnation"]): r
+                           for r in res}, kill
 
 
 def s13_closed_isum(steps, kill, degraded):
@@ -5895,6 +5925,836 @@ def report_slice13(s13):
                         "card": card}))
 
 
+# ---------------------------------------------------------------------------
+# slice 14: the observability plane over a spanning job and the TpuLM
+# ---------------------------------------------------------------------------
+
+S14_PROCS = 2
+S14_RANKS = 4  # virtual ranks a worker owns on cuda:0
+S14_N = S14_PROCS * S14_RANKS
+#: the spanning allreduce sizes per rank (f32): 8 B, 256 KiB, 4 MiB, 256 MiB
+S14_SIZES = (8, 256 * 1024, 4 * MIB, 256 * MIB)
+S14_FIRES = 3  # record, then two replays per size and obs state
+S14_NAMED_ELEMS = 3 * 1024  # the allreduce worker 1 arrives 2 s late to
+S14_LATE_S = 2.0
+S14_TURNS = 7  # interleaved turns per overhead ratio (median)
+S14_TURN_FIRES = 20  # 256 KiB replays per turn and obs state
+S14_SENTINEL_CALLS = 100  # in-process 1 MiB allreduces per turn and level
+S14_P2P_BYTES = 8 * MIB  # shm-ring ping-pong for the event-ring ratio
+S14_P2P_TRIPS = 16  # round trips per turn and ring state
+S14_STALL_S = 1.5  # the second job's obs_stall_timeout
+#: the budgets the reference holds the overhead ratios to: the obs plane
+#: on a replayed 256 KiB spanning allreduce (bench.py:1365-1370), the C
+#: event ring on shm-ring p2p (bench.py:2335-2341)
+S14_OBS_BUDGET = 1.15
+S14_EVENTS_BUDGET = 1.05
+#: the postmortem's state contributors the flight recorder must carry
+S14_CONTRIBUTORS = ("journal_tail", "ledger_tail", "sentinel",
+                    "frozen_plans", "native_rings", "nbc_inflight",
+                    "hier_rounds", "ft_state")
+
+
+def s14_wait_file(path, timeout_s=120.0):
+    import os
+
+    t_end = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        check(time.monotonic() < t_end, f"slice 14: {path} never appeared")
+        time.sleep(0.05)
+
+
+def s14_allreduces(w, cplan, torch, off, dev):
+    """(a): the spanning allreduce at every S14_SIZES size, S14_FIRES
+    fires (interpreted, then replayed from the frozen wire plan), and the
+    tuned allreduce on this worker's shadow comm; returns the outputs and
+    the replay executors."""
+    shadow = w._hier_module.shadow
+    outs, lasts = {}, {}
+    for nbytes in S14_SIZES:
+        count = max(1, nbytes // 4)
+        x = s10_rows(torch, count, off, dev)
+        want = s10_sum(torch, count, dev)
+        for k in range(S14_FIRES):
+            got = w.allreduce(x)
+            check(bits_equal(got, want.expand(S14_RANKS, count)
+                             .contiguous()),
+                  f"slice 14: the {nbytes} B spanning allreduce differs "
+                  "from its closed form")
+            st = s11_state(cplan, w, "allreduce", (x,))
+            lasts[(nbytes, k)] = st.last
+        outs[("span", nbytes)] = got
+        loc = None
+        for _ in range(S14_FIRES):
+            loc = shadow.allreduce(x)
+        outs[("shadow", nbytes)] = loc
+        del x
+    return outs, lasts
+
+
+def s14_records(obs, ledger, w, torch, off, dev):
+    """Check 7's witness: a fresh 256 KiB-class signature fired once
+    interpreted, then replayed; the interpreted fire's journal message
+    spans and the replayed fire's ledger record, expanded, agree by kind
+    and count (per op and peer), and the replay journals no message
+    span of its own."""
+    import collections
+
+    x = s10_rows(torch, 65 * 1024, off, dev)  # a signature of its own
+    me = w._hier_module.my_pidx
+
+    def msgs(spans):
+        return collections.Counter(
+            (s["op"], s["peer"]) for s in spans
+            if s["op"] in ("hier_send", "hier_recv"))
+
+    def spanning(since):
+        return [r for r in ledger.records(since)
+                if r["kind"] == ledger.KIND_SPANNING and r["cid"] == w.cid]
+
+    def mine(since):
+        return [s.asdict() for s in obs.journal.snapshot()
+                if s.seq >= since and s.comm_id == w.cid]
+
+    s0 = obs.journal.total_recorded
+    r0 = max([r["seq"] for r in ledger.records()], default=-1)
+    w.allreduce(x)  # interpreted (records the plan)
+    interp = mine(s0)
+    check(not spanning(r0), "slice 14: the interpreted fire left a "
+                            "spanning ledger record")
+    s1 = obs.journal.total_recorded
+    w.allreduce(x)  # replayed
+    replay = mine(s1)
+    recs = spanning(r0)
+    check(len(recs) == 1, f"slice 14: the replay left {len(recs)} "
+                          "spanning ledger records")
+    plans = {str(k): v for k, v in ledger.plans().items()}
+    expanded = ledger.expand_record(recs[0], plans, me)
+    check(not msgs(replay), "slice 14: the replayed fire journaled "
+                            "message spans")
+    want, got = msgs(interp), msgs(expanded)
+    check(want and want == got,
+          f"slice 14: a replay's ledger expansion {dict(got)} is not the "
+          f"interpreted fire's journal {dict(want)}")
+    coll = [sum(1 for s in sp if s["layer"] == "coll"
+                and s["op"] == "allreduce") for sp in (interp, replay)]
+    check(coll == [1, 1], f"slice 14: coll spans interpreted | replayed "
+                          f"{coll}")
+    return {"messages": sum(want.values()),
+            "by_op": dict(collections.Counter(k[0] for k in
+                                              want.elements())),
+            "round_ts": len(recs[0]["round_ts"])}
+
+
+def s14_model(w, torch, dev, steps):
+    """(b): the full-width TpuLM from seed-0 weights: one eval forward
+    and ``steps`` data-parallel AdamW steps over the spanning world, each
+    local rank a (1, 2048) Zipf batch, the 66 per-layer f32 gradients
+    summed by the tree pass (slice 13's step). Returns the eval loss and
+    each step's loss and parameter checksum."""
+    from ompi_release_tpu_torch.models.transformer import (
+        ModelConfig, TpuLM, forward_loss)
+    from ompi_release_tpu_torch.parallel import tree as tree_mod
+    from ompi_release_tpu_torch.utils import pytree
+
+    cfg = ModelConfig()
+    ps, treedef = pytree.flatten(TpuLM(cfg, seed=0, device=dev).params())
+    zeros = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
+             for p in ps]
+    state = {"params": pytree.unflatten(treedef, [p.detach() for p in ps]),
+             "m": pytree.unflatten(treedef, zeros),
+             "v": pytree.unflatten(treedef, [z.clone() for z in zeros]),
+             "t": torch.zeros((), dtype=torch.int64, device=dev),
+             "isum": torch.zeros((), dtype=torch.float64, device=dev)}
+    wrs = [w.group.world_rank(i) for i in w.local_comm_ranks]
+    n = w.size
+    with torch.no_grad():
+        losses = [forward_loss(cfg, state["params"],
+                               *s13_batch(torch, cfg, 99, wr, dev)).double()
+                  for wr in wrs]
+    ev = w.allreduce(torch.stack(losses)[:, None].expand(
+        len(wrs), 2).contiguous())[0, 0]
+    out = {"eval_loss": float(ev) / n, "loss": [], "ck": []}
+    for step in range(steps):
+        ps, treedef = pytree.flatten(state["params"])
+        live = [p.detach().requires_grad_(True) for p in ps]
+        P = pytree.unflatten(treedef, live)
+        per_rank, losses = [], []
+        for wr in wrs:
+            tok, tgt = s13_batch(torch, cfg, step, wr, dev)
+            loss = forward_loss(cfg, P, tok, tgt)
+            per_rank.append(torch.autograd.grad(loss, live))
+            losses.append(loss.detach().double())
+        g_tree = pytree.unflatten(treedef, [
+            torch.stack([g[i].float() for g in per_rank])
+            for i in range(len(live))])
+        red = tree_mod.TreeSync(w, mean=False).issue(
+            s13_unstack(g_tree)).wait()
+        tot = w.allreduce(torch.stack(losses)[:, None].expand(
+            len(wrs), 2).contiguous())[0, 0]
+        layers = {name: torch.stack([red[f"{name}{l}"][0] / n
+                                     for l in range(t.shape[1])])
+                  for name, t in g_tree["layers"].items()}
+        grads = {"embed": red["embed"][0] / n, "ln_f": red["ln_f"][0] / n,
+                 "layers": layers}
+        state = s13_adamw(torch, state, grads)
+        torch.cuda.synchronize(dev)
+        out["loss"].append(float(tot) / n)
+        out["ck"].append(s13_checksum(torch, state["params"]))
+    return out
+
+
+def s14_profile_split(w, obs, fire):
+    """The added host time of one fire by module: S14_TURN_FIRES fires
+    under cProfile with the plane on, as many with it off, each
+    module's own time (tottime) on minus off, per fire in µs. cProfile
+    inflates every call, so the split is read as shares; ``added_us`` is
+    the profiled wall time on minus off, per fire."""
+    import cProfile
+    import collections
+    import os
+    import pstats
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def group(path):
+        if path == "~":
+            return "builtins"
+        rel = os.path.relpath(path, root)
+        if rel.startswith("ompi_release_tpu_torch" + os.sep):
+            return rel.split(os.sep, 1)[1]
+        return "other"
+
+    def window(on):
+        (obs.enable if on else obs.disable)()
+        w.barrier()
+        pr = cProfile.Profile()
+        t0 = time.perf_counter()
+        pr.enable()
+        for _ in range(S14_TURN_FIRES):
+            fire()
+        pr.disable()
+        wall = time.perf_counter() - t0
+        by = collections.Counter()
+        for (path, _line, _fn), row in pstats.Stats(pr).stats.items():
+            by[group(path)] += row[2]
+        return wall, by
+
+    wall_on, on = window(True)
+    wall_off, off_ = window(False)
+    obs.enable()
+    delta = {g: (on[g] - off_[g]) / S14_TURN_FIRES * 1e6
+             for g in set(on) | set(off_)}
+    top = dict(sorted(delta.items(), key=lambda kv: -abs(kv[1]))[:12])
+    return {"added_us": (wall_on - wall_off) / S14_TURN_FIRES * 1e6,
+            "obs_modules_us": sum(v for g, v in delta.items()
+                                  if g.startswith("obs" + os.sep)),
+            "by_module_us": top}
+
+
+def s14_overheads(w, rt, obs, nativeev, torch, off, dev, pidx, cplan):
+    """The in-job overhead ratios, each leg's median over S14_TURNS
+    interleaved turns of S14_TURN_FIRES replays of the 256 KiB spanning
+    allreduce, the plane on against off:
+    - ``obs_ratio``, the budget's comparison (bench.py:1331-1371): at
+      ``obs_sentinel`` 0, on the executor the replays take (``obs_exec``:
+      the C executor where it compiles);
+    - ``obs_s2_ratio``, the slice's own setting, ``obs_sentinel`` 2: both
+      legs on PlannedXchg (the C executor withdraws at level 2), the
+      on leg with the inline signature exchange, timed alone beside it
+      (``WireRouter.sentinel_exchange``, the plane off);
+    - ``split``: one level-2 fire's added time by module
+      (``s14_profile_split``);
+    and 8 MiB ping-pongs over the shm ring with the C event ring
+    installed and not (the Python plane off in both legs)."""
+    from ompi_release_tpu_torch.mca import var as tmvar
+    from ompi_release_tpu_torch.obs import sentinel
+
+    x = s10_rows(torch, 256 * 1024 // 4, off, dev)
+
+    def fire():
+        w.allreduce(x)
+
+    def fires():
+        w.barrier()
+        t0 = time.perf_counter()
+        for _ in range(S14_TURN_FIRES):
+            fire()
+        return (time.perf_counter() - t0) / S14_TURN_FIRES * 1e3
+
+    def legs(level):
+        # a cvar write re-records the plan at the next fire; the timed
+        # fires are replays
+        tmvar.set_value("obs_sentinel", level)
+        sentinel.refresh()
+        fire()
+        fire()
+        on, off_, ex = [], [], set()
+        for _ in range(S14_TURNS):
+            obs.enable()
+            on.append(fires())
+            ex.add(("on", s11_state(cplan, w, "allreduce", (x,)).last))
+            obs.disable()
+            off_.append(fires())
+            ex.add(("off", s11_state(cplan, w, "allreduce", (x,)).last))
+        obs.enable()
+        return on, off_, sorted(ex)
+
+    on0, off0, ex0 = legs(0)
+    why0 = s11_state(cplan, w, "allreduce", (x,)).why
+    on, off_, ex2 = legs(2)
+    check(sentinel.mode() == 2, "slice 14: the inline sentinel is off")
+    split = s14_profile_split(w, obs, fire)
+    canon = sentinel.make_canon("allreduce", "sum", "float32", 65536, -1)
+    sig = sentinel.CallSig(w.cid, 0, "allreduce", canon, 0,
+                           "chip_smoke.py:0", 0)
+    payload = sentinel.InlineFrameTemplate(canon, sig.site).render(sig)
+
+    def exchanges():
+        w.barrier()
+        t0 = time.perf_counter()
+        for _ in range(S14_TURN_FIRES):
+            rt.wire.sentinel_exchange(w, payload)
+        return (time.perf_counter() - t0) / S14_TURN_FIRES * 1e3
+
+    obs.disable()
+    exch = [exchanges() for _ in range(S14_TURNS)]
+    obs.enable()
+    ring = nativeev.get_ring()
+    check(ring is not None, "slice 14: the native event ring is off")
+    msg = s10_pattern(torch, S14_P2P_BYTES // 4, 0, dev)
+
+    def trips():
+        w.barrier()
+        t0 = time.perf_counter()
+        for _ in range(S14_P2P_TRIPS):
+            if pidx == 0:
+                w.send(msg, dest=4, tag=31, rank=0)
+                w.recv(source=4, tag=32, rank=0)
+            else:
+                v, _st = w.recv(source=0, tag=31, rank=4)
+                w.send(v, dest=0, tag=32, rank=4)
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) / S14_P2P_TRIPS * 1e3
+
+    ev_on, ev_off = [], []
+    n0 = ring.count()
+    for _ in range(S14_TURNS):
+        ring.install()
+        ev_on.append(trips())
+        ring.uninstall()
+        ev_off.append(trips())
+    ring.install()
+    obs.enable()
+    check(ring.count() > n0, "slice 14: the event ring recorded no "
+                             "fragment of the ping-pongs")
+    med = statistics.median
+    return {"obs_on_ms": med(on0), "obs_off_ms": med(off0),
+            "obs_ratio": med(on0) / med(off0), "obs_exec": ex0,
+            "obs_exec_why": why0,
+            "obs_on_each": on0, "obs_off_each": off0,
+            "obs_s2_on_ms": med(on), "obs_s2_off_ms": med(off_),
+            "obs_s2_ratio": med(on) / med(off_), "obs_s2_exec": ex2,
+            "obs_s2_on_each": on, "obs_s2_off_each": off_, "split": split,
+            "inline_exchange_ms": med(exch), "inline_exchange_each": exch,
+            "events_on_ms": med(ev_on), "events_off_ms": med(ev_off),
+            "events_ratio": med(ev_on) / med(ev_off),
+            "events_on_each": ev_on, "events_off_each": ev_off}
+
+
+def s14_main(w, rt, obs, torch, cuda_op, dev, pidx, out_dir):
+    """The main job's worker path (checks 1, 3, 4, 5 and 7; the parent
+    holds checks 2 and 6 and the rest of 4 and 5)."""
+    import collections
+    import json as _json
+    import os
+
+    from ompi_release_tpu_torch.coll import plan as cplan
+    from ompi_release_tpu_torch.obs import ledger, nativeev, sampler
+    from ompi_release_tpu_torch.obs import sentinel
+
+    off = rt.local_rank_offset
+    out = {"clock_offset_s": obs.clock_offset(),
+           "clock_rtt_s": obs._clock_state["rtt_s"],
+           "sentinel_mode": sentinel.mode(),
+           "sampler_running": sampler.SAMPLER.running(),
+           "event_ring": nativeev.get_ring() is not None}
+    check(obs.enabled and out["sentinel_mode"] == 2
+          and out["sampler_running"] and out["event_ring"]
+          and out["clock_offset_s"] is not None,
+          f"slice 14: worker {pidx}'s plane is not up: {out}")
+    # the parent pokes worker 1 with SIGUSR1 and queries tpu_ps now
+    with open(os.path.join(out_dir, f"ready-{pidx}"), "w") as f:
+        _json.dump({"pid": os.getpid()}, f)
+    s14_wait_file(os.path.join(out_dir, "go"))
+    w.barrier()
+    cuda_op.reset_launches()
+    t0 = time.perf_counter()
+    # (a) with the plane on, then the same job's calls with obs.disable()
+    on, lasts = s14_allreduces(w, cplan, torch, off, dev)
+    out["executors"] = {f"{b}:{k}": v for (b, k), v in lasts.items()}
+    for nbytes in S14_SIZES:
+        check([lasts[(nbytes, k)] for k in range(S14_FIRES)]
+              == ["interpreted"] + ["planned"] * (S14_FIRES - 1),
+              f"slice 14: the {nbytes} B fires ran "
+              f"{[lasts[(nbytes, k)] for k in range(S14_FIRES)]}")
+    sum_on = cuda_op.LAUNCHES["sum"]
+    obs.disable()
+    off_outs, _ = s14_allreduces(w, cplan, torch, off, dev)
+    obs.enable()
+    for key, got in on.items():
+        check(bits_equal(got, off_outs[key]),
+              f"slice 14: the {key} allreduce with obs on differs from "
+              "the same call with obs off")
+    del on, off_outs
+    out["records"] = s14_records(obs, ledger, w, torch, off, dev)
+    # the named round: worker 1 arrives S14_LATE_S late. The wait sits
+    # in the inline sentinel's signature exchange, inside the round's
+    # coll span, which opens at arrival
+    if pidx == 1:
+        time.sleep(S14_LATE_S)
+    w.allreduce(s10_rows(torch, S14_NAMED_ELEMS, off, dev))
+    out["phase_a_s"] = time.perf_counter() - t0
+    # (b) the TpuLM with the plane on, then again with obs.disable()
+    t0 = time.perf_counter()
+    m_on = s14_model(w, torch, dev, 2)
+    flash = {k: cuda_op.LAUNCHES[k] for k in
+             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    obs.disable()
+    m_off = s14_model(w, torch, dev, 2)
+    obs.enable()
+    check(m_on["loss"][1] == m_off["loss"][1]
+          and m_on["ck"][1] == m_off["ck"][1]
+          and m_on["eval_loss"] == m_off["eval_loss"],
+          f"slice 14: the TpuLM with obs on (loss {m_on['loss']}, "
+          f"checksum {m_on['ck'][1]}) differs from obs off "
+          f"({m_off['loss']}, {m_off['ck'][1]})")
+    check(all(math.isfinite(v) for v in m_on["loss"])
+          and abs(m_on["eval_loss"] - math.log(32000)) < 1.0,
+          f"slice 14: TpuLM losses {m_on}")
+    out["model"] = m_on
+    out["phase_b_s"] = time.perf_counter() - t0
+    out["overheads"] = s14_overheads(w, rt, obs, nativeev, torch, off,
+                                     dev, pidx, cplan)
+    torch.cuda.synchronize(dev)
+    out["launches"] = {"stream_axpy[sum]": sum_on, **flash}
+    out["launches_all"] = dict(cuda_op.LAUNCHES)
+    check(sum_on > 0 and all(v > 0 for v in flash.values()),
+          f"slice 14: worker {pidx} launches {out['launches']}")
+    out["spans_by_layer"] = dict(collections.Counter(
+        s.layer for s in obs.journal.snapshot()))
+    out["journal_dropped"] = obs.journal.dropped
+    w.barrier()
+    return out
+
+
+def s14_desync(w, rt, obs, torch, dev, pidx):
+    """The second job: a posted bcast against an allreduce under the
+    inline sentinel (every process raises ERR_COLL_MISMATCH in that
+    round), the comm coherent after it, then a sleeping worker 1 that
+    the other's stall watchdog reports."""
+    from ompi_release_tpu_torch.obs import sentinel, watchdog
+    from ompi_release_tpu_torch.utils.errors import ErrorCode, MPIError
+
+    off = rt.local_rank_offset
+    check(obs.enabled and sentinel.mode() == 2 and watchdog.enabled,
+          "slice 14 (desync): the inline sentinel or the watchdog is off")
+    x = s10_rows(torch, 64, off, dev)
+    want = s10_sum(torch, 64, dev).expand(S14_RANKS, 64).contiguous()
+    check(bits_equal(w.allreduce(x), want), "slice 14 (desync): the "
+                                            "matching round differs")
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        if pidx == 1:
+            w.bcast(x, root=0)
+        else:
+            w.allreduce(x)
+        check(False, f"slice 14 (desync): worker {pidx} did not raise")
+    except MPIError as e:
+        check(e.code == ErrorCode.ERR_COLL_MISMATCH,
+              f"slice 14 (desync): worker {pidx} raised {e.code.name}")
+        out["mismatch_s"] = time.perf_counter() - t0
+        out["mismatch"] = str(e)
+    check(bits_equal(w.allreduce(x), want), "slice 14 (desync): the round "
+                                            "after the mismatch differs")
+    # the stall, still under the inline sentinel: the watchdog arm of
+    # the signature exchange names the allreduce and the absent ranks
+    if pidx == 1:
+        time.sleep(2 * S14_STALL_S)
+    t0 = time.perf_counter()
+    check(bits_equal(w.allreduce(x), want), "slice 14 (desync): the late "
+                                            "round differs")
+    out["stall_wait_s"] = time.perf_counter() - t0
+    w.barrier()
+    return out
+
+
+def s14_worker():
+    """One worker of a slice-14 job (``chip_smoke.py --slice14-worker``
+    under ``tools.tpurun``): writes its results as JSON to
+    ``$CHIP_SMOKE_S14_OUT/worker<process index>.json``."""
+    import os
+
+    import torch
+
+    import ompi_release_tpu_torch as mpi
+    from ompi_release_tpu_torch import obs
+    from ompi_release_tpu_torch.ops import cuda_op
+    from ompi_release_tpu_torch.runtime.runtime import Runtime
+
+    mode = os.environ["CHIP_SMOKE_S14_MODE"]  # main | desync
+    out_dir = os.environ["CHIP_SMOKE_S14_OUT"]
+    t_start = time.perf_counter()
+    w = mpi.init(cli_args=["--mca", "runtime_virtual_ranks", str(S14_RANKS),
+                           "--mca", "coll", "tuned,basic,self,hier"])
+    rt = Runtime.current()
+    pidx = int(rt.bootstrap["process_index"])
+    dev = w.device
+    check(w.size == S14_N and w.spans_processes and dev.type == "cuda",
+          f"slice 14: WORLD {w.size} ranks on {dev}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"pidx": pidx, "pid": os.getpid(), "mode": mode}
+    if mode == "main":
+        out.update(s14_main(w, rt, obs, torch, cuda_op, dev, pidx,
+                            out_dir))
+    else:
+        out.update(s14_desync(w, rt, obs, torch, dev, pidx))
+    torch.cuda.synchronize(dev)
+    out["peak_device_memory_GiB"] = \
+        torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"worker{pidx}.json"), "w") as f:
+        json.dump(out, f)
+    mpi.finalize()  # the journal, series, ledger and nativeev dumps
+    return 0
+
+
+def s14_poke(out_dir, res):
+    """The parent's side of the main job, on a thread: once both workers
+    are up, query the live job with ``tpu_ps`` and send worker 1 a
+    SIGUSR1, then let the workers go on."""
+    import os
+    import signal
+
+    from ompi_release_tpu_torch.tools import tpu_ps
+
+    try:
+        pids = {}
+        for p in range(S14_PROCS):
+            path = os.path.join(out_dir, f"ready-{p}")
+            s14_wait_file(path)
+            with open(path) as f:
+                pids[p] = json.load(f)["pid"]
+        jobs = [j for j in tpu_ps.discover_jobs()
+                if int(j.get("pid", -1)) == os.getpid()]
+        check(len(jobs) == 1, f"slice 14: tpu_ps found {len(jobs)} jobs "
+                              "of this launcher")
+        t_end = time.monotonic() + 10.0
+        while True:  # a row's pid and rss ride the workers' heartbeats
+            cl = tpu_ps.PsClient(jobs[0]["host"], int(jobs[0]["port"]),
+                                 secret=jobs[0].get("secret"))
+            try:
+                res["ps"] = cl.query()
+            finally:
+                cl.close()
+            rows = res["ps"]["workers"].values()
+            if all(r.get("rss") for r in rows) \
+                    or time.monotonic() > t_end:
+                break
+            time.sleep(0.25)
+        os.kill(pids[1], signal.SIGUSR1)
+        res["usr1_pid"] = pids[1]
+        res["pids"] = pids
+    except BaseException as e:  # reported by the phase, never swallowed
+        res["error"] = repr(e)
+    finally:
+        with open(os.path.join(out_dir, "go"), "w") as f:
+            f.write("go")
+
+
+def s14_check_dumps(dump_dir, pm_dir, poke):
+    """Checks 2, 3 and 5 from the main job's files, through the port's
+    doctor: the dumps, one merged trace with cross-process and native
+    fragment flows, the late worker named, the contracts aligned, the
+    SIGUSR1 postmortem with every contributor."""
+    import glob
+    import os
+
+    from ompi_release_tpu_torch.obs import doctor
+    from ompi_release_tpu_torch.tools import tpu_doctor
+
+    for kind, ext in (("journal", "json"), ("series", "jsonl"),
+                      ("ledger", "json"), ("nativeev", "json")):
+        for p in range(S14_PROCS):
+            path = os.path.join(dump_dir, f"{kind}-p{p}.{ext}")
+            check(os.path.exists(path), f"slice 14: finalize wrote no "
+                                        f"{os.path.basename(path)}")
+    trace_path = os.path.join(dump_dir, "merged-trace.json")
+    check(tpu_doctor.main(["merge", dump_dir, "-o", trace_path]) == 0,
+          "slice 14: tpu_doctor merge failed")
+    with open(trace_path) as f:
+        od = json.load(f)["otherData"]
+    dumps = doctor.load_dir(dump_dir)
+    pairs = doctor.flow_pairs(dumps)
+    native = [p for p in pairs if p["src"].get("nativeev")
+              and p["dst"].get("nativeev")]
+    check(od["processes"] == S14_PROCS and od["cross_process_flows"] > 0
+          and native, f"slice 14: merged trace {od}, {len(native)} "
+                      "paired native fragment flows")
+    text, data = doctor.skew_report(dumps)
+    late = max((r for r in data["rounds"] if r["op"] == "allreduce"),
+               key=lambda r: r["spread_s"])
+    check(late["slowest_pidx"] == 1 and late["spread_s"] > S14_LATE_S / 2,
+          f"slice 14: the report's widest allreduce round {late}")
+    ctext, cdata = doctor.contract_report(dumps, directory=dump_dir)
+    check(cdata["divergences"] == 0, f"slice 14: contracts {ctext}")
+    check("error" not in poke and "ps" in poke, f"slice 14: the poke "
+                                                f"thread {poke}")
+    pms = glob.glob(os.path.join(
+        pm_dir, f"postmortem-p1-{poke['usr1_pid']}-sigusr1-*.json"))
+    check(len(pms) == 1, f"slice 14: SIGUSR1 postmortems {pms}")
+    with open(pms[0]) as f:
+        pm = json.load(f)
+    missing = [c for c in S14_CONTRIBUTORS
+               if c not in pm or isinstance(pm[c], str)]
+    check(not missing, f"slice 14: the postmortem lacks {missing}")
+    ps = poke["ps"]
+    workers = {str(p + 1): poke["pids"][p] for p in range(S14_PROCS)}
+    for nid, pid in workers.items():
+        row = ps["workers"].get(nid, {})
+        check(row.get("pid") == pid and row.get("rss", 0) > 0
+              and nid in ps.get("proc_states", {}),
+              f"slice 14: tpu_ps row {nid}: {row}, states "
+              f"{ps.get('proc_states')}")
+    return {"merged": od, "native_pairs": len(native),
+            "pairs": len(pairs), "late_round": late,
+            "contracts": cdata["divergences"],
+            "postmortem_keys": sorted(pm), "ps": ps,
+            "report_head": text.splitlines()[:4]}
+
+
+def phase_slice14(cuda_op, torch):
+    """Slice 14's path: the main job (the plane on, the checks the module
+    docstring lists) and the short desync/stall job; returns what
+    ``report_slice14`` prints and the launches per kernel row summed over
+    the workers."""
+    import gc
+    import glob
+    import os
+    import tempfile
+    import threading
+
+    from ompi_release_tpu_torch.native import build_library
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cuda_op.build()
+    build_library()
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        dump_dir = os.path.join(td, "dumps")
+        pm_dir = os.path.join(td, "pm")
+        mca = [("obs_enable", "1"), ("obs_sentinel", "2"),
+               ("obs_sample_interval", "0.25"), ("obs_journal_size",
+                                                 str(1 << 17)),
+               ("btl_nativewire_events", "1"),
+               ("obs_dump_dir", dump_dir), ("obs_postmortem_dir", pm_dir)]
+        # the poke thread waits for the workers' ready files, pokes
+        # worker 1 with SIGUSR1 and queries tpu_ps, then lets them go
+        poke = {}
+        th = threading.Thread(target=s14_poke, args=(td, poke),
+                              daemon=True)
+        th.start()
+        rc, wall, job, res = run_slice_job(14, "main", S14_PROCS, td, mca)
+        th.join(timeout=5)
+        check(rc == 0, f"slice 14: the main job exited {rc}")
+        fleet = job.hnp.fleet_series()["procs"]
+        check(sorted(fleet) == [str(p) for p in range(S14_PROCS)]
+              and all(e["points"] for e in fleet.values()),
+              f"slice 14: the HNP's series store {sorted(fleet)}")
+        out["fleet_points"] = {p: len(e["points"]) for p, e in fleet.items()}
+        out["dumps"] = s14_check_dumps(dump_dir, pm_dir, poke)
+        out["dump_bytes"] = sum(os.path.getsize(p) for p in
+                                glob.glob(os.path.join(dump_dir, "*")))
+    out["main"] = {"wall": wall, "res": res}
+    with tempfile.TemporaryDirectory() as td:
+        pm_dir = os.path.join(td, "pm")
+        mca = [("obs_enable", "1"), ("obs_sentinel", "2"),
+               ("obs_stall_timeout", str(S14_STALL_S)),
+               ("obs_postmortem_dir", pm_dir)]
+        rc, wall2, _job, res2 = run_slice_job(14, "desync", S14_PROCS, td,
+                                              mca)
+        check(rc == 0, f"slice 14 (desync): the job exited {rc}")
+        for r in res2:
+            msg = r["mismatch"]
+            check("ERR_COLL_MISMATCH" in msg and "process " in msg
+                  and msg.count("chip_smoke.py:") == 2
+                  and r["mismatch_s"] < 5.0,
+                  f"slice 14 (desync): worker {r['pidx']}: {msg} after "
+                  f"{r['mismatch_s']:.2f} s")
+        check("process 1" in res2[0]["mismatch"]
+              and "process 0" in res2[1]["mismatch"],
+              "slice 14 (desync): the errors do not name the divergent "
+              "process")
+        stalls = []
+        for path in glob.glob(os.path.join(pm_dir,
+                                           "postmortem-p0-*-stall-*.json")):
+            with open(path) as f:
+                stalls.extend(json.load(f).get("stalled", []))
+        named = [s for s in stalls if s["op"] == "allreduce"
+                 and 1 in (s.get("info") or {}).get("awaiting_procs", [])
+                 and set(range(S14_RANKS, S14_N)) <= set(
+                     (s.get("info") or {}).get("awaiting_ranks", []))]
+        check(named, f"slice 14 (desync): no stall postmortem of worker 0 "
+                     f"names the allreduce and worker 1's ranks: {stalls}")
+        out["desync"] = {"wall": wall2, "res": res2, "stalled": named[0]}
+    sums = {name: sum(r["launches"][name] for r in res)
+            for name in ("stream_axpy[sum]", "flash_fwd", "flash_bwd_dq",
+                         "flash_bwd_dkv")}
+    out["launches"] = sums
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 3: slice-14 path: the obs plane over the spanning job "
+        f"(checks 1-7 passed); launches {sums}; the phase took "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def time_slice14(comm, torch, model):
+    """The two overhead ratios of this process: the in-process 1 MiB
+    allreduce on ``comm`` with the sentinel at 0 and at 1 (the plane on
+    in both legs, bench.py:1539-1583), and the one-card TpuLM train step
+    with the plane off and on; S14_TURNS interleaved turns, medians."""
+    from ompi_release_tpu_torch import entry as tentry
+    from ompi_release_tpu_torch import obs
+    from ompi_release_tpu_torch.mca import pvar as tpvar
+    from ompi_release_tpu_torch.mca import var as tmvar
+    from ompi_release_tpu_torch.obs import sentinel
+
+    dev = comm.device
+    x = torch.ones((comm.size, MIB // 4), device=dev)
+    hashed = tpvar.PVARS.lookup("sentinel_ops_hashed")
+
+    def calls():
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(S14_SENTINEL_CALLS):
+            comm.allreduce(x)
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) / S14_SENTINEL_CALLS * 1e3
+
+    obs.enable()
+    try:
+        comm.allreduce(x)
+        s0, s1 = [], []
+        h0 = hashed.read()
+        for _ in range(S14_TURNS):
+            tmvar.set_value("obs_sentinel", 0)
+            sentinel.refresh(True)
+            s0.append(calls())
+            tmvar.set_value("obs_sentinel", 1)
+            sentinel.refresh(True)
+            s1.append(calls())
+        n_hashed = hashed.read() - h0
+    finally:
+        tmvar.VARS.unset("obs_sentinel")
+        obs.disable()
+        obs.journal.clear()
+    check(n_hashed == S14_TURNS * S14_SENTINEL_CALLS,
+          f"slice 14: the sentinel hashed {n_hashed} calls")
+    tok, tgt = tentry._batch(model.cfg, tentry.EVAL_BATCH, tentry.EVAL_SEQ,
+                             seed=11)
+    tok = torch.as_tensor(tok, device=model.device)
+    tgt = torch.as_tensor(tgt, device=model.device)
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.train_step(tok, tgt)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    step()
+    t_off, t_on = [], []
+    try:
+        for _ in range(S14_TURNS):
+            obs.disable()
+            t_off.append(step())
+            obs.enable()
+            t_on.append(step())
+    finally:
+        obs.disable()
+        obs.journal.clear()
+    med = statistics.median
+    return {"sentinel0_ms": med(s0), "sentinel1_ms": med(s1),
+            "sentinel_ratio": med(s1) / med(s0), "sentinel0_each": s0,
+            "sentinel1_each": s1, "train_off_ms": med(t_off),
+            "train_on_ms": med(t_on), "train_ratio": med(t_on) / med(t_off),
+            "train_off_each": t_off, "train_on_each": t_on}
+
+
+def report_slice14(s14, timing):
+    """Slice 14's numbers per worker and the four overhead ratios beside
+    their budgets, each beside the card's name and power limit."""
+    card = card_line()
+    for r in s14["main"]["res"]:
+        ov = r["overheads"]
+        log(json.dumps({
+            "s14_worker": r["pidx"], "card": card,
+            "clock_offset_s": r["clock_offset_s"],
+            "clock_rtt_s": r["clock_rtt_s"],
+            "launches": r["launches"], "spans_by_layer": r["spans_by_layer"],
+            "journal_dropped": r["journal_dropped"],
+            "records_check": r["records"],
+            "tpulm": r["model"],
+            "obs_on_256KiB_ms": ov["obs_on_ms"],
+            "obs_off_256KiB_ms": ov["obs_off_ms"],
+            "obs_ratio": ov["obs_ratio"], "obs_budget": S14_OBS_BUDGET,
+            "obs_exec": ov["obs_exec"], "obs_exec_why": ov["obs_exec_why"],
+            "obs_s2_on_256KiB_ms": ov["obs_s2_on_ms"],
+            "obs_s2_off_256KiB_ms": ov["obs_s2_off_ms"],
+            "obs_s2_ratio": ov["obs_s2_ratio"],
+            "obs_s2_exec": ov["obs_s2_exec"],
+            "inline_exchange_ms": ov["inline_exchange_ms"],
+            "s2_fire_split": ov["split"],
+            "events_on_8MiB_rtt_ms": ov["events_on_ms"],
+            "events_off_8MiB_rtt_ms": ov["events_off_ms"],
+            "events_ratio": ov["events_ratio"],
+            "events_budget": S14_EVENTS_BUDGET,
+            "phase_a_s": r["phase_a_s"], "phase_b_s": r["phase_b_s"],
+            "peak_device_memory_GiB": r["peak_device_memory_GiB"],
+            "seconds": r["seconds"]}))
+    for r in s14["desync"]["res"]:
+        log(json.dumps({"s14_desync_worker": r["pidx"], "card": card,
+                        "mismatch_s": r["mismatch_s"],
+                        "mismatch": r["mismatch"][:240],
+                        "stall_wait_s": r["stall_wait_s"]}))
+    d = s14["dumps"]
+    log(json.dumps({
+        "s14_doctor": True, "card": card, "merged": d["merged"],
+        "native_fragment_pairs": d["native_pairs"],
+        "late_round": d["late_round"], "contract_divergences":
+            d["contracts"], "fleet_points": s14["fleet_points"],
+        "dump_bytes": s14["dump_bytes"],
+        "stalled": s14["desync"]["stalled"],
+        "ps_workers": d["ps"]["workers"],
+        "ps_states": d["ps"].get("proc_states"),
+        "main_job_wall_s": s14["main"]["wall"],
+        "desync_job_wall_s": s14["desync"]["wall"],
+        "phase_s": s14["seconds"]}))
+    if timing is not None:
+        log(json.dumps({
+            "s14_overheads": True, "card": card,
+            "sentinel0_1MiB_ms": timing["sentinel0_ms"],
+            "sentinel1_1MiB_ms": timing["sentinel1_ms"],
+            "sentinel_ratio": timing["sentinel_ratio"],
+            "tpulm_train_obs_off_ms": timing["train_off_ms"],
+            "tpulm_train_obs_on_ms": timing["train_on_ms"],
+            "train_ratio": timing["train_ratio"],
+            "each": {k: v for k, v in timing.items()
+                     if k.endswith("_each")}}))
+
+
 def main():
     import torch
 
@@ -5917,8 +6777,28 @@ def main():
         return s12_child()
     if sys.argv[1:] == ["--slice13-worker"]:
         return s13_worker()
+    if sys.argv[1:] == ["--slice14-worker"]:
+        return s14_worker()
     t_start = time.perf_counter()
     log(f"card: {card_line()}")
+    if sys.argv[1:] == ["--slice14"]:
+        # slice 14 alone: the builds, its two jobs, this process's two
+        # overhead ratios (8 virtual ranks, the one-card TpuLM) and the
+        # numbers; it prints no result line
+        s14 = phase_slice14(cuda_op, torch)
+        from ompi_release_tpu_torch.models.transformer import (
+            ModelConfig, TpuLM)
+
+        world = mpi.init(cli_args=["--mca", "runtime_virtual_ranks",
+                                   str(N_RANKS)])
+        tuned = comm_with(world, tmvar, "tuned")
+        timing = time_slice14(tuned, torch, TpuLM(ModelConfig(), seed=0))
+        tuned.free()
+        mpi.finalize()
+        report_slice14(s14, timing)
+        log(f"chip_smoke --slice14: passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     if sys.argv[1:] == ["--slice13"]:
         # slice 13 alone: the builds, its three jobs and their numbers;
         # it prints no result line
@@ -5970,6 +6850,7 @@ def main():
     s10 = phase_slice10(cuda_op, torch)
     s12 = phase_slice12(cuda_op, torch)
     s13 = phase_slice13(cuda_op, torch)
+    s14 = phase_slice14(cuda_op, torch)
 
     cuda_op.reset_launches()
     world, tuned, runs = drive_main_path(mpi, tmvar, torch, dev)
@@ -6076,6 +6957,7 @@ def main():
         " GiB")
     time_model(torch, model)
     time_train(torch, train_model)
+    s14_timing = time_slice14(tuned, torch, train_model)
     del model, train_model
     torch.cuda.empty_cache()
     time_moe(torch, moe_model)
@@ -6114,8 +6996,16 @@ def main():
         if key is not None:
             row["launches"] += s13["launches"][key]
             row["launches_by_path"]["slice13"] = s13["launches"][key]
+    s14_by_row = {"stream_axpy[sum]", "flash_fwd", "flash_bwd_dq",
+                  "flash_bwd_dkv"}
+    for row in rows:  # slice 14's workers, the plane on
+        if row["name"] in s14_by_row:
+            row["launches"] += s14["launches"][row["name"]]
+            row["launches_by_path"]["slice14"] = \
+                s14["launches"][row["name"]]
     report_slice12(s12)
     report_slice13(s13)
+    report_slice14(s14, s14_timing)
     run_bench(torch, dev)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

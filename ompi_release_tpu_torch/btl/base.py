@@ -32,8 +32,10 @@ Module attributes (all MCA-variable overridable, per component):
 from __future__ import annotations
 
 import math
+import time as _time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from .. import obs as _obs
 from ..mca import component as mca_component
 from ..mca import pvar
 from ..mca import var as mca_var
@@ -125,9 +127,32 @@ class BtlModule:
             f"bytes moved through the {self.NAME} btl",
         )
 
+    @property
+    def move_hist(self):
+        """Per-BTL log2 size distribution (obs plane), lazily cached
+        like the byte counter."""
+        h = getattr(self, "_move_hist", None)
+        if h is None:
+            h = pvar.histogram(
+                f"btl_{self.NAME}_move_bytes",
+                f"per-move payload bytes through the {self.NAME} btl, "
+                "log2 buckets",
+            )
+            self._move_hist = h
+        return h
+
     def move(self, data, dst_device):
-        self.bytes_pvar.add(int(data.numel() * data.element_size()))
-        return self.move_segment(data, dst_device)
+        nbytes = int(data.numel() * data.element_size())
+        self.bytes_pvar.add(nbytes)
+        if not _obs.enabled:
+            return self.move_segment(data, dst_device)
+        # dispatch time: the copy is queued on the stream, not awaited
+        t0 = _time.perf_counter()
+        out = self.move_segment(data, dst_device)
+        self.move_hist.observe(nbytes)
+        _obs.record(f"move[{self.NAME}]", "btl", t0,
+                    _time.perf_counter() - t0, nbytes=nbytes)
+        return out
 
 
 def register_module_vars(mod_cls) -> None:

@@ -33,11 +33,13 @@ from __future__ import annotations
 import itertools
 import os
 import threading
+import time as _time
 import uuid
 
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ..mca import component as mca_component
 from ..mca import pvar as _pvar
 from ..mca import var as mca_var
@@ -114,6 +116,15 @@ def register_pipeline_vars() -> None:
 
 
 register_pipeline_vars()  # idempotent; read on every staged send
+
+
+def payload_nbytes(data) -> int:
+    """Bytes of a payload (a tensor, a host array, or None) off its
+    metadata: no copy, no device sync — what the obs emit sites
+    record."""
+    if hasattr(data, "element_size"):
+        return int(data.numel()) * int(data.element_size())
+    return int(getattr(data, "nbytes", 0) or 0)
 
 
 def _check_user_tag(tag: int) -> None:
@@ -567,12 +578,19 @@ class DcnBtl(base.BtlModule):
         from ..native import DssBuffer
 
         _check_user_tag(tag)
+        rec = _obs.enabled  # capture once: flag may flip mid-send
+        t0 = _time.perf_counter() if rec else 0.0
         seg = self.pipeline_segsize()
         if seg > 0:
             nframes = 0
             for frame in self.staged_frames(data, segsize=seg):
                 oob_ep.send(peer_nid, tag, frame)
                 nframes += 1
+            if rec and _obs.enabled:
+                _obs.record("btl_staged_send", "btl", t0,
+                            _time.perf_counter() - t0,
+                            nbytes=payload_nbytes(data),
+                            peer=peer_nid - 1)
             return nframes - 1  # header is not a chunk
         xfer = next(_xfer_ids)
         arr, dname = host_payload(data)
@@ -598,6 +616,10 @@ class DcnBtl(base.BtlModule):
                         xb + raw[i * chunk:(i + 1) * chunk])
             self.staged_chunks_pvar.add()
         self.staged_bytes_pvar.add(len(raw))
+        if rec and _obs.enabled:
+            _obs.record("btl_staged_send", "btl", t0,
+                        _time.perf_counter() - t0,
+                        nbytes=len(raw), peer=peer_nid - 1)
         return nchunks
 
     def recv_staged(self, oob_ep, tag: int, *, src=None,
@@ -614,11 +636,11 @@ class DcnBtl(base.BtlModule):
         copy). ``first`` is an already-popped ``(src_nid, frame)``
         pair to resume from — the wire router's any-source reaping
         peeks the first frame to pick the readiest peer."""
-        import time as _time
-
         from ..native import DssBuffer
 
         _check_user_tag(tag)
+        rec = _obs.enabled  # capture once: flag may flip mid-recv
+        t_obs = _time.perf_counter() if rec else 0.0
         deadline = _time.monotonic() + timeout_ms / 1000
         # resync: discard frames until a valid header (orphan chunks
         # from an abandoned transfer must not be parsed as headers)
@@ -702,6 +724,11 @@ class DcnBtl(base.BtlModule):
                 )
             arr = np.frombuffer(bytearray(raw), dtype=dtype).reshape(shape)
         self.staged_bytes_pvar.add(arr.nbytes)
+        if rec and _obs.enabled:
+            _obs.record("btl_staged_recv", "btl", t_obs,
+                        _time.perf_counter() - t_obs,
+                        nbytes=int(arr.nbytes),
+                        peer=(src - 1) if src is not None else -1)
         return host_tensor(arr, dname, dst_device)
 
 
@@ -895,13 +922,13 @@ class ShmBtl(base.BtlModule):
         segment passes to the receiver (it unlinks); segments whose
         receiver never consumed the frame are reaped after
         SEGMENT_TTL_S on a later send."""
-        import time as _time
-
         from multiprocessing import shared_memory
 
         from ..native import DssBuffer
 
         _check_user_tag(tag)
+        rec = _obs.enabled  # capture once: flag may flip mid-handoff
+        t_obs = _time.perf_counter() if rec else 0.0
         self._reap_orphaned_segments()
         arr, dname = host_payload(data)
         # name carries the creator pid so tpu-clean can reap segments
@@ -946,6 +973,10 @@ class ShmBtl(base.BtlModule):
             self._pending_segments.append(
                 (name, _time.monotonic() + self.SEGMENT_TTL_S)
             )
+        if rec and _obs.enabled:
+            _obs.record("btl_shm_send", "btl", t_obs,
+                        _time.perf_counter() - t_obs,
+                        nbytes=int(arr.nbytes), peer=peer_nid - 1)
         return name
 
     def recv_shm(self, oob_ep, tag: int, *, src=None, dst_device=None,
@@ -956,13 +987,13 @@ class ShmBtl(base.BtlModule):
         their own consumer — same discipline as the staged path).
         ``first`` is an already-popped ``(src_nid, frame)`` pair to
         resume from (the wire router's any-source reaping)."""
-        import time as _time
-
         from multiprocessing import shared_memory
 
         from ..native import DssBuffer
 
         _check_user_tag(tag)
+        rec = _obs.enabled  # capture once: flag may flip mid-handoff
+        t_obs = _time.perf_counter() if rec else 0.0
         deadline = _time.monotonic() + timeout_ms / 1000
         if first is not None:
             _, raw = first
@@ -1010,6 +1041,10 @@ class ShmBtl(base.BtlModule):
             seg.unlink()
         self.handoffs_pvar.add()
         self.shm_bytes_pvar.add(nbytes)
+        if rec and _obs.enabled:
+            _obs.record("btl_shm_recv", "btl", t_obs,
+                        _time.perf_counter() - t_obs, nbytes=int(nbytes),
+                        peer=(src - 1) if src is not None else -1)
         return out
 
 

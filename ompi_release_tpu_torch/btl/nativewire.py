@@ -64,13 +64,18 @@ telemetry lock the release takes is re-entrant: a garbage collection
 that runs a module's release while another ring is being registered on
 the same thread (the lock held) re-enters it instead of deadlocking.
 
-Waiting for the observability plane (ROADMAP item 16): the native
-event ring (``btl_nativewire_events``), the watchdog arms around ring
-waits and the ``native_rings`` postmortem contributor.
+Observability: ``btl_nativewire_events`` maps one per-process native
+event ring (``obs/nativeev.py``) the C transports append a 32-byte
+record to per fragment; the stall watchdog arms around a full-ring
+send, an empty-ring receive and a ring attach; the ``native_rings``
+postmortem contributor names every live ring, its peer pids and
+occupancy; and with obs on a native transfer is one ``btl``-layer
+span per side.
 """
 
 from __future__ import annotations
 
+import atexit
 import os
 import threading
 import time as _time
@@ -82,9 +87,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ..mca import component as mca_component
 from ..mca import pvar as _pvar
 from ..mca import var as mca_var
+from ..obs import watchdog as _watchdog
 from ..utils.errors import ErrorCode, MPIError
 from . import base
 from . import components as _c
@@ -101,6 +108,7 @@ from .components import (
 CARD_KEY = "nativewire"
 
 _RING_SLOTS_DEFAULT = 4
+_EVENT_SLOTS_DEFAULT = 1 << 16   # 2 MiB of 32-byte records
 _RING_BYTES_DEFAULT = 8 * 1024 * 1024
 #: a ring record's bytes beyond its fragment payload: the ring's
 #: u32 length + i32 tag, then the SGC2 prefix (magic, xfer, index)
@@ -299,6 +307,20 @@ def register_nativewire_vars() -> None:
         "Shared-memory rings per co-hosted sender: wire channels hash "
         "across slots so independent lanes do not share one FIFO",
     )
+    mca_var.register(
+        "btl_nativewire_events", "bool", False,
+        "Mmap one per-process native event ring (ompitpu-nativeev-v1) "
+        "and have the C transports append a 32-byte record per SGC2 "
+        "fragment (t_ns, tag, xfer, bytes, wait_ns; drop-oldest wrap); "
+        "tpu-doctor expands dumps into wire-layer spans with paired "
+        "flow ids. Off (default) = zero event-path work — the ring "
+        "counter blocks stay on either way",
+    )
+    mca_var.register(
+        "btl_nativewire_event_slots", "int", _EVENT_SLOTS_DEFAULT,
+        "Record capacity of the native event ring (32 bytes each; a "
+        "full ring overwrites its oldest records)",
+    )
 
 
 register_nativewire_vars()  # idempotent; read at modex + module bind
@@ -330,6 +352,103 @@ def _local_token() -> str:
         if _token is None:
             _token = f"{os.getpid():x}-{uuid.uuid4().hex[:8]}"
         return _token
+
+
+_ev_lock = threading.Lock()
+_ev_ring = None
+_ev_tried = False
+
+
+def _event_ring():
+    """Lazily create + install the per-process native event ring when
+    ``btl_nativewire_events`` turns it on (once per process, however
+    many modules bind). The shm name is unlinked immediately after
+    create — only this process's own mapping matters (records decode
+    in-process at dump time), so nothing can leak in /dev/shm. The
+    ring is handed to ``obs.nativeev`` so finalize dumps and watchdog
+    postmortems read it without importing this module."""
+    global _ev_ring, _ev_tried
+    with _ev_lock:
+        if _ev_tried:
+            return _ev_ring
+        _ev_tried = True
+        if not mca_var.get("btl_nativewire_events", False):
+            return None
+        try:
+            from ..native import NativeEventRing
+
+            slots = int(mca_var.get("btl_nativewire_event_slots",
+                                    _EVENT_SLOTS_DEFAULT)
+                        or _EVENT_SLOTS_DEFAULT)
+            name = f"/onwev-{_local_token()}"
+            ring = NativeEventRing.create(name, max(64, slots))
+            if ring is None:
+                # leftover name from a crashed earlier run (the token
+                # makes a LIVE collision impossible): clear and retry
+                NativeEventRing.unlink(name)
+                ring = NativeEventRing.create(name, max(64, slots))
+            if ring is None:
+                return None  # symbols absent or shm refused: stay off
+            NativeEventRing.unlink(name)
+            ring.install()
+            from ..obs import nativeev as _nativeev
+
+            _nativeev.set_ring(ring)
+            _ev_ring = ring
+            atexit.register(_uninstall_event_ring)
+        except Exception:
+            _ev_ring = None
+        return _ev_ring
+
+
+def _uninstall_event_ring() -> None:
+    """Exit hook: detach the C emit sink before interpreter teardown
+    starts unmapping things under it. The mapping itself stays (the
+    obs finalize dump may still be reading records)."""
+    with _ev_lock:
+        ring = _ev_ring
+    if ring is not None:
+        try:
+            ring.uninstall()
+        except Exception:
+            pass
+
+
+def _reset_event_state_for_tests() -> None:
+    global _ev_ring, _ev_tried
+    from ..obs import nativeev as _nativeev
+
+    with _ev_lock:
+        if _ev_ring is not None:
+            try:
+                if _nativeev.get_ring() is _ev_ring:
+                    _nativeev.set_ring(None)
+                _ev_ring.uninstall()
+                _ev_ring.close()
+            except Exception:
+                pass
+        _ev_ring = None
+        _ev_tried = False
+
+
+def _ring_wait_info(ring, peer_pidx: int, direction: str) -> dict:
+    """Watchdog payload for a blocked ring wait, resolved at DUMP
+    time: which ring (the /onw name carries the owner token), which
+    peer pid sits on the other end, which direction stalled, and the
+    ring's live occupancy — everything a postmortem reader needs to
+    tell 'consumer wedged' from 'producer never wrote'."""
+    info = {"ring": getattr(ring, "name", "?"),
+            "dir": direction, "peer_pidx": int(peer_pidx)}
+    try:
+        info["peer_pid"] = int(ring.consumer_pid() if direction == "send"
+                               else ring.producer_pid())
+        pending, cap = int(ring.pending()), int(ring.capacity)
+        info["pending"] = pending
+        info["capacity"] = cap
+        info["occupancy"] = round(pending / max(1, cap), 4)
+    except Exception:
+        pass  # ring unmapped under us: name + direction still help
+    return info
 
 
 def modex_entry() -> Dict[str, str]:
@@ -497,6 +616,7 @@ class NativeWireBtl(DcnBtl):
         self.cards = cards
         self.my_pidx = int(my_pidx)
         self._caps = {}
+        _event_ring()  # cvar-gated; no-op (and cheap) when off
 
     def _cap(self, pidx: int) -> Optional[Tuple[str, int, int]]:
         """LIVE capability of ``pidx`` from the shared cards list."""
@@ -596,29 +716,41 @@ class NativeWireBtl(DcnBtl):
             peer_pid = int(self.cards[src_pidx].get("pid", 0) or 0)
         except Exception:
             pass
-        while True:
-            ent = self._attach_rx(src_pidx, slot)
-            if ent is not None:
-                return ent
-            if peer_pid:
-                try:
-                    os.kill(peer_pid, 0)
-                except ProcessLookupError:
+        tok = None
+        if _watchdog.enabled:
+            tok = _watchdog.arm(
+                "nw_ring_attach", peer=src_pidx,
+                info=lambda n=name, p=peer_pid, s=src_pidx: {
+                    "ring": n, "dir": "attach", "peer_pidx": int(s),
+                    "peer_pid": int(p)})
+        try:
+            while True:
+                ent = self._attach_rx(src_pidx, slot)
+                if ent is not None:
+                    return ent
+                if peer_pid:
+                    try:
+                        os.kill(peer_pid, 0)
+                    except ProcessLookupError:
+                        raise MPIError(
+                            ErrorCode.ERR_PROC_FAILED,
+                            f"shm ring from process {src_pidx} never "
+                            f"appeared and its producer (pid "
+                            f"{peer_pid}) is gone — peer died "
+                            "mid-transfer",
+                        )
+                    except PermissionError:
+                        pass  # alive under another uid
+                if _time.monotonic() >= deadline:
                     raise MPIError(
-                        ErrorCode.ERR_PROC_FAILED,
-                        f"shm ring from process {src_pidx} never "
-                        f"appeared and its producer (pid {peer_pid}) "
-                        "is gone — peer died mid-transfer",
+                        ErrorCode.ERR_PENDING,
+                        f"timed out waiting for process {src_pidx}'s "
+                        f"shm ring {name}",
                     )
-                except PermissionError:
-                    pass  # alive under another uid
-            if _time.monotonic() >= deadline:
-                raise MPIError(
-                    ErrorCode.ERR_PENDING,
-                    f"timed out waiting for process {src_pidx}'s "
-                    f"shm ring {name}",
-                )
-            _time.sleep(0.0005)
+                _time.sleep(0.0005)
+        finally:
+            if tok is not None:
+                _watchdog.disarm(tok)
 
     def _attach_rx(self, src_pidx: int, slot: int):
         """The consumer-side entry for (src -> me, slot), attaching the
@@ -725,40 +857,53 @@ class NativeWireBtl(DcnBtl):
         a ring toward a dead peer stops with ERR_PROC_FAILED."""
         deadline = _time.monotonic() + _SEND_TIMEOUT_MS / 1000
         next_check = _time.monotonic() + 0.1
-        while True:
-            with lk:
-                rc = ring.writev(tag, parts, 1)
-            if rc == 0:
-                return
-            if rc == -3:
-                raise MPIError(
-                    ErrorCode.ERR_PROC_FAILED,
-                    f"shm ring to process {peer_pidx} reports "
-                    "its consumer dead — peer died mid-transfer",
-                )
-            if rc != -1:
-                raise MPIError(
-                    ErrorCode.ERR_INTERN,
-                    f"shm ring to process {peer_pidx} refused a "
-                    f"fragment record (rc {rc})",
-                )
-            now = _time.monotonic()
-            if now >= next_check:
-                next_check = now + 0.1
-                if self._peer_gone(peer_pidx):
+        tok = None
+        if _watchdog.enabled:
+            # a full-ring wait spins here; the zero-arg info resolves
+            # at dump time, so the postmortem names the ring, its
+            # consumer, and the LIVE occupancy when the watchdog fired
+            tok = _watchdog.arm(
+                "nw_ring_put", peer=peer_pidx,
+                info=lambda r=ring, p=peer_pidx: _ring_wait_info(
+                    r, p, "send"))
+        try:
+            while True:
+                with lk:
+                    rc = ring.writev(tag, parts, 1)
+                if rc == 0:
+                    return
+                if rc == -3:
                     raise MPIError(
                         ErrorCode.ERR_PROC_FAILED,
-                        f"shm ring to process {peer_pidx} stayed full "
-                        "and its consumer is dead — peer died "
-                        "mid-transfer",
+                        f"shm ring to process {peer_pidx} reports "
+                        "its consumer dead — peer died mid-transfer",
                     )
-            if now >= deadline:
-                raise MPIError(
-                    ErrorCode.ERR_PENDING,
-                    f"shm ring to process {peer_pidx} stayed full for "
-                    f"{_SEND_TIMEOUT_MS} ms (consumer stalled)",
-                )
-            self._reap_rx()
+                if rc != -1:
+                    raise MPIError(
+                        ErrorCode.ERR_INTERN,
+                        f"shm ring to process {peer_pidx} refused a "
+                        f"fragment record (rc {rc})",
+                    )
+                now = _time.monotonic()
+                if now >= next_check:
+                    next_check = now + 0.1
+                    if self._peer_gone(peer_pidx):
+                        raise MPIError(
+                            ErrorCode.ERR_PROC_FAILED,
+                            f"shm ring to process {peer_pidx} stayed full "
+                            "and its consumer is dead — peer died "
+                            "mid-transfer",
+                        )
+                if now >= deadline:
+                    raise MPIError(
+                        ErrorCode.ERR_PENDING,
+                        f"shm ring to process {peer_pidx} stayed full for "
+                        f"{_SEND_TIMEOUT_MS} ms (consumer stalled)",
+                    )
+                self._reap_rx()
+        finally:
+            if tok is not None:
+                _watchdog.disarm(tok)
 
     def frame_stream(self, oob_ep, peer_pidx: int, tag: int, data,
                      tpl=None):
@@ -778,6 +923,8 @@ class NativeWireBtl(DcnBtl):
                 f"staged transfer to process {peer_pidx}")
             yield
             return
+        rec = _obs.enabled  # capture once: flag may flip mid-send
+        t0 = _time.perf_counter() if rec else 0.0
         _track_ep(oob_ep)  # tcp-leg counters fold from its C struct
         arr, dname, copied = _host_array(data)
         if copied:
@@ -820,6 +967,10 @@ class NativeWireBtl(DcnBtl):
             self.staged_chunks_pvar.add()
             yield
         self.staged_bytes_pvar.add(tpl.nbytes)
+        if rec and _obs.enabled:
+            _obs.record("btl_nw_send", "btl", t0,
+                        _time.perf_counter() - t0,
+                        nbytes=int(tpl.nbytes), peer=peer_pidx)
 
     def send_staged(self, oob_ep, peer_nid: int, tag: int, data) -> int:
         n = 0
@@ -854,6 +1005,8 @@ class NativeWireBtl(DcnBtl):
         from ..native import DssBuffer
 
         _check_user_tag(tag)
+        rec = _obs.enabled  # capture once: flag may flip mid-recv
+        t_obs = _time.perf_counter() if rec else 0.0
         deadline = _time.monotonic() + timeout_ms / 1000
         while True:
             if first is not None:
@@ -917,91 +1070,104 @@ class NativeWireBtl(DcnBtl):
             return True
 
         got = 0
-        while got < nchunks:
-            # a ring-leg transfer has no frame on the socket: the
-            # endpoint stash holds other transfers' frames then
-            praw = (None if ring_ent is not None
-                    else self._pop_stashed(oob_ep, src, tag))
-            if praw is not None:
-                if place(praw):
-                    got += 1
-                    self.staged_chunks_pvar.add()
-                continue
-            left_ms = int((deadline - _time.monotonic()) * 1000)
-            if left_ms <= 0:
-                raise MPIError(
-                    ErrorCode.ERR_PENDING,
-                    f"native staged transfer {xfer} from process "
-                    f"{src_pidx}: timed out with {got}/{nchunks} "
-                    "fragments",
-                )
-            step = min(left_ms, 200)
-            if ring_ent is not None:
-                ring, rlk, rstash = ring_ent
-                restash = None
-                with rlk:
-                    q = rstash.get(tag)
-                    praw = q.pop(0) if q else None
-                    if praw is None:
-                        rc = ring.read_frag(tag, xfer, nchunks,
-                                            chunk, buf, step)
-                        if rc == -5:
-                            restash = self._pop_other_locked(ring)
+        tok = None
+        if ring_ent is not None and _watchdog.enabled:
+            # the empty-ring wait blocks inside ring.read_frag (C
+            # slices of <=200ms): name the ring, its producer, and the
+            # live occupancy in any stall postmortem
+            tok = _watchdog.arm(
+                "nw_ring_recv", peer=src_pidx,
+                info=lambda r=ring_ent[0], p=src_pidx: _ring_wait_info(
+                    r, p, "recv"))
+        try:
+            while got < nchunks:
+                # a ring-leg transfer has no frame on the socket: the
+                # endpoint stash holds other transfers' frames then
+                praw = (None if ring_ent is not None
+                        else self._pop_stashed(oob_ep, src, tag))
                 if praw is not None:
                     if place(praw):
                         got += 1
                         self.staged_chunks_pvar.add()
                     continue
-                if restash is not None:
-                    _rlen, rtag, raw2 = restash
+                left_ms = int((deadline - _time.monotonic()) * 1000)
+                if left_ms <= 0:
+                    raise MPIError(
+                        ErrorCode.ERR_PENDING,
+                        f"native staged transfer {xfer} from process "
+                        f"{src_pidx}: timed out with {got}/{nchunks} "
+                        "fragments",
+                    )
+                step = min(left_ms, 200)
+                if ring_ent is not None:
+                    ring, rlk, rstash = ring_ent
+                    restash = None
                     with rlk:
-                        rstash.setdefault(rtag, []).append(raw2)
-                    _fallback_copies.add()  # the one restash copy
-                    continue
+                        q = rstash.get(tag)
+                        praw = q.pop(0) if q else None
+                        if praw is None:
+                            rc = ring.read_frag(tag, xfer, nchunks,
+                                                chunk, buf, step)
+                            if rc == -5:
+                                restash = self._pop_other_locked(ring)
+                    if praw is not None:
+                        if place(praw):
+                            got += 1
+                            self.staged_chunks_pvar.add()
+                        continue
+                    if restash is not None:
+                        _rlen, rtag, raw2 = restash
+                        with rlk:
+                            rstash.setdefault(rtag, []).append(raw2)
+                        _fallback_copies.add()  # the one restash copy
+                        continue
+                    if rc >= 0:
+                        got += 1
+                        self.staged_chunks_pvar.add()
+                        continue
+                    if rc in (-1, -4, -5):
+                        continue  # slice timeout / stale / raced
+                    if rc == -3:
+                        raise MPIError(
+                            ErrorCode.ERR_PROC_FAILED,
+                            f"shm ring from process {src_pidx} reports "
+                            f"its producer dead with {got}/{nchunks} "
+                            "fragments landed — peer died mid-transfer",
+                        )
+                    raise MPIError(
+                        ErrorCode.ERR_TRUNCATE,
+                        f"staged transfer {xfer}: malformed ring "
+                        f"record (rc {rc})",
+                    )
+                rc = oob_ep.recv_frag(src, tag, xfer, nchunks, chunk, buf,
+                                      step)
                 if rc >= 0:
                     got += 1
                     self.staged_chunks_pvar.add()
                     continue
-                if rc in (-1, -4, -5):
-                    continue  # slice timeout / stale / raced
-                if rc == -3:
-                    raise MPIError(
-                        ErrorCode.ERR_PROC_FAILED,
-                        f"shm ring from process {src_pidx} reports "
-                        f"its producer dead with {got}/{nchunks} "
-                        "fragments landed — peer died mid-transfer",
-                    )
+                if rc == -1:
+                    continue  # slice timeout: re-check deadline
+                if rc == -4:
+                    # the queue head for (src, tag) is not ours: pop it
+                    # through the shared stash machinery and apply the
+                    # portable stale-drop filter
+                    try:
+                        _, raw2 = stashed_recv(oob_ep, src, tag,
+                                               _time.monotonic() + 0.05)
+                    except MPIError:
+                        continue
+                    if place(raw2):
+                        got += 1
+                        self.staged_chunks_pvar.add()
+                    continue
                 raise MPIError(
                     ErrorCode.ERR_TRUNCATE,
-                    f"staged transfer {xfer}: malformed ring "
-                    f"record (rc {rc})",
+                    f"staged transfer {xfer}: fragment overruns "
+                    f"the {nbytes}-byte buffer (native rc {rc})",
                 )
-            rc = oob_ep.recv_frag(src, tag, xfer, nchunks, chunk, buf,
-                                  step)
-            if rc >= 0:
-                got += 1
-                self.staged_chunks_pvar.add()
-                continue
-            if rc == -1:
-                continue  # slice timeout: re-check deadline
-            if rc == -4:
-                # the queue head for (src, tag) is not ours: pop it
-                # through the shared stash machinery and apply the
-                # portable stale-drop filter
-                try:
-                    _, raw2 = stashed_recv(oob_ep, src, tag,
-                                           _time.monotonic() + 0.05)
-                except MPIError:
-                    continue
-                if place(raw2):
-                    got += 1
-                    self.staged_chunks_pvar.add()
-                continue
-            raise MPIError(
-                ErrorCode.ERR_TRUNCATE,
-                f"staged transfer {xfer}: fragment overruns "
-                f"the {nbytes}-byte buffer (native rc {rc})",
-            )
+        finally:
+            if tok is not None:
+                _watchdog.disarm(tok)
         if zlib.crc32(bmv) != int(crc):
             raise MPIError(
                 ErrorCode.ERR_TRUNCATE,
@@ -1012,6 +1178,10 @@ class NativeWireBtl(DcnBtl):
         _native_bytes.add(nbytes)
         arr = np.frombuffer(buf, dtype=dtype).reshape(shape)
         self.staged_bytes_pvar.add(arr.nbytes)
+        if rec and _obs.enabled:
+            _obs.record("btl_nw_recv", "btl", t_obs,
+                        _time.perf_counter() - t_obs,
+                        nbytes=int(arr.nbytes), peer=src_pidx)
         return host_tensor(arr, dname, dst_device)
 
     @staticmethod
@@ -1055,3 +1225,31 @@ class NativeWireComponent(mca_component.Component):
 
 
 base.BTL_FRAMEWORK.register(NativeWireComponent())
+
+
+def _native_rings() -> dict:
+    """Watchdog-postmortem contributor: every live native ring's
+    identity, endpoints, occupancy, and counter block — whatever rank
+    is stalled, the postmortem shows which ring sat full/empty and
+    which pid was supposed to drain/fill it."""
+    with _tele_lock:
+        tx = list(_live_tx)
+        rx = list(_live_rx)
+        retired = (_retired[0], _retired[1])
+
+    def row(ring) -> dict:
+        try:
+            return {"name": ring.name, "capacity": int(ring.capacity),
+                    "pending": int(ring.pending()),
+                    "producer_pid": int(ring.producer_pid()),
+                    "consumer_pid": int(ring.consumer_pid()),
+                    "stats": ring.stats()}
+        except Exception:
+            return {"name": getattr(ring, "name", "?")}
+
+    return {"tx": [row(r) for r in tx], "rx": [row(r) for r in rx],
+            "retired_stalls": retired[0],
+            "retired_stall_ns": retired[1]}
+
+
+_watchdog.add_contributor("native_rings", _native_rings)

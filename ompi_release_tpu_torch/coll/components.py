@@ -372,7 +372,8 @@ class _TunedModule:
                     comm, ("tuned", "allreduce", "ring", op),
                     lambda xb: pipeline.allreduce_ring_pipelined(
                         xb, op, n, nseg),
-                    x, nseg=nseg,
+                    x, nseg=nseg, nbytes=_per_rank_bytes(x),
+                    opname="allreduce",
                 )
         _log.verbose(3, f"{comm.name}: tuned allreduce -> {alg}")
         key = ("tuned", "allreduce", alg, op) + (
@@ -427,7 +428,8 @@ class _TunedModule:
                     comm, ("tuned", "bcast", "binomial", root),
                     lambda xb: pipeline.bcast_binomial_pipelined(
                         xb, n, root, nseg),
-                    x, nseg=nseg,
+                    x, nseg=nseg, nbytes=_per_rank_bytes(x),
+                    opname="bcast",
                 )
         key = ("tuned", "bcast", alg, root) + (
             (seg_elems,) if alg == "pipeline" else ())
@@ -483,7 +485,8 @@ class _TunedModule:
                     lambda xb: spmd._root_only(
                         pipeline.reduce_binomial_pipelined(
                             xb, op, n, root, nseg), root),
-                    x, nseg=nseg,
+                    x, nseg=nseg, nbytes=_per_rank_bytes(x),
+                    opname="reduce",
                 )
         return run_sharded(comm, ("tuned", "reduce", alg, op, root),
                            bodies[alg], x)

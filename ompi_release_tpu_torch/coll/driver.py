@@ -19,7 +19,11 @@ the comm's device. What stays from the reference:
   run (:func:`begin_capture`): each runner records (body, input
   tensor, output tensor) while a capture is armed;
 - :func:`run_sharded2d`, the same runner over the ``(node, local)``
-  factorization the hierarchical ``ml`` bodies use.
+  factorization the hierarchical ``ml`` bodies use;
+- the observability plane's skew timer (``obs/skew.py``): with obs on,
+  each run marks arrival, the body's launch and its return, one
+  ``coll``-layer span and the ``coll_<op>_*`` pvars. The span times the
+  dispatch, not the card: nothing here synchronizes.
 """
 
 from __future__ import annotations
@@ -31,7 +35,9 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ..mca import pvar
+from ..obs import skew as _skew
 from ..utils.errors import ErrorCode, MPIError
 
 _invoke_count = pvar.counter(
@@ -95,8 +101,16 @@ def _orch_t0(default: float) -> float:
     return t0
 
 
+def _op_name(key: Tuple) -> str:
+    """Collective-op label from a program-cache key — keys are
+    (component, op, ...) tuples by convention throughout coll/."""
+    if isinstance(key, tuple) and len(key) > 1 and isinstance(key[1], str):
+        return key[1]
+    return str(key[0]) if isinstance(key, tuple) and key else str(key)
+
+
 def _launch(body: Callable, x: torch.Tensor, extras: Tuple,
-            t_in: float) -> Any:
+            t_in: float, tok=None) -> Any:
     """Run the cached body, recording it while a capture is armed: the
     input and output OBJECTS let ``coll/plan.py`` prove the collective
     was the body alone (no pre- or post-processing around it)."""
@@ -105,7 +119,14 @@ def _launch(body: Callable, x: torch.Tensor, extras: Tuple,
         cap.append({"prog": body, "x": x, "extra": bool(extras),
                     "out": None})
     _orch.add(_time.perf_counter() - t_in)
-    out = body(x, *extras)
+    if tok is None:
+        out = body(x, *extras)
+    else:
+        # skew emit point: wait = arrival -> body launch (cache lookup,
+        # validation), body = the dispatch itself
+        _skew.body(tok)
+        out = body(x, *extras)
+        _skew.end(tok, int(x.numel()) * int(x.element_size()))
     if cap is not None:
         cap[-1]["out"] = out
     return out
@@ -141,6 +162,8 @@ def run_sharded(comm, key: Tuple, body: Callable, x, *,
     key must hold every static parameter the body closes over."""
     t_in = _orch_t0(_time.perf_counter())
     _invoke_count.add()
+    tok = (_skew.begin(_op_name(key), getattr(comm, "cid", -1))
+           if _obs.enabled else None)
     if not isinstance(x, torch.Tensor):
         raise MPIError(
             ErrorCode.ERR_TYPE,
@@ -163,7 +186,8 @@ def run_sharded(comm, key: Tuple, body: Callable, x, *,
         prog = body
         cache[key] = prog
     return _launch(prog, x.to(comm.device),
-                   tuple(e.to(comm.device) for e in extra_arrays), t_in)
+                   tuple(e.to(comm.device) for e in extra_arrays), t_in,
+                   tok)
 
 
 def run_sharded2d(comm, key: Tuple, body: Callable, x, *,
@@ -176,6 +200,8 @@ def run_sharded2d(comm, key: Tuple, body: Callable, x, *,
     :func:`run_sharded`'s."""
     t_in = _orch_t0(_time.perf_counter())
     _invoke_count.add()
+    tok = (_skew.begin(_op_name(key), getattr(comm, "cid", -1))
+           if _obs.enabled else None)
     if not isinstance(x, torch.Tensor):
         raise MPIError(ErrorCode.ERR_TYPE,
                        "driver-mode collectives take a single tensor with "
@@ -193,4 +219,4 @@ def run_sharded2d(comm, key: Tuple, body: Callable, x, *,
         _compile_count.add()
         prog = body
         cache[key] = prog
-    return _launch(prog, x.to(comm.device), (), t_in)
+    return _launch(prog, x.to(comm.device), (), t_in, tok)

@@ -35,6 +35,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from .. import obs as _obs
 from ..mca import pvar
 from ..mca import var as mca_var
 from ..utils.errors import ErrorCode, MPIError
@@ -246,7 +247,9 @@ class FusionBuffer:
             queues = self._queues
             self._queues = {}
             self._pending_bytes = 0
+        t0 = time.perf_counter()
         issued = 0
+        fused_bytes = 0
         claimed = [p for q in queues.values() for p in q]
         try:
             for key, pendings in queues.items():
@@ -263,6 +266,7 @@ class FusionBuffer:
                     _flushes.add()
                     _batched.add(len(bucket))
                     _bytes_saved.add(sum(p.nbytes for p in bucket[1:]))
+                    fused_bytes += sum(p.nbytes for p in bucket)
                     if len(bucket) == 1:
                         p = bucket[0]
                         p.handle._complete(
@@ -285,4 +289,8 @@ class FusionBuffer:
                 if not p.handle.done:
                     p.handle._fail(e)
             raise
+        if issued and _obs.enabled:
+            _obs.record("fusion_flush", "fusion", t0,
+                        time.perf_counter() - t0, nbytes=fused_bytes,
+                        comm_id=getattr(self.comm, "cid", -1))
         return issued

@@ -68,21 +68,31 @@ runs, folds on the card included); a replayed round sends through
 :meth:`_HierModule._send_all_planned` (precomposed frame templates) and
 reaps with the plan's timeout snapshot.
 
-Not ported yet: the round-state table and flow ids the observability
-plane reads, and the watchdog (ROADMAP item 16).
+Observability: with obs on, every table entry is one ``coll``-layer
+span (what the doctor's skew report rounds on), a process-synchronized
+round counter and per-(src, dst) message indices give every
+inter-process message the same ``("hier", cid, round, src, dst, k)``
+flow id on both sides, the round-state table names who has not arrived
+(the flight recorder's ``hier_rounds`` contributor), and the stall
+watchdog arms around every blocking receive.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional
 
+import time as _time
+
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ..btl.components import host_payload
 from ..mca import component as mca_component
 from ..mca import pvar
 from ..mca import var as mca_var
+from ..obs import sentinel as _sentinel
+from ..obs import watchdog as _watchdog
 from ..ops import op as _ops
 from ..ops.op import Op
 from ..utils import output
@@ -119,6 +129,19 @@ _leader_combines = pvar.counter(
     "host-leader-tier combines performed by spanning collectives",
 )
 
+#: current spanning-collective round per comm cid, maintained only
+#: while obs is enabled: {"op", "round", "awaiting_procs",
+#: "awaiting_ranks"}. THE answer to "the job is stuck — who is waiting
+#: in what?": the flight recorder dumps this table verbatim.
+_round_state: Dict[int, Dict] = {}
+
+
+def _hier_rounds_snapshot() -> Dict[str, Dict]:
+    return {str(cid): dict(st) for cid, st in list(_round_state.items())}
+
+
+_watchdog.add_contributor("hier_rounds", _hier_rounds_snapshot)
+
 def _storage(dtype: torch.dtype) -> np.dtype:
     """The numpy dtype holding a torch dtype's bytes on the host (bf16:
     its raw 2-byte words)."""
@@ -133,7 +156,10 @@ class _XchgAdapter:
     ``coll_send_all`` under ``wire_overlap_exchange``), then reaps the
     round's receives in arrival order. Every byte flows through the
     module's instrumented ``_send/_send_all/_recv/_reap`` touchpoints,
-    so pvar accounting is identical to the linear path's."""
+    so pvar accounting, ``(cid, round, pair, k)`` flow ids, and the
+    watchdog wait registry (``awaiting_info`` names exactly the
+    tree/ring neighbors still pending) are identical to the linear
+    path's."""
 
     __slots__ = ("m",)
 
@@ -198,6 +224,16 @@ class _HierModule:
         )
         #: the device holding this process's partials and results
         self.device = comm.device
+        # trace context (maintained only while obs is on): a
+        # process-synchronized round counter plus per-(src, dst) message
+        # indices within the round. Both sides of every inter-process
+        # message derive the SAME flow id from (cid, round, pair, k) —
+        # collective call order is identical on every process (MPI's
+        # own rule) and per-peer FIFO keeps k aligned, so journals join
+        # into flow arrows with no wire-format change. Requires obs
+        # enabled on every rank (same MCA env under tpurun).
+        self._round = 0
+        self._flow_k: Dict[tuple, int] = {}
         # host-aware leader tier (the coll/ml sbgp shape): group the
         # participating processes by the SAME modex-card host identity
         # the router's transport choice consults (_btl_for), so the
@@ -243,6 +279,59 @@ class _HierModule:
     @staticmethod
     def _overlap() -> bool:
         return bool(mca_var.get("wire_overlap_exchange", True))
+
+    # -- trace context / round bookkeeping ---------------------------------
+    def _flow(self, src_p: int, dst_p: int) -> int:
+        """Flow id of the NEXT message src_p -> dst_p this round (call
+        only under an ``_obs.enabled`` gate: the k counters must
+        advance in lockstep on both sides)."""
+        key = (src_p, dst_p)
+        k = self._flow_k.get(key, 0)
+        self._flow_k[key] = k + 1
+        return _obs.flow_id("hier", self.comm.cid, self._round,
+                            src_p, dst_p, k)
+
+    def _round_begin(self, name: str) -> float:
+        self._round += 1
+        self._flow_k = {}
+        _round_state[self.comm.cid] = {
+            "op": name, "round": self._round, "comm": self.comm.name,
+            "awaiting_procs": [], "awaiting_ranks": [],
+        }
+        # under the inline sentinel the round arrived before its
+        # signature exchange: the span holds a late peer's wait
+        t = _sentinel.take_arrival(self.comm.cid)
+        return _time.perf_counter() if t is None else t
+
+    def _round_end(self, name: str, t0: float) -> None:
+        _round_state.pop(self.comm.cid, None)
+        if _obs.enabled:
+            _obs.record(name, "coll", t0, _time.perf_counter() - t0,
+                        comm_id=self.comm.cid)
+
+    def _awaiting_info(self, pending: Dict[int, int]) -> Callable:
+        """Watchdog info resolver: who has NOT arrived, as processes
+        AND world ranks — resolved at dump time so it reflects
+        arrivals since arming, and mirrored into the round-state table
+        the flight recorder dumps."""
+
+        def resolve() -> Dict[str, list]:
+            procs = sorted(p for p, c in pending.items() if c > 0)
+            ranks = sorted(
+                self.comm.group.world_rank(i)
+                for p in procs for i in self.members_of.get(p, ())
+            )
+            st = _round_state.get(self.comm.cid)
+            if st is not None:
+                st["awaiting_procs"] = procs
+                st["awaiting_ranks"] = ranks
+            return {"awaiting_procs": procs, "awaiting_ranks": ranks}
+
+        return resolve
+
+    def _stalled_op(self) -> str:
+        st = _round_state.get(self.comm.cid)
+        return st["op"] if st else "hier"
 
     # -- host/device staging ----------------------------------------------
     @staticmethod
@@ -301,24 +390,76 @@ class _HierModule:
     # -- transport touchpoints ---------------------------------------------
     def _send(self, peer: int, arr) -> None:
         arr = self._np(arr)
+        rec = _obs.enabled  # capture once: flag may flip mid-send
+        t0 = _time.perf_counter() if rec else 0.0
         self.router.coll_send(self.comm, peer, arr)
         _inter_msgs_sent.add()
         _inter_bytes.add(int(arr.nbytes))
+        if rec and _obs.enabled:
+            _obs.record("hier_send", "hier", t0,
+                        _time.perf_counter() - t0,
+                        nbytes=int(arr.nbytes), peer=peer,
+                        comm_id=self.comm.cid,
+                        flow=self._flow(self.my_pidx, peer),
+                        flow_side="s")
 
     def _recv(self, peer: int):
-        out = self._np(self.router.coll_recv(self.comm, peer))
+        rec = _obs.enabled
+        t0 = _time.perf_counter() if rec else 0.0
+        tok = None
+        if _watchdog.enabled:
+            tok = _watchdog.arm(self._stalled_op(),
+                                comm_id=self.comm.cid, peer=peer,
+                                info=self._awaiting_info({peer: 1}))
+        try:
+            out = self._np(self.router.coll_recv(self.comm, peer))
+        finally:
+            if tok is not None:
+                _watchdog.disarm(tok)
         _inter_msgs_recvd.add()
+        if rec and _obs.enabled:
+            _obs.record("hier_recv", "hier", t0,
+                        _time.perf_counter() - t0,
+                        nbytes=int(out.nbytes), peer=peer,
+                        comm_id=self.comm.cid,
+                        flow=self._flow(peer, self.my_pidx),
+                        flow_side="t")
         return out
 
     def _send_all(self, sends: Dict[int, list]) -> None:
         """Post one round's sends to every peer, striped across
         destinations in pipelined fragment bursts (same pvar
         accounting as per-peer :meth:`_send`)."""
+        rec = _obs.enabled
+        t0 = _time.perf_counter() if rec else 0.0
         self.router.coll_send_all(self.comm, sends)
-        for arrs in sends.values():
+        dt = (_time.perf_counter() - t0) if rec else 0.0
+        if rec and _obs.enabled:
+            # the burst's duration lives on ONE aggregate span; the
+            # per-message producer spans below are INSTANTS at the
+            # burst start — coll_send_all stripes internally, so no
+            # per-message completion time exists, and stamping every
+            # message with the burst-end time would put flow-arrow
+            # origins AFTER receivers consumed the early fragments
+            # (negative latencies in the merged trace). The post time
+            # is the causally safe bound.
+            _obs.record("hier_send_all", "hier", t0, dt,
+                        nbytes=sum(int(a.nbytes) for arrs in
+                                   sends.values() for a in arrs),
+                        comm_id=self.comm.cid)
+        for p, arrs in sends.items():
             for a in arrs:
                 _inter_msgs_sent.add()
                 _inter_bytes.add(int(a.nbytes))
+                if rec and _obs.enabled:
+                    # one producer span per message: k advances in list
+                    # order, the same order coll_send_all puts each
+                    # peer's messages on its FIFO
+                    _obs.record("hier_send", "hier", t0, 0.0,
+                                nbytes=int(a.nbytes), peer=p,
+                                comm_id=self.comm.cid,
+                                flow=self._flow(self.my_pidx, p),
+                                flow_side="s")
 
     def _send_all_planned(self, rnd, sends: Dict[int, list]) -> None:
         """Steady-state planned round send (coll/plan frozen
@@ -326,7 +467,11 @@ class _HierModule:
         headers were precomposed at plan time, so this path is
         memoryview slicing behind precomposed header bytes.
         Inter-process pvar accounting matches :meth:`_send_all`
-        exactly."""
+        exactly; per-message spans are NOT journaled here — observed
+        replays append one fixed-size record per fire to the obs
+        ledger, and tpu-doctor expands it against the frozen plan
+        structure into the same flow-id spans the interpreted path
+        emits."""
         self.router.coll_send_planned(self.comm, rnd, sends)
         for arrs in sends.values():
             for a in arrs:
@@ -341,18 +486,45 @@ class _HierModule:
         a slow peer never blocks the reap of one whose data already
         landed (the posted-sends overlap the module docstring pins).
         ``timeout_ms``: explicit wait bound (frozen-plan replays pass
-        their plan-time snapshot); None = the live cvar. ``record``
-        is the reference's span switch (replays pass False); spans
-        wait for the observability plane, so it changes nothing
-        here."""
+        their plan-time snapshot); None = the live cvar.
+        ``record=False`` (frozen-plan replays): skip per-arrival span
+        emission and the flow-k advance — the obs ledger's expansion
+        re-derives both from the frozen plan structure, and journal
+        spans here would double them."""
         left = sum(pending.values())
-        while left:
-            src, arr = self.router.coll_recv_any(self.comm, pending,
-                                                 timeout_ms)
-            _inter_msgs_recvd.add()
-            pending[src] -= 1
-            left -= 1
-            on_arrival(src, self._np(arr))
+        tok = None
+        if _watchdog.enabled:
+            tok = _watchdog.arm(self._stalled_op(),
+                                comm_id=self.comm.cid,
+                                info=self._awaiting_info(pending))
+        try:
+            while left:
+                rec = record and _obs.enabled
+                t0 = _time.perf_counter() if rec else 0.0
+                src, arr = self.router.coll_recv_any(self.comm, pending,
+                                                     timeout_ms)
+                if tok is not None:
+                    # progress resets the stall clock (and re-arms a
+                    # wait that already dumped): a slow but ARRIVING
+                    # round is not a stall, and false dumps would burn
+                    # the MAX_STALL_DUMPS budget the real hang needs
+                    tok.t0 = _time.perf_counter()
+                    tok.dumped = False
+                _inter_msgs_recvd.add()
+                pending[src] -= 1
+                left -= 1
+                arr = self._np(arr)
+                if rec and _obs.enabled:
+                    _obs.record("hier_recv", "hier", t0,
+                                _time.perf_counter() - t0,
+                                nbytes=int(arr.nbytes), peer=src,
+                                comm_id=self.comm.cid,
+                                flow=self._flow(src, self.my_pidx),
+                                flow_side="t")
+                on_arrival(src, arr)
+        finally:
+            if tok is not None:
+                _watchdog.disarm(tok)
 
     def _exchange(self, arrs_for: Dict[int, list]) -> Dict[int, list]:
         """Linear inter-process exchange: send every peer its arrays,
@@ -393,6 +565,15 @@ class _HierModule:
         return self.shadow.allreduce(x, op)[0]
 
     # -- partial packing / combine dispatch --------------------------------
+    def _note_alg(self, alg: str) -> None:
+        """Record the selected schedule in the round-state table the
+        flight recorder dumps (postmortems name op, round AND alg)."""
+        if not _obs.enabled:
+            return
+        st = _round_state.get(self.comm.cid)
+        if st is not None:
+            st["alg"] = alg
+
     @staticmethod
     def _pack_pair(pv: np.ndarray, pi: np.ndarray) -> np.ndarray:
         """One contiguous wire payload for a MINLOC/MAXLOC (value,
@@ -521,6 +702,7 @@ class _HierModule:
             packed = self._pack_partial(partial, op)
         if alg is None:
             alg = self._pick_allreduce(procs, int(packed.nbytes), op)
+        self._note_alg(alg)
         me = self.my_pidx
         if alg in _hs.ORDER_WAIVING:
             arr = self._np(partial)
@@ -599,8 +781,27 @@ class _HierModule:
         return np.concatenate(parts, axis=0)
 
     # -- operation table ---------------------------------------------------
+    def _wrap(self, name: str, fn: Callable) -> Callable:
+        """Round instrumentation around one table entry: when obs is
+        off this is ONE attribute check and a tail call; when on, it
+        advances the synchronized round counter, publishes the round
+        state the flight recorder dumps, and journals the whole op as
+        a coll-layer span (what the doctor's skew report rounds on)."""
+
+        def run(comm, *args, **kw):
+            if not _obs.enabled:
+                return fn(comm, *args, **kw)
+            t0 = self._round_begin(name)
+            try:
+                return fn(comm, *args, **kw)
+            finally:
+                self._round_end(name, t0)
+
+        return run
+
     def fns(self) -> Dict[str, Callable]:
-        return self._table()
+        return {name: self._wrap(name, fn)
+                for name, fn in self._table().items()}
 
     def _table(self) -> Dict[str, Callable]:
         return {
@@ -647,6 +848,7 @@ class _HierModule:
         packed = self._pack_partial(partial, op)
         alg = _hs.pick("reduce", P, int(packed.nbytes)) if P > 1 \
             else "linear"
+        self._note_alg(alg)
         flats = None
         if P == 1:
             total = partial
@@ -716,6 +918,7 @@ class _HierModule:
                        if x.ndim else 0)
         alg = _hs.pick("bcast", len(self.procs), slice_bytes,
                        topo=self.torus_dims)
+        self._note_alg(alg)
         if alg == "torus2d" and len(self.procs) > 1:
             # host-aware by construction: the torus bcast subsumes the
             # leader tier's fan-out (one DCN copy per host)
@@ -766,6 +969,7 @@ class _HierModule:
         total_bytes = int(self.comm.size * chunk_elems * block.itemsize)
         alg = _hs.pick("allgather", P, total_bytes,
                        topo=self.torus_dims) if P > 1 else "linear"
+        self._note_alg(alg)
         blocks: Dict[int, np.ndarray] = {}
         if P == 1 or alg == "linear":
             got = self._exchange({p: [block] for p in self.peers})
@@ -816,6 +1020,7 @@ class _HierModule:
             if chunk_shape else 1
         slice_bytes = int(chunk_elems * block.itemsize)
         alg = _hs.pick("gather", P, slice_bytes) if P > 1 else "linear"
+        self._note_alg(alg)
         rows: Dict[int, np.ndarray] = {}
         if alg == "binomial" and P > 1:
             counts = [len(self.members_of[p]) * chunk_elems
@@ -858,6 +1063,7 @@ class _HierModule:
         # identical everywhere, so it is taken at bytes=0 (forcing and
         # zero-threshold rules apply; size-split rules cannot)
         alg = _hs.pick("scatter", P, 0) if P > 1 else "linear"
+        self._note_alg(alg)
         chunks = None
         if owner == me:
             self._check_local_axis(x, "scatter")
@@ -917,6 +1123,7 @@ class _HierModule:
         # coll_tuned_decision_fixed.c:122) — identical on every process
         alg = _hs.pick("alltoall", P, int(c * trail * block.itemsize)) \
             if P > 1 else "linear"
+        self._note_alg(alg)
         recv_block: Dict[int, np.ndarray] = {}
         if P == 1:
             pass

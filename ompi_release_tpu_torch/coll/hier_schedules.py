@@ -3,7 +3,7 @@ collectives — the ``coll/tuned`` algorithm menu recast for the
 process-combine step of ``coll/hier.py``.
 
 (The port's copy of ``ompi_release_tpu/coll/hier_schedules.py``,
-which imports no JAX; the observability spans wait for the obs slice.)
+which imports no JAX.)
 
 Every function here is a PURE schedule: it speaks to the wire only
 through an exchange adapter (one call per schedule round, posting all
@@ -60,10 +60,12 @@ of the linear path and is bitwise-identical to it.
 
 from __future__ import annotations
 
+import time as _time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import obs as _obs
 from ..mca import pvar
 from ..mca import var as mca_var
 from ..utils import output
@@ -260,7 +262,15 @@ def _round(x, sends: Dict[int, List[np.ndarray]],
     registry; this wrapper adds the round counter and (gated) a
     round-granularity span."""
     _sched_rounds.add()
+    rec = _obs.enabled
+    t0 = _time.perf_counter() if rec else 0.0
     got = x.exchange(sends, recvs)
+    if rec and _obs.enabled:
+        _obs.record(
+            "hier_sched_round", "hier", t0, _time.perf_counter() - t0,
+            nbytes=sum(int(np.asarray(a).nbytes)
+                       for arrs in sends.values() for a in arrs),
+        )
     return got
 
 

@@ -63,7 +63,16 @@ when the failure picture changes, the executor stops at its next poll
 the word and resuming when the change concerns other processes. The
 plan's own deadline is its ``wire_coll_timeout_ms`` snapshot (a typed
 ``ERR_PENDING``), and a ring whose other end is gone reports the typed
-``ERR_PROC_FAILED``. The obs records wait for ROADMAP item 16.
+``ERR_PROC_FAILED``.
+
+Observability: with obs on, a compile and each C fire are one
+``plan``-layer span (``plan_native_compile``, ``plan_native_fire``),
+the fire's C-stamped round boundaries land in the flight recorder's
+spanning record, and the stall watchdog arms around the C slice loop.
+Inline sentinel checking (``obs_sentinel >= 2``) rides ctl frames
+between the planned rounds, which the C reap would stash mid-fire: the
+executor withdraws then, and ``plan_native_fallbacks`` counts the
+withdrawal.
 """
 from __future__ import annotations
 
@@ -79,11 +88,13 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ..btl.components import storage_dtype
 from ..ft import ulfm as _ulfm
 from ..mca import pvar
 from ..runtime.wire import _ft
 from ..mca import var as mca_var
+from ..obs import watchdog as _watchdog
 from ..utils.errors import ErrorCode, MPIError
 from .plan import _as_nd, check_round
 
@@ -114,7 +125,8 @@ _native_fallbacks = pvar.counter(
     "plan_native_fallbacks",
     "native-eligible fires that fell back to the interpreted "
     "PlannedXchg replay for one fire (stashed/early frames, "
-    "ring-lock contention)",
+    "ring-lock contention), and plans the executor withdrew from "
+    "under inline sentinel checking (obs_sentinel >= 2)",
 )
 
 _BLOB_MAGIC = 0x314345584C504F  # "OPLXEC1" little-endian
@@ -564,9 +576,14 @@ def try_compile(state, m, fn: Callable, args: Tuple,
     unprovable byte map — says the interpreted replay should keep the
     plan; ``state.why`` then names the gate. Never raises:
     ineligibility is a selection outcome."""
+    t0 = _time.perf_counter()
     try:
         npl = _compile(state, m, fn, args, kw or {})
         state.why = None
+        if _obs.enabled:
+            _obs.record("plan_native_compile", "plan", t0,
+                        _time.perf_counter() - t0,
+                        comm_id=state.comm.cid)
         return npl
     except Exception as e:
         state.why = f"{type(e).__name__}: {e}"
@@ -578,12 +595,24 @@ def try_compile(state, m, fn: Callable, args: Tuple,
         return None
 
 
+def _sentinel_level() -> int:
+    try:
+        return int(mca_var.get("obs_sentinel", 0) or 0)
+    except Exception:
+        return 0
+
+
 def _compile(state, m, fn, args, kw):
     plan = state.plan
     if plan is None or not plan.rounds:
         raise _Ineligible("no frozen plan")
     if not bool(mca_var.get("coll_plan_native", True)):
         raise _Ineligible("coll_plan_native=0")
+    if _sentinel_level() >= 2:
+        # inline sentinel checking rides ctl frames interleaved with
+        # the planned rounds — the C reap would stash them mid-fire
+        _native_fallbacks.add()
+        raise _Ineligible("inline sentinel level >= 2")
     if not available():
         raise _Ineligible("planexec symbols absent")
     router = getattr(m, "router", None)
@@ -815,8 +844,8 @@ class NativeXchg:
     to a fresh :class:`~.plan.PlannedXchg` — same plan, same bytes.
     ``fired`` says whether the C executor ran this fire."""
 
-    __slots__ = ("m", "plan", "np", "i", "args", "_delegate", "_pool",
-                 "_c_wait", "fired")
+    __slots__ = ("m", "plan", "np", "i", "ts", "args", "_delegate",
+                 "_pool", "_c_wait", "fired")
 
     def __init__(self, module, plan, npl: NativePlan,
                  args: Tuple) -> None:
@@ -824,6 +853,9 @@ class NativeXchg:
         self.plan = plan
         self.np = npl
         self.i = 0
+        #: round-end clock reads for the flight recorder (the C
+        #: executor stamps them); None = unobserved fire
+        self.ts: Optional[List[float]] = None
         self.args = args
         self._delegate = None
         self._pool = None
@@ -859,6 +891,7 @@ class NativeXchg:
             from .plan import PlannedXchg
 
             dg = PlannedXchg(self.m, self.plan)
+            dg.ts = self.ts
             self._delegate = dg
             return dg.exchange(sends, recvs)
         got = self._materialize(self.i)
@@ -910,6 +943,7 @@ class NativeXchg:
         return True
 
     def _fire(self, sends_f) -> bool:
+        t0 = _time.perf_counter()
         npl = self.np
         router = npl.router
         inputs = self._inputs(sends_f)
@@ -952,7 +986,7 @@ class NativeXchg:
                 return False
             fired = True
             self._run(px, npl, epoch0)
-            self._harvest(px, npl)
+            self._harvest(px, npl, t0)
             self.fired = True
             return True
         finally:
@@ -964,6 +998,12 @@ class NativeXchg:
                 lk.release()
 
     def _run(self, px, npl: NativePlan, epoch0: int) -> None:
+        tok = None
+        if _watchdog.enabled:
+            tok = _watchdog.arm(
+                "native_plan_fire", comm_id=npl.cid,
+                info=lambda n=npl: {"peers": list(n.peers),
+                                    "rounds": len(n.pool_rounds)})
         t_w = _time.perf_counter()
         try:
             while True:
@@ -984,6 +1024,8 @@ class NativeXchg:
                 self._raise_rc(px, npl, rc)
         finally:
             self._c_wait = _time.perf_counter() - t_w
+            if tok is not None:
+                _watchdog.disarm(tok)
 
     def _raise_rc(self, px, npl: NativePlan, rc: int) -> None:
         name = self.m.comm.name
@@ -1042,8 +1084,10 @@ class NativeXchg:
                     stash.setdefault((router._nid(pidx), tag),
                                      []).append(raw)
 
-    def _harvest(self, px, npl: NativePlan) -> None:
+    def _harvest(self, px, npl: NativePlan, t0: float) -> None:
         self._pool = px.pool_view()
+        if self.ts is not None:
+            self.ts[:] = px.round_ts()
         # pvar continuity: the C fire IS these sends/recvs — MPI_T
         # series must not dip when the native executor engages. Frame
         # counts mirror the interpreted path exactly: chunk pvars
@@ -1067,6 +1111,9 @@ class NativeXchg:
             btl.staged_bytes_pvar.add(npl.send_bytes + npl.recv_bytes)
         _pool_hits.add(npl.pool_count)
         _native_fires.add()
+        if _obs.enabled:
+            _obs.record("plan_native_fire", "plan", t0,
+                        _time.perf_counter() - t0, comm_id=npl.cid)
 
     def _materialize(self, r: int) -> Dict[int, list]:
         """Round ``r``'s arrivals as fresh host arrays COPIED out of

@@ -45,8 +45,13 @@ buffer-reuse contract).
 Bitwise parity is structural: the nonblocking path runs the identical
 collective body the blocking path runs.
 
-Not ported yet: the sentinel hooks (``_inline_tpl``) and observability
-spans wait for the observability plane (ROADMAP item 16).
+The contract sentinel (``obs/sentinel.py``) notes every collective
+entry at POSTING time — the user frame is on the stack and the
+per-comm posting seq is this slot — and, at ``obs_sentinel=2`` on a
+spanning comm, wraps the schedule so the signature exchange runs at
+execution start, before the round's first payload frame; the inline
+payload is precomposed once per frozen plan (:func:`_inline_tpl`).
+With obs on, every post is one ``nbc``-layer span.
 """
 
 from __future__ import annotations
@@ -54,7 +59,9 @@ from __future__ import annotations
 import time as _time
 from typing import Any, Callable, Dict, Optional, Tuple
 
+from .. import obs as _obs
 from ..mca import pvar
+from ..obs import sentinel as _sentinel
 from ..request.request import Request
 from ..runtime import progress as _progress
 from ..utils.errors import ErrorCode, MPIError
@@ -139,12 +146,32 @@ def _make_op(comm, name: str, fn: Callable, args: Tuple,
     )
 
 
-def _post(op: _progress.ScheduledOp) -> None:
+def _post(comm, op: _progress.ScheduledOp) -> None:
     """Hand one fully-wired op to the engine. Completion callbacks
     MUST be attached before this call: with the progress thread on,
     the schedule can run to completion the instant it is posted."""
     _ops_posted.add()
+    rec = _obs.enabled  # capture once: flag may flip mid-post
+    t0 = _time.perf_counter() if rec else 0.0
     _progress.engine().post(op)
+    if rec and _obs.enabled:
+        _obs.record("nbc_post", "nbc", t0, _time.perf_counter() - t0,
+                    comm_id=comm.cid)
+
+
+def _inline_tpl(state, sig):
+    """Sentinel level 2's precomposed ctl-frame payload, cached on
+    the frozen-plan state (one JSON encode per plan signature, not
+    per fire) — None when the call is unplannable or unsigned, where
+    wrap_inline falls back to the per-fire encoding."""
+    if state is None or sig is None:
+        return None
+    key = (sig.canon, sig.site)
+    tpl = state.sentinel_tpl
+    if tpl is None or tpl[0] != key:
+        state.sentinel_tpl = tpl = (
+            key, _sentinel.InlineFrameTemplate(sig.canon, sig.site))
+    return tpl[1]
 
 
 def _resolve(comm, name: str) -> Callable:
@@ -190,11 +217,12 @@ def _op_request(op: _progress.ScheduledOp) -> Request:
 # in-process: the stream's order wrapped as a Request
 # ---------------------------------------------------------------------------
 
-def async_request(value, device) -> Request:
+def async_request(value, device, cid: int = -1) -> Request:
     """A Request for work already enqueued on ``device``'s current
     stream, carrying ``value``: complete once an event recorded behind
     that work fires (checked by test() and by every engine tick); on the
-    CPU, complete now."""
+    CPU, complete now. A blocking wait on the event is armed with the
+    stall watchdog (``progress.event_block``)."""
     if getattr(device, "type", None) != "cuda":
         req = Request()
         req.complete(value=value)
@@ -203,7 +231,8 @@ def async_request(value, device) -> Request:
 
     ev = torch.cuda.Event()
     ev.record(torch.cuda.current_stream(device))
-    req = Request(ready_fn=ev.query, block_fn=ev.synchronize)
+    req = Request(ready_fn=ev.query,
+                  block_fn=_progress.event_block(ev, "device_event", cid))
     req.value = value
     _progress.engine().add_poll(req)
     return req
@@ -217,7 +246,12 @@ def ibarrier(comm) -> Request:
     comm._check_usable()
     if _spanning(comm):
         return icoll(comm, "barrier", ())
-    return async_request(None, comm.device)
+    if _sentinel.enabled:
+        # the in-process branch bypasses both the _coll wrapper and
+        # icoll — without this note it would be the one unhashed
+        # collective entry
+        _sentinel.note(comm, "barrier")
+    return async_request(None, comm.device, comm.cid)
 
 
 # ---------------------------------------------------------------------------
@@ -247,18 +281,27 @@ def icoll(comm, name: str, args: Tuple, kw: Optional[Dict] = None
     t0 = _time.perf_counter()
     comm._check_usable()
     fn = _resolve(comm, name)
+    # contract sentinel: the call signature is derived at POSTING time
+    # (the user frame is on the stack, the per-comm posting seq is
+    # this slot); inline verification, if any, runs at execution
+    sig = _sentinel.note(comm, name, args, kw) if _sentinel.enabled \
+        else None
     if not _spanning(comm):
         return async_request(
-            _plan.dispatch(comm, name, fn, tuple(args), kw), comm.device)
+            _plan.dispatch(comm, name, fn, tuple(args), kw), comm.device,
+            comm.cid)
     comm._ft_fastfail(name)
     nested = _nested_inline(comm, fn, (comm,) + tuple(args), kw)
     if nested is not None:
         return nested
     state = _plan.spanning_state_for(comm, name, args, kw)
+    if sig is not None:
+        fn = _sentinel.wrap_inline(comm, sig, fn,
+                                   _inline_tpl(state, sig))
     run = _plan.spanning_wrap(state, fn)
     op = _make_op(comm, name, run, (comm,) + tuple(args), kw)
     req = _op_request(op)  # callback wired BEFORE the engine sees it
-    _post(op)
+    _post(comm, op)
     _orch.add(_time.perf_counter() - t0)
     return req
 
@@ -278,11 +321,19 @@ def run_blocking(comm, name: str, fn: Callable, args: Tuple,
     cur = eng.executing()
     if cur is not None and cur.key == _comm_key(comm):
         return fn(*args, **(kw or {}))
+    # the sentinel notes against the USER-FACING args (args[0] is the
+    # comm for c_coll entries; note() strips it), and the plan state
+    # keys on the same signature the i-family/persistent paths use
     user_args = args[1:] if args and args[0] is comm else args
     state = _plan.spanning_state_for(comm, name, user_args, kw)
+    if _sentinel.enabled:
+        sig = _sentinel.note(comm, name, user_args, kw)
+        if sig is not None:
+            fn = _sentinel.wrap_inline(comm, sig, fn,
+                                       _inline_tpl(state, sig))
     run = _plan.spanning_wrap(state, fn)
     op = _make_op(comm, name, run, args, kw)
-    _post(op)
+    _post(comm, op)
     _orch.add(_time.perf_counter() - t0)
     return eng.wait(op)
 
@@ -298,9 +349,13 @@ def submit(comm, name: str, fn: Callable, args: Tuple,
     nested = _nested_inline(comm, fn, args, kw)
     if nested is not None:
         return nested
+    if _sentinel.enabled:
+        sig = _sentinel.note(comm, name, args, kw)
+        if sig is not None:
+            fn = _sentinel.wrap_inline(comm, sig, fn)
     op = _make_op(comm, name, fn, args, kw)
     req = _op_request(op)  # callback wired BEFORE the engine sees it
-    _post(op)
+    _post(comm, op)
     return req
 
 
@@ -344,10 +399,18 @@ def persistent(comm, name: str, args: Tuple, kw: Optional[Dict] = None
 
         def fire() -> Request:
             t0 = _time.perf_counter()
-            run = _plan.spanning_wrap(state, fn)
+            # each start() is one collective round: it takes its own
+            # posting-seq slot in the comm's signature chain
+            run = fn
+            if _sentinel.enabled:
+                sig = _sentinel.note(comm, name, args, kw)
+                if sig is not None:
+                    run = _sentinel.wrap_inline(
+                        comm, sig, fn, _inline_tpl(state, sig))
+            run = _plan.spanning_wrap(state, run)
             op = _make_op(comm, name, run, (comm,) + bound_args(), kw)
             inner = _op_request(op)
-            _post(op)
+            _post(comm, op)
             _orch.add(_time.perf_counter() - t0)
             return inner
     elif name == "barrier":
@@ -359,11 +422,13 @@ def persistent(comm, name: str, args: Tuple, kw: Optional[Dict] = None
         sig_box: list = []  # signature computed once, not per start
 
         def fire() -> Request:
+            if _sentinel.enabled:
+                _sentinel.note(comm, name, args, kw)
             a = (comm._buf(args[0]),) + tuple(args[1:])
             return async_request(
                 _plan.dispatch(comm, name, fn, a, kw, sig_box=sig_box,
                                bound=bound),
-                comm.device)
+                comm.device, comm.cid)
 
     def start(req) -> None:
         _persistent_starts.add()

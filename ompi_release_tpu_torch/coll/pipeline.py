@@ -21,14 +21,23 @@ The per-comm program cache key gains ``("pipelined", nseg)``.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, List, Tuple
 
 import torch
 
+from .. import obs as _obs
+from ..mca import pvar
 from ..mca import var as mca_var
 from ..ops.op import Op
 from . import driver as _driver
 from . import dynamic_rules, spmd
+
+_segments = pvar.aggregate(
+    "coll_pipeline_segments",
+    "segments per pipelined collective dispatch (count = pipelined "
+    "calls, sum/max = segment counts in effect)",
+)
 
 
 def register_vars() -> None:
@@ -129,7 +138,18 @@ def reduce_binomial_pipelined(x: torch.Tensor, op: Op, n: int, root: int,
 
 
 def run_pipelined(comm, key: Tuple, body: Callable, x, *,
-                  nseg: int) -> torch.Tensor:
+                  nseg: int, nbytes: int = 0,
+                  opname: str = "") -> torch.Tensor:
     """Dispatch a pipelined body through the driver with the segment
-    count appended to the program-cache key."""
-    return _driver.run_sharded(comm, key + ("pipelined", nseg), body, x)
+    count appended to the program-cache key. With obs on, the run is
+    one ``pipeline``-layer span named ``opname`` carrying ``nbytes``."""
+    _segments.observe(nseg)  # zero-cost pvar site (module-level)
+    full_key = key + ("pipelined", nseg)
+    if not _obs.enabled:
+        return _driver.run_sharded(comm, full_key, body, x)
+    label = opname or _driver._op_name(key)
+    t0 = time.perf_counter()
+    out = _driver.run_sharded(comm, full_key, body, x)
+    _obs.record(label, "pipeline", t0, time.perf_counter() - t0,
+                nbytes=nbytes, comm_id=getattr(comm, "cid", -1))
+    return out

@@ -75,10 +75,16 @@ consistently.
 
 pvars: ``coll_compiled_cache_hits`` (1 = a frozen plan fired, 0 = a
 capturing run froze one; sum/count = the steady-state hit ratio),
-``coll_graph_capture_failures`` and ``coll_wire_rounds_frozen``. Not
-ported yet: the obs ledger records, the watchdog contributor and
-``obs_trace_sample`` wait for the observability plane (ROADMAP item
-16).
+``coll_graph_capture_failures`` and ``coll_wire_rounds_frozen``.
+
+Observed fires stay on the frozen path: a device fire (a graph replay
+on the card) appends one fixed-size ``KIND_DEVICE`` record to the obs
+ledger around the replay — never inside the captured body, which a
+graph would run once at capture and never again — and a spanning
+replay one ``KIND_SPANNING`` record with its round-end clock reads,
+which ``tpu-doctor`` expands into the interpreted path's exact flow
+ids; the watchdog's ``frozen_plans`` contributor names the plan and round
+a stalled rank is replaying.
 """
 
 from __future__ import annotations
@@ -90,8 +96,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ..mca import pvar
 from ..mca import var as mca_var
+from ..obs import ledger as _ledger
+from ..obs import watchdog as _watchdog
 from ..utils import output
 from ..utils.errors import ErrorCode, MPIError
 from . import driver as _driver
@@ -183,6 +192,43 @@ def _overlap_on() -> bool:
     # keeps spanning fires fully interpreted, where _XchgAdapter
     # honours the flag
     return _refresh_conf()[2]
+
+
+#: live planned replays, keyed by plan-state identity: the watchdog's
+#: "frozen_plans" contributor names the plan (id, signature, round
+#: index) a rank is stuck inside, instead of just raw wire waits.
+#: Mutated only under an ``_obs.enabled`` gate (postmortems only fire
+#: with obs on), so the unobserved hot path never touches it.
+_active_replays: Dict[int, Tuple["SpanningPlanState",
+                                 "PlannedXchg"]] = {}
+
+
+def _frozen_plans_snapshot() -> Dict[str, Any]:
+    out = []
+    for st, px in list(_active_replays.values()):
+        plan = px.plan
+        out.append({
+            "plan": plan.ledger_id, "name": st.name,
+            "comm": getattr(st.comm, "name", "?"), "cid": plan.cid,
+            "signature": _ledger._sig_summary(st.sig),
+            "round": px.i, "rounds_total": len(plan.rounds),
+        })
+    return {"active_replays": out, **cache_stats()}
+
+
+_watchdog.add_contributor("frozen_plans", _frozen_plans_snapshot)
+
+
+def _sig_nbytes(sig: Tuple) -> int:
+    """Payload bytes of a plan signature's first array argument (the
+    flight recorder's per-fire byte accounting for device plans)."""
+    for d in sig[1:]:
+        if isinstance(d, tuple) and d and d[0] == "arr":
+            n = 1
+            for s in d[1]:
+                n *= int(s)
+            return n * _ledger._itemsize(d[2])
+    return 0
 
 
 def clear_comm(cid: int) -> None:
@@ -448,6 +494,10 @@ def dispatch(comm, name: str, fn: Callable, args: Tuple,
         frozen = e.get("frozen")
         if frozen is None:  # "bad": stays interpreted
             return fn(comm, *args, **kw)
+        # the steady state — observed or not. An observed fire is
+        # flight-recorded (one fixed-size ledger record, no span
+        # objects).
+        obs_on = _obs.enabled
         if frozen.graph is None and x.is_cuda:
             why = frozen.capture(x, None if bound else comm.cid)
             if why is not None:
@@ -461,7 +511,18 @@ def dispatch(comm, name: str, fn: Callable, args: Tuple,
         _driver._plan_cache.observe(1.0)
         _compiled_hits.observe(1)
         _driver._orch.add(_time.perf_counter() - t0)
-        return frozen.fire(x)
+        if not obs_on:
+            return frozen.fire(x)
+        # the record sits around the replay, not inside the captured
+        # body: a graph runs host code once, at capture
+        out = frozen.fire(x)
+        lid = e.get("lid")
+        if lid is None:
+            lid = e["lid"] = _ledger.register_device_plan(
+                comm.cid, name, _sig_nbytes(sig), sig)
+        _ledger.record_fire(_ledger.KIND_DEVICE, lid, comm.cid,
+                            t0, _time.perf_counter())
+        return out
     # capture attempt: interpreted run with body-launch recording
     _driver.orch_mark(t0)  # the timer covers the decision path too
     cap = _driver.begin_capture()
@@ -475,6 +536,9 @@ def dispatch(comm, name: str, fn: Callable, args: Tuple,
             and not cap[0]["extra"]):
         entry["frozen"] = _Frozen(cap[0]["prog"])
         _compiled_hits.observe(0)
+        if _obs.enabled:
+            _obs.record("plan_capture_" + name, "plan", t0,
+                        _time.perf_counter() - t0, comm_id=comm.cid)
     else:
         entry["bad"] = "the collective is not its body alone"
     if bound:
@@ -572,7 +636,7 @@ class WirePlan:
     :class:`~..btl.components.FrameTemplate`), plus the plan-time
     ``wire_coll_timeout_ms`` snapshot replay waits are bounded by."""
 
-    __slots__ = ("gen", "cid", "rounds", "timeout_ms")
+    __slots__ = ("gen", "cid", "rounds", "timeout_ms", "ledger_id")
 
     def __init__(self, gen: int, cid: int, rounds: List[WireRound],
                  timeout_ms: int) -> None:
@@ -580,6 +644,10 @@ class WirePlan:
         self.cid = cid
         self.rounds = rounds
         self.timeout_ms = timeout_ms
+        #: flight-recorder plan id — registered lazily at the first
+        #: OBSERVED fire (obs/ledger holds the frozen round/flow
+        #: structure; fires then append fixed-size records only)
+        self.ledger_id: Optional[int] = None
 
 
 def freeze_wire_plan(comm, recorded: List[Tuple[Tuple, Tuple]],
@@ -672,12 +740,16 @@ class PlannedXchg:
     compare), then sends through the precomposed frame path and reaps
     in arrival order."""
 
-    __slots__ = ("m", "plan", "i")
+    __slots__ = ("m", "plan", "i", "ts")
 
     def __init__(self, module, plan: WirePlan) -> None:
         self.m = module
         self.plan = plan
         self.i = 0
+        #: round-end clock reads for the flight recorder (one
+        #: perf_counter per planned round); None = unobserved fire,
+        #: zero clock reads
+        self.ts: Optional[List[float]] = None
 
     def exchange(self, sends: Dict[int, list],
                  recvs: Dict[int, int]) -> Dict[int, list]:
@@ -701,9 +773,17 @@ class PlannedXchg:
             m._send_all_planned(rnd, sends_f)
         got: Dict[int, list] = {p: [] for p in rnd.recvs}
         if rnd.recvs:
+            # record=False: the flight recorder owns this fire's
+            # span/flow story (expanded from the plan structure at
+            # doctor time) — per-arrival journal spans here would
+            # duplicate the synthetic ones and advance the hier
+            # flow-k counters the expansion re-derives from zero
             m._reap(dict(rnd.recvs),
                     lambda src, arr: got[src].append(arr),
                     self.plan.timeout_ms, record=False)
+        ts = self.ts
+        if ts is not None:
+            ts.append(_time.perf_counter())
         return got
 
 
@@ -714,7 +794,8 @@ class SpanningPlanState:
     the next plan, never mid-schedule); a replay that fails drops the
     plan and its native executor."""
 
-    __slots__ = ("comm", "name", "plan", "sig", "native", "last", "why")
+    __slots__ = ("comm", "name", "plan", "sig", "native", "last", "why",
+                 "sentinel_tpl")
 
     def __init__(self, comm, name: str, sig: Optional[Tuple] = None
                  ) -> None:
@@ -731,6 +812,9 @@ class SpanningPlanState:
         #: why the plan stayed on PlannedXchg (the native compile's
         #: _Ineligible/_ProbeFail text), None when it went native
         self.why: Optional[str] = None
+        #: (key, InlineFrameTemplate) cache — sentinel level 2's
+        #: precomposed ctl-frame payload for this plan's call shape
+        self.sentinel_tpl: Optional[Tuple] = None
 
     def _drop_native(self) -> None:
         nx, self.native = self.native, None
@@ -751,8 +835,9 @@ class SpanningPlanState:
             self._drop_native()
         old = m._xchg
         if plan is None:
-            # recording rides the fully-interpreted transport (pvars
-            # untouched) — the recorder only watches
+            # recording rides the fully-interpreted transport (spans,
+            # flow ids, pvars untouched) — the recorder only watches
+            t0 = _time.perf_counter()
             rec = RoundRecorder(old)
             m._xchg = rec
             try:
@@ -764,6 +849,10 @@ class SpanningPlanState:
                                          rec.recv_metas)
             if self.plan is not None:
                 _compiled_hits.observe(0)
+                if _obs.enabled:
+                    _obs.record("plan_freeze_" + self.name, "plan",
+                                t0, _time.perf_counter() - t0,
+                                comm_id=self.comm.cid)
                 # lower the fresh plan into the C executor (two
                 # wire-free probe runs + descriptor compile + ring
                 # bind); None = ineligible, replay stays interpreted
@@ -771,6 +860,7 @@ class SpanningPlanState:
 
                 self.native = _native.try_compile(self, m, fn, args, kw)
             return out
+        rec = _obs.enabled
         nx = self.native
         if nx is not None and nx.gen == plan.gen:
             from . import native_exec as _native
@@ -778,6 +868,15 @@ class SpanningPlanState:
             px = _native.NativeXchg(m, plan, nx, args)
         else:
             px = PlannedXchg(m, plan)
+        t0 = 0.0
+        if rec:
+            if plan.ledger_id is None:
+                plan.ledger_id = _ledger.register_spanning_plan(
+                    self.comm.cid, self.name, m.my_pidx, plan.rounds,
+                    self.sig)
+            px.ts = []
+            _active_replays[id(self)] = (self, px)
+            t0 = _time.perf_counter()
         m._xchg = px
         try:
             out = fn(*args, **kw)
@@ -790,9 +889,20 @@ class SpanningPlanState:
             raise
         finally:
             m._xchg = old
+            if rec:
+                _active_replays.pop(id(self), None)
         self.last = "native" if getattr(px, "fired", False) \
             else "planned"
         _compiled_hits.observe(1)
+        if rec and _obs.enabled:
+            # one fixed-size binary record; round0 is the hier round
+            # counter _wrap advanced for this fire (synchronized
+            # across ranks under obs), the flow-id base the doctor's
+            # expansion shares with the interpreted path
+            _ledger.record_fire(_ledger.KIND_SPANNING, plan.ledger_id,
+                                self.comm.cid, t0,
+                                _time.perf_counter(),
+                                round0=m._round, round_ts=px.ts)
         return out
 
 

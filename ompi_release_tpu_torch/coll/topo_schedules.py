@@ -2,7 +2,7 @@
 2D-torus decomposition for the spanning collectives.
 
 (The port's copy of ``ompi_release_tpu/coll/topo_schedules.py``,
-which imports no JAX; the observability spans wait for the obs slice.)
+which imports no JAX.)
 
 The schedules in :mod:`.hier_schedules` treat every inter-process link
 as uniform; the modex host identity knows better. This module adds the
@@ -47,10 +47,12 @@ rule-downgrades guard semantics the leader tier pinned.
 from __future__ import annotations
 
 import math
+import time as _time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import obs as _obs
 from ..mca import pvar
 from . import hier_schedules as _hs
 from .hier_schedules import _concat, _flat, _round
@@ -225,6 +227,8 @@ def allreduce_multiring(x, procs: List[int], me: int, mine,
     if len(strides) < 2:
         return _hs.allreduce_ring(x, procs, me, mine, op, identity)
     k = len(strides)
+    rec = _obs.enabled
+    t0 = _time.perf_counter() if rec else 0.0
     mi = procs.index(me)
     flat, L, per = _pad_flat(mine, k * P, identity)
     # chunks[j][c]: stripe j's chunk at ring position c
@@ -254,6 +258,9 @@ def allreduce_multiring(x, procs: List[int], me: int, mine,
     out = np.concatenate([chunks[j][c]
                           for j in range(k) for c in range(P)])[:L]
     _topo_runs.add()
+    if rec and _obs.enabled:
+        _obs.record("topo_allreduce_multiring", "hier", t0,
+                    _time.perf_counter() - t0, nbytes=int(out.nbytes))
     return out
 
 
@@ -274,6 +281,8 @@ def allreduce_torus2d(x, procs: List[int], me: int, mine,
     if grid is None or grid[0] == 1:
         return _hs.allreduce_ring(x, procs, me, mine, op, identity)
     d0, d1, groups = grid
+    rec = _obs.enabled
+    t0 = _time.perf_counter() if rec else 0.0
     gi, gj = _coords(grid, me)
     group = groups[gj]
     column = [groups[j][gi] for j in range(d1)]
@@ -287,6 +296,9 @@ def allreduce_torus2d(x, procs: List[int], me: int, mine,
     out = np.concatenate([_flat(got[(c - 1) % d0])
                           for c in range(d0)])[:L]
     _topo_runs.add()
+    if rec and _obs.enabled:
+        _obs.record("topo_allreduce_torus2d", "hier", t0,
+                    _time.perf_counter() - t0, nbytes=int(out.nbytes))
     return out
 
 
@@ -302,6 +314,8 @@ def allgather_torus2d(x, procs: List[int], me: int, mine,
     if grid is None:
         return _hs.allgather_ring(x, procs, me, mine)
     d0, d1, groups = grid
+    rec = _obs.enabled
+    t0 = _time.perf_counter() if rec else 0.0
     gi, gj = _coords(grid, me)
     column = [groups[j][gi] for j in range(d1)]
     col_blocks = _hs.allgather_ring(x, column, me, np.asarray(mine))
@@ -316,6 +330,10 @@ def allgather_torus2d(x, procs: List[int], me: int, mine,
             block_of[groups[j][i]] = np.asarray(rows[i][j])
     out = [block_of[p] for p in procs]
     _topo_runs.add()
+    if rec and _obs.enabled:
+        _obs.record("topo_allgather_torus2d", "hier", t0,
+                    _time.perf_counter() - t0,
+                    nbytes=sum(int(b.nbytes) for b in out))
     return out
 
 
@@ -329,6 +347,8 @@ def bcast_torus2d(x, procs: List[int], me: int, root: int, val,
     if grid is None:
         return _hs.bcast_binomial(x, procs, me, root, val)
     d0, d1, groups = grid
+    rec = _obs.enabled
+    t0 = _time.perf_counter() if rec else 0.0
     _, gj = _coords(grid, me)
     _, rj = _coords(grid, root)
     reps = sorted({root} | {groups[j][0] for j in range(d1)
@@ -341,4 +361,7 @@ def bcast_torus2d(x, procs: List[int], me: int, root: int, val,
         val = _hs.bcast_binomial(x, group, me, rep, val)
     val = np.asarray(val)
     _topo_runs.add()
+    if rec and _obs.enabled:
+        _obs.record("topo_bcast_torus2d", "hier", t0,
+                    _time.perf_counter() - t0, nbytes=int(val.nbytes))
     return val

@@ -28,11 +28,13 @@ are tensors on the comm's device.
 
 from __future__ import annotations
 
+import time as _time
 from typing import List, Sequence
 
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ..mca import pvar as _pvar
 from ..mca import var as mca_var
 from ..ops.op import Op
@@ -164,6 +166,8 @@ def alltoallv(comm, sendbufs: Sequence, sendcounts, *,
     layout. Skewed count matrices are capped (:func:`_skew_cap`): the
     hot pairs' tails are read straight from the send buffers into the
     receive buffers (``vcoll_alltoallv_overflow_elems``)."""
+    rec = _obs.enabled  # capture once: flag may flip mid-call
+    t_edge = _time.perf_counter() if rec else 0.0
     n = comm.size
     bufs = _as_1d_tensors(comm, sendbufs, "alltoallv")
     c = _counts_matrix(sendcounts, n)
@@ -197,6 +201,14 @@ def alltoallv(comm, sendbufs: Sequence, sendcounts, *,
                           out.numel() + starts.T + base_c.T], axis=-1)
     seg_len = np.stack([base_c.T, (c - base_c).T], axis=-1)
     recv = src[_segments(seg_start, seg_len, comm.device)]
+    if rec:
+        # whole-edge span (pad + kernel + overflow delivery); the
+        # kernel's own coll-layer span nests inside it in the trace
+        _obs.record(
+            "alltoallv", "vcoll", t_edge, _time.perf_counter() - t_edge,
+            nbytes=int((n * n * cap + overflow) * send.element_size()),
+            comm_id=comm.cid,
+        )
     return _split(recv, c.sum(axis=0)) if n > 1 else [recv]
 
 
@@ -207,6 +219,8 @@ def alltoallv(comm, sendbufs: Sequence, sendcounts, *,
 def allgatherv(comm, sendbufs: Sequence, *, kernel: str = "lax"):
     """Concatenate every rank's (ragged) buffer in rank order; the
     result is identical on all ranks, returned once."""
+    rec = _obs.enabled
+    t_edge = _time.perf_counter() if rec else 0.0
     n = comm.size
     bufs = _as_1d_tensors(comm, sendbufs, "allgatherv")
     counts = np.asarray([b.shape[0] for b in bufs], np.int64)
@@ -222,7 +236,13 @@ def allgatherv(comm, sendbufs: Sequence, *, kernel: str = "lax"):
                       padded)
     # (n, n, cmax): every row the same gathered copy; read rank 0's
     g = out[0].reshape(-1)
-    return g[_segments(np.arange(n) * cmax, counts, comm.device)]
+    result = g[_segments(np.arange(n) * cmax, counts, comm.device)]
+    if rec:
+        _obs.record("allgatherv", "vcoll", t_edge,
+                    _time.perf_counter() - t_edge,
+                    nbytes=int(n * cmax * g.element_size()),
+                    comm_id=comm.cid)
+    return result
 
 
 def gatherv(comm, sendbufs: Sequence, root: int, *, kernel: str = "lax"):

@@ -56,6 +56,7 @@ import torch
 
 from ..ft import ulfm as _ulfm
 from ..mca import pvar
+from ..obs import sentinel as _sentinel
 from ..runtime.mesh import build_submesh
 from ..utils import output
 from ..utils.cids import CID_BAND, CID_LIMIT, DPM_CID_BASE
@@ -143,6 +144,10 @@ def _evict_for(cid: int) -> None:
             f"explicit cid {cid} already registered ({occupant.name}) "
             "— free it before rebuilding at the same epoch")
     _ulfm.state().clear_revoked(cid)
+    # the evicted ancestor's sentinel chain goes with it: a leftover
+    # posting seq would false-mismatch the rebuilt comm against a
+    # restarted-from-zero replacement
+    _sentinel.clear_chain(cid)
 
 
 def clear_comm_registry() -> None:
@@ -380,6 +385,7 @@ class Communicator:
             except MPIError:
                 pass  # already freed
         _comm_registry.pop(self.cid, None)
+        _sentinel.clear_chain(self.cid)
         # frozen plans (and their graphs' memory pool) die with the comm:
         # a reused cid must never fire a dead comm's plans
         _coll_plan.clear_comm(self.cid)
@@ -390,9 +396,11 @@ class Communicator:
         """Drop the frozen plans of this comm and of its hier shadow:
         their CUDA graphs and pool, wire plans and C executors (a
         revoked comm never fires again, and a rebuild that reuses the
-        cid must record afresh)."""
+        cid must record afresh). Its sentinel chain goes too: the
+        contract story of a revoked comm is closed."""
         from ..coll import plan as _coll_plan
 
+        _sentinel.clear_chain(self.cid)
         _coll_plan.clear_comm(self.cid)
         m = getattr(self, "_hier_module", None)
         shadow = getattr(m, "shadow", None)
@@ -589,6 +597,16 @@ class Communicator:
         # per (signature, cvar generation), not once per call
         from ..coll import plan as _plan
 
+        if _sentinel.enabled:
+            # contract sentinel: in-process collectives fold into the
+            # comm's signature chain too (chain determinism, the
+            # post-hoc journal record); spanning comms note inside
+            # nbc.run_blocking where the args are bound
+            def noted(comm_, *a, **k):
+                _sentinel.note(self, op_name, a, k)
+                return _plan.dispatch(comm_, op_name, fn, a, k)
+
+            return noted
         return lambda comm_, *a, **k: _plan.dispatch(comm_, op_name, fn, a,
                                                      k)
 

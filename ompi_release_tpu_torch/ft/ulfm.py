@@ -31,16 +31,17 @@ records afresh.
 The cid arithmetic (:func:`ft_cid`, the tenant bands) lives with the
 rest of the cid layout in ``utils/cids.py``; it is re-exported here,
 where the JAX package keeps it. The tenant band math is the service
-plane's (ROADMAP item 16), ported because a tenant-scoped rebuild uses
+plane's (ROADMAP item 16b), ported because a tenant-scoped rebuild uses
 it.
 
 Listeners (:meth:`FtState.add_listener`) run after every change of the
 picture: a notice (the document) and a revoke (``{"revoked": cid}``) —
 the C plan executor raises its fault words from one.
 
-Waiting for the observability plane (ROADMAP item 16): the span
-journal records of failures, revokes and band revokes, and the
-watchdog's ``ft_state`` contributor.
+With obs on, a failure, a revoke and a band revoke each land in the
+span journal (layer ``ft``), so the doctor's incident timeline places
+them between a stalled round and its recovery; the flight recorder's
+``ft_state`` contributor dumps the failure picture.
 
 No torch imports here: this module sits under the wire router's hot
 path and must stay import-light.
@@ -49,8 +50,10 @@ path and must stay import-light.
 from __future__ import annotations
 
 import threading
+import time as _time
 from typing import Callable, Dict, List, Optional, Set
 
+from .. import obs as _obs
 from ..mca import pvar
 from ..utils import output
 from ..utils.cids import (  # noqa: F401  (re-exported: the JAX API)
@@ -156,6 +159,14 @@ class FtState:
         if new_failures:
             _log.verbose(1, f"epoch {epoch}: process(es) "
                             f"{sorted(new_failures)} failed")
+            if _obs.enabled:
+                # the failure event lands in the span journal so the
+                # doctor's merged timeline shows WHEN each rank
+                # learned of the death relative to its stalled round
+                for p in sorted(new_failures):
+                    _obs.record("ft_failure", "ft",
+                                _time.perf_counter(), 0.0,
+                                peer=int(p), comm_id=epoch)
         self._notify(doc)
 
     def add_listener(self, cb: Callable[[dict], None]) -> None:
@@ -183,6 +194,13 @@ class FtState:
             return False
         revokes.add()
         _log.verbose(1, f"cid {cid} revoked")
+        if _obs.enabled:
+            # the revoke lands in the span journal (epoch in the peer
+            # slot) so tpu-doctor report's incident timeline can place
+            # it between the failure and the recovery
+            _obs.record("ft_revoke", "ft", _time.perf_counter(), 0.0,
+                        peer=(epoch if epoch >= 0 else self.epoch),
+                        comm_id=cid)
         # a running C plan fire on the cid stops at its next slice
         self._notify({"revoked": int(cid)})
         # queued (not yet running) schedules on the revoked comm
@@ -248,6 +266,13 @@ class FtState:
         if first:
             _log.verbose(1, f"cid band [{lo}, {hi}) revoked "
                             f"({n} live comm(s))")
+            if _obs.enabled:
+                # one band-level incident event (per-cid revokes
+                # journal themselves through apply_revoke)
+                _obs.record("ft_revoke_band", "ft",
+                            _time.perf_counter(), 0.0,
+                            peer=(epoch if epoch >= 0 else self.epoch),
+                            comm_id=lo, nbytes=hi - lo)
         return n
 
     def clear_band(self, lo: int, hi: int) -> None:
@@ -347,3 +372,10 @@ STATE = FtState()
 
 def state() -> FtState:
     return STATE
+
+
+# postmortems must name known-failed ranks rather than listing them as
+# merely "awaiting": the flight recorder gets the whole picture
+from ..obs import watchdog as _watchdog  # noqa: E402
+
+_watchdog.add_contributor("ft_state", lambda: STATE.snapshot())

@@ -19,8 +19,9 @@ An asynchronous save copies its input before it returns (the port's
 tensors are mutable, JAX's arrays are not): a caller that updates the
 tensor in place afterwards does not change what is written.
 
-Not ported yet: the obs spans of a shard read or write (ROADMAP queue 1
-item 16).
+With obs on, each shard write (device pull + disk) is a ``shard_write``
+span and each shard read a ``shard_read`` span (layer ``io``, the
+shard index in the peer slot).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import io as _io
 import json
 import os
 import threading
+import time as _time
 import zlib
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, List, Optional
@@ -37,6 +39,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ..mca import pvar
 from ..mca import var as mca_var
 from ..utils import pytree
@@ -159,6 +162,8 @@ def _save(path: str, x: torch.Tensor, ready, *, name: str, async_: bool,
     crcs: List[Optional[int]] = [None] * n
 
     def write_one(i: int) -> int:
+        rec = _obs.enabled  # capture once: flag may flip mid-write
+        t0 = _time.perf_counter() if rec else 0.0
         if ready is not None:
             ready.synchronize()
         src = (xflat[int(bounds[i]):int(bounds[i + 1])]
@@ -174,6 +179,10 @@ def _save(path: str, x: torch.Tensor, ready, *, name: str, async_: bool,
         with opener(fn, "wb") as f:
             f.write(raw)
         _bytes_written.add(block.nbytes)
+        if rec:  # per-shard write incl. device pull + disk
+            _obs.record("shard_write", "io", t0,
+                        _time.perf_counter() - t0, nbytes=block.nbytes,
+                        peer=i)
         return block.nbytes
 
     ex = _executor()
@@ -217,6 +226,8 @@ def load_sharded(path: str, *, name: str = "array") -> torch.Tensor:
     crcs = manifest.get("crc32")
 
     def read_one(i: int) -> np.ndarray:
+        rec = _obs.enabled
+        t0 = _time.perf_counter() if rec else 0.0
         fn = os.path.join(path, f"{manifest['name']}.shard{i:05d}.npy")
         opener = gzip.open if compress == "gzip" else open
         with opener(fn, "rb") as f:
@@ -231,6 +242,10 @@ def load_sharded(path: str, *, name: str = "array") -> torch.Tensor:
                 )
         block = np.load(_io.BytesIO(raw))
         _bytes_read.add(block.nbytes)
+        if rec:
+            _obs.record("shard_read", "io", t0,
+                        _time.perf_counter() - t0, nbytes=block.nbytes,
+                        peer=i)
         return block
 
     blocks = list(_executor().map(read_one, range(n)))

@@ -13,15 +13,16 @@ them and the callers withdraw): :func:`wire_symbols_available`,
 :func:`telemetry_symbols_available` and
 :func:`planexec_symbols_available` probe them; ``OobEndpoint.sendv``/
 ``recv_frag``/``wire_stats``, :class:`ShmRing` and :class:`PlanExec`
-wrap them for ``btl/nativewire`` and ``coll/native_exec``. The native
-event ring (``NativeEventRing``) waits for the observability plane
-(ROADMAP item 16).
+wrap them for ``btl/nativewire`` and ``coll/native_exec``;
+:class:`NativeEventRing` wraps the native event ring the transports
+append one record per fragment to (``obs/nativeev.py`` decodes it).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import struct
 import subprocess
 import threading
 from typing import List, Optional, Tuple, Union
@@ -756,6 +757,104 @@ class ShmRing:
     def close(self) -> None:
         if self._h:
             self._lib.shmring_close(self._h)
+            self._h = None
+
+    def __del__(self) -> None:
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class NativeEventRing:
+    """mmap'd fixed-record native event ring ("ompitpu-nativeev-v1").
+
+    One per process, created by the nativewire component when the
+    ``wire_native_events`` cvar is on; the C transports append one
+    32-byte record per SGC2 fragment once :meth:`install` makes this
+    ring the process sink. Drop-oldest wrap: :meth:`read` returns the
+    newest ``nslots`` records at most, with the first live sequence so
+    consumers can report the gap."""
+
+    #: one record: t_ns u64, xfer u64, tag i32, bytes u32,
+    #: idx_dir u32 (bit 31 = receive side), wait_ns u32
+    RECORD = struct.Struct("<QQiIII")
+
+    def __init__(self, handle, name: str) -> None:
+        self._lib = load_library()
+        self._h = handle
+        self.name = name
+
+    @classmethod
+    def create(cls, name: str,
+               nslots: int) -> Optional["NativeEventRing"]:
+        lib = load_library()
+        if not hasattr(lib, "nativeev_create"):
+            return None
+        h = lib.nativeev_create(name.encode(), nslots)
+        return cls(h, name) if h else None
+
+    @classmethod
+    def attach(cls, name: str) -> Optional["NativeEventRing"]:
+        lib = load_library()
+        if not hasattr(lib, "nativeev_attach"):
+            return None
+        h = lib.nativeev_attach(name.encode())
+        return cls(h, name) if h else None
+
+    @staticmethod
+    def unlink(name: str) -> None:
+        try:
+            load_library().nativeev_unlink(name.encode())
+        except Exception:
+            pass  # best-effort cleanup
+
+    def _handle(self):
+        h = self._h
+        if not h:
+            raise MPIError(ErrorCode.ERR_OTHER, "event ring is closed")
+        return h
+
+    def install(self) -> None:
+        """Make this ring the process-global emit sink."""
+        self._lib.nativeev_install(self._handle())
+
+    def uninstall(self) -> None:
+        self._lib.nativeev_install(None)
+
+    @property
+    def nslots(self) -> int:
+        return int(self._lib.nativeev_nslots(self._handle()))
+
+    def count(self) -> int:
+        """Records ever appended (monotonic across wraps)."""
+        return int(self._lib.nativeev_count(self._handle()))
+
+    def read(self, start: int = 0,
+             max_records: int = 1 << 16) -> Tuple[int, list]:
+        """(first_seq, records) with records decoded to dicts
+        ``{t_ns, xfer, tag, bytes, idx, recv, wait_ns}``; first_seq is
+        the sequence of records[0] (> start when the ring lapped)."""
+        n = min(max_records, self.nslots)
+        buf = ctypes.create_string_buffer(n * self.RECORD.size)
+        first = ctypes.c_int64(0)
+        got = int(self._lib.nativeev_read(
+            self._handle(), start,
+            ctypes.cast(buf, ctypes.c_void_p), n, ctypes.byref(first)))
+        recs = []
+        for i in range(got):
+            t_ns, xfer, tag, nbytes, idx_dir, wait_ns = \
+                self.RECORD.unpack_from(buf, i * self.RECORD.size)
+            recs.append({
+                "t_ns": t_ns, "xfer": xfer, "tag": tag,
+                "bytes": nbytes, "idx": idx_dir & 0x7FFFFFFF,
+                "recv": bool(idx_dir >> 31), "wait_ns": wait_ns,
+            })
+        return int(first.value), recs
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.nativeev_close(self._h)
             self._h = None
 
     def __del__(self) -> None:

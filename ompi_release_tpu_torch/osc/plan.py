@@ -43,8 +43,9 @@ is byte-identical to ``osc/wire_win._pack_batch``'s; a home applies an
 arriving batch through the same access-plan cache (``close_epoch``), so
 a peer's steady-state epochs replay as CUDA graphs on the card.
 
-Not ported yet: the ledger record and obs spans of a replay (ROADMAP
-item 16).
+With obs on, a replayed close is one ``rma_epoch_replay`` span and one
+fixed-size ``KIND_RMA`` flight-recorder record, both taken around the
+graph replay (a captured graph runs no host code).
 """
 
 from __future__ import annotations
@@ -55,9 +56,12 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs as _obs
+from ..btl.components import payload_nbytes
 from ..coll.plan import arg_desc, capture_graph
 from ..mca import pvar
 from ..mca import var as mca_var
+from ..obs import ledger as _ledger
 from ..request.request import Status
 from ..utils import output
 
@@ -175,11 +179,17 @@ class EpochPlan:
     ``graph`` is the close captured at the first replay, reading
     ``static_in`` and writing ``static_out``."""
 
-    __slots__ = ("gen", "steps", "prog", "graph", "static_in",
-                 "static_out", "launches", "bad")
+    __slots__ = ("gen", "sig", "steps", "prog", "graph", "static_in",
+                 "static_out", "launches", "bad", "nbytes", "lid")
 
-    def __init__(self, gen: int, todo: List) -> None:
+    def __init__(self, gen: int, sig: Tuple, todo: List) -> None:
         self.gen = gen
+        self.sig = sig
+        #: payload bytes one replay carries (the ledger's record size)
+        self.nbytes = sum(payload_nbytes(p.data)
+                          + payload_nbytes(p.compare) for p in todo)
+        #: ledger plan id, registered at the first OBSERVED replay
+        self.lid: Optional[int] = None
         self.steps = tuple(
             (p.kind, int(p.target), p.data is not None,
              p.compare is not None,
@@ -316,10 +326,21 @@ def close_epoch(win, todo: List, t0: float) -> bool:
                    f"{type(e).__name__}: {e}; re-recording")
             return False
         _plan_hits.observe(1)
+        if _obs.enabled:
+            t1 = _time.perf_counter()
+            lid = plan.lid
+            if lid is None:
+                lid = plan.lid = _ledger.register_rma_plan(
+                    win.comm.cid, f"epoch[{len(todo)}]", plan.nbytes,
+                    sig)
+            _ledger.record_fire(_ledger.KIND_RMA, lid, win.comm.cid,
+                                t0, t1)
+            _obs.record("rma_epoch_replay", "osc", t0, t1 - t0,
+                        nbytes=plan.nbytes, comm_id=win.comm.cid)
         return True
     # first sight (or stale generation): freeze now, capture via the
     # interpreted program this close
-    plans[sig] = EpochPlan(gen, todo)
+    plans[sig] = EpochPlan(gen, sig, todo)
     _plans_frozen.add()
     _plan_hits.observe(0)
     return False

@@ -47,8 +47,12 @@ Payloads: a payload bound for another process is copied to the host when
 the op is queued; an arriving batch moves to the window's device before
 it is applied; reads come back as host tensors, each a copy.
 
-Not ported yet: the obs spans, watchdog arms and the flight recorder's
-lock-table contributor (ROADMAP item 16).
+Observability: with obs on, a request is a ``win_request`` span and
+its application at the home a ``win_apply`` span, both carrying the
+``("win", origin process, token)`` flow id the envelope already holds;
+the stall watchdog arms around a request's reply wait, a PSCW notice
+wait and a local lock wait; and the flight recorder's ``window_locks``
+contributor dumps every service's lock table.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ import itertools
 import json
 import threading
 import time
+import weakref
 import zipfile
 from collections import deque
 from typing import Dict, List, Optional, Tuple
@@ -65,10 +70,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs as _obs
+from ..btl.components import payload_nbytes
 from ..coll.plan import capture_lock
 from ..mca import pvar
 from ..mca import var as mca_var
 from ..native import DssBuffer
+from ..obs import watchdog as _watchdog
 from ..ops.op import PREDEFINED_OPS
 from ..request.request import Request, Status
 # the router's module registers wire_coll_timeout_ms, which OscTuning reads
@@ -160,6 +168,50 @@ _t_drain = pvar.timer("osc_wire_home_drain_seconds",
                       "home on the card: stream drain and reads to host")
 _t_reply = pvar.timer("osc_wire_reply_seconds",
                       "home: sending a reply and its reads")
+
+#: live window services (one per runtime) for the flight recorder's
+#: lock-table contributor — weak so a torn-down runtime's service
+#: never pins memory or shows up in dumps
+_services: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _lock_tables_snapshot() -> List[Dict]:
+    """Dump contributor: every live service's passive-target lock
+    table + outstanding reply slots (who holds what, who waits).
+    Lock acquisition is BOUNDED: the recorder dumps because something
+    is hung, possibly a thread wedged inside these very critical
+    sections — blocking here would hang the flight recorder itself
+    (and, via _dump_lock, every later dump)."""
+    out = []
+    for svc in list(_services):
+        entry: Dict = {"pidx": svc.my_pidx}
+        if svc._state_lock.acquire(timeout=0.5):
+            try:
+                entry["locks"] = [
+                    {"cid": k[0], "win_seq": k[1], "target": k[2],
+                     "mode": st.mode, "holders": sorted(st.holders),
+                     "waiters": [{"origin": w[0], "type": w[1],
+                                  "local": w[2] is not None}
+                                 for w in st.waiters]}
+                    for k, st in svc._locks.items()
+                ]
+            finally:
+                svc._state_lock.release()
+        else:
+            entry["locks"] = "unavailable: state lock held (a thread " \
+                             "is wedged inside the lock table)"
+        if svc._reply_guard.acquire(timeout=0.5):
+            try:
+                entry["outstanding_requests"] = len(svc._reply_slots)
+            finally:
+                svc._reply_guard.release()
+        else:
+            entry["outstanding_requests"] = "unavailable: reply guard held"
+        out.append(entry)
+    return out
+
+
+_watchdog.add_contributor("window_locks", _lock_tables_snapshot)
 
 #: window-service envelopes (any-source); payloads ride the three
 #: sibling channels so an any-source envelope pop can never swallow
@@ -367,6 +419,7 @@ class WinService:
         self._thread = threading.Thread(target=self._serve, daemon=True,
                                         name="win-service")
         self._thread.start()
+        _services.add(self)  # flight-recorder lock-table visibility
 
     # -- lifecycle ---------------------------------------------------------
     @classmethod
@@ -478,6 +531,8 @@ class WinService:
         # the payload must be consumed even if applying fails, and the
         # origin must get SOME reply or it stalls for the full request
         # timeout — failures reply KIND_ERROR
+        rec = _obs.enabled  # capture once: flag may flip mid-apply
+        t0 = time.perf_counter() if rec else 0.0
         with _t_recv.timing():
             payload = self.router._recv_payload(WIRE_WIN_DATA, src_pidx)
         try:
@@ -493,6 +548,14 @@ class WinService:
                             f"{src_pidx} failed: {e}")
             self._reply(src_pidx, cid, seq, KIND_ERROR, [], token)
             return
+        if rec and _obs.enabled:
+            # consumer side of the origin's (origin pidx, token) flow:
+            # both values rode the request envelope
+            _obs.record("win_apply", "osc", t0, time.perf_counter() - t0,
+                        nbytes=payload_nbytes(payload), peer=src_pidx,
+                        comm_id=cid,
+                        flow=_obs.flow_id("win", src_pidx, token),
+                        flow_side="t")
         self._reply(src_pidx, cid, seq, KIND_BATCH, reads, token)
 
     def _reply(self, dst_pidx: int, cid: int, seq: int, kind: int,
@@ -572,6 +635,15 @@ class WinService:
             timeout_ms = self.tuning().request_timeout_ms
         token = next(self._token)
         _win_requests.add()
+        rec = _obs.enabled  # capture once: flag may flip mid-request
+        wd_tok = None
+        if _watchdog.enabled:
+            wd_tok = _watchdog.arm(
+                f"win_request_kind{kind}", comm_id=win.comm.cid,
+                peer=owner_pidx,
+                info={"win_seq": win.win_seq, "token": token,
+                      "arg1": arg1, "arg2": arg2},
+            )
         slot = {"ev": threading.Event(), "reads": None, "kind": None,
                 "cid": -1, "seq": -1}
         with self._reply_guard:
@@ -591,6 +663,15 @@ class WinService:
                 if payload is not None:
                     self.router._send_payload(owner_pidx, WIRE_WIN_DATA,
                                               payload)
+            if rec and _obs.enabled:
+                # producer side: the home's win_apply span derives the
+                # same (origin pidx, token) id from the envelope
+                _obs.record(
+                    "win_request", "osc", t0, time.perf_counter() - t0,
+                    nbytes=payload_nbytes(payload),
+                    peer=owner_pidx, comm_id=win.comm.cid,
+                    flow=_obs.flow_id("win", self.my_pidx, token),
+                    flow_side="s")
             deadline = time.monotonic() + timeout_ms / 1000
             while not slot["ev"].is_set():
                 # one thread at a time pumps the shared channel; the
@@ -615,6 +696,8 @@ class WinService:
                         f"{timeout_ms / 1000:.0f}s",
                     )
         finally:
+            if wd_tok is not None:
+                _watchdog.disarm(wd_tok)
             with self._reply_guard:
                 self._reply_slots.pop(token, None)
             _t_request.add(time.perf_counter() - t0)
@@ -671,16 +754,28 @@ class WinService:
             return
         timeout_s = self.tuning().pscw_timeout_s
         deadline = (time.monotonic() + timeout_s) if timeout_s else None
-        with self._pscw_cv:
-            while not want <= table.get(key, set()):
-                if deadline is not None and deadline <= time.monotonic():
-                    raise MPIError(
-                        ErrorCode.ERR_RMA_SYNC,
-                        f"PSCW {what} timed out awaiting processes "
-                        f"{sorted(want - table.get(key, set()))}",
-                    )
-                self._pscw_cv.wait(timeout=1.0)
-            table[key] -= want
+        wd_tok = None
+        if _watchdog.enabled:
+            wd_tok = _watchdog.arm(
+                f"pscw_{what}", comm_id=key[0],
+                info=lambda: {"awaiting_procs": sorted(
+                    want - table.get(key, set()))},
+            )
+        try:
+            with self._pscw_cv:
+                while not want <= table.get(key, set()):
+                    if (deadline is not None
+                            and deadline <= time.monotonic()):
+                        raise MPIError(
+                            ErrorCode.ERR_RMA_SYNC,
+                            f"PSCW {what} timed out awaiting processes "
+                            f"{sorted(want - table.get(key, set()))}",
+                        )
+                    self._pscw_cv.wait(timeout=1.0)
+                table[key] -= want
+        finally:
+            if wd_tok is not None:
+                _watchdog.disarm(wd_tok)
 
     # -- home-side lock table ----------------------------------------------
     @staticmethod
@@ -767,7 +862,18 @@ class WinService:
         ev = threading.Event()
         if self.acquire(win, target, self.my_pidx, lock_type, event=ev):
             return
-        if ev.wait(timeout=timeout_s):
+        wd_tok = None
+        if _watchdog.enabled:
+            wd_tok = _watchdog.arm(
+                "win_lock_wait", comm_id=win.comm.cid, peer=target,
+                info={"win_seq": win.win_seq, "lock_type": lock_type},
+            )
+        try:
+            granted = ev.wait(timeout=timeout_s)
+        finally:
+            if wd_tok is not None:
+                _watchdog.disarm(wd_tok)
+        if granted:
             return
         with self._state_lock:
             if ev.is_set():

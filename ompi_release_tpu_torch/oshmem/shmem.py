@@ -33,7 +33,8 @@ component), with one controller playing every PE:
   home. ``sum_to_all`` there is the ``hier`` allreduce, whose folds run
   the SUM kernel at >= 4 MiB.
 
-Not ported yet: the obs span of a bulk drain (ROADMAP queue 1 item 16).
+With obs on, a bulk drain is one ``shmem_bulk_flush`` span (layer
+``osc``).
 """
 
 from __future__ import annotations
@@ -44,7 +45,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from .. import ops as ops_mod
+from ..btl.components import payload_nbytes
 from ..mca import pvar
 from ..mca import var as mca_var
 from ..osc.window import Window, win_allocate
@@ -93,6 +96,7 @@ def _first(t: torch.Tensor) -> int:
     """The first element of a fetched value as a Python int (waits for
     the card)."""
     return int(t.reshape(-1)[0])
+
 
 
 class SymmetricArray:
@@ -182,6 +186,8 @@ class ShmemCtx:
         q = self._bulk.pop(sym, None)
         if not q:
             return
+        rec = _obs.enabled
+        t0 = time.perf_counter() if rec else 0.0
         win = sym._win
         for kind, pe, data, op, index in q:
             if kind == "put":
@@ -190,6 +196,12 @@ class ShmemCtx:
                 win.accumulate(data, pe, op=op, index=index)
         win.flush_all()
         _bulk_flushes.add()
+        if rec and _obs.enabled:
+            _obs.record(
+                "shmem_bulk_flush", "osc", t0,
+                time.perf_counter() - t0,
+                nbytes=sum(payload_nbytes(d) for _, _, d, _, _ in q),
+                comm_id=win.comm.cid)
 
     # -- data movement (spml put/get) --------------------------------------
     def put(self, sym: SymmetricArray, data, pe: int) -> None:

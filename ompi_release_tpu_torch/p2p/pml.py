@@ -39,22 +39,27 @@ within one slice instead of after ``pml_wire_timeout``. Message logging
 arrival, recv posting and matched probe is recorded under the matching
 lock, so the log's order is the match order.
 
-Not ported here: the watchdog and observability hooks and PERUSE
-events (``peruse.py``; ROADMAP item 16).
+Observability: with obs on, a send posting, a recv posting and a
+matched delivery are ``pml``-layer spans, PERUSE lifecycle events
+(``peruse.py``) fire at the reference's points, and the stall watchdog
+arms around a blocking wire receive and an ssend's ack wait.
 """
 
 from __future__ import annotations
 
 import collections
 import threading
+import time as _time
 from typing import Any, Deque, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ..mca import component as mca_component
 from ..mca import pvar
 from ..mca import var as mca_var
+from ..obs import watchdog as _watchdog
 from ..request.request import Request, Status
 from ..utils import output
 from ..utils.errors import ErrorCode, MPIError
@@ -234,8 +239,16 @@ class PmlEngine:
         self._check_rank(dst, "destination")
         self._check_rank(src, "source")
         data = _as_device_payload(data, self.comm.device)
+        if _obs.enabled:  # instant emit point: the send posting itself
+            _obs.record("isend", "pml", _time.perf_counter(), 0.0,
+                        nbytes=_nbytes(data), peer=dst,
+                        comm_id=self.comm.cid)
         req = Request()
         entry = _SendEntry(src, dst, tag, data, req, sync)
+        from . import peruse
+
+        peruse.fire(self.comm, peruse.REQ_ACTIVATE, kind="send",
+                    src=src, dst=dst, tag=tag)
         with self._lock:
             if self._logger is not None:
                 # logged UNDER the matching lock like recv postings:
@@ -273,6 +286,8 @@ class PmlEngine:
                 _rndv_count.add()
             _unexpected_count.add()
             self._unexpected[dst].append(entry)
+        peruse.fire(self.comm, peruse.MSG_UNEX_INSERT, src=src, dst=dst,
+                    tag=tag)
         return req, entry
 
     def send(self, data, dst: int, tag: int = 0, *, src: int,
@@ -298,8 +313,15 @@ class PmlEngine:
         self._check_rank(dst, "destination")
         if source != ANY_SOURCE:
             self._check_rank(source, "source")
+        if _obs.enabled:
+            _obs.record("irecv", "pml", _time.perf_counter(), 0.0,
+                        peer=source, comm_id=self.comm.cid)
         req = Request()
         entry = _RecvEntry(dst, source, tag, req)
+        from . import peruse
+
+        peruse.fire(self.comm, peruse.REQ_ACTIVATE, kind="recv",
+                    src=source, dst=dst, tag=tag)
         with self._lock:
             if self._logger is not None:
                 # pessimist determinant: logged UNDER the matching lock
@@ -316,6 +338,8 @@ class PmlEngine:
             )
             if match is not None:
                 unex.remove(match)
+                peruse.fire(self.comm, peruse.REQ_MATCH_UNEX,
+                            src=match.src, dst=dst, tag=match.tag)
                 self._deliver(match, entry)
             else:
                 self._posted[dst].append(entry)
@@ -419,12 +443,26 @@ class PmlEngine:
 
     # -- delivery ----------------------------------------------------------
     def _deliver(self, send: _SendEntry, recv: _RecvEntry) -> None:
+        from . import peruse
+
+        rec = _obs.enabled  # capture once: flag may flip mid-delivery
+        t0 = _time.perf_counter() if rec else 0.0
         data = send.data
         if not send.transferred:
+            peruse.fire(self.comm, peruse.REQ_XFER_BEGIN, src=send.src,
+                        dst=recv.dst, tag=send.tag)
             data = self._move(data, send.src, recv.dst)  # rendezvous pull
         st = Status(source=send.src, tag=send.tag, count=data.numel())
         recv.request.complete(value=data, status=st)
         send.request.complete(status=Status(source=send.src, tag=send.tag))
+        peruse.fire(self.comm, peruse.REQ_XFER_END, src=send.src,
+                    dst=recv.dst, tag=send.tag, count=data.numel())
+        peruse.fire(self.comm, peruse.REQ_COMPLETE, src=send.src,
+                    dst=recv.dst, tag=send.tag)
+        if rec and _obs.enabled:  # matched delivery incl. rndv pull
+            _obs.record("deliver", "pml", t0, _time.perf_counter() - t0,
+                        nbytes=_nbytes(data), peer=send.src,
+                        comm_id=self.comm.cid)
         _log.verbose(
             3,
             f"{self.comm.name}: delivered src={send.src} dst={send.dst} "
@@ -489,6 +527,10 @@ class WirePmlEngine(PmlEngine):
         # is on the host when send_p2p returns, so the caller's buffer
         # is reusable at once.
         data = _as_device_payload(data, self.comm.device)
+        from . import peruse
+
+        peruse.fire(self.comm, peruse.REQ_ACTIVATE, kind="send",
+                    src=src, dst=dst, tag=tag)
         if self._logger is not None:
             with self._lock:
                 self._logger.record(src, dst, tag, data, sync)
@@ -508,19 +550,28 @@ class WirePmlEngine(PmlEngine):
                 r.complete(status=Status(source=src, tag=tag))
 
         def block() -> None:
-            import time as _time
-
-            limit = float(mca_var.get("pml_wire_timeout", 30.0))
-            deadline = _time.monotonic() + limit
-            while _time.monotonic() < deadline:
-                router.poll_acks(src_world, timeout_ms=100)
-                if router.take_ack(cid, seq):
-                    return
-            raise MPIError(
-                ErrorCode.ERR_PENDING,
-                f"ssend to rank {dst} never matched (no ack within "
-                f"{limit}s; pml_wire_timeout raises the limit)",
-            )
+            tok = None
+            if _watchdog.enabled:
+                tok = _watchdog.arm(
+                    "p2p_ssend_ack", comm_id=cid, peer=dst,
+                    info={"src": src, "dst": dst, "tag": tag,
+                          "seq": seq},
+                )
+            try:
+                limit = float(mca_var.get("pml_wire_timeout", 30.0))
+                deadline = _time.monotonic() + limit
+                while _time.monotonic() < deadline:
+                    router.poll_acks(src_world, timeout_ms=100)
+                    if router.take_ack(cid, seq):
+                        return
+                raise MPIError(
+                    ErrorCode.ERR_PENDING,
+                    f"ssend to rank {dst} never matched (no ack within "
+                    f"{limit}s; pml_wire_timeout raises the limit)",
+                )
+            finally:
+                if tok is not None:
+                    _watchdog.disarm(tok)
 
         req = Request(progress_fn=progress, block_fn=block)
         # the block() completion path reaches Request.wait()'s bare
@@ -563,36 +614,45 @@ class WirePmlEngine(PmlEngine):
                 engine._drain(dst)
 
             def block() -> None:
-                import time as _time
-
                 from ..ft import ulfm as _ulfm
                 from ..runtime.wire import proc_topology
 
-                comm = engine.comm
-                if source == ANY_SOURCE:
-                    ft_peers = list(proc_topology(comm).peers)
-                else:
-                    ft_peers = [proc_topology(comm).owner[source]]
-                limit = float(mca_var.get("pml_wire_timeout", 30.0))
-                deadline = _time.monotonic() + limit
-                while (not req.is_complete
-                       and _time.monotonic() < deadline):
-                    # ULFM bound: a recv whose (possible) sender died —
-                    # or whose comm was revoked — raises the typed
-                    # error within one drain slice
-                    _ulfm.state().check_wait(
-                        comm.cid, ft_peers,
-                        f"p2p recv(source={source}) awaiting",
-                        epoch0=getattr(comm, "_ft_epoch0", 0))
-                    engine._drain(dst, timeout_ms=100)
-                if not req.is_complete:
-                    raise MPIError(
-                        ErrorCode.ERR_PENDING,
-                        f"recv(source={source}, tag={tag}) at rank "
-                        f"{dst}: no matching message within "
-                        f"{limit}s (pml_wire_timeout raises the "
-                        "limit)",
+                tok = None
+                if _watchdog.enabled:
+                    tok = _watchdog.arm(
+                        "p2p_recv", comm_id=engine.comm.cid,
+                        peer=source,
+                        info={"source": source, "tag": tag, "dst": dst},
                     )
+                try:
+                    comm = engine.comm
+                    if source == ANY_SOURCE:
+                        ft_peers = list(proc_topology(comm).peers)
+                    else:
+                        ft_peers = [proc_topology(comm).owner[source]]
+                    limit = float(mca_var.get("pml_wire_timeout", 30.0))
+                    deadline = _time.monotonic() + limit
+                    while (not req.is_complete
+                           and _time.monotonic() < deadline):
+                        # ULFM bound: a recv whose (possible) sender
+                        # died — or whose comm was revoked — raises
+                        # the typed error within one drain slice
+                        _ulfm.state().check_wait(
+                            comm.cid, ft_peers,
+                            f"p2p recv(source={source}) awaiting",
+                            epoch0=getattr(comm, "_ft_epoch0", 0))
+                        engine._drain(dst, timeout_ms=100)
+                    if not req.is_complete:
+                        raise MPIError(
+                            ErrorCode.ERR_PENDING,
+                            f"recv(source={source}, tag={tag}) at rank "
+                            f"{dst}: no matching message within "
+                            f"{limit}s (pml_wire_timeout raises the "
+                            "limit)",
+                        )
+                finally:
+                    if tok is not None:
+                        _watchdog.disarm(tok)
 
             req._progress_fn = progress
             req._block_fn = block
@@ -618,6 +678,8 @@ class WirePmlEngine(PmlEngine):
         """Insert one wire arrival into the matching machinery exactly
         where a local eager send would land (payload already moved to
         this process's device, so the entry is 'transferred')."""
+        from . import peruse
+
         data = data.to(self.comm.device)
         req = Request()
         if on_matched is not None:
@@ -645,6 +707,8 @@ class WirePmlEngine(PmlEngine):
                 return
             _unexpected_count.add()
             self._unexpected[dst_rank].append(entry)
+        peruse.fire(self.comm, peruse.MSG_UNEX_INSERT, src=src_rank,
+                    dst=dst_rank, tag=user_tag)
 
 
 class Ob1TpuComponent(mca_component.Component):

@@ -29,8 +29,9 @@ every-N-steps ``InjectedFault``s (recovered locally, no comm rebuild)
 and the ``tpurun --ft-inject rank:step`` hard SIGKILL used by the
 recovery job tests.
 
-Waiting for the observability plane (ROADMAP item 16): the recovery's
-span journal record.
+With obs on, each recovery is one ``ft_recovery`` span (layer ``ft``,
+the failed step in the peer slot) in the journal the doctor's incident
+timeline reads.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
+from .. import obs as _obs
 from ..ft import ulfm as _ulfm
 from ..ft import errmgr as _errmgr
 from ..ft.checkpoint import Checkpointer
@@ -208,6 +210,7 @@ class ElasticStep:
         self.stats["failures"].append((step, repr(exc)))
         if self.stats["recoveries"] > self.max_recoveries:
             raise exc
+        rec = _obs.enabled  # capture once: flag may flip mid-recovery
         t0 = time.perf_counter()
         try:
             self.comm.revoke()
@@ -223,6 +226,9 @@ class ElasticStep:
             _steps_lost.add()
         dt = time.perf_counter() - t0
         _recovery_seconds.add(dt)
+        if rec and _obs.enabled:
+            _obs.record("ft_recovery", "ft", t0, dt,
+                        comm_id=self.comm.cid, peer=step)
         _log.verbose(
             0, f"recovered from failure at step {step} in {dt:.3f}s "
                f"({self.policy}); resuming at {resume} on "

@@ -32,8 +32,12 @@ Bucket sizing: explicit argument > ``tree_buckets`` dynamic rule lines
 ``per_leaf``) > ``tree_bucket_bytes`` cvar > ``dp_bucket_bytes``.
 
 pvars: ``tree_buckets_planned``, ``tree_plan_cache_hits`` (1 = hit, 0 =
-build), ``tree_passes``, ``tree_hidden_seconds``. The journal spans the
-reference records wait for the port's observability layer.
+build), ``tree_passes``, ``tree_hidden_seconds``. Journal spans
+(``tree_plan_*`` per planned pass, ``tree_issue_*`` and ``tree_wait_*``
+per overlapped pass) are gated on ``_obs.enabled`` so the hot path
+stays one attribute check. The reference's planned pass runs at trace
+time only, so its ``tree_plan_*`` span marks a trace; here the pass
+runs eagerly and the span marks every pass.
 """
 
 from __future__ import annotations
@@ -41,11 +45,13 @@ from __future__ import annotations
 import math
 import re
 import threading
+import time as _time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ..coll.fusion import plan_buckets
 from ..mca import pvar
 from ..mca import var as mca_var
@@ -262,6 +268,26 @@ def resolve_bucket_bytes(comm_size: int, tree_bytes: int) -> int:
 # SPMD planned passes (per-rank code inside a mesh)
 # ---------------------------------------------------------------------------
 
+def _record_pass(kind: str, plan: TreePlan, t0: float,
+                 comm_id: int = -1) -> None:
+    """Driver-pass accounting (issue/wait run per step on the host)."""
+    _passes.add()
+    if _obs.enabled:
+        _obs.record("tree_" + kind, "tree", t0,
+                    _time.perf_counter() - t0, nbytes=plan.total_bytes,
+                    comm_id=comm_id)
+
+
+def _record_plan(kind: str, plan: TreePlan, t0: float) -> None:
+    """Planned-pass accounting (the axis-collective passes): named
+    tree_plan_* as in the reference, and deliberately NOT bumping
+    tree_passes."""
+    if _obs.enabled:
+        _obs.record("tree_plan_" + kind, "tree", t0,
+                    _time.perf_counter() - t0,
+                    nbytes=plan.total_bytes)
+
+
 def _chunk(size: int, n: int) -> int:
     return -(-size // n)  # ceil(size / n)
 
@@ -289,6 +315,7 @@ def tree_allreduce(tree_, axis_name: str, *, mean: bool = False,
     """Allreduce every leaf over ``axis_name`` in one planned pass: one
     ``psum`` per bucket or big leaf. Bitwise-identical to the per-leaf
     loop (``bucket_bytes=0``): packing is pure layout."""
+    t0 = _time.perf_counter()
     n = axes.axis_size_or_1(axis_name)
     plan, treedef, leaves = plan_tree(tree_, bucket_bytes, n)
     out: List[Any] = [None] * len(leaves)
@@ -303,6 +330,7 @@ def tree_allreduce(tree_, axis_name: str, *, mean: bool = False,
             out[i] = _maybe_mean(piece.reshape(piece.shape[:-1] + shape),
                                  n, mean)
             off += size
+    _record_plan("allreduce", plan, t0)
     return pytree.unflatten(treedef, out)
 
 
@@ -325,6 +353,7 @@ def tree_reduce_scatter(tree_, axis_name: str, *, mean: bool = True,
     elements per rank). Buckets pack the rank-major interleaved layout,
     so the fused ``psum_scatter`` hands every element to the same rank
     the per-leaf scatter would: bitwise."""
+    t0 = _time.perf_counter()
     n = axes.axis_size_or_1(axis_name)
     plan, treedef, leaves = plan_tree(tree_, bucket_bytes, n)
     out: List[Any] = [None] * len(leaves)
@@ -343,6 +372,7 @@ def tree_reduce_scatter(tree_, axis_name: str, *, mean: bool = True,
             c = _chunk(plan.meta[i][2], n)
             out[i] = _maybe_mean(red[..., off:off + c], n, mean)
             off += c
+    _record_plan("reduce_scatter", plan, t0)
     return pytree.unflatten(treedef, out)
 
 
@@ -352,6 +382,7 @@ def tree_allgather(shards, shapes, axis_name: str, *,
     one planned pass. ``shapes`` mirrors ``shards``' structure with
     target per-rank shapes as leaves (tuples). Pure data movement:
     bitwise by construction."""
+    t0 = _time.perf_counter()
     n = axes.axis_size_or_1(axis_name)
     plan, treedef, leaves = plan_tree(shards, bucket_bytes, n)
     shape_list = _shape_leaves(shapes, len(leaves))
@@ -378,6 +409,7 @@ def tree_allgather(shards, shapes, axis_name: str, *,
             piece = rows[..., off:off + c]
             finish(i, piece.reshape(piece.shape[:-2] + (-1,)))
             off += c
+    _record_plan("allgather", plan, t0)
     return pytree.unflatten(treedef, out)
 
 
@@ -480,6 +512,7 @@ class PendingTreePass:
     def wait(self):
         from ..request import request as _req
 
+        t0 = _time.perf_counter()
         _req.wait_all(list(self._reqs.values()))
         hidden = self.hidden_seconds()
         if hidden > 0:
@@ -534,6 +567,11 @@ class PendingTreePass:
                     piece = rows[:, :, off:off + c].reshape(lead, -1)
                     fin(i, piece[:, :size], (lead,) + tuple(shapes[i]))
                     off += c
+        if _obs.enabled:
+            _obs.record("tree_wait_" + self._kind, "tree", t0,
+                        _time.perf_counter() - t0,
+                        nbytes=plan.total_bytes,
+                        comm_id=self._sync.comm.cid)
         return pytree.unflatten(self._treedef, out)
 
 
@@ -584,6 +622,7 @@ class TreeSync:
     def issue(self, tree_) -> PendingTreePass:
         """Overlapped tree ALLREDUCE: one ``iallreduce`` per bucket;
         returns without completing any of them."""
+        t0 = _time.perf_counter()
         treedef, leaves, lead = self._flatten(tree_)
         plan = self._plan(leaves)
         reqs: Dict[Any, Any] = {}
@@ -593,7 +632,7 @@ class TreeSync:
             flat = torch.cat([leaves[i].reshape(lead, -1) for i in bucket],
                              dim=1)
             reqs[("bucket", k)] = self.comm.iallreduce(flat)
-        _passes.add()
+        _record_pass("issue_allreduce", plan, t0, self.comm.cid)
         return PendingTreePass(self, "allreduce", treedef, plan, reqs,
                                lead)
 
@@ -602,6 +641,7 @@ class TreeSync:
         ``n`` chunks and packed rank-major, one ``ireduce_scatter_block``
         per bucket; ``wait()`` returns the per-leaf shard tree (leaf i ->
         (lead, ceil(row/n)))."""
+        t0 = _time.perf_counter()
         n = self.comm.size
         treedef, leaves, lead = self._flatten(tree_)
 
@@ -621,7 +661,7 @@ class TreeSync:
             packed = torch.cat([rows(leaves[i]) for i in bucket], dim=2)
             reqs[("bucket", k)] = self.comm.ireduce_scatter_block(
                 packed.reshape(lead, -1))
-        _passes.add()
+        _record_pass("issue_reduce_scatter", plan, t0, self.comm.cid)
         return PendingTreePass(self, "reduce_scatter", treedef, plan,
                                reqs, lead)
 
@@ -629,6 +669,7 @@ class TreeSync:
         """Overlapped tree ALLGATHER of flat shards back to full leaves:
         one ``iallgather`` per bucket; ``wait()`` returns leaves of shape
         ``(lead,) + shapes[leaf]``."""
+        t0 = _time.perf_counter()
         treedef, leaves, lead = self._flatten(shards)
         shape_list = _shape_leaves(shapes, len(leaves))
         plan = self._plan(leaves)
@@ -640,6 +681,6 @@ class TreeSync:
             packed = torch.cat([leaves[i].reshape(lead, -1)
                                 for i in bucket], dim=1)
             reqs[("bucket", k)] = self.comm.iallgather(packed)
-        _passes.add()
+        _record_pass("issue_allgather", plan, t0, self.comm.cid)
         return PendingTreePass(self, "allgather", treedef, plan, reqs,
                                lead, shapes=shape_list)

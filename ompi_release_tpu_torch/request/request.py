@@ -11,16 +11,18 @@ the owner synchronises its stream or event there).
 Generalized requests (``ompi/request/grequest.c``) carry user
 query/free/cancel callbacks and are completed by user code.
 
-Not ported: the JAX package's observability journal hook in ``wait()``
-(``obs`` comes with a later slice of the port).
+With obs on, ``wait()`` journals how long completion blocked the host
+(a ``wait`` span, layer ``request``).
 """
 
 from __future__ import annotations
 
 import enum
 import threading
+import time as _time
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
+from .. import obs as _obs
 from ..mca import pvar
 from ..utils.errors import ErrorCode, MPIError
 
@@ -171,6 +173,8 @@ class Request:
         return self.is_complete, self.status if self.is_complete else None
 
     def wait(self) -> Status:
+        rec = _obs.enabled  # capture once: flag may flip mid-wait
+        t0 = _time.perf_counter() if rec else 0.0
         done, _ = self.test()
         if not done:
             if self._block_fn is not None:
@@ -184,6 +188,8 @@ class Request:
                     "wait() would deadlock: request has no device work "
                     "and no completion event (missing matching call?)",
                 )
+        if rec:  # how long completion blocked the host
+            _obs.record("wait", "request", t0, _time.perf_counter() - t0)
         return self.status
 
     def cancel(self) -> None:

@@ -29,8 +29,10 @@ answers ``TAG_FT`` state queries and parks fault-tolerant agreements
 until every live participant contributed; workers push
 ``TAG_FT_REVOKE`` poison frames to each other. The rejoin service
 re-runs the wire-up for a respawned worker, and the migrate responder
-serves ``tpu-migrate``. Waiting for the observability plane (ROADMAP
-item 16): the ps, clock and series responders (tags 13, 16 and 17).
+serves ``tpu-migrate``. The observability plane rides them too: the
+ps responder (tag 13) answers ``tpu_ps``, the clock responder (tag 16)
+the workers' ping-pong offset estimate, and the series responder (tag
+17) keeps the workers' sampler pushes in a bounded fleet store.
 
 Tags mirror the RML usage pattern (``rml.h:318`` tagged send/recv).
 """
@@ -57,9 +59,13 @@ TAG_XCAST = 5
 TAG_FIN = 6
 TAG_HEARTBEAT = 7
 TAG_XCAST_ORPHAN = 8  # worker->HNP: deliver xcast to unreachable child
-#                       (9-12 are the pubsub name-service tags)
+TAG_PS = 13           # ps/top client->HNP: live job snapshot query
 TAG_MIGRATE = 14      # migrate client->HNP: move ranks off a host
 TAG_DIE = 15          # HNP->worker: exit immediately (odls kill)
+TAG_CLOCK = 16        # worker->HNP ping-pong: clock-offset estimation
+TAG_SERIES = 17       # worker->HNP: pvar time-series delta push;
+#                       client->HNP: fleet series query (empty frame)
+#                       (9-12 are the pubsub name-service tags)
 TAG_PROC_FAILED = 18  # HNP->worker: job-epoch failure notice (ULFM
 #                       detection plane: epoch + failed/restarted/
 #                       rejoined process-index sets, JSON)
@@ -69,6 +75,10 @@ TAG_FT_REVOKE = 20    # worker->worker: comm-revocation poison frame
 #                       ({cid, epoch, origin} JSON, sent direct over
 #                       the full wire-up — no tree relay involved)
 
+#: per-process cap on buffered fleet series points at the HNP (the
+#: aggregation store is a ring too — a chatty worker cannot grow the
+#: launcher without bound)
+SERIES_KEEP = 8192
 # pubsub tags + protocol live in runtime/pubsub.py; re-exported here
 # for the worker-facing API
 from .pubsub import (  # noqa: E402
@@ -598,6 +608,161 @@ class HnpCoordinator:
                 self._last_beat[nid] = time.monotonic()
         self._ft_note_change(what=f"worker {nid} respawning")
 
+    # -- ps/top snapshot service (orte-ps / orte-top HNP side) -------------
+    def start_ps_responder(self, extra_fn: Optional[Callable] = None
+                           ) -> None:
+        """Serve TAG_PS queries: any client that dialed our port gets
+        a JSON snapshot of per-worker health — last-beat age, pid,
+        vmsize/rss from the piggybacked samples — plus whatever the
+        launcher adds via ``extra_fn()`` (proc states, argv). The
+        orte-ps/orte-top query path (``orte-ps.c`` pretty-prints what
+        the HNP's sensor data already holds)."""
+
+        def run() -> None:
+            while not self._resp_stop.is_set():
+                try:
+                    src, _, _ = self.ep.recv(tag=TAG_PS, timeout_ms=200)
+                except MPIError:
+                    continue
+                now = time.monotonic()
+                with self._hb_lock:
+                    workers = {
+                        str(nid): {
+                            "beat_age_s": (
+                                round(now - self._last_beat[nid], 3)
+                                if nid in self._last_beat else None),
+                            "finished": nid in self._finished,
+                            "failed": nid in self._failed,
+                            **self._resusage.get(nid, {}),
+                        }
+                        for nid in self._worker_ids
+                    }
+                snap = {"num_workers": self.num_nodes - 1,
+                        "workers": workers}
+                if extra_fn is not None:
+                    try:
+                        snap.update(extra_fn())
+                    except Exception:
+                        pass  # a snapshot must never kill the responder
+                try:
+                    self.ep.send(src, TAG_PS, json.dumps(snap).encode())
+                except MPIError:
+                    pass  # client vanished between query and reply
+
+        self._ps_thread = threading.Thread(target=run, daemon=True)
+        self._ps_thread.start()
+
+    # -- clock alignment (the obs-plane merge timebase) --------------------
+    def start_clock_responder(self) -> None:
+        """Serve TAG_CLOCK ping-pongs: echo the worker's payload back
+        with OUR ``perf_counter`` reading appended. Workers run the
+        classic NTP-style estimator (min-RTT sample, midpoint offset)
+        against these replies, so every rank's journal timestamps can
+        be mapped into ONE timebase — the HNP's — when tpu-doctor
+        merges them. Shares the responders' stop event (created in
+        __init__), so start order does not matter."""
+
+        def run() -> None:
+            while not self._resp_stop.is_set():
+                try:
+                    src, _, raw = self.ep.recv(tag=TAG_CLOCK,
+                                               timeout_ms=200)
+                except MPIError:
+                    continue
+                b = DssBuffer()
+                b.pack_string(raw.decode("utf-8", "replace"))
+                b.pack_string(repr(time.perf_counter()))
+                try:
+                    self.ep.send(src, TAG_CLOCK, b.tobytes())
+                except MPIError:
+                    pass  # client vanished between ping and pong
+
+        self._clock_thread = threading.Thread(
+            target=run, daemon=True, name="hnp-clock")
+        self._clock_thread.start()
+
+    # -- fleet series aggregation (the continuous metrics plane) -----------
+    def start_series_responder(self) -> None:
+        """Serve TAG_SERIES frames: a worker **push** (JSON with a
+        ``points`` list) is folded into the per-process fleet store —
+        a bounded ring per pidx, newest SERIES_KEEP points kept, with
+        the worker's clock offset and push time alongside; any other
+        frame is a **query** (tpu_top --fleet, tpu-doctor) answered
+        with the whole fleet document. Shares the ps responder's stop
+        event (created in __init__), so start order does not matter."""
+        self._series_lock = threading.Lock()
+        # pidx -> {"points": [..ring..], "clock_offset_s": float|None,
+        #          "last_push": monotonic seconds}
+        self._fleet_series: Dict[int, Dict[str, Any]] = {}
+
+        def run() -> None:
+            while not self._resp_stop.is_set():
+                try:
+                    src, _, raw = self.ep.recv(tag=TAG_SERIES,
+                                               timeout_ms=200)
+                except MPIError:
+                    continue
+                try:
+                    doc = json.loads(raw) if raw else {}
+                except ValueError:
+                    continue  # malformed frame: never kill the store
+                if isinstance(doc, dict) and "points" in doc:
+                    try:
+                        self._ingest_series(src, doc)
+                    except Exception:
+                        # a garbled push field (non-numeric pidx or
+                        # offset from a version-skewed worker) costs
+                        # that frame only — never the responder
+                        pass
+                    continue  # pushes are fire-and-forget
+                try:
+                    self.ep.send(src, TAG_SERIES,
+                                 json.dumps(self.fleet_series()).encode())
+                except MPIError:
+                    pass  # client vanished between query and reply
+
+        self._series_thread = threading.Thread(
+            target=run, daemon=True, name="hnp-series")
+        self._series_thread.start()
+
+    def _ingest_series(self, src: int, doc: Dict[str, Any]) -> None:
+        pidx = int(doc.get("pidx", src - 1))
+        pts = [p for p in doc.get("points", ()) if isinstance(p, dict)]
+        with self._series_lock:
+            ent = self._fleet_series.setdefault(
+                pidx, {"points": [], "clock_offset_s": None,
+                       "last_push": None, "meta": {}})
+            ent["points"].extend(pts)
+            if len(ent["points"]) > SERIES_KEEP:
+                del ent["points"][:len(ent["points"]) - SERIES_KEEP]
+            if doc.get("clock_offset_s") is not None:
+                ent["clock_offset_s"] = float(doc["clock_offset_s"])
+            if isinstance(doc.get("meta"), dict):
+                ent["meta"] = doc["meta"]
+            ent["last_push"] = time.monotonic()
+
+    def fleet_series(self) -> Dict[str, Any]:
+        """The aggregated fleet document: per-pidx point rings with
+        each worker's clock offset (consumers correct ``t`` into the
+        HNP timebase by adding it) and the seconds since its last
+        push (staleness marker for the dashboard)."""
+        now = time.monotonic()
+        lock = getattr(self, "_series_lock", None)
+        if lock is None:
+            return {"procs": {}}
+        with lock:
+            return {"procs": {
+                str(pidx): {
+                    "points": list(ent["points"]),
+                    "clock_offset_s": ent["clock_offset_s"],
+                    "push_age_s": (round(now - ent["last_push"], 3)
+                                   if ent["last_push"] is not None
+                                   else None),
+                    "meta": dict(ent.get("meta") or {}),
+                }
+                for pidx, ent in sorted(self._fleet_series.items())
+            }}
+
     def kill_worker(self, node_id: int, code: int = 143) -> None:
         """Order a worker to exit via its die watcher (the odls kill
         path — reaches THE WORKER ITSELF even when it was launched
@@ -641,7 +806,9 @@ class HnpCoordinator:
         # an in-flight migrate_fn kills/respawns ranks (seconds of
         # process teardown/launch) and mutates Job state — shutdown
         # must wait for it, not race it with ep.close()
-        for name, budget in (("_migrate_thread", 30), ("_ft_thread", 2)):
+        for name, budget in (("_ps_thread", 2), ("_migrate_thread", 30),
+                             ("_clock_thread", 2), ("_series_thread", 2),
+                             ("_ft_thread", 2)):
             t = getattr(self, name, None)
             if t is not None:
                 t.join(timeout=budget)
@@ -730,6 +897,11 @@ class WorkerAgent:
         # lazy check-then-set would mint two locks and defeat the
         # reply serialization pubsub_rpc requires
         self._pubsub_lock = threading.Lock()
+        # same discipline for clock ping-pongs (the dump path and an
+        # operator SIGUSR1 can race a finalize-time sync)
+        self._clock_lock = threading.Lock()
+        # and for series pushes (sampler tick vs finalize flush)
+        self._series_lock = threading.Lock()
         # TAG_FT RPCs (state queries + agreements): one outstanding
         # per process, seq-correlated because a parked agreement's
         # reply can arrive arbitrarily late
@@ -847,6 +1019,74 @@ class WorkerAgent:
         if not ok:
             raise MPIError(ErrorCode.ERR_NAME,
                            f"unpublish '{service}': not published")
+
+    # -- clock alignment ---------------------------------------------------
+    def clock_sync(self, rounds: int = 8,
+                   timeout_ms: int = 2000) -> tuple:
+        """Estimate this process's ``perf_counter`` offset to the
+        HNP's via TAG_CLOCK ping-pongs: offset = hnp_mid - local_mid
+        of the MINIMUM-RTT sample (the NTP discipline — the tightest
+        round trip bounds the asymmetry error by rtt/2). Returns
+        ``(offset_s, rtt_s)``; adding ``offset_s`` to a local
+        perf_counter reading yields HNP time. Raises ERR_PENDING when
+        no pong arrives (responder not running)."""
+        import uuid as _uuid
+
+        best: Optional[tuple] = None
+        with self._clock_lock:
+            for i in range(max(1, rounds)):
+                nonce = _uuid.uuid4().hex[:16]
+                t0 = time.perf_counter()
+                try:
+                    self.ep.send(0, TAG_CLOCK, nonce.encode())
+                    deadline = time.monotonic() + timeout_ms / 1000
+                    while True:
+                        left = max(1, int((deadline - time.monotonic())
+                                          * 1000))
+                        _, _, raw = self.ep.recv(tag=TAG_CLOCK,
+                                                 timeout_ms=left)
+                        t1 = time.perf_counter()
+                        b = DssBuffer(raw)
+                        if b.unpack_string() == nonce:
+                            break  # stale pong from an abandoned
+                            #        round: keep draining inside this
+                            #        round's budget until ours arrives
+                except MPIError:
+                    if best is None:
+                        raise  # responder absent: surface it
+                    break      # got samples; a late timeout ends early
+                th = float(b.unpack_string())
+                rtt = t1 - t0
+                off = th - (t0 + t1) / 2
+                if best is None or rtt < best[1]:
+                    best = (off, rtt)
+        return best
+
+    # -- fleet series push (the continuous metrics plane) ------------------
+    def push_series(self, points, offset_s=None, meta=None) -> None:
+        """Fire-and-forget push of new sampler points to the HNP's
+        fleet store. The worker's process_index rides in the frame
+        (node ids and pidx differ by one), plus the current clock
+        offset so the HNP-side document is mergeable onto one
+        timeline and optional identity meta (rank span) so dashboards
+        can label rows. Raises MPIError when the lifeline is gone —
+        the sampler counts failures and stops trying."""
+        pidx = self.node_id - 1
+        doc = {"pidx": pidx, "points": list(points),
+               "clock_offset_s": offset_s}
+        if meta:
+            doc["meta"] = dict(meta)
+        with self._series_lock:
+            self.ep.send(0, TAG_SERIES, json.dumps(doc).encode())
+
+    def query_fleet_series(self, *, timeout_ms: int = 5_000) -> Dict:
+        """Ask the HNP for the aggregated fleet document (mostly for
+        tests; dashboards use tools.tpu_top.FleetClient)."""
+        with self._series_lock:
+            self.ep.send(0, TAG_SERIES, b"{}")
+            _, _, raw = self.ep.recv(tag=TAG_SERIES,
+                                     timeout_ms=timeout_ms)
+        return json.loads(raw)
 
     # -- ULFM failure plane ------------------------------------------------
     def start_ft_watcher(self, on_notice, on_revoke=None) -> None:

@@ -35,8 +35,14 @@ otherwise ``cuda:0``).
 
 pvars: ``progress_ticks`` (engine ticks), ``nbc_schedules_inflight``
 (posted-but-incomplete schedules), ``nbc_hidden_seconds`` (schedule run
-time that overlapped caller work). Not ported: the observability emit
-sites and the watchdog contributor (``obs`` comes with a later slice).
+time that overlapped caller work).
+
+Observability: with obs on, each executed schedule is one ``nbc``-layer
+span and a tick that progressed something one ``progress_tick`` span;
+the flight recorder's ``nbc_inflight`` contributor dumps the in-flight
+schedules, and :func:`event_block` arms the stall watchdog around a
+blocking wait on a CUDA event. The emit sites are gated on
+``_obs.enabled`` and time the host, never the card.
 """
 
 from __future__ import annotations
@@ -49,8 +55,10 @@ import weakref
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from .. import obs as _obs
 from ..mca import pvar
 from ..mca import var as mca_var
+from ..obs import watchdog as _watchdog
 from ..request import request as _request
 from ..utils import output
 
@@ -267,6 +275,7 @@ class ProgressEngine:
             stack = self._tls.stack = []
         stack.append(op)
         op.t_start = _time.perf_counter()
+        rec = _obs.enabled  # capture once: flag may flip mid-run
         try:
             with _on_device(op.device):
                 op.result = op.fn(*op.args, **op.kw)
@@ -274,7 +283,7 @@ class ProgressEngine:
             op.error = e
         finally:
             stack.pop()
-            op.t_done = _time.perf_counter()
+            t_done = op.t_done = _time.perf_counter()
             with self._lock:
                 op.state = DONE
                 self._unlink_locked(op)
@@ -282,6 +291,9 @@ class ProgressEngine:
             hidden = op.hidden_seconds()
             if hidden > 0:
                 _hidden.add(hidden)
+            if rec and _obs.enabled:
+                _obs.record("nbc_" + op.name, "nbc", op.t_start,
+                            t_done - op.t_start, comm_id=op.cid)
             self._finish(op)
 
     def _claim_locked(self, op: ScheduledOp) -> bool:
@@ -455,6 +467,8 @@ class ProgressEngine:
         if getattr(self._tls, "ticking", False):
             return 0
         self._tls.ticking = True
+        rec = _obs.enabled
+        t0 = _time.perf_counter() if rec else 0.0
         try:
             _ticks.add()
             n = 0
@@ -469,7 +483,11 @@ class ProgressEngine:
                         n += int(fn() or 0)
                     except Exception as e:  # a dead pump is not fatal
                         _log.verbose(2, f"progress pump failed: {e}")
-            return n + self._poll_ready()
+            n += self._poll_ready()
+            if n and rec and _obs.enabled:
+                _obs.record("progress_tick", "nbc", t0,
+                            _time.perf_counter() - t0)
+            return n
         finally:
             self._tls.ticking = False
 
@@ -601,6 +619,29 @@ ENGINE = ProgressEngine()
 
 def engine() -> ProgressEngine:
     return ENGINE
+
+
+def event_block(ev, what: str, comm_id: int = -1) -> Callable[[], None]:
+    """A Request block function waiting on the CUDA event ``ev`` (the
+    in-process async dispatch's completion): with the stall watchdog on
+    the wait is armed, so a card that never reaches the event dumps a
+    postmortem naming ``what``."""
+
+    def block() -> None:
+        tok = None
+        if _watchdog.enabled:
+            tok = _watchdog.arm(what, comm_id=comm_id,
+                                info={"wait": "cuda_event"})
+        try:
+            ev.synchronize()
+        finally:
+            if tok is not None:
+                _watchdog.disarm(tok)
+
+    return block
+
+
+_watchdog.add_contributor("nbc_inflight", lambda: ENGINE.snapshot())
 
 
 pvar.PVARS.register(

@@ -115,6 +115,21 @@ class Runtime:
             op_mod.OP_FRAMEWORK.open()
             if cli_args:
                 mca_var.VARS.apply_cli(_parse_mca_cli(cli_args))
+
+            # observability plane hooks (cold path; one attr check when
+            # off): ``--mca obs_enable 1`` given here turns the plane
+            # on, then the stall-watchdog gate is re-derived now that
+            # CLI/env cvars are final, and the SIGUSR1/fatal-signal
+            # flight-recorder dumps are installed
+            from .. import obs as _obs
+
+            if not _obs.enabled and bool(mca_var.get("obs_enable", False)):
+                _obs.enable()
+            if _obs.enabled:
+                from ..obs import watchdog as _obs_watchdog
+
+                _obs_watchdog.refresh(True)
+                _obs_watchdog.install_signal_handlers()
             self.job_state.activate(JobState.INIT)
 
             # 2. ESS bootstrap (identity + device discovery)
@@ -134,6 +149,30 @@ class Runtime:
                 _ft = _ulfm.state()
                 self.agent.start_ft_watcher(_ft.apply_notice,
                                             _ft.apply_revoke)
+
+            if _obs.enabled and self.agent is not None:
+                # estimate the clock offset NOW, not only at finalize:
+                # a hung job killed mid-run leaves postmortems as its
+                # only artifact, and without an offset their merged
+                # timeline is garbage across controllers (finalize
+                # re-estimates for the journal dump; drift over one
+                # job is negligible next to OOB rtt)
+                try:
+                    off, rtt = self.agent.clock_sync()
+                    _obs.set_clock(off, rtt)
+                except Exception as e:
+                    _log.verbose(1, f"obs clock sync skipped: {e}")
+            if _obs.enabled:
+                # arm the continuous pvar sampler (the fleet metrics
+                # plane) — no-op unless obs_sample_interval > 0, and
+                # the clock offset above is already in place so pushed
+                # series points merge onto the HNP timeline
+                try:
+                    from ..obs import sampler as _obs_sampler
+
+                    _obs_sampler.maybe_start(self)
+                except Exception as e:
+                    _log.verbose(1, f"obs sampler start skipped: {e}")
 
             # 3. rank mapping
             self.mesh = mesh_mod.build_mesh(
@@ -249,6 +288,30 @@ class Runtime:
         with _lock:
             if not self.initialized or self.finalized:
                 return
+            from .. import obs as _obs
+
+            if _obs.enabled:
+                # disarm the sampler FIRST (its final tick + push run
+                # over the still-live HNP link), then the per-rank
+                # journal, series, ledger and native-event dumps
+                # (obs_dump_dir) BEFORE the agent closes: the
+                # clock-offset estimate in their meta needs the live
+                # HNP link
+                try:
+                    from ..obs import sampler as _obs_sampler
+
+                    _obs_sampler.stop(final_push=True)
+                except Exception as e:
+                    _log.verbose(1, f"obs sampler stop failed: {e}")
+                try:
+                    from ..obs import export as _obs_export
+
+                    _obs_export.maybe_dump_rank_journal(self)
+                    _obs_export.maybe_dump_series(self)
+                    _obs_export.maybe_dump_ledger(self)
+                    _obs_export.maybe_dump_nativeev(self)
+                except Exception as e:
+                    _log.verbose(1, f"obs rank-journal dump failed: {e}")
             # stop the progress engine BEFORE communicators are torn
             # down: a schedule on the progress thread still uses them
             from ..comm import communicator as comm_mod

@@ -64,8 +64,13 @@ them, and every send checks it first, so a revoked cid raises
 raises ``ERR_PROC_FAILED`` naming the process within one detection
 interval, instead of the ``wire_coll_timeout_ms`` bound.
 
-Not ported yet: the QoS lane classes and the observability spans and
-watchdog (ROADMAP item 16).
+Observability: with obs on, a p2p transfer is a ``wire_send`` span and
+a ``wire_recv`` span carrying the same ``("p2p", sender process,
+seq)`` flow id (both already ride the envelope: no wire-format change),
+the stall watchdog arms around the collective reap and the ctl-token
+wait, and :meth:`WireRouter.sentinel_exchange` is the inline contract
+sentinel's piggyback path. Not ported yet: the QoS lane classes of the
+service plane (ROADMAP item 16b).
 
 Thread model: driver-mode processes issue wire operations from the
 main thread (plus completion threads polling acks and the nbc worker);
@@ -82,9 +87,11 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from .. import obs as _obs
 from ..mca import pvar
 from ..mca import var as mca_var
 from ..native import DssBuffer
+from ..obs import watchdog as _watchdog
 from ..utils import output
 from ..utils.errors import ErrorCode, MPIError
 
@@ -453,6 +460,8 @@ class WireRouter:
         seq = next(self._seq)
         lane = self._lane_of(user_tag, comm)
         tag = self._p2p_tag(dst_world, lane)
+        rec = _obs.enabled  # capture once: flag may flip mid-send
+        t0 = time.perf_counter() if rec else 0.0
         lock = self._chan_lock("send", (dst_world, lane))
         if not lock.acquire(blocking=False):
             # contended: another transfer owns this lane — time the
@@ -491,6 +500,18 @@ class WireRouter:
             self._send_payload(peer, tag, data, epoch0=epoch0)
         finally:
             lock.release()
+        if rec and _obs.enabled:
+            from ..btl.components import payload_nbytes
+
+            # flow id from (sender process, wire seq) — both already
+            # ride the envelope, so the receiver derives the SAME id
+            # with no wire-format change (the trace-context contract)
+            _obs.record("wire_send", "wire", t0,
+                        time.perf_counter() - t0,
+                        nbytes=payload_nbytes(data), peer=dst_world,
+                        comm_id=comm.cid,
+                        flow=_obs.flow_id("p2p", self.my_pidx, seq),
+                        flow_side="s")
         return seq
 
     def drain_p2p(self, dst_world_rank: int, timeout_ms: int = 50) -> bool:
@@ -591,6 +612,8 @@ class WireRouter:
         cid, src_rank, dst_rank, user_tag, sync, seq, order = \
             env.unpack_int64(7)
         src_pidx = src_nid - 1
+        rec = _obs.enabled  # capture once: flag may flip mid-recv
+        t0 = time.perf_counter() if rec else 0.0
         try:
             data = self._recv_payload(tag, src_pidx)
         except MPIError as e:
@@ -607,6 +630,17 @@ class WireRouter:
                 "announced by its envelope but the payload never "
                 f"completed — peer died mid-transfer? ({e})",
             )
+        if rec and _obs.enabled:
+            from ..btl.components import payload_nbytes
+
+            # the matching consumer span: same (sender process, seq)
+            # flow id the sender stamped — tpu-doctor draws the arrow
+            _obs.record("wire_recv", "wire", t0,
+                        time.perf_counter() - t0,
+                        nbytes=payload_nbytes(data),
+                        peer=int(src_rank), comm_id=int(cid),
+                        flow=_obs.flow_id("p2p", src_pidx, int(seq)),
+                        flow_side="t")
         with self._rx_lock:
             self._rx_hold.setdefault((src_pidx, dst_world), {})[
                 int(order)] = (int(cid), int(src_rank), int(dst_rank),
@@ -942,45 +976,58 @@ class WireRouter:
                     return p, early
         tag = self._coll_tag(comm)
         deadline = time.monotonic() + timeout_ms / 1000
+        tok = None
+        if _watchdog.enabled:
+            tok = _watchdog.arm(
+                "coll_recv_any", comm_id=comm.cid,
+                info=lambda p=pending: _ft_split_awaiting(
+                    q for q, c in p.items() if c > 0),
+            )
         # serialize the comm's receivers (two consumers popping frames
         # of one multi-frame transfer would split it); the lock wait is
         # bounded by the caller's deadline
         lk = self._chan_lock("collrx", comm.cid)
-        if not lk.acquire(timeout=max(0.001,
-                                      deadline - time.monotonic())):
-            raise MPIError(
-                ErrorCode.ERR_PENDING,
-                f"collective any-source receive on {comm.name} "
-                "timed out waiting for the comm's wire channel",
-            )
         try:
-            while True:
-                # another reap may have queued our transfer while we
-                # awaited the lock: early queue first, always
-                for p in list(pending):
-                    if pending.get(p, 0) > 0:
-                        early = self._coll_early_pop(comm.cid, p)
-                        if early is not None:
-                            return p, early
-                # bounded wait, holding the channel lock, so the pump
-                # cannot add early transfers behind our back mid-wait
-                src_nid, raw = self._sliced_recv(
-                    None, tag, deadline, comm,
-                    lambda: [q for q, c in pending.items() if c > 0],
-                    "collective reap awaiting",
-                    f"collective any-source receive on "
-                    f"{comm.name} timed out")
-                src = src_nid - 1
-                arr = self._finish_checked(
-                    src, tag, raw, deadline,
-                    epoch0=getattr(comm, "_ft_epoch0", 0))
-                if pending.get(src, 0) > 0:
-                    return src, arr
-                with self._coll_early_lock:
-                    self._coll_early.setdefault((comm.cid, src),
-                                                []).append(arr)
+            if not lk.acquire(timeout=max(0.001,
+                                          deadline - time.monotonic())):
+                raise MPIError(
+                    ErrorCode.ERR_PENDING,
+                    f"collective any-source receive on {comm.name} "
+                    "timed out waiting for the comm's wire channel",
+                )
+            try:
+                while True:
+                    # another reap may have queued our transfer while
+                    # we awaited the lock: early queue first, always
+                    for p in list(pending):
+                        if pending.get(p, 0) > 0:
+                            early = self._coll_early_pop(comm.cid, p)
+                            if early is not None:
+                                return p, early
+                    # bounded wait, holding the channel lock, so the
+                    # pump cannot add early transfers behind our back
+                    # mid-wait
+                    src_nid, raw = self._sliced_recv(
+                        None, tag, deadline, comm,
+                        lambda: [q for q, c in pending.items()
+                                 if c > 0],
+                        "collective reap awaiting",
+                        f"collective any-source receive on "
+                        f"{comm.name} timed out")
+                    src = src_nid - 1
+                    arr = self._finish_checked(
+                        src, tag, raw, deadline,
+                        epoch0=getattr(comm, "_ft_epoch0", 0))
+                    if pending.get(src, 0) > 0:
+                        return src, arr
+                    with self._coll_early_lock:
+                        self._coll_early.setdefault((comm.cid, src),
+                                                    []).append(arr)
+            finally:
+                lk.release()
         finally:
-            lk.release()
+            if tok is not None:
+                _watchdog.disarm(tok)
 
     def _finish_transfer(self, src_pidx: int, tag: int, first_raw,
                          deadline: float):
@@ -1044,6 +1091,57 @@ class WireRouter:
                 )
             raise
 
+    def sentinel_exchange(self, comm, payload: bytes,
+                          timeout_ms: Optional[int] = None,
+                          op: str = "sentinel_exchange"
+                          ) -> Dict[int, bytes]:
+        """Collective contract sentinel piggyback path (obs_sentinel=2):
+        exchange one small signature frame with every member process
+        on the comm's ctl channel, strictly BEFORE the round's first
+        payload frame. Safe to interleave with barrier tokens: every
+        process performs this exchange in the same posting-order slot
+        (the progress engine serializes collectives per comm), so the
+        per-(src, tag) FIFO keeps signature frames ahead of the
+        round's own ctl traffic — and a frame that still arrives out
+        of protocol is a loud ERR_INTERN, never silently consumed as
+        a token. Sends go out to every peer before any receive parks,
+        so a desynced-but-present peer always answers (both sides
+        detect the mismatch; neither hangs). A stall here is the
+        round's: the watchdog arm carries ``op`` (the collective's
+        family) and the processes and ranks not yet heard from."""
+        from ..obs import sentinel as _sentinel
+
+        topo = proc_topology(comm)
+        for p in topo.peers:
+            self.ctl_send(comm, p, _sentinel.SIG_MAGIC + payload)
+        out: Dict[int, bytes] = {}
+        tok = None
+        if _watchdog.enabled:
+            def awaiting() -> Dict[str, List[int]]:
+                info = _ft_split_awaiting(
+                    p for p in topo.peers if p not in out)
+                info["awaiting_ranks"] = sorted(
+                    comm.group.world_rank(i)
+                    for p in info["awaiting_procs"]
+                    for i in topo.members_of.get(p, ()))
+                return info
+
+            tok = _watchdog.arm(op, comm_id=comm.cid, info=awaiting)
+        try:
+            for p in topo.peers:
+                raw = self.ctl_recv(comm, p, timeout_ms=timeout_ms)
+                if not raw.startswith(_sentinel.SIG_MAGIC):
+                    raise MPIError(
+                        ErrorCode.ERR_INTERN,
+                        f"sentinel exchange on {comm.name} popped a "
+                        f"non-signature ctl frame from process {p} — "
+                        "collective/ctl ordering diverged",
+                    )
+                out[p] = raw[len(_sentinel.SIG_MAGIC):]
+        finally:
+            _watchdog.disarm(tok)
+        return out
+
     def ctl_send(self, comm, peer_pidx: int, payload: bytes = b"") -> None:
         epoch0 = getattr(comm, "_ft_epoch0", 0)
         _ft().check_wait(comm.cid, (peer_pidx,), "ctl send",
@@ -1060,13 +1158,22 @@ class WireRouter:
                  timeout_ms: Optional[int] = None) -> bytes:
         if timeout_ms is None:  # wire_coll_timeout_ms cvar (tunable)
             timeout_ms = self.tuning().coll_timeout_ms
-        deadline = time.monotonic() + timeout_ms / 1000
-        _, raw = self._sliced_recv(
-            self._nid(src_pidx), WIRE_CTL_BASE + comm.cid,
-            deadline, comm, lambda: (src_pidx,), "ctl wait on",
-            f"ctl wait on process {src_pidx} timed out after "
-            f"{timeout_ms} ms")
-        return raw
+        tok = None
+        if _watchdog.enabled:
+            tok = _watchdog.arm(
+                "barrier_token", comm_id=comm.cid, peer=src_pidx,
+                info=lambda s=src_pidx: _ft_split_awaiting([s]))
+        try:
+            deadline = time.monotonic() + timeout_ms / 1000
+            _, raw = self._sliced_recv(
+                self._nid(src_pidx), WIRE_CTL_BASE + comm.cid,
+                deadline, comm, lambda: (src_pidx,), "ctl wait on",
+                f"ctl wait on process {src_pidx} timed out after "
+                f"{timeout_ms} ms")
+            return raw
+        finally:
+            if tok is not None:
+                _watchdog.disarm(tok)
 
     def proc_barrier(self, comm, procs: List[int],
                      timeout_ms: Optional[int] = None) -> None:

@@ -18,16 +18,14 @@ Usage::
         [--hnp H:P | --pid LAUNCHER_PID]
 
 Without ``--hnp``/``--pid`` the session directory must hold exactly
-one live job (:func:`discover_jobs` reads the contact files tpurun
-writes; ``tpu-ps``, which shares this discovery in the JAX package,
-waits for ROADMAP item 16).
+one live job (same discovery as tpu-ps: ``tpu_ps.discover_jobs`` reads
+the contact files tpurun writes).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import random
 import sys
 from typing import Dict, List, Optional
@@ -35,50 +33,7 @@ from typing import Dict, List, Optional
 from ..native import OobEndpoint
 from ..runtime.coordinator import TAG_MIGRATE
 from ..utils.errors import MPIError
-
-
-def _pid_alive(pid) -> bool:
-    """True if ``pid`` plausibly names a LIVE process (``pid <= 0`` and
-    booleans never: they would signal process groups or probe init)."""
-    if isinstance(pid, bool) or not isinstance(pid, int) or pid <= 0:
-        return False
-    try:
-        os.kill(pid, 0)
-        return True
-    except ProcessLookupError:
-        return False
-    except PermissionError:
-        return True  # alive, another user's
-    except OSError:
-        return False
-
-
-def discover_jobs() -> List[Dict]:
-    """Live jobs from the session contact files (stale files — dead
-    launcher pids — are removed here)."""
-    from .tpurun import SESSION_DIR
-
-    jobs = []
-    if not os.path.isdir(SESSION_DIR):
-        return jobs
-    for name in sorted(os.listdir(SESSION_DIR)):
-        if not name.endswith(".json"):
-            continue
-        path = os.path.join(SESSION_DIR, name)
-        try:
-            with open(path) as f:
-                info = json.load(f)
-        except (OSError, ValueError):
-            continue
-        pid = info.get("pid") if isinstance(info, dict) else None
-        if not _pid_alive(pid):
-            try:
-                os.unlink(path)  # stale: launcher is gone
-            except OSError:
-                pass
-            continue
-        jobs.append(info)
-    return jobs
+from .tpu_ps import discover_jobs
 
 
 def request_migration(host: str, port: int, off: str,

@@ -37,8 +37,9 @@ promoted through the job epoch and the survivors shrink and carry on).
 ``--ft-inject RANK:STEP`` arms the sensor's SIGKILL in one worker's
 first incarnation. ``tpu-migrate`` moves ranks off a host of a live
 job through the HNP's migrate responder; it finds the job through the
-session contact file. Waiting for the observability plane (ROADMAP
-item 16): the ``tpu_ps`` responder and the clock and series planes.
+session contact file. The HNP also serves the observability plane:
+``tpu_ps`` snapshots (with the launcher's proc states), the workers'
+clock ping-pongs and the fleet store of their sampler pushes.
 """
 
 from __future__ import annotations
@@ -814,6 +815,21 @@ class Job:
             except subprocess.TimeoutExpired:
                 p.kill()
 
+    # -- ps/top support ----------------------------------------------------
+    def _ps_extra(self) -> Dict:
+        """Launcher-side snapshot fields merged into the HNP's TAG_PS
+        reply: proc states + the job identity."""
+        from ..runtime.state import ProcState as _PS
+
+        return {
+            "pid": os.getpid(),
+            "argv": self.argv,
+            "proc_states": {
+                str(nid): _PS(int(s)).name
+                for nid, s in self.proc_state.items()
+            },
+        }
+
     def _write_contact_file(self) -> None:
         import json
 
@@ -927,9 +943,17 @@ class Job:
             # pubsub name service (MPI_Publish_name/Lookup_name over
             # the lifeline — the orte-server role lives in the HNP)
             self.hnp.start_name_server()
-            # tpu-migrate's responder + the session contact file it
-            # discovers this live job through
+            # ps/top snapshot service + session contact file so tpu-ps
+            # can discover and query this live job (orte-ps role)
+            self.hnp.start_ps_responder(self._ps_extra)
             self.hnp.start_migrate_responder(self.migrate_off)
+            # clock ping-pong responder: workers estimate their
+            # perf_counter offset to OUR clock, so tpu-doctor can merge
+            # per-rank journals onto one timeline
+            self.hnp.start_clock_responder()
+            # fleet series store: workers push continuous pvar deltas
+            # (obs_sample_interval), which the doctor merges
+            self.hnp.start_series_responder()
             # ULFM plane: failure-state queries + fault-tolerant
             # agreements (shrink's survivor-group consensus) — always
             # on; costs one idle thread when the app never asks

@@ -35,8 +35,10 @@ import dataclasses
 import os
 import re
 import threading
+import time as _time
 from typing import Dict, List, Mapping, Optional, Tuple
 
+from .. import obs as _obs
 from ..mca import pvar
 from ..mca import var as mca_var
 from ..utils import output
@@ -261,6 +263,10 @@ class TuningDb:
             os.unlink(tmp)
             raise
         os.replace(tmp, path)
+        if _obs.enabled:
+            _obs.record("tuning_db_register", "tuning",
+                        _time.perf_counter(), 0.0,
+                        nbytes=len(stamped))
         _log.verbose(1, f"tuning db: registered {fp.canon()} "
                         f"v{version} -> {path}")
         return path

@@ -6,7 +6,7 @@ The wire's collective tags hold a cid below :data:`CID_LIMIT`
 
     [0, 1 << 19)                    the shared counter (CID_BAND)
       [1 << 18, 1 << 19)            tenant bands (the service plane,
-                                    ROADMAP item 16): 64 x 4096
+                                    ROADMAP item 16b): 64 x 4096
     [1 << 19, 1 << 19 | 1 << 18)    the FT band (ft_cid): 16 epochs x
                                     16384 parent slots
     [1 << 19 | 1 << 18, 1 << 20)    dpm cid blocks (DPM_CID_BASE):
@@ -62,7 +62,7 @@ DPM_CID_BLOCK = 256
 DPM_CID_BASE = FT_CID_LIMIT
 DPM_CID_BLOCKS = (CID_LIMIT - DPM_CID_BASE) // DPM_CID_BLOCK  # 1024
 
-#: multi-tenant cid banding (the service plane, ROADMAP item 16):
+#: multi-tenant cid banding (the service plane, ROADMAP item 16b):
 #: tenant t's communicators draw cids from the band
 #: [TENANT_CID_BASE + t*TENANT_CID_SLOT, +TENANT_CID_SLOT), directly
 #: below the FT band — so revoking ONE tenant's comms is a range
