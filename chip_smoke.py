@@ -332,6 +332,42 @@ Run from the repository root on a machine with a card:
      turns each; the four ratios print beside their budgets.
      ``python3 chip_smoke.py --slice14`` runs it alone (no result
      line);
+   - slice 15, right after slice 14: the service plane. One
+     ``tpu-serviced`` daemon (``python -m
+     ompi_release_tpu_torch.service.daemon``, a child process) and
+     three ``tools.tpurun`` jobs of this script with
+     ``--slice15-worker MODE`` on ``cuda:0``, all under
+     ``wire_qos_classes=latency:8,bulk:2``; each job admits itself as a
+     tenant and builds a comm on its tenant band's first cid, stamped
+     with its class. The latency tenant (2 workers x 2 virtual ranks):
+     200 256 KiB f32 allreduces a leg, alone, beside the bulk tenant
+     under QoS and beside it with ``wire_qos_classes`` unset (FIFO),
+     every output bitwise its closed form; then calls and lease
+     renewals beside the kill job, and a clean release. The bulk tenant
+     (2 x 2): 64 MiB f32 allreduces (the SUM kernel in hier's fold)
+     through both of those legs, each bitwise its closed form, then
+     the full-width TpuLM (seed 0, flash): an eval and 2 data-parallel
+     AdamW steps on its tenant comm with QoS off and again on, losses
+     and parameter checksums bitwise equal; worker 0 checkpoints and
+     releases. The C executor's withdrawals under the arbiter are
+     counted. The kill job (3 x 2): worker 0 serves a ``tpu_server``
+     table the parent reads with ``tpu_doctor collect`` and ``tpu_top
+     --metrics``; worker 2 SIGKILLs itself before its tenant comm's
+     11th allreduce, the survivors get ERR_PROC_FAILED or ERR_REVOKED on
+     the tenant-band cid and worker 0 reports the failure. The parent
+     then renders ``tpu_top --tenants`` (both episodes), runs
+     ``tpu_clean --dry-run``, ``tpu_checkpoint verify`` on the bulk
+     tenant's checkpoint and ``tpu_info --json`` (which must name the
+     card); no worker, ring or segment may outlive its job, and the
+     daemon exits 0 on SIGINT. Later, in this process: ``tpu_tune
+     --ops allreduce --sizes 1024,65536,1048576,16777216 --repeats 3``
+     on 8 virtual ranks, its rule file loaded through
+     ``coll_tuned_use_dynamic_rules`` and an allreduce at each size
+     bitwise its closed form. Every check is fatal; per-worker
+     launches, the latency legs' p50/p99, the isolation and FIFO
+     ratios, the bulk tenant's ms and bus GB/s and the TpuLM step
+     print. ``python3 chip_smoke.py --slice15`` runs it alone (no
+     result line);
 4. times the kernels (CUDA events, median of 7) at the main path's
    shapes beside their bound, their plain twins and one PyTorch library
    call, the streaming kernels, the transpose and the eager chain hop in
@@ -6073,8 +6109,10 @@ def s14_model(w, torch, dev, steps):
                   for wr in wrs]
     ev = w.allreduce(torch.stack(losses)[:, None].expand(
         len(wrs), 2).contiguous())[0, 0]
-    out = {"eval_loss": float(ev) / n, "loss": [], "ck": []}
+    out = {"eval_loss": float(ev) / n, "loss": [], "ck": [], "step_s": []}
     for step in range(steps):
+        torch.cuda.synchronize(dev)
+        t_step = time.perf_counter()
         ps, treedef = pytree.flatten(state["params"])
         live = [p.detach().requires_grad_(True) for p in ps]
         P = pytree.unflatten(treedef, live)
@@ -6098,6 +6136,7 @@ def s14_model(w, torch, dev, steps):
                  "layers": layers}
         state = s13_adamw(torch, state, grads)
         torch.cuda.synchronize(dev)
+        out["step_s"].append(time.perf_counter() - t_step)
         out["loss"].append(float(tot) / n)
         out["ck"].append(s13_checksum(torch, state["params"]))
     return out
@@ -6755,6 +6794,749 @@ def report_slice14(s14, timing):
                      if k.endswith("_each")}}))
 
 
+# ---------------------------------------------------------------------------
+# slice 15: the service plane (two tenants on one card), the tools
+# ---------------------------------------------------------------------------
+
+S15_PROCS = 2
+S15_RANKS = 2  # virtual ranks a worker owns on cuda:0
+S15_N = S15_PROCS * S15_RANKS
+S15_KILL_PROCS = 3
+S15_KILL_N = S15_KILL_PROCS * S15_RANKS
+S15_QOS = "latency:8,bulk:2"
+S15_LAT_SHARE = 8 / 10  # service.qos.fair_share("latency", ...)
+S15_LAT_BYTES = 256 * 1024
+S15_LAT_CALLS = 200  # calls a leg of the latency tenant
+S15_LAT_WARM = 3  # record and replay before a leg's clock starts
+S15_BULK_BYTES = 64 * MIB
+S15_BULK_MAX = 400  # 64 MiB allreduces the bulk tenant runs at most
+S15_BESIDE_MAX_S = 90.0  # the latency tenant's calls beside the kill
+S15_RENEW_EVERY = 20  # latency calls between lease renewals
+S15_KILL_STEP = 10  # the kill job's worker 2 dies before this call
+S15_KILL_REASON = "worker 2 died mid-allreduce"
+S15_WAIT_S = 180.0
+S15_TUNE_SIZES = (1024, 64 * 1024, MIB, 16 * MIB)
+S15_WITHDRAWN = "qos arbiter active"  # coll.native_exec's reason
+
+
+def s15_rows(torch, count, off, dev):
+    """This worker's rank-stacked input of slice 15 (the pattern of
+    slice 10, rank ``off + i`` in row i)."""
+    return torch.stack([s10_pattern(torch, count, off + i, dev)
+                        for i in range(S15_RANKS)])
+
+
+def s15_sum(torch, count, n, dev):
+    """The closed form of the SUM of ``s10_pattern`` over ``n`` ranks,
+    one row a local rank."""
+    row = (torch.arange(count, device=dev) % 13 * n
+           + n * (n - 1) // 2).float()
+    return row.expand(S15_RANKS, count).contiguous()
+
+
+def s15_flag(out_dir, name, doc=None):
+    import os
+
+    path = os.path.join(out_dir, name)
+    with open(path + ".tmp", "w") as f:
+        json.dump(doc or {}, f)
+    os.replace(path + ".tmp", path)
+
+
+def s15_wait(out_dir, *names):
+    import os
+
+    for name in names:
+        s14_wait_file(os.path.join(out_dir, name), S15_WAIT_S)
+
+
+def s15_attach(w, rt, torch, name, qos, pidx):
+    """Admission as a tenant of the daemon at ``$OMPITPU_SERVICED``:
+    worker 0 admits, the grant's tenant id reaches every worker through
+    WORLD, and every worker builds the comm on the tenant band's first
+    cid, stamped with its QoS class."""
+    import os
+
+    from ompi_release_tpu_torch.comm.communicator import Communicator
+    from ompi_release_tpu_torch.ft import ulfm
+    from ompi_release_tpu_torch.service.daemon import ServiceClient
+
+    host, port = os.environ["OMPITPU_SERVICED"].rsplit(":", 1)
+    contrib = torch.zeros((S15_RANKS, 4), dtype=torch.float32,
+                          device=w.device)
+    cl = grant = None
+    if pidx == 0:
+        cl = ServiceClient(host, int(port))
+        grant = cl.admit(name, ranks=w.size, qos=qos)
+        contrib[0, 0] = grant["tid"] + 1
+    tid = int(w.allreduce(contrib)[0, 0]) - 1
+    tc = Communicator(rt, w.group, name=f"t{tid}",
+                      cid=ulfm.tenant_cid(tid, 0))
+    tc.set_qos_class(qos)
+    lo, hi = ulfm.tenant_band(tid)
+    check(tid >= 0 and lo <= tc.cid < hi
+          and ulfm.tenant_of_cid(tc.cid) == tid and tc.qos_class == qos,
+          f"slice 15: {name}'s tenant comm {tc.cid} (tenant {tid}, band "
+          f"[{lo}, {hi}), class {tc.qos_class})")
+    return cl, grant, tid, tc
+
+
+def s15_withdrawals(cid):
+    """The spanning plans of ``cid`` the C executor withdrew from under
+    the QoS arbiter, and every plan's executor and reason."""
+    from ompi_release_tpu_torch.coll import plan as cplan
+
+    states = {str(sig): (st.last, st.why)
+              for (c, sig), st in list(cplan._span_states.items())
+              if c == cid}
+    return sum(1 for _last, why in states.values()
+               if why and why.endswith(S15_WITHDRAWN)), states
+
+
+def s15_latency(w, rt, tmvar, torch, cuda_op, dev, pidx, out_dir):
+    """The latency tenant: 256 KiB allreduces on its tenant comm, alone,
+    beside the bulk tenant under QoS, beside it with QoS off, then
+    beside the kill job with lease renewals, and a clean release."""
+    import os
+
+    from ompi_release_tpu_torch.mca import pvar
+
+    cl, grant, tid, tc = s15_attach(w, rt, torch, "lat-job", "latency",
+                                    pidx)
+    off = rt.local_rank_offset
+    elems = S15_LAT_BYTES // 4
+    x = s15_rows(torch, elems, off, dev)
+    want = s15_sum(torch, elems, S15_N, dev)
+    fallbacks = pvar.PVARS.lookup("plan_native_fallbacks")
+    out = {"tid": tid, "cid": tc.cid, "legs": {}}
+
+    def leg(name):
+        for _ in range(S15_LAT_WARM):
+            tc.allreduce(x)
+        tc.barrier()
+        ms = []
+        for _ in range(S15_LAT_CALLS):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            got = tc.allreduce(x)
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(bits_equal(got, want), f"slice 15: a {name} latency "
+                                         "allreduce differs from its "
+                                         "closed form")
+        out["legs"][name] = ms
+
+    s15_wait(out_dir, "b-ready", "k-ready")
+    cuda_op.reset_launches()
+    f0 = float(fallbacks.read())
+    leg("solo")
+    if pidx == 0:
+        s15_flag(out_dir, "lat-solo-done")
+    s15_wait(out_dir, "bulk-running")
+    leg("qos")
+    out["withdrawn_qos"], out["plans_qos"] = s15_withdrawals(tc.cid)
+    out["fallbacks_qos"] = float(fallbacks.read()) - f0
+    if pidx == 0:
+        s15_flag(out_dir, "lat-qos-done")
+    s15_wait(out_dir, "bulk-fifo")
+    tmvar.set_value("wire_qos_classes", "")  # FIFO: the arbiter is off
+    tc.barrier()
+    leg("fifo")
+    out["withdrawn_fifo"], out["plans_fifo"] = s15_withdrawals(tc.cid)
+    tmvar.set_value("wire_qos_classes", S15_QOS)
+    if pidx == 0:
+        s15_flag(out_dir, "lat-fifo-done")
+    # beside the kill job: calls and renewals until the parent reports
+    # the kill job's end (a flag all workers agree on through the comm)
+    t0 = time.perf_counter()
+    calls = renewals = 0
+    flag = torch.zeros((S15_RANKS, 4), dtype=torch.float32, device=dev)
+    while True:
+        got = tc.allreduce(x)
+        calls += 1
+        check(bits_equal(got, want), "slice 15: a latency allreduce "
+                                     "beside the kill differs")
+        if pidx == 0 and calls % S15_RENEW_EVERY == 0:
+            dt = time.perf_counter() - t0
+            cl.renew(tid, grant["token"], stats={
+                "coll_s": calls / dt,
+                "mb_s": calls * S15_LAT_BYTES / dt / 1e6})
+            renewals += 1
+        if calls % 10 == 0:
+            f = flag.clone()
+            if pidx == 0:
+                f[0, 0] = float(os.path.exists(
+                    os.path.join(out_dir, "k-done")))
+            if float(tc.allreduce(f)[0, 0]) > 0:
+                break
+            check(time.perf_counter() - t0 < S15_BESIDE_MAX_S,
+                  "slice 15: the kill job did not end within "
+                  f"{S15_BESIDE_MAX_S} s")
+    out["beside_kill"] = {"calls": calls, "renewals": renewals,
+                          "seconds": time.perf_counter() - t0}
+    torch.cuda.synchronize(dev)
+    out["launches"] = {k: cuda_op.LAUNCHES[k] for k in
+                       ("sum", "flash_fwd", "flash_bwd_dq",
+                        "flash_bwd_dkv")}
+    tc.barrier()
+    if pidx == 0:
+        out["release"] = cl.release(tid, grant["token"])
+        cl.close()
+    tc.free()
+    return out
+
+
+def s15_bulk(w, rt, tmvar, torch, cuda_op, dev, pidx, out_dir):
+    """The bulk tenant: 64 MiB allreduces (the SUM kernel in hier's
+    fold) beside the latency tenant's legs, QoS on then off, every
+    output its closed form; then the full-width TpuLM's eval and two
+    AdamW steps on its tenant comm with QoS off and again on, bitwise
+    equal; worker 0 checkpoints the results and releases the lease."""
+    import os
+
+    from ompi_release_tpu_torch.ft.checkpoint import Checkpointer
+
+    cl, grant, tid, tc = s15_attach(w, rt, torch, "bulk-job", "bulk",
+                                    pidx)
+    off = rt.local_rank_offset
+    elems = S15_BULK_BYTES // 4
+    x = s15_rows(torch, elems, off, dev)
+    want = s15_sum(torch, elems, S15_N, dev)
+    ctrl = torch.zeros((S15_RANKS, 4), dtype=torch.float32, device=dev)
+    if pidx == 0:
+        s15_flag(out_dir, "b-ready")
+    s15_wait(out_dir, "lat-solo-done")
+    tc.barrier()
+    cuda_op.reset_launches()
+    ms = {"qos": [], "fifo": []}
+    mode = "qos"
+    last = None
+    out_withdrawn = (0, {})
+    for _ in range(S15_BULK_MAX):
+        # worker 0 reads the latency tenant's progress; the comm agrees
+        c = ctrl.clone()
+        if pidx == 0:
+            c[0, 0] = (2.0 if os.path.exists(os.path.join(
+                out_dir, "lat-fifo-done")) else 1.0 if os.path.exists(
+                os.path.join(out_dir, "lat-qos-done")) else 0.0)
+        code = int(tc.allreduce(c)[0, 0])
+        if code == 2:
+            break
+        if code == 1 and mode == "qos":
+            out_withdrawn = s15_withdrawals(tc.cid)
+            tmvar.set_value("wire_qos_classes", "")
+            mode = "fifo"
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        last = tc.allreduce(x)
+        torch.cuda.synchronize(dev)
+        ms[mode].append((time.perf_counter() - t0) * 1e3)
+        check(bits_equal(last, want), f"slice 15: a {mode} 64 MiB bulk "
+                                      "allreduce differs from its "
+                                      "closed form")
+        if pidx == 0 and len(ms[mode]) == 1:
+            s15_flag(out_dir, "bulk-running" if mode == "qos"
+                     else "bulk-fifo")
+    else:
+        check(False, f"slice 15: the bulk tenant ran {S15_BULK_MAX} "
+                     "allreduces without the latency tenant finishing")
+    check(ms["qos"] and ms["fifo"], f"slice 15: bulk legs {ms}")
+    torch.cuda.synchronize(dev)
+    sum_launches = cuda_op.LAUNCHES["sum"]
+    out = {"tid": tid, "cid": tc.cid, "bulk_ms": ms,
+           "withdrawn_qos": out_withdrawn[0], "plans_qos": out_withdrawn[1]}
+    # the model: QoS is off now; then the same run with it on
+    cuda_op.reset_launches()
+    m_fifo = s14_model(tc, torch, dev, 2)
+    flash = {k: cuda_op.LAUNCHES[k] for k in
+             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    tmvar.set_value("wire_qos_classes", S15_QOS)
+    tc.barrier()
+    m_qos = s14_model(tc, torch, dev, 2)
+    check(m_qos["loss"] == m_fifo["loss"] and m_qos["ck"] == m_fifo["ck"]
+          and m_qos["eval_loss"] == m_fifo["eval_loss"],
+          f"slice 15: the TpuLM under QoS (loss {m_qos['loss']}, checksum "
+          f"{m_qos['ck']}) differs from QoS off ({m_fifo['loss']}, "
+          f"{m_fifo['ck']})")
+    check(all(math.isfinite(v) for v in m_qos["loss"])
+          and abs(m_qos["eval_loss"] - math.log(32000)) < 1.0,
+          f"slice 15: TpuLM losses {m_qos}")
+    out["model"] = m_qos
+    out["model_fifo_step_s"] = m_fifo["step_s"]
+    out["withdrawn_model"], _ = s15_withdrawals(tc.cid)
+    out["launches"] = {"sum": sum_launches, **flash}
+    check(sum_launches > 0 and all(v > 0 for v in flash.values()),
+          f"slice 15: bulk worker {pidx} launches {out['launches']}")
+    tc.barrier()
+    if pidx == 0:
+        ck = Checkpointer(os.path.join(out_dir, "ckpt"))
+        ck.save(2, {"allreduce": last[:1].clone(),
+                    "loss": torch.tensor(m_qos["loss"],
+                                         dtype=torch.float64, device=dev)},
+                extra_meta={"tenant": tid})
+        ck.wait()
+        out["release"] = cl.release(tid, grant["token"])
+        cl.close()
+    tc.free()
+    return out
+
+
+def s15_kill(w, rt, torch, dev, pidx, out_dir):
+    """The second bulk job: its worker 0 serves a tpu_server table the
+    parent collects from; then worker 2 SIGKILLs itself before its
+    tenant comm's 11th allreduce and the survivors see the typed error
+    on the tenant-band cid; worker 0 reports the failure."""
+    import os
+    import signal
+
+    from ompi_release_tpu_torch.ft import ulfm
+    from ompi_release_tpu_torch.tools.tpu_server import NameServer
+    from ompi_release_tpu_torch.utils.errors import ErrorCode, MPIError
+
+    cl, grant, tid, tc = s15_attach(w, rt, torch, "bulk-kill", "bulk",
+                                    pidx)
+    srv = None
+    if pidx == 0:
+        srv = NameServer(bind_addr="127.0.0.1")
+        s15_flag(out_dir, "k-server", {"port": srv.port})
+    w.barrier()
+    if pidx == 0:
+        s15_flag(out_dir, "k-ready")
+    s15_wait(out_dir, "lat-fifo-done", "collected")
+    w.barrier()
+    time.sleep(0.5)  # the WORLD frames land before the kill
+    x = s15_rows(torch, 256, rt.local_rank_offset, dev)
+    want = s15_sum(torch, 256, S15_KILL_N, dev)
+    err = None
+    t_kill = None
+    for step in range(40):
+        if pidx == 2 and step == S15_KILL_STEP:
+            os.kill(os.getpid(), signal.SIGKILL)
+        try:
+            t_kill = time.perf_counter()
+            got = tc.allreduce(x)
+            check(bits_equal(got, want), "slice 15: a kill-job allreduce "
+                                         "before the kill differs")
+            time.sleep(0.02)
+        except MPIError as e:
+            err = e
+            break
+    check(err is not None and err.code in (ErrorCode.ERR_PROC_FAILED,
+                                           ErrorCode.ERR_REVOKED),
+          f"slice 15: worker {pidx} of the kill job got {err!r}")
+    check(ulfm.tenant_of_cid(tc.cid) == tid, "slice 15: the failed comm "
+                                             "left the tenant band")
+    out = {"tid": tid, "cid": tc.cid, "error": err.code.name,
+           "detect_s": time.perf_counter() - t_kill}
+    if pidx == 0:
+        out["fail"] = cl.fail(tid, grant["token"], reason=S15_KILL_REASON)
+        cl.close()
+        srv.shutdown()
+    return out
+
+
+def s15_worker():
+    """One worker of a slice-15 job (``chip_smoke.py --slice15-worker
+    MODE`` under ``tools.tpurun``; MODE is lat, bulk or kill): writes its
+    results as JSON to ``$CHIP_SMOKE_S15_OUT/<mode>-worker<i>.json``."""
+    import os
+
+    import torch
+
+    import ompi_release_tpu_torch as mpi
+    from ompi_release_tpu_torch.mca import var as tmvar
+    from ompi_release_tpu_torch.ops import cuda_op
+    from ompi_release_tpu_torch.runtime.runtime import Runtime
+
+    mode = sys.argv[2]
+    out_dir = os.environ["CHIP_SMOKE_S15_OUT"]
+    t_start = time.perf_counter()
+    w = mpi.init(cli_args=["--mca", "runtime_virtual_ranks", str(S15_RANKS),
+                           "--mca", "coll", "tuned,basic,self,hier"])
+    rt = Runtime.current()
+    pidx = int(rt.bootstrap["process_index"])
+    dev = w.device
+    procs = S15_KILL_PROCS if mode == "kill" else S15_PROCS
+    check(w.size == procs * S15_RANKS and w.spans_processes
+          and dev.type == "cuda", f"slice 15 ({mode}): WORLD {w.size} "
+                                  f"ranks on {dev}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"pidx": pidx, "pid": os.getpid(), "mode": mode}
+    if mode == "lat":
+        out.update(s15_latency(w, rt, tmvar, torch, cuda_op, dev, pidx,
+                               out_dir))
+    elif mode == "bulk":
+        out.update(s15_bulk(w, rt, tmvar, torch, cuda_op, dev, pidx,
+                            out_dir))
+    else:
+        out.update(s15_kill(w, rt, torch, dev, pidx, out_dir))
+    torch.cuda.synchronize(dev)
+    out["peak_device_memory_GiB"] = \
+        torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    out["seconds"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"{mode}-worker{pidx}.json"), "w") as f:
+        json.dump(out, f)
+    mpi.finalize()
+    return 0
+
+
+def s15_job(mode, procs, mca, res, job_kw=None):
+    """One tpurun job of slice 15 (on a thread of the parent): the
+    workers run ``--slice15-worker MODE``; ``res[mode]`` gets (rc, wall
+    seconds, the job) or the exception."""
+    import os
+
+    from ompi_release_tpu_torch.tools.tpurun import Job
+
+    t0 = time.perf_counter()
+    try:
+        job = Job(procs, [sys.executable, os.path.abspath(__file__),
+                          "--slice15-worker", mode], list(mca),
+                  **(job_kw or {}))
+        rc = job.run(timeout_s=S15_WAIT_S + 120)
+        res[mode] = (rc, time.perf_counter() - t0, job)
+    except BaseException as e:  # reported by the phase, never swallowed
+        res[mode] = e
+
+
+def s15_tool(fn, argv):
+    """Run a tool's ``main(argv)`` in this process; returns (rc, its
+    standard output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    return rc, buf.getvalue()
+
+
+def s15_collect(out_dir, res):
+    """On a thread: once the kill job's worker 0 serves its table, fetch
+    its journal with ``tpu_doctor collect`` and its pvar page with
+    ``tpu_top --metrics``, then let the kill job go on."""
+    import os
+
+    from ompi_release_tpu_torch.tools import tpu_doctor, tpu_top
+
+    try:
+        s15_wait(out_dir, "k-server")
+        with open(os.path.join(out_dir, "k-server")) as f:
+            target = f"127.0.0.1:{json.load(f)['port']}"
+        dump_dir = os.path.join(out_dir, "collect-dump")
+        res["collect"] = s15_tool(tpu_doctor.main, [
+            "collect", target, "-o", dump_dir, "--metrics"])
+        with open(os.path.join(dump_dir, "journal-p0.json")) as f:
+            res["journal"] = json.load(f)
+        res["metrics"] = s15_tool(tpu_top.main, [
+            "--metrics", target, "--iterations", "1"])
+    except BaseException as e:
+        res["error"] = repr(e)
+    finally:
+        s15_flag(out_dir, "collected")
+
+
+def s15_leftovers(job, label):
+    import glob
+    import os
+
+    check(all(p.poll() is not None for p in job.procs.values()),
+          f"slice 15 ({label}): a worker outlived its job")
+    leftovers = [f for pid in job._local_pids
+                 for pat in (f"ompitpu-{pid}-*", f"onw-{pid:x}-*",
+                             f"onwev-{pid:x}-*")
+                 for f in glob.glob(os.path.join("/dev/shm", pat))]
+    check(not leftovers, f"slice 15 ({label}): shm segments or rings "
+                         f"left {leftovers}")
+
+
+def phase_slice15(cuda_op, torch):
+    """Slice 15's path: one ``tpu-serviced`` daemon (a child process), a
+    latency tenant and a bulk tenant (2 workers x 2 virtual ranks each,
+    ``wire_qos_classes`` latency:8,bulk:2) and a second bulk job whose
+    worker 2 dies; then the tools against what they left. Returns what
+    ``report_slice15`` prints and the launches per kernel row."""
+    import gc
+    import os
+    import secrets
+    import signal
+    import subprocess as sp
+    import tempfile
+    import threading
+
+    from ompi_release_tpu_torch.native import build_library
+    from ompi_release_tpu_torch.tools import (tpu_checkpoint, tpu_clean,
+                                              tpu_info, tpu_top)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cuda_op.build()
+    build_library()
+    out = {}
+    env_keep = dict(os.environ)
+    daemon = sp.Popen([sys.executable, "-m",
+                       "ompi_release_tpu_torch.service.daemon", "--bind",
+                       "127.0.0.1", "--lease", "60"],
+                      cwd=os.path.dirname(os.path.abspath(__file__)),
+                      stdout=sp.PIPE, text=True)
+    try:
+        line = daemon.stdout.readline()
+        check(line.startswith("tpu-serviced URI: "),
+              f"slice 15: the daemon printed {line!r}")
+        target = line.split()[-1]
+        with tempfile.TemporaryDirectory() as td:
+            os.environ["OMPITPU_SERVICED"] = target
+            os.environ["CHIP_SMOKE_S15_OUT"] = td
+            # one control-plane secret for the three jobs: each Job
+            # reads it from the environment, and jobs built on threads
+            # at once must not each publish their own
+            os.environ["OMPITPU_JOB_SECRET"] = secrets.token_hex(16)
+            mca = [("wire_qos_classes", S15_QOS)]
+            res, coll = {}, {}
+            kill_kw = {"on_failure": "continue", "heartbeat_s": 0.3,
+                       "miss_limit": 3}
+            threads = [threading.Thread(target=s15_job, args=a,
+                                        daemon=True) for a in (
+                ("lat", S15_PROCS, mca, res, {"heartbeat_s": 0.5,
+                                              "miss_limit": 20}),
+                ("bulk", S15_PROCS, mca, res, {"heartbeat_s": 0.5,
+                                               "miss_limit": 20}),
+                ("kill", S15_KILL_PROCS, mca + [("obs_enable", "1")], res,
+                 kill_kw))]
+            threads.append(threading.Thread(target=s15_collect,
+                                            args=(td, coll), daemon=True))
+            for th in threads:
+                th.start()
+            threads[2].join(timeout=S15_WAIT_S + 180)
+            s15_flag(td, "k-done")
+            for th in threads:
+                th.join(timeout=S15_WAIT_S + 180)
+            check(not any(th.is_alive() for th in threads),
+                  "slice 15: a job outlived its time")
+            check("error" not in coll, f"slice 15: the collect: {coll}")
+            for mode in ("lat", "bulk", "kill"):
+                r = res.get(mode)
+                check(isinstance(r, tuple), f"slice 15 ({mode}): {r!r}")
+                check(r[0] == 0, f"slice 15 ({mode}): the job exited "
+                                 f"{r[0]}")
+                s15_leftovers(r[2], mode)
+            check(r[2]._ft_failed_ranks, "slice 15: the kill job promoted "
+                                         "no dead worker")
+            rs = {}
+            for mode, procs in (("lat", S15_PROCS), ("bulk", S15_PROCS),
+                                ("kill", S15_KILL_PROCS)):
+                rs[mode] = []
+                for p in range(procs):
+                    path = os.path.join(td, f"{mode}-worker{p}.json")
+                    if os.path.exists(path):
+                        with open(path) as f:
+                            rs[mode].append(json.load(f))
+            check(len(rs["lat"]) == S15_PROCS and len(rs["bulk"])
+                  == S15_PROCS and [r["pidx"] for r in rs["kill"]]
+                  == [0, 1], f"slice 15: results "
+                             f"{ {m: len(v) for m, v in rs.items()} }")
+            out["res"] = rs
+            out["walls"] = {m: res[m][1] for m in res}
+            # the tools against what the jobs left
+            rc, text = s15_tool(tpu_top.main, ["--tenants", target,
+                                               "--iterations", "1"])
+            check(rc == 0 and S15_KILL_REASON in text
+                  and "released" in text and "(no live tenants)" in text,
+                  f"slice 15: tpu_top --tenants rc {rc}:\n{text}")
+            out["tenants_frame"] = text
+            rc, text = s15_tool(tpu_clean.main, ["--dry-run"])
+            check(rc == 0 and "would remove" in text,
+                  f"slice 15: tpu_clean rc {rc}: {text}")
+            out["clean"] = text.strip()
+            rc, text = s15_tool(tpu_checkpoint.main,
+                                ["verify", os.path.join(td, "ckpt")])
+            check(rc == 0 and "verified OK" in text,
+                  f"slice 15: tpu_checkpoint verify rc {rc}: {text}")
+            out["checkpoint"] = text.strip()
+            out["collect"] = coll
+    finally:
+        os.environ.clear()
+        os.environ.update(env_keep)
+        daemon.send_signal(signal.SIGINT)
+        try:
+            daemon.wait(timeout=10)
+        except sp.TimeoutExpired:
+            daemon.kill()
+            daemon.wait()
+    check(daemon.returncode == 0, f"slice 15: the daemon exited "
+                                  f"{daemon.returncode}")
+    rc, text = s15_tool(tpu_info.main, ["--json"])
+    info = json.loads(text)
+    check(rc == 0 and info["devices"][0]["kind"]
+          == torch.cuda.get_device_name(0)
+          and info["devices"][0]["platform"] == "gpu",
+          f"slice 15: tpu_info --json devices {info['devices']}")
+    out["info_devices"] = info["devices"]
+    coll = out["collect"]
+    check(coll["collect"][0] == 0 and coll["journal"].get("spans")
+          and coll["metrics"][0] == 0
+          and "wire_" in coll["metrics"][1],
+          f"slice 15: tpu_doctor collect / tpu_top --metrics: "
+          f"{coll['collect']} {str(coll['metrics'])[:400]}")
+    sums = {name: sum(r["launches"][key] for m in ("lat", "bulk")
+                      for r in out["res"][m])
+            for name, key in (("stream_axpy[sum]", "sum"),
+                              ("flash_fwd", "flash_fwd"),
+                              ("flash_bwd_dq", "flash_bwd_dq"),
+                              ("flash_bwd_dkv", "flash_bwd_dkv"))}
+    out["launches"] = sums
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 3: slice-15 path: two tenants and a failed one on one "
+        f"daemon, the tools; launches {sums}; the phase took "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def s15_tune(torch):
+    """``tpu_tune`` in this process on 8 virtual ranks of the card; the
+    rule file it wrote is loaded through ``coll_tuned_use_dynamic_rules``
+    and an allreduce at each swept size is bitwise its closed form.
+    Returns the winners, the rule text and the SUM launches of the
+    checked allreduces."""
+    import os
+    import tempfile
+
+    import ompi_release_tpu_torch as mpi
+    from ompi_release_tpu_torch.coll import dynamic_rules
+    from ompi_release_tpu_torch.mca import var as tmvar
+    from ompi_release_tpu_torch.ops import cuda_op
+    from ompi_release_tpu_torch.tools import tpu_tune
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "rules.conf")
+        rc, text = s15_tool(tpu_tune.main, [
+            "-o", path, "--ops", "allreduce", "--sizes",
+            ",".join(str(s) for s in S15_TUNE_SIZES), "--repeats", "3",
+            "--ranks", str(N_RANKS)])
+        check(rc == 0 and "tpu-tune: wrote" in text,
+              f"slice 15: tpu_tune rc {rc}: {text}")
+        with open(path) as f:
+            rules = f.read()
+        tune_s = time.perf_counter() - t0
+        world = mpi.init(cli_args=["--mca", "runtime_virtual_ranks",
+                                   str(N_RANKS)])
+        dev = world.device
+        check(world.size == N_RANKS and dev.type == "cuda",
+              f"slice 15: tpu_tune's WORLD {world.size} on {dev}")
+        tmvar.set_value("coll", "tuned")
+        try:
+            tuned = world.dup(name="s15_tuned")
+        finally:
+            tmvar.VARS.unset("coll")
+        tmvar.set_value("coll_tuned_use_dynamic_rules", True)
+        tmvar.set_value("coll_tuned_dynamic_rules_filename", path)
+        try:
+            check(dynamic_rules.load_rules(path), "slice 15: the emitted "
+                                                  "rule file holds no rule")
+            cuda_op.reset_launches()
+            for size in S15_TUNE_SIZES:
+                elems = size // 4
+                x = torch.stack([s10_pattern(torch, elems, r, dev)
+                                 for r in range(N_RANKS)])
+                want = (torch.arange(elems, device=dev) % 13 * N_RANKS
+                        + N_RANKS * (N_RANKS - 1) // 2).float().expand(
+                    N_RANKS, elems)
+                check(bits_equal(tuned.allreduce(x), want.contiguous()),
+                      f"slice 15: the {size} B allreduce under the tuned "
+                      "rules differs from its closed form")
+            torch.cuda.synchronize(dev)
+            sums = cuda_op.LAUNCHES["sum"]
+        finally:
+            tmvar.VARS.unset("coll_tuned_use_dynamic_rules")
+            tmvar.VARS.unset("coll_tuned_dynamic_rules_filename")
+            tuned.free()
+    winners = [ln.split() for ln in rules.splitlines()
+               if ln.startswith("allreduce ")]
+    check(winners, f"slice 15: no allreduce rule in\n{rules}")
+    timings = [ln for ln in rules.splitlines()
+               if ln.startswith("# allreduce @")]
+    out = {"winners": [(int(w[2]), w[3]) for w in winners],
+           "timings": timings, "tune_s": tune_s, "sum": sums,
+           "seconds": time.perf_counter() - t0}
+    log(f"slice 15: tpu_tune on {N_RANKS} virtual ranks "
+        f"({tune_s:.1f} s): rules {out['winners']}; every swept size "
+        f"bitwise its closed form under them; stream_axpy[sum] {sums}")
+    for ln in timings:
+        log(f"slice 15:   {ln[2:]}")
+    return out
+
+
+def s15_p(ms, q):
+    import statistics
+
+    if q == 50:
+        return statistics.median(ms)
+    return statistics.quantiles(ms, n=100, method="inclusive")[q - 1]
+
+
+def report_slice15(s15):
+    """Print slice 15's numbers: the latency tenant's p50/p99 a leg and
+    the isolation and FIFO ratios beside the simulator's bound, the bulk
+    tenant's allreduce ms and bus GB/s, the TpuLM step inside a tenant,
+    the C executor's withdrawals, the kill episode and the tools."""
+    card = card_line()
+    res = s15["res"]
+    for mode in ("lat", "bulk", "kill"):
+        for r in res[mode]:
+            log(f"slice 15: {mode} worker {r['pidx']} launches "
+                f"{r.get('launches')} peak "
+                f"{r['peak_device_memory_GiB']:.2f} GiB, {r['seconds']:.1f} s")
+    legs = {}
+    for r in res["lat"]:
+        for name, ms in r["legs"].items():
+            legs.setdefault(name, []).extend(ms)
+    p = {name: (s15_p(ms, 50), s15_p(ms, 99)) for name, ms in legs.items()}
+    iso = p["qos"][1] / p["solo"][1]
+    fifo = p["fifo"][1] / p["solo"][1]
+    for name in ("solo", "qos", "fifo"):
+        log(f"slice 15: latency tenant {name}: {S15_LAT_CALLS} x "
+            f"{S15_LAT_BYTES >> 10} KiB allreduces a worker, p50 "
+            f"{p[name][0]:.4f} ms, p99 {p[name][1]:.4f} ms")
+    log(f"slice 15: isolation ratio (QoS p99 / solo p99) {iso:.4f} beside "
+        f"the simulator's bound 1/fair_share = {1 / S15_LAT_SHARE:.2f}; "
+        f"FIFO ratio {fifo:.4f} [{card}]")
+    for r in res["lat"]:
+        log(f"slice 15: latency worker {r['pidx']}: C-executor withdrawals "
+            f"under the arbiter {r['withdrawn_qos']} of "
+            f"{len(r['plans_qos'])} plans (plan_native_fallbacks "
+            f"+{r['fallbacks_qos']:.0f}); QoS off: {r['plans_fifo']}; "
+            f"beside the kill {r['beside_kill']}")
+    n = S15_N
+    for r in res["bulk"]:
+        for mode, ms in r["bulk_ms"].items():
+            med = s15_p(ms[1:] or ms, 50)
+            bus = 2 * (n - 1) / n * S15_BULK_BYTES / (med / 1e3) / 1e9
+            log(f"slice 15: bulk worker {r['pidx']} {mode}: "
+                f"{len(ms)} x 64 MiB allreduces, median {med:.2f} ms, bus "
+                f"{bus:.3f} GB/s [{card}]")
+        m = r["model"]
+        log(f"slice 15: bulk worker {r['pidx']}: TpuLM in a tenant, eval "
+            f"loss {m['eval_loss']:.4f}, losses {m['loss']}, step ms "
+            f"{[round(s * 1e3, 1) for s in m['step_s']]} (QoS off "
+            f"{[round(s * 1e3, 1) for s in r['model_fifo_step_s']]}), "
+            f"bitwise QoS on == off; C-executor withdrawals under the "
+            f"arbiter {r['withdrawn_qos']} (bulk loop), "
+            f"{r['withdrawn_model']} (model) [{card}]")
+    for r in res["kill"]:
+        log(f"slice 15: kill job worker {r['pidx']}: {r['error']} on "
+            f"tenant cid {r['cid']} after {r['detect_s']:.3f} s")
+    log("slice 15: tpu_top --tenants:\n" + s15["tenants_frame"])
+    log(f"slice 15: {s15['clean']}; {s15['checkpoint']}")
+    coll = s15["collect"]
+    log(f"slice 15: tpu_doctor collect: {coll['collect'][1].strip()}; "
+        f"tpu_top --metrics: {len(coll['metrics'][1].splitlines())} lines")
+    log(f"slice 15: tpu_info devices {s15['info_devices']}")
+    log(f"slice 15: walls {s15['walls']}; the phase "
+        f"{s15['seconds']:.1f} s")
+
+
 def main():
     import torch
 
@@ -6779,8 +7561,20 @@ def main():
         return s13_worker()
     if sys.argv[1:] == ["--slice14-worker"]:
         return s14_worker()
+    if sys.argv[1:2] == ["--slice15-worker"]:
+        return s15_worker()
     t_start = time.perf_counter()
     log(f"card: {card_line()}")
+    if sys.argv[1:] == ["--slice15"]:
+        # slice 15 alone: the builds, its jobs, the tools and tpu_tune;
+        # it prints no result line
+        s15 = phase_slice15(cuda_op, torch)
+        s15["tune"] = s15_tune(torch)
+        report_slice15(s15)
+        mpi.finalize()
+        log(f"chip_smoke --slice15: passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     if sys.argv[1:] == ["--slice14"]:
         # slice 14 alone: the builds, its two jobs, this process's two
         # overhead ratios (8 virtual ranks, the one-card TpuLM) and the
@@ -6851,6 +7645,7 @@ def main():
     s12 = phase_slice12(cuda_op, torch)
     s13 = phase_slice13(cuda_op, torch)
     s14 = phase_slice14(cuda_op, torch)
+    s15 = phase_slice15(cuda_op, torch)
 
     cuda_op.reset_launches()
     world, tuned, runs = drive_main_path(mpi, tmvar, torch, dev)
@@ -6958,6 +7753,7 @@ def main():
     time_model(torch, model)
     time_train(torch, train_model)
     s14_timing = time_slice14(tuned, torch, train_model)
+    s15["tune"] = s15_tune(torch)
     del model, train_model
     torch.cuda.empty_cache()
     time_moe(torch, moe_model)
@@ -7003,9 +7799,17 @@ def main():
             row["launches"] += s14["launches"][row["name"]]
             row["launches_by_path"]["slice14"] = \
                 s14["launches"][row["name"]]
+    for row in rows:  # slice 15's tenants, and tpu_tune's checks
+        if row["name"] in s14_by_row:
+            n15 = s15["launches"][row["name"]]
+            if row["name"] == "stream_axpy[sum]":
+                n15 += s15["tune"]["sum"]
+            row["launches"] += n15
+            row["launches_by_path"]["slice15"] = n15
     report_slice12(s12)
     report_slice13(s13)
     report_slice14(s14, s14_timing)
+    report_slice15(s15)
     run_bench(torch, dev)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -884,17 +884,25 @@ class ShmBtl(base.BtlModule):
 
         while True:
             _time.sleep(5.0)
-            with cls._reaper_lock:
-                live = list(cls._instances) if cls._instances else []
-            for mod in live:
-                try:
-                    mod._reap_orphaned_segments()
-                except Exception:
-                    pass  # a reap failure must never kill the timer
+            cls._reap_instances()
             try:
                 cls._reap_orphan_list()
             except Exception:
                 pass
+
+    @classmethod
+    def _reap_instances(cls) -> None:
+        """One pass over the live modules. The strong references it
+        takes end when it returns: held across the timer's sleep, they
+        would keep a dropped module (and its pending records) from the
+        collector for a whole period."""
+        with cls._reaper_lock:
+            live = list(cls._instances) if cls._instances else []
+        for mod in live:
+            try:
+                mod._reap_orphaned_segments()
+            except Exception:
+                pass  # a reap failure must never kill the timer
 
     def _reap_orphaned_segments(self) -> None:
         import time as _time

@@ -72,7 +72,9 @@ spanning record, and the stall watchdog arms around the C slice loop.
 Inline sentinel checking (``obs_sentinel >= 2``) rides ctl frames
 between the planned rounds, which the C reap would stash mid-fire: the
 executor withdraws then, and ``plan_native_fallbacks`` counts the
-withdrawal.
+withdrawal. So it does while a QoS arbiter is set (``wire_qos_classes``):
+a C fire would skip the weighted-fair gate of :meth:`WireRouter._stripe`,
+and a bulk tenant's replayed rounds would crowd out the others.
 """
 from __future__ import annotations
 
@@ -126,7 +128,8 @@ _native_fallbacks = pvar.counter(
     "native-eligible fires that fell back to the interpreted "
     "PlannedXchg replay for one fire (stashed/early frames, "
     "ring-lock contention), and plans the executor withdrew from "
-    "under inline sentinel checking (obs_sentinel >= 2)",
+    "under inline sentinel checking (obs_sentinel >= 2) or a QoS "
+    "arbiter (wire_qos_classes set)",
 )
 
 _BLOB_MAGIC = 0x314345584C504F  # "OPLXEC1" little-endian
@@ -620,6 +623,11 @@ def _compile(state, m, fn, args, kw):
     if router is None or nw is None:
         raise _Ineligible("no nativewire btl")
     tuning = router.tuning()
+    if tuning.arbiter is not None:
+        # the QoS arbiter owns pacing: a C fire would skip its
+        # weighted-fair gate, so replays stay on PlannedXchg
+        _native_fallbacks.add()
+        raise _Ineligible("qos arbiter active")
     comm = state.comm
 
     # argument regions: every positional array arg is a candidate

@@ -33,6 +33,14 @@ from ..ops.op import Op
 from . import driver as _driver
 from . import dynamic_rules, spmd
 
+#: the tuned algorithm of each collective that runs segmented (what a
+#: rule's segsize column, and tpu-tune's segsize sweep, applies to)
+PIPELINE_CAPABLE = {
+    "allreduce": "ring",
+    "bcast": "binomial",
+    "reduce": "binomial",
+}
+
 _segments = pvar.aggregate(
     "coll_pipeline_segments",
     "segments per pipelined collective dispatch (count = pipelined "

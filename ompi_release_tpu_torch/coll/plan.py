@@ -610,16 +610,19 @@ class WireRound:
     for shm/legacy sends), channel tag, and striping depth.
 
     ``recvs_meta`` (per-source arrival shapes/dtypes) sizes the
-    native executor's reassembly pool. (The reference's per-stream
-    frame counts gate the QoS arbiter, which waits for ROADMAP item
-    16.)"""
+    native executor's reassembly pool; ``frame_counts`` (frames per
+    peer stream, header included) lets the striper skip QoS gating on
+    exhausted streams. Both default None: manually-built rounds
+    replay exactly as before."""
 
     __slots__ = ("sends_meta", "recvs_t", "recvs", "peers",
-                 "peer_slots", "tag", "depth", "recvs_meta")
+                 "peer_slots", "tag", "depth", "recvs_meta",
+                 "frame_counts")
 
     def __init__(self, sends_meta: Tuple, recvs_t: Tuple, peer_slots,
                  tag: int, depth: int,
-                 recvs_meta: Optional[Tuple] = None) -> None:
+                 recvs_meta: Optional[Tuple] = None,
+                 frame_counts: Optional[Tuple] = None) -> None:
         self.sends_meta = sends_meta
         self.recvs_t = recvs_t
         self.recvs = dict(recvs_t)
@@ -628,6 +631,7 @@ class WireRound:
         self.tag = tag
         self.depth = depth
         self.recvs_meta = recvs_meta
+        self.frame_counts = frame_counts
 
 
 class WirePlan:
@@ -676,6 +680,7 @@ def freeze_wire_plan(comm, recorded: List[Tuple[Tuple, Tuple]],
         recvs_meta = (recv_metas[i] if recv_metas is not None
                       and i < len(recv_metas) else None)
         peer_slots = []
+        frame_counts = []
         for p, arrs in sends_meta:
             tpls = []
             for shape, dtype in arrs:
@@ -695,8 +700,16 @@ def freeze_wire_plan(comm, recorded: List[Tuple[Tuple, Tuple]],
                     tpl = _btl.plan_frame_template(shape, dtype, seg)
                 tpls.append(tpl)
             peer_slots.append((p, tuple(tpls)))
+            # frames a stream will emit: header + fragments for a
+            # templated message, one frame otherwise — exact, so the
+            # striper can drop a drained stream without gating it
+            frame_counts.append(sum(
+                (int(t.nchunks) + 1) if t is not None else 1
+                for t in tpls))
         rounds.append(WireRound(sends_meta, recvs_t, tuple(peer_slots),
-                                tag, tuning.depth, recvs_meta=recvs_meta))
+                                tag, tuning.depth,
+                                recvs_meta=recvs_meta,
+                                frame_counts=tuple(frame_counts)))
     _wire_rounds_frozen.add(len(rounds))
     return WirePlan(gen, comm.cid, rounds, tuning.coll_timeout_ms)
 

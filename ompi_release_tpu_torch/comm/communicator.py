@@ -59,7 +59,9 @@ from ..mca import pvar
 from ..obs import sentinel as _sentinel
 from ..runtime.mesh import build_submesh
 from ..utils import output
-from ..utils.cids import CID_BAND, CID_LIMIT, DPM_CID_BASE
+from ..utils.cids import (  # noqa: F401  (CID_BAND: the FT band's base)
+    CID_BAND, CID_LIMIT, DPM_CID_BASE, TENANT_CID_BASE,
+)
 from ..utils.errors import Errhandler, ErrorCode, MPIError, ERRORS_ARE_FATAL
 from .group import Group, UNDEFINED
 
@@ -77,9 +79,12 @@ _comm_count = pvar.counter("comm_active_count", "live communicators")
 def _next_cid(internal: bool = False) -> int:
     with _cid_lock:
         cid = next(_internal_cid_counter if internal else _cid_counter)
-    if cid >= CID_BAND:
+    if cid >= TENANT_CID_BASE:
+        # the tenant bands start here: a counter cid past it would be
+        # poisoned by a tenant-wide revoke
         raise MPIError(ErrorCode.ERR_INTERN,
-                       f"the job's cid space is exhausted ({CID_BAND})")
+                       f"the job's cid space is exhausted "
+                       f"({TENANT_CID_BASE})")
     return cid
 
 
@@ -216,6 +221,11 @@ class Communicator:
         # peer's failure episode against THIS epoch — a replacement
         # incarnation is visible only to comms built after its rejoin
         self._ft_epoch0 = _ulfm.state().epoch
+        # multi-tenant QoS class (service plane): children inherit the
+        # parent's stamp so a tenant's whole comm tree rides its lane
+        # class; None defers to the process-wide wire_qos_class cvar
+        self._qos_class: Optional[str] = getattr(parent, "_qos_class",
+                                                 None)
         self.name = name or f"comm{self.cid}"
         self.errhandler: Errhandler = (
             parent.errhandler if parent else ERRORS_ARE_FATAL
@@ -406,6 +416,20 @@ class Communicator:
         shadow = getattr(m, "shadow", None)
         if shadow is not None:
             _coll_plan.clear_comm(shadow.cid)
+
+    # -- QoS (multi-tenant service plane) ----------------------------------
+    @property
+    def qos_class(self) -> Optional[str]:
+        return self._qos_class
+
+    def set_qos_class(self, cls: Optional[str]) -> None:
+        """Stamp this communicator's QoS class (``wire_qos_classes``
+        lane class + fair-share weight): a tenant job stamps its
+        comms at admission, overriding the process-wide
+        ``wire_qos_class`` cvar for exactly this comm tree (children
+        created afterwards inherit). None reverts to the cvar."""
+        self._check_alive()
+        self._qos_class = str(cls) if cls else None
 
     # -- attributes (MPI keyvals) ------------------------------------------
     def set_attr(self, keyval: Keyval, value: Any) -> None:

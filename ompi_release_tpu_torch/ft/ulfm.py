@@ -30,9 +30,9 @@ records afresh.
 
 The cid arithmetic (:func:`ft_cid`, the tenant bands) lives with the
 rest of the cid layout in ``utils/cids.py``; it is re-exported here,
-where the JAX package keeps it. The tenant band math is the service
-plane's (ROADMAP item 16b), ported because a tenant-scoped rebuild uses
-it.
+where the JAX package keeps it. The tenant bands are the service
+plane's (``service/tenant.py`` revokes one with :meth:`FtState.revoke_band`);
+the shared cid counter stops below them.
 
 Listeners (:meth:`FtState.add_listener`) run after every change of the
 picture: a notice (the document) and a revoke (``{"revoked": cid}``) —

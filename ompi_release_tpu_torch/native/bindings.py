@@ -24,6 +24,7 @@ import ctypes
 import os
 import struct
 import subprocess
+import sys
 import threading
 from typing import List, Optional, Tuple, Union
 
@@ -500,12 +501,18 @@ class OobEndpoint:
     outbound connects answer the peer's challenge. ``secret=b""``
     explicitly disables auth regardless of the environment."""
 
+    #: seconds :meth:`close` waits for calls still inside the endpoint
+    #: (the control plane's watchers poll with 50-500 ms timeouts)
+    _CLOSE_GRACE_S = 5.0
+
     def __init__(self, node_id: int, port: int = 0,
                  bind_addr: str = "127.0.0.1",
                  secret: Optional[bytes] = None) -> None:
         import os as _os
 
         self._lib = load_library()
+        self._gate = threading.Condition()
+        self._inflight = 0
         if secret is None:
             env = _os.environ.get(SECRET_ENV, "")
             secret = env.encode() if env else b""
@@ -523,39 +530,52 @@ class OobEndpoint:
 
     def auth_rejected(self) -> int:
         """Inbound connections refused by the auth challenge."""
-        return self._lib.oob_auth_rejected(self._handle())
+        return self._call(self._lib.oob_auth_rejected)
 
-    def _handle(self):
-        """The live native handle; a closed endpoint raises a clean
-        MPIError instead of handing NULL to the C layer (which
-        segfaults — observed via use-after-close in spawn teardown)."""
-        h = self._h
-        if not h:
-            raise MPIError(ErrorCode.ERR_OTHER,
-                           "oob endpoint is closed")
-        return h
+    def _call(self, fn, *args):
+        """``fn(handle, *args)`` on the live native handle, counted as
+        in flight until it returns. A closed endpoint raises a clean
+        MPIError instead of handing NULL to the C layer, and
+        :meth:`close` destroys the endpoint only once no call is inside
+        it: a receive parked on the endpoint's condition variable
+        re-takes its mutex on wake-up, and a destroy under it frees
+        that mutex first (glibc then aborts the process in
+        ``__pthread_mutex_cond_lock``)."""
+        with self._gate:
+            h = self._h
+            if not h:
+                raise MPIError(ErrorCode.ERR_OTHER,
+                               "oob endpoint is closed")
+            self._inflight += 1
+        try:
+            return fn(h, *args)
+        finally:
+            with self._gate:
+                self._inflight -= 1
+                if not self._inflight:
+                    self._gate.notify_all()
 
     @property
     def port(self) -> int:
-        return self._lib.oob_port(self._handle())
+        return self._call(self._lib.oob_port)
 
     def connect(self, peer_id: int, host: str, port: int) -> None:
-        if self._lib.oob_connect(self._handle(), peer_id, host.encode(),
-                                 port) != 0:
+        if self._call(self._lib.oob_connect, peer_id, host.encode(),
+                      port) != 0:
             raise MPIError(
                 ErrorCode.ERR_OTHER,
                 f"oob connect to node {peer_id} at {host}:{port} failed",
             )
 
     def add_route(self, dst: int, via: int) -> None:
-        self._lib.oob_add_route(self._handle(), dst, via)
+        self._call(self._lib.oob_add_route, dst, via)
 
     def set_default_route(self, via: int) -> None:
-        self._lib.oob_add_route(self._handle(), -1, via)
+        self._call(self._lib.oob_add_route, -1, via)
 
     def send(self, dst: int, tag: int, payload: bytes) -> None:
-        if self._lib.oob_send(self._handle(), dst, tag, _u8(payload),
-                              len(payload)) != 0:
+        if self._call(self._lib.oob_send, dst, tag, _u8(payload),
+                      len(payload)) != 0:
             raise MPIError(
                 ErrorCode.ERR_OTHER,
                 f"oob send to {dst} failed (no connection or route)",
@@ -576,7 +596,7 @@ class OobEndpoint:
         deadline = _time.monotonic() + timeout_ms / 1000
         while True:
             left = max(1, int((deadline - _time.monotonic()) * 1000))
-            n = self._lib.oob_next_len(self._handle(), tag, left)
+            n = self._call(self._lib.oob_next_len, tag, left)
             if n < 0:
                 raise MPIError(ErrorCode.ERR_PENDING,
                                f"oob recv timeout (tag {tag})")
@@ -584,8 +604,8 @@ class OobEndpoint:
             tg = ctypes.c_int32(tag)
             arr = (ctypes.c_uint8 * max(n, 1))()
             left = max(1, int((deadline - _time.monotonic()) * 1000))
-            got = self._lib.oob_recv(self._handle(), ctypes.byref(src),
-                                     ctypes.byref(tg), arr, n, left)
+            got = self._call(self._lib.oob_recv, ctypes.byref(src),
+                             ctypes.byref(tg), arr, n, left)
             if got == -2:
                 continue  # raced with another consumer; re-size
             if got == -1:
@@ -601,8 +621,8 @@ class OobEndpoint:
         buffers — no b"".join, no ctypes staging copy. Byte-identical
         on the wire to ``send(dst, tag, b"".join(parts))``."""
         ptrs, lens, keep = _sg_arrays(parts)
-        rc = self._lib.wire_sendv(self._handle(), dst, tag, ptrs, lens,
-                                  len(ptrs))
+        rc = self._call(self._lib.wire_sendv, dst, tag, ptrs, lens,
+                        len(ptrs))
         del keep
         if rc != 0:
             raise MPIError(
@@ -617,15 +637,14 @@ class OobEndpoint:
         C status: -1 timeout, -2 malformed (consumed), -4 the next
         matching frame belongs to the portable path (left queued)."""
         base, nbytes, keep = _wbuf_ptr(buf)
-        rc = self._lib.wire_recv_frag(self._handle(), src, tag, xfer,
-                                      nchunks, chunk, base, nbytes,
-                                      timeout_ms)
+        rc = self._call(self._lib.wire_recv_frag, src, tag, xfer,
+                        nchunks, chunk, base, nbytes, timeout_ms)
         del keep
         return int(rc)
 
     def ttl_dropped(self) -> int:
         """Frames dropped by the routing-cycle ttl guard."""
-        return self._lib.oob_ttl_dropped(self._handle())
+        return self._call(self._lib.oob_ttl_dropped)
 
     #: wire_stats index names, in C-side order (native/btl_tcp.cc)
     WIRE_STATS = ("tx_frames", "tx_bytes", "rx_frames", "rx_bytes",
@@ -636,17 +655,33 @@ class OobEndpoint:
         zeros when the loaded .so predates the telemetry ABI."""
         if not hasattr(self._lib, "wire_stats"):
             return {k: 0 for k in self.WIRE_STATS}
-        h = self._handle()
-        return {k: int(self._lib.wire_stats(h, i))
+        return {k: int(self._call(self._lib.wire_stats, i))
                 for i, k in enumerate(self.WIRE_STATS)}
 
     def pending(self) -> int:
-        return self._lib.oob_pending(self._handle())
+        return self._call(self._lib.oob_pending)
 
     def close(self) -> None:
-        if self._h:
-            self._lib.oob_destroy(self._h)
-            self._h = None
+        """Destroy the endpoint once every call inside it has returned
+        (new calls raise from here on). The parked receives end within
+        their own timeouts; one still parked after
+        ``_CLOSE_GRACE_S`` keeps the endpoint alive (leaked, never
+        freed under it) and the close is logged. At interpreter exit
+        the endpoint is left to the process's end: a daemon thread that
+        leaves the C layer then can no longer take the interpreter's
+        lock to report it."""
+        with self._gate:
+            h, self._h = self._h, None
+            if not h or sys.is_finalizing():
+                return
+            drained = self._gate.wait_for(lambda: not self._inflight,
+                                          timeout=self._CLOSE_GRACE_S)
+        if drained:
+            self._lib.oob_destroy(h)
+        else:
+            _log.verbose(1, f"oob endpoint {self.node_id}: a call still "
+                            "inside it after the close grace; endpoint "
+                            "left allocated")
 
     def __del__(self) -> None:
         try:

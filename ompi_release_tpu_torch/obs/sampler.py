@@ -30,7 +30,7 @@ counts every point ever recorded (ring wraps included).
 When the process runs under tpurun, each tick also **pushes** the new
 points to the HNP over the coordinator's TAG_SERIES channel (gated by
 ``obs_sample_push``), giving the job one fleet-wide store that ``tpu-doctor`` merges
-offline (the live ``tpu_top --fleet`` view comes with item 16b).
+offline and ``tpu_top --fleet`` renders live.
 
 The pvar scan is registry-driven, so counters that live OUTSIDE
 Python fold in with no sampler change: ``btl/nativewire.py`` exposes

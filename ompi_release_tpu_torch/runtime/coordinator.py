@@ -908,6 +908,7 @@ class WorkerAgent:
         self._ft_lock = threading.Lock()
         self._ft_seq = 0
         self._ft_watcher: Optional[threading.Thread] = None
+        self._die_watcher: Optional[threading.Thread] = None
 
     def run_modex(self, my_card: Dict[str, Any], *,
                   timeout_ms: int = 30_000) -> List[Dict[str, Any]]:
@@ -1237,13 +1238,17 @@ class WorkerAgent:
                     return
                 os._exit(int(raw or b"143"))
 
-        threading.Thread(target=run, daemon=True,
-                         name="die-watcher").start()
+        self._die_watcher = threading.Thread(target=run, daemon=True,
+                                             name="die-watcher")
+        self._die_watcher.start()
 
     def stop_heartbeats(self) -> None:
+        """Stop the heartbeat thread and the two watchers that share its
+        stop event; each ends within one receive timeout."""
         self._hb_stop.set()
-        if self._hb_thread is not None:
-            self._hb_thread.join(timeout=2)
+        for t in (self._hb_thread, self._die_watcher, self._ft_watcher):
+            if t is not None and t is not threading.current_thread():
+                t.join(timeout=2)
 
     # -- teardown ----------------------------------------------------------
     def send_fin(self) -> None:

@@ -2,9 +2,9 @@
 
 Counterpart of ``ompi_release_tpu/runtime/runtime.py``, init/finalize,
 the async progress engine's thread, the ``runtime_timing`` init report
-the unified multi-process world under ``tpurun`` and its ULFM watcher
-(the observability and retune arms are not ported yet). The bring-up
-sequence mirrors
+the unified multi-process world under ``tpurun`` with its ULFM watcher,
+and the observability and online-retune arms. The bring-up sequence
+mirrors
 ``ompi_mpi_init.c``:
 
   1. config/core var registration        (opal_init_util)
@@ -173,6 +173,15 @@ class Runtime:
                     _obs_sampler.maybe_start(self)
                 except Exception as e:
                     _log.verbose(1, f"obs sampler start skipped: {e}")
+                # arm the online re-tuner on the sampler's tick hook
+                # (no-op unless tune_online is set): sustained slow
+                # links -> bounded micro-probe -> cvar-applied rule
+                try:
+                    from ..tuning import retune as _retune
+
+                    _retune.maybe_start(self)
+                except Exception as e:
+                    _log.verbose(1, f"online retune arm skipped: {e}")
 
             # 3. rank mapping
             self.mesh = mesh_mod.build_mesh(
@@ -297,6 +306,12 @@ class Runtime:
                 # (obs_dump_dir) BEFORE the agent closes: the
                 # clock-offset estimate in their meta needs the live
                 # HNP link
+                try:
+                    from ..tuning import retune as _retune
+
+                    _retune.stop()
+                except Exception as e:
+                    _log.verbose(1, f"online retune stop failed: {e}")
                 try:
                     from ..obs import sampler as _obs_sampler
 

@@ -69,8 +69,13 @@ a ``wire_recv`` span carrying the same ``("p2p", sender process,
 seq)`` flow id (both already ride the envelope: no wire-format change),
 the stall watchdog arms around the collective reap and the ctl-token
 wait, and :meth:`WireRouter.sentinel_exchange` is the inline contract
-sentinel's piggyback path. Not ported yet: the QoS lane classes of the
-service plane (ROADMAP item 16b).
+sentinel's piggyback path.
+
+QoS (the service plane): under ``wire_qos_classes`` a comm's class
+(:meth:`Communicator.set_qos_class`, else the ``wire_qos_class`` cvar)
+picks its p2p lane sub-range, and every collective fragment burst passes
+the class's weighted-fair gate (:class:`..service.qos.WireArbiter`).
+Unset, the wire is the single-tenant wire.
 
 Thread model: driver-mode processes issue wire operations from the
 main thread (plus completion threads polling acks and the nbc worker);
@@ -178,6 +183,12 @@ def register_vars() -> None:
         "tokens). Compiled-schedule waits and chaos tests tune this; "
         "explicit per-call timeouts still win",
     )
+    # wire_qos_classes / wire_qos_class (the multi-tenant service
+    # plane's lane classes + weighted-fair fragment scheduling) are
+    # registered by service.qos — import-light
+    from ..service import qos as _qos_vars
+
+    _qos_vars.register_vars()
 
 
 register_vars()  # idempotent; cvars must exist before the first router
@@ -190,10 +201,12 @@ class WireTuning:
     lookup each for ``wire_p2p_lanes`` / ``wire_pipeline_depth`` /
     ``wire_pipeline_segsize``; the router now reads attributes off the
     current snapshot and re-resolves only when the generation moved —
-    so a mid-job cvar write takes effect at the next snapshot
-    refresh."""
+    so a mid-job cvar write takes effect at the next snapshot refresh
+    (and, for frozen schedule plans, at the next PLAN, which captures
+    the snapshot at freeze time — never mid-schedule)."""
 
-    __slots__ = ("gen", "lanes", "depth", "segsize", "coll_timeout_ms")
+    __slots__ = ("gen", "lanes", "depth", "segsize", "coll_timeout_ms",
+                 "qos_ranges", "qos_class", "arbiter")
 
     def __init__(self) -> None:
         self.gen = mca_var.VARS.generation
@@ -205,6 +218,19 @@ class WireTuning:
         self.segsize = int(mca_var.get("wire_pipeline_segsize", 0) or 0)
         self.coll_timeout_ms = int(
             mca_var.get("wire_coll_timeout_ms", 60_000) or 60_000)
+        # multi-tenant QoS (service plane): with wire_qos_classes
+        # unset every field is None and no hot path changes
+        spec = str(mca_var.get("wire_qos_classes", "") or "")
+        self.qos_class = str(mca_var.get("wire_qos_class", "") or "")
+        if spec:
+            from ..service import qos as _qos
+
+            self.qos_ranges = _qos.lane_ranges(_qos.parse_classes(spec),
+                                               self.lanes)
+            self.arbiter = _qos.arbiter_for(spec)
+        else:
+            self.qos_ranges = None
+            self.arbiter = None
 
 
 class ProcTopology:
@@ -366,11 +392,30 @@ class WireRouter:
         return self._shm if same_host else self._dcn
 
     # -- lanes -------------------------------------------------------------
+    @staticmethod
+    def _class_of(comm, t: WireTuning) -> Optional[str]:
+        """The sender's QoS class for ``comm`` under tuning snapshot
+        ``t``: the comm's stamped class (tenant comms) wins over the
+        process-wide ``wire_qos_class`` cvar; None when QoS is off."""
+        if t.qos_ranges is None:
+            return None
+        return getattr(comm, "_qos_class", None) or t.qos_class
+
     def _lane_of(self, user_tag: int, comm=None) -> int:
         """THE lane-selection rule (single definition — send and any
         future drain/debug site must agree), reading the
-        generation-cached ``tuning()`` snapshot, never the registry."""
-        return int(user_tag) % self.tuning().lanes
+        generation-cached ``tuning()`` snapshot, never the registry.
+        Under ``wire_qos_classes`` the comm's class selects its lane
+        sub-range, so one class's transfers never queue behind
+        another's channel lock; unknown/empty classes (and QoS off)
+        ride the legacy full range."""
+        t = self.tuning()
+        if t.qos_ranges is not None:
+            rng = t.qos_ranges.get(self._class_of(comm, t))
+            if rng is not None:
+                start, count = rng
+                return start + int(user_tag) % count
+        return int(user_tag) % t.lanes
 
     @staticmethod
     def _p2p_tag(dst_world: int, lane: int) -> int:
@@ -915,10 +960,12 @@ class WireRouter:
         side starts reassembling while the round is still being sent,
         instead of peer P+1 waiting for peer P's full payload."""
         tag = self._coll_tag(comm)
+        t = self.tuning()
         epoch0 = getattr(comm, "_ft_epoch0", 0)
         streams = [self._peer_frames(p, tag, arrs_for[p], epoch0)
                    for p in sorted(arrs_for) if arrs_for[p]]
-        self._stripe(streams, self.tuning().depth)
+        self._stripe(streams, t.depth, arbiter=t.arbiter,
+                     cls=self._class_of(comm, t))
 
     def coll_send_planned(self, comm, rnd, sends: Dict[int, List]) -> None:
         """Steady-state round send from a frozen schedule plan
@@ -937,25 +984,64 @@ class WireRouter:
                               templates=tpls)
             for p, tpls in rnd.peer_slots
         ]
-        self._stripe(streams, rnd.depth)
+        t = self.tuning()
+        self._stripe(streams, rnd.depth, arbiter=t.arbiter,
+                     cls=self._class_of(comm, t),
+                     counts=getattr(rnd, "frame_counts", None))
 
     @staticmethod
-    def _stripe(streams: List, depth: int) -> None:
+    def _stripe(streams: List, depth: int, arbiter=None,
+                cls: Optional[str] = None, counts=None) -> None:
         """Round-robin the per-peer frame generators in depth-sized
-        bursts (the sliding in-flight window)."""
-        while streams:
-            keep = []
-            for it in streams:
-                alive = True
-                for _ in range(depth):
-                    try:
-                        next(it)
-                    except StopIteration:
-                        alive = False
-                        break
-                if alive:
-                    keep.append(it)
-            streams = keep
+        bursts (the sliding in-flight window). With a QoS ``arbiter``
+        (``wire_qos_classes`` set) every burst first passes the
+        weighted-fair gate for this sender's class, so a bulk
+        tenant's long fragment streams yield to a latency tenant's
+        bursts at the class weight ratio instead of FIFO-hogging the
+        endpoint.
+
+        ``counts`` (frozen plans only): exact frames left per stream.
+        A drained stream is dropped WITHOUT passing the gate — a
+        solo-class short tail must not buy window it will never use —
+        and a final partial burst is gated at its real cost, not the
+        full depth."""
+        if arbiter is not None:
+            arbiter.enter(cls)
+        try:
+            remaining = list(counts) if counts is not None else None
+            while streams:
+                keep = []
+                keep_left = []
+                for j, it in enumerate(streams):
+                    left = remaining[j] if remaining is not None \
+                        else None
+                    if left is not None and left <= 0:
+                        continue  # exhausted: no gate, no next()
+                    burst = depth if left is None \
+                        else min(depth, left)
+                    if arbiter is not None:
+                        arbiter.gate(cls, cost=burst)
+                    alive = True
+                    done = 0
+                    for _ in range(burst):
+                        try:
+                            next(it)
+                        except StopIteration:
+                            alive = False
+                            break
+                        done += 1
+                    if left is not None:
+                        left -= done
+                        alive = alive and left > 0
+                    if alive:
+                        keep.append(it)
+                        keep_left.append(left)
+                streams = keep
+                remaining = keep_left if remaining is not None \
+                    else None
+        finally:
+            if arbiter is not None:
+                arbiter.leave(cls)
 
     def coll_recv_any(self, comm, pending: Dict[int, int],
                       timeout_ms: Optional[int] = None):

@@ -1,7 +1,7 @@
 """tpu-doctor — postmortem & distributed-tracing workbench.
 
 The operator-facing end of the observability plane's cross-process
-layer (``obs/doctor.py``): read per-rank journal dumps, merge them
+layer (``obs/doctor.py``): collect per-rank journal dumps, merge them
 into ONE clock-aligned Perfetto trace with send→recv flow arrows, and
 print the critical-path / rank-skew report naming the slowest rank
 per collective round.
@@ -17,12 +17,14 @@ Usage::
     # call signatures across ranks and name the first desync
     python -m ompi_release_tpu_torch.tools.tpu_doctor contracts DIR
 
+    # fetch a live process's journal over the tpu-server journal RPC
+    python -m ompi_release_tpu_torch.tools.tpu_doctor collect host:port -o DIR
+
 ``merge`` also accepts a directory holding only ``postmortem-*.json``
 files (a hung job's flight-recorder output): the journal tails inside
 are merged the same way. Load the trace at ui.perfetto.dev or
 chrome://tracing; flow arrows join each wire send span to its matching
-recv on the peer rank. (The reference's ``collect``, which fetches a live
-process's journal over the tpu-server RPC, comes with that server.)
+recv on the peer rank.
 """
 
 from __future__ import annotations
@@ -141,6 +143,34 @@ def _cmd_postmortem(args) -> int:
     return 0
 
 
+def _cmd_collect(args) -> int:
+    from .tpu_server import NameClient
+
+    host, _, port = args.server.rpartition(":")
+    if not host:
+        print("collect needs host:port", file=sys.stderr)
+        return 2
+    out_dir = args.out or "."
+    os.makedirs(out_dir, exist_ok=True)
+    client = NameClient(host, int(port))
+    try:
+        dump = client.journal()
+        pidx = dump.get("meta", {}).get("pidx", 0)
+        path = os.path.join(out_dir, f"journal-p{pidx}.json")
+        with open(path, "w") as f:
+            json.dump(dump, f)
+        print(f"tpu-doctor: {len(dump.get('spans', []))} spans from "
+              f"{args.server} -> {path}")
+        if args.metrics:
+            mpath = os.path.join(out_dir, f"metrics-p{pidx}.prom")
+            with open(mpath, "w") as f:
+                f.write(client.metrics())
+            print(f"tpu-doctor: pvar exposition -> {mpath}")
+    finally:
+        client.close()
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="tpu-doctor",
@@ -195,6 +225,16 @@ def main(argv: Optional[List[str]] = None) -> int:
                                           "ranks")
     p.add_argument("dir")
     p.set_defaults(fn=_cmd_postmortem)
+
+    p = sub.add_parser("collect", help="fetch a live process's journal "
+                                       "over the tpu-server RPC")
+    p.add_argument("server", help="host:port of a tpu-server (or any "
+                                  "process running MetricsPubsubTable)")
+    p.add_argument("-o", "--out", default=None,
+                   help="output directory (default: .)")
+    p.add_argument("--metrics", action="store_true",
+                   help="also save the Prometheus pvar exposition")
+    p.set_defaults(fn=_cmd_collect)
 
     args = ap.parse_args(argv)
     try:

@@ -14,7 +14,7 @@ Usage::
 
     python -m ompi_release_tpu_torch.tools.tpu_ps            # all local jobs
     python -m ompi_release_tpu_torch.tools.tpu_ps --hnp H:P  # one job direct
-    tpu_ps.main_top(["-d", "SECS"])  # tpu-top
+    python -m ompi_release_tpu_torch.tools.tpu_top [-d SECS]
 """
 
 from __future__ import annotations

@@ -4,11 +4,14 @@ slots and the dpm cid blocks, in one place.
 The wire's collective tags hold a cid below :data:`CID_LIMIT`
 (``1 << 20``)::
 
-    [0, 1 << 19)                    the shared counter (CID_BAND)
-      [1 << 18, 1 << 19)            tenant bands (the service plane,
-                                    ROADMAP item 16b): 64 x 4096
-    [1 << 19, 1 << 19 | 1 << 18)    the FT band (ft_cid): 16 epochs x
-                                    16384 parent slots
+    [0, 1 << 18)                    the shared counter (its limit is
+                                    TENANT_CID_BASE)
+    [1 << 18, 1 << 19)              tenant bands (the service plane):
+                                    64 x 4096, never drawn by the
+                                    counter
+    [1 << 19, 1 << 19 | 1 << 18)    the FT band (ft_cid, from
+                                    CID_BAND): 16 epochs x 16384
+                                    parent slots
     [1 << 19 | 1 << 18, 1 << 20)    dpm cid blocks (DPM_CID_BASE):
                                     1024 blocks of 256 cids
     < 0                             runtime-private comms
@@ -42,7 +45,7 @@ from .errors import ErrorCode, MPIError
 
 #: the wire's collective tags hold a cid below this bound
 CID_LIMIT = 1 << 20
-#: the shared counter stays below this bound
+#: the base of the FT band, which the dpm blocks follow
 CID_BAND = 1 << 19
 
 #: rebuilt communicators draw their cid from this band
@@ -62,11 +65,12 @@ DPM_CID_BLOCK = 256
 DPM_CID_BASE = FT_CID_LIMIT
 DPM_CID_BLOCKS = (CID_LIMIT - DPM_CID_BASE) // DPM_CID_BLOCK  # 1024
 
-#: multi-tenant cid banding (the service plane, ROADMAP item 16b):
-#: tenant t's communicators draw cids from the band
+#: multi-tenant cid banding (the service plane): tenant t's
+#: communicators draw cids from the band
 #: [TENANT_CID_BASE + t*TENANT_CID_SLOT, +TENANT_CID_SLOT), directly
-#: below the FT band — so revoking ONE tenant's comms is a range
-#: operation that can never touch another tenant. Each 4096-cid slot
+#: below the FT band and above the shared counter, whose limit this
+#: base is — so revoking ONE tenant's comms is a range operation that
+#: can never touch another tenant or a counter cid. Each 4096-cid slot
 #: is split in half: app comms use the lower 2048 ids, shrink/rebuild
 #: comms (:func:`ft_cid` with a tenant) the upper 2048 (8 epochs x 256
 #: parent slots).

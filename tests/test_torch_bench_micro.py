@@ -39,10 +39,12 @@ def _names(lines):
 def test_coll_micro_suite_matches_bench_py(fresh_runtime):
     ours = tbench.coll_micro_suite(torch.device("cpu"), reps=1)
     theirs = jbench._coll_micro_suite()
-    want = [n for n in _names(theirs) if not n.endswith("_sampled")]
-    assert _names(ours) == want == [
+    assert _names(ours) == _names(theirs) == [
         "coll_pipeline_allreduce_1MiB", "coll_pipeline_bcast_1MiB",
-        "coll_fusion_64x1KiB"]
+        "coll_pipeline_allreduce_1MiB_sampled", "coll_fusion_64x1KiB"]
+    sampled = ours[2]
+    assert sampled["unit"] == "x_vs_sampled_run" and sampled["value"] > 0
+    assert sampled["seconds"] > 0 and sampled["unsampled_seconds"] > 0
     # one collective for the 64 tensors on an idle host; the buffer's
     # latency bound (coll_fusion_max_delay_us, the same rule in both
     # packages) flushes early when a busy host stretches the burst, so
@@ -97,8 +99,17 @@ def test_overlap_and_steady_spanning_lines():
     assert _names(span) == [
         "steady_orch_spanning_allreduce_256KiB_interpreted",
         "steady_orch_spanning_allreduce_256KiB_compiled",
-        "compiled_spanning_allreduce_orch_speedup"]
+        "compiled_spanning_allreduce_orch_speedup",
+        "steady_obs_orch_spanning_allreduce_256KiB_compiled",
+        "steady_obs_overhead_spanning_allreduce_256KiB",
+        "ledger_record_bytes_spanning_allreduce_256KiB",
+        "obs_ledger_trace_spanning_allreduce_256KiB"]
     assert all(ln["suite"] == "steady_state" for ln in span)
+    by = {ln["metric"]: ln for ln in span}
+    assert by["steady_obs_overhead_spanning_allreduce_256KiB"]["budget"] \
+        == 1.15
+    assert by["obs_ledger_trace_spanning_allreduce_256KiB"][
+        "paired_flows"] > 0
 
 
 def test_ft_suite_matches_bench_py_names():

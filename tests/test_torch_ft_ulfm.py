@@ -318,6 +318,36 @@ class TestCidLayout:
         with pytest.raises(MPIError):
             dpm_block_base(DPM_CID_BLOCKS)
 
+    def test_counter_stops_at_the_tenant_band(self, worlds, ft_states,
+                                              monkeypatch):
+        """A comm created at the shared counter's limit raises
+        ERR_INTERN instead of taking tenant 0's first cid, and a
+        tenant-band revoke leaves every counter cid alone."""
+        import itertools
+
+        from ompi_release_tpu_torch.comm import communicator as tcm
+        from ompi_release_tpu_torch.utils.cids import TENANT_CID_BASE
+
+        world = worlds["torch"]
+        monkeypatch.setattr(tcm, "_cid_counter",
+                            itertools.count(TENANT_CID_BASE - 1))
+        last = world.dup("last-counter-cid")
+        assert last.cid == TENANT_CID_BASE - 1
+        assert _code(lambda: world.dup("past-the-limit")) == "ERR_INTERN"
+        st = ft_states["torch"]
+        try:
+            for t in (0, tulfm.MAX_TENANTS - 1):
+                st.revoke_band(*tulfm.tenant_band(t))
+            assert st.is_revoked(tulfm.tenant_cid(0, 0))
+            assert not any(st.is_revoked(c) for c in itertools.chain(
+                range(0, 4096), range(TENANT_CID_BASE - 4096,
+                                      TENANT_CID_BASE)))
+            assert not last._revoked and not world._revoked
+            out = last.allreduce(np.ones((N, 1), np.float32))
+            np.testing.assert_array_equal(out.numpy(), np.full((N, 1), N))
+        finally:
+            last.free()
+
     @pytest.mark.parametrize("epoch", [0, 5])
     def test_dpm_lineage_never_shares_a_shared_lineages_slot(self, epoch):
         """Rebuilding a shared-counter comm and a dpm pair's comm in one

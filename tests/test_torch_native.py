@@ -18,7 +18,7 @@ from ompi_release_tpu import native as jnative
 from ompi_release_tpu_torch import native as tnative
 from ompi_release_tpu_torch.native import DssBuffer, OobEndpoint
 from ompi_release_tpu_torch.runtime.coordinator import HnpCoordinator
-from ompi_release_tpu_torch.utils.errors import MPIError
+from ompi_release_tpu_torch.utils.errors import ErrorCode, MPIError
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -278,6 +278,28 @@ class TestNameServer:
         assert recs[2]["dup_rejected"] is True
 
 
+def test_agent_close_stops_its_watchers_first():
+    """A worker's close joins the heartbeat thread and both watchers
+    parked on its endpoint before the endpoint goes."""
+    import time
+
+    from ompi_release_tpu_torch.runtime.coordinator import WorkerAgent
+
+    hnp = HnpCoordinator(2)
+    try:
+        agent = WorkerAgent(1, "127.0.0.1", hnp.port)
+        agent.start_heartbeats(interval_s=0.05)
+        agent.start_ft_watcher(lambda doc: None)
+        time.sleep(0.2)
+        threads = [agent._hb_thread, agent._die_watcher, agent._ft_watcher]
+        assert all(t.is_alive() for t in threads)
+        agent.close()
+        assert not any(t.is_alive() for t in threads)
+        assert agent.ep._h is None
+    finally:
+        hnp.shutdown()
+
+
 def test_closed_endpoint_raises_not_segfaults():
     ep = OobEndpoint(0)
     port = ep.port
@@ -291,6 +313,80 @@ def test_closed_endpoint_raises_not_segfaults():
         ep.recv(tag=5, timeout_ms=50)
     with pytest.raises(MPIError):
         ep.connect(1, "127.0.0.1", port)
+
+
+class _RecordingLib:
+    """Forwards to the native library and logs when a parked receive
+    returns and when the endpoint is destroyed."""
+
+    def __init__(self, lib, log):
+        self._lib, self._log = lib, log
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+
+        def call(*args):
+            if name == "oob_destroy":
+                self._log.append("destroy")
+            rc = fn(*args)
+            if name == "oob_next_len":
+                self._log.append("returned")
+            return rc
+        return call
+
+
+def _park_receive(ep, errors, timeout_ms):
+    import threading
+
+    def run():
+        try:
+            ep.recv(tag=5, timeout_ms=timeout_ms)
+        except MPIError as e:
+            errors.append(e)
+    t = threading.Thread(target=run)
+    t.start()
+    return t
+
+
+@pytest.mark.parametrize("parked", [1, 4])
+def test_close_destroys_only_after_parked_receives_return(parked):
+    """A receive parked on the endpoint's condition variable must leave
+    the C layer before the endpoint is freed: it re-takes the mutex on
+    wake-up, and a destroy under it aborts the process."""
+    import time
+
+    ep = OobEndpoint(0)
+    log, errors = [], []
+    ep._lib = _RecordingLib(ep._lib, log)
+    threads = [_park_receive(ep, errors, 400) for _ in range(parked)]
+    time.sleep(0.05)
+    ep.close()
+    for t in threads:
+        t.join(timeout=10)
+    assert log == ["returned"] * parked + ["destroy"]
+    assert len(errors) == parked
+    with pytest.raises(MPIError, match="closed"):
+        ep.recv(tag=5, timeout_ms=50)
+
+
+def test_close_leaves_endpoint_allocated_past_its_grace():
+    """A receive still parked after the close grace keeps the endpoint:
+    it is never freed under the call, which then times out cleanly."""
+    import time
+
+    ep = OobEndpoint(0)
+    log, errors = [], []
+    ep._lib = _RecordingLib(ep._lib, log)
+    ep._CLOSE_GRACE_S = 0.05
+    t = _park_receive(ep, errors, 600)
+    time.sleep(0.05)
+    ep.close()
+    assert log == []
+    t.join(timeout=10)
+    assert log == ["returned"]
+    assert [e.code for e in errors] == [ErrorCode.ERR_PENDING]
+    ep.close()
+    assert log == ["returned"]
 
 
 def _tree_digest(root):

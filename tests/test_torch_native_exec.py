@@ -28,6 +28,7 @@ import os
 import sys
 import textwrap
 import time
+import types
 
 import numpy as np
 import pytest
@@ -163,7 +164,7 @@ class TestWithdrawal:
 
                 @staticmethod
                 def tuning():
-                    return None
+                    return types.SimpleNamespace(arbiter=None)
 
         st = _State()
         st.plan.rounds[0].recvs_meta = ((1, (((4,), "int32"),)),)
