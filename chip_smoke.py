@@ -368,6 +368,20 @@ Run from the repository root on a machine with a card:
      ratios, the bulk tenant's ms and bus GB/s and the TpuLM step
      print. ``python3 chip_smoke.py --slice15`` runs it alone (no
      result line);
+   - slice 16, right after slice 15: the distributed bootstrap, with no
+     launcher. The ``unified_world_tpu`` example in two processes
+     started by hand with ``OMPITPU_COORDINATOR`` /
+     ``OMPITPU_PROCESS_ID`` / ``OMPITPU_NUM_PROCESSES`` (one job secret
+     for both) must print both of its result lines; then two processes
+     of this script (``--slice16-worker``), 4 virtual ranks each on
+     ``cuda:0``, form an 8-rank WORLD (process 0 hosts the
+     coordinator): the f32 allreduce at 8 B, 256 KiB, 16 MiB and 256
+     MiB a rank, each bitwise its closed form, then 5 replays timed,
+     the SUM kernel's launches counted per process; then bench.py's
+     native_wire QoS leg (``bench.native_wire_qos_leg``, its two lines).
+     No process may leave a ring or segment. The timings print beside
+     slice 10's tpurun numbers of the same run. ``python3 chip_smoke.py
+     --slice16`` runs it alone (no result line);
 4. times the kernels (CUDA events, median of 7) at the main path's
    shapes beside their bound, their plain twins and one PyTorch library
    call, the streaming kernels, the transpose and the eager chain hop in
@@ -7537,6 +7551,301 @@ def report_slice15(s15):
         f"{s15['seconds']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# slice 16: the distributed bootstrap — processes of this script started by
+# hand, no launcher — and bench.py's native_wire QoS leg
+# ---------------------------------------------------------------------------
+
+S16_PROCS = 2
+S16_RANKS = 4  # virtual ranks a process owns on cuda:0
+#: per-rank f32 allreduce sizes (bytes)
+S16_SIZES = (8, 256 * 1024, 16 * MIB, 256 * MIB)
+S16_REPS = 5  # timed replays a size (median)
+
+
+def s16_env(port, pid, secret, extra=None):
+    """A hand-started process's environment: the three variables of the
+    distributed bootstrap, one job secret for both, and no launcher
+    variable inherited from an earlier phase."""
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("OMPITPU_", "CHIP_SMOKE_S"))}
+    env.update({"OMPITPU_COORDINATOR": f"127.0.0.1:{port}",
+                "OMPITPU_PROCESS_ID": str(pid),
+                "OMPITPU_NUM_PROCESSES": str(S16_PROCS),
+                "OMPITPU_JOB_SECRET": secret, **(extra or {})})
+    return env
+
+
+def s16_pair(argv, extra, label, timeout_s=300):
+    """Start ``S16_PROCS`` processes of ``argv`` by hand (ids 0 and 1,
+    a free port on 127.0.0.1), wait for both within ``timeout_s`` and
+    fail unless each exits 0 and none leaves a shm segment, a
+    nativewire ring or an event ring of its pid. Returns [(stdout,
+    pid)] by process id and the wall seconds."""
+    import glob
+    import os
+    import secrets
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    secret = secrets.token_hex(16)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv, env=s16_env(port, pid, secret, extra),
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              stdout=subprocess.PIPE, text=True)
+             for pid in range(S16_PROCS)]
+    outs = []
+    try:
+        for p in procs:
+            left = timeout_s - (time.perf_counter() - t0)
+            outs.append(p.communicate(timeout=max(1.0, left))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0,
+              f"slice 16 ({label}): process {pid} exited {p.returncode}: "
+              f"{out[-2000:]}")
+    leftovers = [f for p in procs
+                 for pat in (f"ompitpu-{p.pid}-*", f"onw-{p.pid:x}-*",
+                             f"onwev-{p.pid:x}-*")
+                 for f in glob.glob(os.path.join("/dev/shm", pat))]
+    check(not leftovers, f"slice 16 ({label}): shm segments or rings "
+                         f"left {leftovers}")
+    return [(out, p.pid) for out, p in zip(outs, procs)], wall
+
+
+def s16_worker():
+    """One process of slice 16 (``chip_smoke.py --slice16-worker``),
+    started by hand with the distributed bootstrap's variables (or, for
+    ``--slice16-ab``, by ``tools.tpurun``): 4 virtual ranks on cuda:0 in
+    an 8-rank WORLD over two processes; the f32 allreduce at each of
+    ``S16_SIZES`` bitwise its closed form (slice 10's ``s10_sum``) and
+    then timed, the SUM kernel's launches counted around the calls.
+    Prints one ``S16 {json}`` line (and writes it to
+    ``$CHIP_SMOKE_S16_OUT/worker<process index>.json`` when set)."""
+    import os
+
+    t_proc = s13_process_start()
+    import torch
+
+    import ompi_release_tpu_torch as mpi
+    from ompi_release_tpu_torch.ops import cuda_op
+    from ompi_release_tpu_torch.runtime import ess as ess_mod
+    from ompi_release_tpu_torch.runtime.runtime import Runtime
+
+    ess_name = ess_mod.ESS_FRAMEWORK.select().NAME
+    check(ess_name == ("tpurun" if os.environ.get("OMPITPU_HNP")
+                       else "distributed"),
+          f"slice 16: the ESS framework selected {ess_name}")
+    t0 = time.time()
+    w = mpi.init(cli_args=["--mca", "runtime_virtual_ranks",
+                           str(S16_RANKS)])
+    t_world = time.time()
+    rt = Runtime.current()
+    pidx = int(rt.bootstrap["process_index"])
+    off = rt.local_rank_offset
+    dev = w.device
+    check(w.size == S10_N and w.spans_processes and dev.type == "cuda"
+          and rt.bootstrap["process_count"] == S16_PROCS
+          and pidx == int(os.environ.get("OMPITPU_PROCESS_ID", pidx))
+          and (off, rt.local_size) == (pidx * S16_RANKS, S16_RANKS)
+          and sorted({e.process_index for e in rt.endpoints}) == [0, 1],
+          f"slice 16: WORLD {w.size} ranks on {dev}, process {pidx}, "
+          f"span ({off}, {rt.local_size})")
+    check(w._coll_providers["allreduce"] == ["hier"],
+          f"slice 16: allreduce providers {w._coll_providers}")
+    check(rt.wire._nw is not None and rt.wire._btl_for(1 - pidx)
+          is rt.wire._nw, "slice 16: the peer does not ride nativewire")
+    out = {"pidx": pidx, "pid": os.getpid(), "ess": ess_name,
+           "start_to_world_s": t_world - t_proc,
+           "init_s": t_world - t0, "allreduce": {}}
+    cuda_op.reset_launches()
+    for nbytes in S16_SIZES:
+        count = max(1, nbytes // 4)
+        x = s10_rows(torch, count, off, dev)
+        want = s10_sum(torch, count, dev).expand(S10_RANKS, count)
+        n0 = cuda_op.LAUNCHES["sum"]
+        got = w.allreduce(x)  # records the wire plan
+        check(bits_equal(got, want.contiguous()),
+              f"slice 16: the {nbytes} B allreduce differs from its "
+              "closed form")
+        ts = []
+        for _ in range(S16_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = w.allreduce(x)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+        check(bits_equal(got, want.contiguous()),
+              f"slice 16: the replayed {nbytes} B allreduce differs")
+        ms = statistics.median(ts) * 1e3
+        out["allreduce"][nbytes] = {
+            "ms": ms, "bus_GBps": 2 * (S10_N - 1) / S10_N * nbytes
+            / (ms * 1e-3) / 1e9,
+            "sum_launches": cuda_op.LAUNCHES["sum"] - n0}
+        del x, got, want
+    torch.cuda.synchronize()
+    out["sum_launches"] = cuda_op.LAUNCHES["sum"]
+    for nbytes in S16_SIZES:
+        if nbytes >= 4 * MIB:
+            check(out["allreduce"][nbytes]["sum_launches"] > 0,
+                  f"slice 16: stream_axpy[sum] did not launch in the "
+                  f"{nbytes} B allreduce")
+    out["peak_device_memory_GiB"] = \
+        torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print("S16 " + json.dumps(out), flush=True)
+    if os.environ.get("CHIP_SMOKE_S16_OUT"):
+        with open(os.path.join(os.environ["CHIP_SMOKE_S16_OUT"],
+                               f"worker{pidx}.json"), "w") as f:
+            json.dump(out, f)
+    mpi.finalize()
+    return 0
+
+
+def s16_ab(cuda_op, torch):
+    """Slice 16's workers in turns started by hand (distributed) and by
+    ``tools.tpurun`` (the same worker code, so the same timing method):
+    distributed, tpurun, tpurun, distributed. Prints each size's ms per
+    process per run, beside the card's name and power limit."""
+    import os
+    import tempfile
+
+    from ompi_release_tpu_torch.native import build_library
+
+    cuda_op.build()
+    build_library()
+    card = card_line()
+    runs = []
+    for ess in ("distributed", "tpurun", "tpurun", "distributed"):
+        if ess == "distributed":
+            outs, wall = s16_pair([sys.executable, os.path.abspath(__file__),
+                                   "--slice16-worker"], None, "ab")
+            res = [json.loads(next(ln for ln in out.splitlines()
+                                   if ln.startswith("S16 "))[4:])
+                   for out, _ in outs]
+        else:
+            with tempfile.TemporaryDirectory() as td:
+                rc, wall, _, res = run_slice_job(16, "ab", S16_PROCS, td,
+                                                 timeout_s=300)
+            check(rc == 0, f"slice 16 (ab): the tpurun job exited {rc}")
+        check([r["ess"] for r in res] == [ess] * S16_PROCS,
+              f"slice 16 (ab): selected {[r['ess'] for r in res]}")
+        runs.append((ess, wall, res))
+    for nbytes in S16_SIZES:
+        log(json.dumps({
+            "s16_ab_bytes_per_rank": nbytes, "card": card,
+            "ms_by_run": [{"ess": ess, "ms": [r["allreduce"][str(nbytes)]
+                                              ["ms"] for r in res]}
+                          for ess, _, res in runs]}))
+    log(json.dumps({
+        "s16_ab_start_to_world_s": [
+            {"ess": ess, "s": [r["start_to_world_s"] for r in res]}
+            for ess, _, res in runs],
+        "wall_s": [wall for _, wall, _ in runs], "card": card}))
+
+
+def phase_slice16(cuda_op, torch):
+    """Slice 16's path: the builds, then the ``unified_world_tpu``
+    example in two processes started by hand (both of its result lines),
+    then two processes of this script (``--slice16-worker``), then
+    bench.py's native_wire QoS leg (``bench.native_wire_qos_leg``, a
+    2-worker tpurun job). Every process exits 0 and leaves no ring or
+    segment. Returns the workers' results, the QoS lines and the SUM
+    launches summed over the workers."""
+    import gc
+    import os
+
+    from ompi_release_tpu_torch.native import build_library
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cuda_op.build()
+    build_library()
+    outs, wall_uw = s16_pair(
+        [sys.executable, "-m", "ompi_release_tpu_torch.examples."
+         "unified_world_tpu"], None, "unified_world_tpu")
+    for pid, (out, _) in enumerate(outs):
+        lo = pid * S16_RANKS
+        want = f"unified world OK (ranks {lo}..{lo + S16_RANKS - 1} of 8)"
+        check(want in out, f"slice 16: process {pid} of unified_world_tpu "
+                           f"printed {out[-500:]!r}")
+    outs, wall = s16_pair([sys.executable, os.path.abspath(__file__),
+                           "--slice16-worker"], None, "workers")
+    res = []
+    for out, _ in outs:
+        lines = [ln for ln in out.splitlines() if ln.startswith("S16 ")]
+        check(len(lines) == 1, f"slice 16: a worker printed {out[-500:]!r}")
+        res.append(json.loads(lines[0][4:]))
+    check([r["pidx"] for r in res] == list(range(S16_PROCS)),
+          f"slice 16: process indices {[r['pidx'] for r in res]}")
+    sums = [r["sum_launches"] for r in res]
+    check(all(n > 0 for n in sums),
+          f"slice 16: stream_axpy[sum] launches per process {sums}")
+    t_qos = time.perf_counter()
+    qos = tbench.native_wire_qos_leg(torch.device("cuda", 0))
+    names = [ln["metric"] for ln in qos]
+    check(names == ["wire_native_qos_latency_solo_s",
+                    "wire_native_qos_latency_under_bulk_s"]
+          and all(ln["unit"] == "s" and ln["value"] > 0
+                  and ln["qos_classes"] == "latency:3,bulk:1" for ln in qos),
+          f"slice 16: the QoS leg's lines {qos}")
+    wall_qos = time.perf_counter() - t_qos
+    log(f"phase 3: slice-16 path: unified_world_tpu and an 8-rank WORLD "
+        f"over {S16_PROCS} hand-started processes (distributed ESS, no "
+        f"launcher), every allreduce bitwise its closed form; "
+        f"stream_axpy[sum] launches {sums}; the QoS leg; no ring or "
+        f"segment left; the phase took {time.perf_counter() - t0:.1f} s")
+    return {"res": res, "qos": qos, "sum": sum(sums), "wall": wall,
+            "wall_example": wall_uw, "wall_qos": wall_qos}
+
+
+def report_slice16(s16, s10=None):
+    """Slice 16's numbers, each beside the card's name and power limit:
+    per process its seconds from process start to WORLD and the
+    allreduce per size beside, when slice 10 ran in this run, its
+    tpurun job's replayed and interpreted ms at the same size or the
+    two sizes around it; the QoS leg's two lines."""
+    card = card_line()
+    s10_rows_by = {}
+    for r in (s10 or {}).get("res", []):
+        s10_rows_by[r["pidx"]] = {int(k): v for k, v in
+                                  r["s11"]["timings"]["allreduce"].items()}
+    for r in s16["res"]:
+        mine = s10_rows_by.get(r["pidx"], {})
+        for nbytes, row in r["allreduce"].items():
+            nbytes = int(nbytes)
+            near = sorted(mine, key=lambda k: abs(math.log(k / nbytes)))[:2]
+            log(json.dumps({
+                "s16_allreduce_bytes_per_rank": nbytes,
+                "worker": r["pidx"], **row,
+                "s10_tpurun": {str(k): {leg: mine[k][leg]["ms"] for leg in
+                                        ("replayed", "interpreted")}
+                               for k in sorted(near)
+                               if k == nbytes or nbytes not in mine},
+                "card": card}))
+        log(json.dumps({
+            "s16_worker": r["pidx"], "card": card,
+            "start_to_world_s": r["start_to_world_s"],
+            "init_s": r["init_s"],
+            "stream_axpy_sum_launches": r["sum_launches"],
+            "peak_device_memory_GiB": r["peak_device_memory_GiB"]}))
+    for ln in s16["qos"]:
+        log(json.dumps({**ln, "card": card}))
+    log(json.dumps({"s16_workers_wall_s": s16["wall"],
+                    "s16_example_wall_s": s16["wall_example"],
+                    "s16_qos_wall_s": s16["wall_qos"], "card": card}))
+
+
 def main():
     import torch
 
@@ -7563,8 +7872,25 @@ def main():
         return s14_worker()
     if sys.argv[1:2] == ["--slice15-worker"]:
         return s15_worker()
+    if sys.argv[1:] == ["--slice16-worker"]:
+        return s16_worker()
     t_start = time.perf_counter()
     log(f"card: {card_line()}")
+    if sys.argv[1:] == ["--slice16-ab"]:
+        # slice 16's workers in turns, by hand and under tpurun; no
+        # result line
+        s16_ab(cuda_op, torch)
+        log(f"chip_smoke --slice16-ab: passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--slice16"]:
+        # slice 16 alone: the builds, the example's and the workers'
+        # hand-started processes and the QoS leg; it prints no result
+        # line
+        report_slice16(phase_slice16(cuda_op, torch))
+        log(f"chip_smoke --slice16: passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     if sys.argv[1:] == ["--slice15"]:
         # slice 15 alone: the builds, its jobs, the tools and tpu_tune;
         # it prints no result line
@@ -7646,6 +7972,7 @@ def main():
     s13 = phase_slice13(cuda_op, torch)
     s14 = phase_slice14(cuda_op, torch)
     s15 = phase_slice15(cuda_op, torch)
+    s16 = phase_slice16(cuda_op, torch)
 
     cuda_op.reset_launches()
     world, tuned, runs = drive_main_path(mpi, tmvar, torch, dev)
@@ -7806,10 +8133,14 @@ def main():
                 n15 += s15["tune"]["sum"]
             row["launches"] += n15
             row["launches_by_path"]["slice15"] = n15
+        if row["name"] == "stream_axpy[sum]":  # slice 16's two processes
+            row["launches"] += s16["sum"]
+            row["launches_by_path"]["slice16"] = s16["sum"]
     report_slice12(s12)
     report_slice13(s13)
     report_slice14(s14, s14_timing)
     report_slice15(s15)
+    report_slice16(s16, s10)
     run_bench(torch, dev)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -854,7 +854,14 @@ class NativeWireBtl(DcnBtl):
         is full, reap this process's own receive rings (see the module
         docstring): the peer may be waiting on a ring toward us; and
         every ~100 ms check that the peer lives, so a sender parked on
-        a ring toward a dead peer stops with ERR_PROC_FAILED."""
+        a ring toward a dead peer stops with ERR_PROC_FAILED, and that
+        a collective channel's communicator is not revoked: a live
+        peer that left the collective to recover from a third
+        process's failure stops draining, and revokes the comm."""
+        from ..runtime.wire import WIRE_COLL_BASE
+
+        cid = tag - WIRE_COLL_BASE
+        cid = cid if 0 <= cid < (1 << 20) else None
         deadline = _time.monotonic() + _SEND_TIMEOUT_MS / 1000
         next_check = _time.monotonic() + 0.1
         tok = None
@@ -887,6 +894,12 @@ class NativeWireBtl(DcnBtl):
                 now = _time.monotonic()
                 if now >= next_check:
                     next_check = now + 0.1
+                    if cid is not None:
+                        from ..ft import ulfm
+
+                        ulfm.STATE.check_wait(
+                            cid, (), f"collective send to process "
+                                     f"{peer_pidx} (ring full)")
                     if self._peer_gone(peer_pidx):
                         raise MPIError(
                             ErrorCode.ERR_PROC_FAILED,

@@ -875,7 +875,11 @@ class WorkerAgent:
     """Per-process agent (the orted-equivalent participant)."""
 
     def __init__(self, node_id: int, hnp_host: str, hnp_port: int,
-                 num_nodes: Optional[int] = None) -> None:
+                 num_nodes: Optional[int] = None, *,
+                 dial_timeout_s: float = 0.0) -> None:
+        """``dial_timeout_s`` > 0 retries the dial of the HNP until that
+        many seconds have passed (the HNP's process may not listen
+        yet), then raises naming the address; 0 dials once."""
         if node_id < 1:
             raise MPIError(ErrorCode.ERR_ARG,
                            "worker node_id must be >= 1 (0 is the HNP)")
@@ -888,7 +892,22 @@ class WorkerAgent:
         bind = ("127.0.0.1" if self.local_addr.startswith("127.")
                 else "0.0.0.0")
         self.ep = OobEndpoint(node_id, 0, bind)
-        self.ep.connect(0, hnp_host, hnp_port)
+        deadline = time.monotonic() + dial_timeout_s
+        while True:
+            try:
+                self.ep.connect(0, hnp_host, hnp_port)
+                break
+            except MPIError as e:
+                if time.monotonic() >= deadline:
+                    self.ep.close()
+                    if dial_timeout_s <= 0:
+                        raise
+                    raise MPIError(
+                        ErrorCode.ERR_UNREACH,
+                        f"no coordinator answered at {hnp_host}:"
+                        f"{hnp_port} within {dial_timeout_s:g} s: "
+                        f"{e}") from None
+                time.sleep(0.1)
         self.ep.set_default_route(0)  # everything flows toward the root
         self.cards: List[Dict[str, Any]] = []
         self._hb_thread: Optional[threading.Thread] = None

@@ -349,6 +349,15 @@ class Runtime:
                     self.agent.send_fin()
                 except MPIError:
                     pass  # the launcher already tore the job down
+                hosted = self.bootstrap.get("hosted_hnp")
+                if hosted is not None:
+                    # process 0 of a launcher-less job hosts the HNP:
+                    # its peers' finalize still rides that lifeline, so
+                    # it outlives every FIN (or failure promotion), and
+                    # every thread parked in either endpoint stops
+                    # before that endpoint closes
+                    self.agent.stop_heartbeats()
+                    hosted.finish()
                 self.agent.close()
                 self.agent = None
             self.job_state.activate(JobState.TERMINATED)

@@ -9,8 +9,9 @@
   interpreted twin and the >= 2x orchestration factor asserted in-app)
   against bench.py's ``_native_rounds_micro_suite`` run the same way: the
   same line names in the same order, the C executor firing every replay.
-- ``native_wire_suite``, ``overlap_suite`` and ``steady_spanning_suite``
-  emit bench.py's line names (the QoS and obs legs wait for item 16).
+- ``native_wire_suite`` (with its QoS leg), ``overlap_suite`` and
+  ``steady_spanning_suite`` emit bench.py's line names in bench.py's
+  order.
 - ``ft_suite`` emits ``_ft_micro_suite``'s line names from one real
   recovery (a 3-process ``--ft-continue`` job).
 """
@@ -79,13 +80,40 @@ def test_native_wire_suite_lines():
             "wire_native_hol_2x8MiB_lanes4", "wire_native_hol_2x8MiB_lanes1",
             "wire_native_copies_per_mib", "wire_native_p2p_tcp_1MiB",
             "wire_native_p2p_tcp_4MiB", "wire_staged_p2p_1MiB",
-            "wire_staged_p2p_4MiB", "wire_native_shm_speedup_vs_staged"]
+            "wire_staged_p2p_4MiB", "wire_native_qos_latency_solo_s",
+            "wire_native_qos_latency_under_bulk_s",
+            "wire_native_shm_speedup_vs_staged"]
     assert _names(lines) == want
     by = {ln["metric"]: ln for ln in lines}
     assert by["wire_native_copies_per_mib"]["value"] == 0
     assert by["wire_native_copies_per_mib"]["native_bytes"] > 0
     assert all(ln["value"] > 0 for ln in lines
-               if ln["unit"] == "GB/s")
+               if ln["unit"] in ("GB/s", "s"))
+    for name in want[-3:-1]:
+        assert by[name]["unit"] == "s" and by[name]["value"] > 0
+        assert by[name]["suite"] == "native_wire"
+        assert by[name]["qos_classes"] == "latency:3,bulk:1"
+
+
+def test_native_wire_line_names_follow_bench_py():
+    """Every line name ``native_wire_suite`` can emit appears in
+    bench.py's native_wire app or suite, the QoS leg's included, and
+    the port's legs run in bench.py's mode order (shm, tcp, qos)."""
+    import inspect
+    import re
+
+    src = inspect.getsource(jbench._native_wire_micro_suite) \
+        + jbench._NATIVE_WIRE_BENCH_APP
+    for name in ("wire_native_qos_latency_solo_s",
+                 "wire_native_qos_latency_under_bulk_s",
+                 "wire_native_shm_speedup_vs_staged",
+                 "wire_native_copies_per_mib"):
+        assert f'"{name}"' in src
+    modes = re.findall(r'\("(shm|tcp|qos)", ', inspect.getsource(
+        jbench._native_wire_micro_suite))
+    assert modes == ["shm", "tcp", "qos"]
+    port = inspect.getsource(tbench.native_wire_suite)
+    assert port.index('"shm", "tcp"') < port.index("native_wire_qos_leg")
 
 
 def test_overlap_and_steady_spanning_lines():

@@ -408,6 +408,48 @@ class TestSocketInterop:
                 ep.close()
                 mod._shutdown_rings()
 
+    @pytest.mark.parametrize("seg", [1 << 14], indirect=True)
+    def test_full_ring_wait_stops_when_the_collective_is_revoked(self, seg):
+        """A collective send parked on a full ring toward a LIVE peer
+        that stopped draining (it left the round to recover from a third
+        process's failure) raises ERR_REVOKED within a check slice of
+        the revoke, not after the 30 s ring timeout — found on the card,
+        where a survivor of a killed worker waited out the 30 s and
+        failed its recovery with ERR_PENDING."""
+        from ompi_release_tpu_torch.ft import ulfm
+        from ompi_release_tpu_torch.runtime.wire import WIRE_COLL_BASE
+
+        cid = 4242
+        ends = self._small_ring_pair()
+        x = np.random.default_rng(15).standard_normal(
+            1 << 19).astype(np.float32)  # 2 MiB through a 64 KiB ring
+        err, done = [], []
+        mod, ep = ends[0]
+
+        def _send():
+            try:
+                mod.send_staged(ep, 2, WIRE_COLL_BASE + cid, x)
+            except MPIError as e:
+                err.append(e)
+            done.append(time.monotonic())
+
+        th = threading.Thread(target=_send, daemon=True)
+        try:
+            th.start()
+            time.sleep(0.5)
+            assert th.is_alive() and not err, "the ring never filled"
+            t_revoke = time.monotonic()
+            ulfm.STATE.apply_revoke(cid)
+            th.join(timeout=10)
+            assert not th.is_alive(), "the revoke did not end the wait"
+            assert err and err[0].code == ErrorCode.ERR_REVOKED, err
+            assert done[0] - t_revoke < 2.0
+        finally:
+            ulfm.STATE.clear_revoked(cid)
+            for m, e in ends:
+                e.close()
+                m._shutdown_rings()
+
     @pytest.mark.parametrize("seg", [1 << 17], indirect=True)
     def test_fragment_larger_than_the_ring_rides_the_socket(self, seg):
         """A transfer whose fragment record cannot fit the receiver's

@@ -535,7 +535,10 @@ def test_ring_example_closed_form(worlds):
     assert tworld.pml.pending_counts() == (0, 0)
 
 
-@pytest.mark.parametrize("name", ["hello_tpu", "ring_tpu", "allreduce_tpu"])
+@pytest.mark.parametrize("name", [
+    "hello_tpu", "ring_tpu", "allreduce_tpu", "connectivity_tpu",
+    "hello_oshmem_tpu", "ring_oshmem_tpu", "oshmem_reduction_tpu",
+    "unified_world_tpu"])
 def test_examples_run_on_the_host(name):
     """Each example's ``main(device="cpu")`` brings the runtime up, runs
     and finalizes, in a process of its own (finalize frees every
@@ -547,4 +550,10 @@ def test_examples_run_on_the_host(name):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert {"hello_tpu": "Hello, world", "ring_tpu": "ring complete: 15",
-            "allreduce_tpu": "allreduce OK: 8 ranks"}[name] in res.stdout
+            "allreduce_tpu": "allreduce OK: 8 ranks",
+            "connectivity_tpu": "connectivity OK: 28 pairs",
+            "hello_oshmem_tpu": "hello_oshmem complete",
+            "ring_oshmem_tpu": "ring_oshmem complete: 32 passes over 8",
+            "oshmem_reduction_tpu": "oshmem_reduction complete",
+            "unified_world_tpu": "unified world OK (ranks 0..7 of 8)",
+            }[name] in res.stdout

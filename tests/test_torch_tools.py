@@ -408,12 +408,10 @@ class TestTpuClean:
 
 #: names that differ between the packages by design: the op and coll
 #: components (CUDA kernels and the fused one-card body in place of
-#: Pallas and XLA), the JAX distributed ESS, and the port's own
-#: variables and counters
+#: Pallas and XLA), and the port's own variables and counters
 INFO_DIFFERS = {
     "components": {("op", "pallas"), ("op", "xla"), ("op", "cuda"),
-                   ("op", "torch"), ("coll", "xla"), ("coll", "fused"),
-                   ("ess", "distributed")},
+                   ("op", "torch"), ("coll", "xla"), ("coll", "fused")},
     "variables": {"coll_tuning_db_dir", "runtime_virtual_ranks"},
     "pvars": {"tuning_db_resolves", "vprotocol_logged_recvs",
               "vprotocol_logged_sends", "wire_native_device_staged_bytes",
