@@ -1,0 +1,6 @@
+"""``sum_kernel_ms_per_call`` in the gradient-sync cell, where it moves
+``busbw_GBps.sync``."""
+
+from metrics import load
+
+read = load("sum_kernel_ms_per_call").read
