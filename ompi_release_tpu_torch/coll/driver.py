@@ -23,7 +23,12 @@ the comm's device. What stays from the reference:
 - the observability plane's skew timer (``obs/skew.py``): with obs on,
   each run marks arrival, the body's launch and its return, one
   ``coll``-layer span and the ``coll_<op>_*`` pvars. The span times the
-  dispatch, not the card: nothing here synchronizes.
+  dispatch, not the card: nothing here synchronizes. The card's time is
+  the device timer's: with obs on, each body launch is an
+  ``mpi.runner.<op>`` span (``obs/spans.py``; a profiler range too
+  while one collects) whose CUDA events feed
+  ``coll_runner_device_seconds``, the pvar a frozen plan's replay feeds
+  too (``coll/plan.py``).
 """
 
 from __future__ import annotations
@@ -34,10 +39,12 @@ from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _tprof
 
 from .. import obs as _obs
 from ..mca import pvar
 from ..obs import skew as _skew
+from ..obs import spans as _spans
 from ..utils.errors import ErrorCode, MPIError
 
 _invoke_count = pvar.counter(
@@ -62,6 +69,14 @@ _orch = pvar.timer(
     "Python orchestration seconds on the collective dispatch path "
     "(decision, planning, validation, posting — before the compiled "
     "program or wire transport takes over)",
+)
+
+#: the collective body's device seconds, interpreted (here) or replayed
+#: (``coll/plan.py``), fed only while obs is on
+runner_device = pvar.device_timer(
+    "coll_runner_device_seconds",
+    "device seconds of collective bodies, launched or replayed as a "
+    "frozen plan's graph (CUDA events; with obs on)",
 )
 
 #: capture/attribution state for ``coll/plan.py``: ``entries`` records
@@ -109,7 +124,7 @@ def _op_name(key: Tuple) -> str:
     return str(key[0]) if isinstance(key, tuple) and key else str(key)
 
 
-def _launch(body: Callable, x: torch.Tensor, extras: Tuple,
+def _launch(body: Callable, key: Tuple, x: torch.Tensor, extras: Tuple,
             t_in: float, tok=None) -> Any:
     """Run the cached body, recording it while a capture is armed: the
     input and output OBJECTS let ``coll/plan.py`` prove the collective
@@ -119,13 +134,16 @@ def _launch(body: Callable, x: torch.Tensor, extras: Tuple,
         cap.append({"prog": body, "x": x, "extra": bool(extras),
                     "out": None})
     _orch.add(_time.perf_counter() - t_in)
-    if tok is None:
-        out = body(x, *extras)
-    else:
+    if tok is not None:
         # skew emit point: wait = arrival -> body launch (cache lookup,
         # validation), body = the dispatch itself
         _skew.body(tok)
+    # skew journals this interval: the span adds no journal entry
+    with (_spans.span("runner", _op_name(key), device=x.device,
+                      timer=runner_device)
+          if _obs.enabled or _tprof._is_profiler_enabled else _spans.OFF):
         out = body(x, *extras)
+    if tok is not None:
         _skew.end(tok, int(x.numel()) * int(x.element_size()))
     if cap is not None:
         cap[-1]["out"] = out
@@ -185,7 +203,7 @@ def run_sharded(comm, key: Tuple, body: Callable, x, *,
         _compile_count.add()
         prog = body
         cache[key] = prog
-    return _launch(prog, x.to(comm.device),
+    return _launch(prog, key, x.to(comm.device),
                    tuple(e.to(comm.device) for e in extra_arrays), t_in,
                    tok)
 
@@ -219,4 +237,4 @@ def run_sharded2d(comm, key: Tuple, body: Callable, x, *,
         _compile_count.add()
         prog = body
         cache[key] = prog
-    return _launch(prog, x.to(comm.device), (), t_in, tok)
+    return _launch(prog, key, x.to(comm.device), (), t_in, tok)

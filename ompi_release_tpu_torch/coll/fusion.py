@@ -25,6 +25,13 @@ pvars: ``coll_fusion_batched`` (tensors coalesced),
 ``coll_fusion_flushes`` (fused collectives issued),
 ``coll_fusion_bytes_saved`` (payload bytes that rode an issued
 collective instead of their own).
+
+Traced layers (``obs/spans.py``): while a profiler collects, a flush is
+an ``mpi.fusion.flush`` range and each bucket's pack (the ``torch.cat``)
+an ``mpi.fusion.pack`` range; with obs on, the journal's
+``fusion_flush`` span carries the flush's range name and the pack's
+CUDA events feed ``coll_fusion_pack_device_seconds``. The unpack makes views only: it
+has no device work to time.
 """
 
 from __future__ import annotations
@@ -34,10 +41,12 @@ import time
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _tprof
 
 from .. import obs as _obs
 from ..mca import pvar
 from ..mca import var as mca_var
+from ..obs import spans as _spans
 from ..utils.errors import ErrorCode, MPIError
 
 _batched = pvar.counter(
@@ -50,6 +59,11 @@ _bytes_saved = pvar.counter(
     "coll_fusion_bytes_saved",
     "payload bytes that rode a fused collective instead of issuing "
     "their own (bytes beyond the first tensor of each flush)",
+)
+_pack_device = pvar.device_timer(
+    "coll_fusion_pack_device_seconds",
+    "device seconds of the fusion buffer's packs (the torch.cat of a "
+    "bucket; CUDA events, with obs on)",
 )
 
 
@@ -243,6 +257,12 @@ class FusionBuffer:
     def flush(self) -> int:
         """Issue every pending queue as fused collectives; returns how
         many collectives were issued."""
+        with (_spans.span("fusion", "flush")
+              if _obs.enabled or _tprof._is_profiler_enabled else _spans.OFF):
+            return self._flush()
+
+    def _flush(self) -> int:
+        """:meth:`flush` inside its span."""
         with self._lock:
             queues = self._queues
             self._queues = {}
@@ -273,7 +293,12 @@ class FusionBuffer:
                             self.comm.allreduce(p.x.reshape(p.shape), op)
                         )
                         continue
-                    flat = torch.cat([p.x for p in bucket], dim=1)
+                    with (_spans.span("fusion", "pack",
+                                      device=bucket[0].x.device,
+                                      timer=_pack_device)
+                          if _obs.enabled or _tprof._is_profiler_enabled
+                          else _spans.OFF):
+                        flat = torch.cat([p.x for p in bucket], dim=1)
                     red = self.comm.allreduce(flat, op)
                     off = 0
                     for p in bucket:
@@ -292,5 +317,6 @@ class FusionBuffer:
         if issued and _obs.enabled:
             _obs.record("fusion_flush", "fusion", t0,
                         time.perf_counter() - t0, nbytes=fused_bytes,
-                        comm_id=getattr(self.comm, "cid", -1))
+                        comm_id=getattr(self.comm, "cid", -1),
+                        name="mpi.fusion.flush")
         return issued

@@ -35,7 +35,8 @@ freezes it. A later fire of the signature skips the decision path:
   later one is not. A body that cannot be captured (a host sync
   inside it, say) becomes the reference's ``"bad"`` entry: it stays
   interpreted and counts in ``coll_graph_capture_failures``. A replay's
-  kernel launches are credited to ``cuda_op.LAUNCHES`` once per replay.
+  kernel launches (and the bytes its ``stream_axpy`` launches move) are
+  credited to ``cuda_op`` once per replay.
 
 Bitwise parity with the interpreted path is structural: the frozen plan
 runs the very body the interpreted path ran, on the same bits.
@@ -77,6 +78,18 @@ pvars: ``coll_compiled_cache_hits`` (1 = a frozen plan fired, 0 = a
 capturing run froze one; sum/count = the steady-state hit ratio),
 ``coll_graph_capture_failures`` and ``coll_wire_rounds_frozen``.
 
+Traced layers (``obs/spans.py``; with obs on or a profiler collecting,
+nothing otherwise): every :func:`dispatch` is an ``mpi.coll.<name>``
+range, and a fire on the card three steps, ``mpi.plan.copy_in``,
+``mpi.plan.replay`` and ``mpi.plan.clone``. Each is a range while a
+profiler collects; the copies count the bytes they read and write in
+``coll_plan_copy_bytes``, and the replay its host seconds inside
+``graph.replay()`` in ``coll_plan_launch_seconds``. With obs on the
+three are intervals of one chain of CUDA events besides: the copies
+feed ``coll_plan_copy_device_seconds``, the replay
+``coll_runner_device_seconds`` (``coll/driver.py``'s, which times
+interpreted bodies too).
+
 Observed fires stay on the frozen path: a device fire (a graph replay
 on the card) appends one fixed-size ``KIND_DEVICE`` record to the obs
 ledger around the replay — never inside the captured body, which a
@@ -95,11 +108,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _tprof
 
 from .. import obs as _obs
 from ..mca import pvar
 from ..mca import var as mca_var
 from ..obs import ledger as _ledger
+from ..obs import spans as _spans
 from ..obs import watchdog as _watchdog
 from ..utils import output
 from ..utils.errors import ErrorCode, MPIError
@@ -123,6 +138,23 @@ _wire_rounds_frozen = pvar.counter(
     "coll_wire_rounds_frozen",
     "schedule rounds captured into frozen wire plans (peer lists, "
     "frame headers, fragment offsets precomposed at plan time)",
+)
+# a frozen fire's steps on the card (the module docstring's "Traced
+# layers")
+_copy_device = pvar.device_timer(
+    "coll_plan_copy_device_seconds",
+    "device seconds of frozen plans' input copies and output clones "
+    "(CUDA events; with obs on)",
+)
+_copy_bytes = pvar.counter(
+    "coll_plan_copy_bytes",
+    "bytes frozen plans' input copies and output clones read and "
+    "write (with obs on or a profiler collecting)",
+)
+_launch_host = pvar.timer(
+    "coll_plan_launch_seconds",
+    "host seconds inside frozen plans' graph.replay() (the graph "
+    "launch; with obs on or a profiler collecting)",
 )
 
 
@@ -373,7 +405,7 @@ def capture_graph(body: Callable[[], Any], device: torch.device, pool
         rng = gen.clone_state()
         graph = torch.cuda.CUDAGraph()
         holds: List[torch.Tensor] = []
-        before = dict(cuda_op.LAUNCHES)
+        before = cuda_op.counts()
         cur = torch.cuda.current_stream()
         side = torch.cuda.Stream()
         side.wait_stream(cur)
@@ -400,7 +432,7 @@ class _Frozen:
     """One signature's frozen body; on the card, the graph of it."""
 
     __slots__ = ("body", "graph", "static_in", "static_out", "holds",
-                 "launches")
+                 "launches", "copy_bytes")
 
     def __init__(self, body: Callable) -> None:
         self.body = body
@@ -428,6 +460,8 @@ class _Frozen:
             return "the body returned no tensor"
         self.graph, self.static_in, self.static_out = graph, static_in, out
         self.holds, self.launches = holds, launches
+        # what the copy-in and the clone each read and write
+        self.copy_bytes = (2 * static_in.nbytes, 2 * out.nbytes)
         return None
 
     def fire(self, x: torch.Tensor) -> torch.Tensor:
@@ -436,12 +470,21 @@ class _Frozen:
         from ..ops import cuda_op
 
         si = self.static_in
-        if not (x.data_ptr() == si.data_ptr() and x.shape == si.shape
-                and x.stride() == si.stride()):
-            si.copy_(x)
-        self.graph.replay()
+        with (_spans.Steps(si.device)
+              if _obs.enabled or _tprof._is_profiler_enabled
+              else _spans.OFF) as st:
+            if not (x.data_ptr() == si.data_ptr() and x.shape == si.shape
+                    and x.stride() == si.stride()):
+                st.step("plan", "copy_in", _copy_device, count=_copy_bytes,
+                        n=self.copy_bytes[0])
+                si.copy_(x)
+            st.step("plan", "replay", _driver.runner_device, _launch_host)
+            self.graph.replay()
+            st.step("plan", "clone", _copy_device, count=_copy_bytes,
+                    n=self.copy_bytes[1])
+            out = self.static_out.clone()
         cuda_op.count_replay(self.launches)
-        return self.static_out.clone()
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -451,17 +494,28 @@ class _Frozen:
 def dispatch(comm, name: str, fn: Callable, args: Tuple,
              kw: Optional[Dict] = None, sig_box: Optional[list] = None,
              bound: bool = False) -> Any:
-    """THE in-process collective dispatch: fire the signature's frozen
-    plan when one exists (steady state — no decision logic, no cvar
-    reads), else run the interpreted path under capture and freeze the
-    body it launched. Plain interpreted execution when the family is
-    unplannable, the call has no signature, or the capture proved the
-    dispatch did pre/post-processing the body alone cannot replay.
-    ``sig_box``: a persistent request's memo: its signature (the
-    arguments are bound at ``*_init``, so ``start()`` skips even the
-    signature build) and, when ``bound`` (the request's buffer lies on
-    the comm's device and its graph reads the buffer in place), its
-    plan entry."""
+    """THE in-process collective dispatch (:func:`_dispatch`), an
+    ``mpi.coll.<name>`` span from entry to return while obs is on or a
+    profiler collects (the skew timer and the ledger journal this
+    interval)."""
+    with (_spans.span("coll", name)
+          if _obs.enabled or _tprof._is_profiler_enabled else _spans.OFF):
+        return _dispatch(comm, name, fn, args, kw, sig_box, bound)
+
+
+def _dispatch(comm, name: str, fn: Callable, args: Tuple,
+              kw: Optional[Dict], sig_box: Optional[list],
+              bound: bool) -> Any:
+    """Fire the signature's frozen plan when one exists (steady state
+    — no decision logic, no cvar reads), else run the interpreted path
+    under capture and freeze the body it launched. Plain interpreted
+    execution when the family is unplannable, the call has no
+    signature, or the capture proved the dispatch did pre/post-processing
+    the body alone cannot replay. ``sig_box``: a persistent request's
+    memo: its signature (the arguments are bound at ``*_init``, so
+    ``start()`` skips even the signature build) and, when ``bound`` (the
+    request's buffer lies on the comm's device and its graph reads the
+    buffer in place), its plan entry."""
     t0 = _time.perf_counter()
     kw = kw or {}
     if name not in _PLANNABLE:

@@ -4,7 +4,8 @@
 Analogue of ``opal/mca/base/mca_base_pvar.c`` + the MPI_T performance
 variable interface (``ompi/mpi/tool/``): components register named
 counters/timers/levels; tools (``tpu_info``, tracing layer) read and reset
-them without recompiling anything.
+them without recompiling anything. A :class:`DeviceTimer` is a timer of
+device seconds, fed by chains of CUDA events (:class:`EventChain`).
 """
 
 from __future__ import annotations
@@ -172,6 +173,143 @@ class Histogram(Aggregate):
             self._zero = 0
 
 
+def _new_event():
+    """A CUDA event that records time (torch only on the first)."""
+    import torch
+
+    return torch.cuda.Event(enable_timing=True)
+
+
+class DeviceTimer(Pvar):
+    """TIMER pvar of device seconds: the :class:`EventChain` intervals
+    credited to it, added once the device has run past them. Reading it
+    resolves every chain the device has finished (read after a
+    synchronize for all the work before); :meth:`reset` also drops its
+    share of the chains still pending."""
+
+    def __init__(self, name: str, help: str = "") -> None:
+        super().__init__(name, PvarClass.TIMER, help)
+
+    def read(self) -> float:
+        EVENTS.resolve()
+        return super().read()
+
+    def reset(self) -> None:
+        EVENTS.forget(self)
+        super().reset()
+
+
+class EventChain:
+    """CUDA events recorded one after another on ``device``'s current
+    stream: :meth:`mark` records the next and starts an interval that
+    the next mark ends, credited to a :class:`DeviceTimer` (or to none);
+    :meth:`close` records the last. Consecutive steps of a site share
+    their boundary's event. Nothing here waits for the device: a closed
+    chain waits in :data:`EVENTS` until the device has run past its last
+    event. A chain that finds the pool spent records nothing more and
+    credits nothing (``device_timer_dropped`` counts those)."""
+
+    __slots__ = ("device", "stream", "events", "timers")
+
+    def __init__(self, device) -> None:
+        import torch
+
+        self.device = device
+        self.stream = torch.cuda.current_stream(device)
+        self.events: Optional[List[Any]] = []
+        self.timers: List[Optional[DeviceTimer]] = []
+
+    def mark(self, timer: Optional[DeviceTimer] = None) -> None:
+        if self.events is None:
+            return
+        ev = EVENTS.take(self.device)
+        if ev is None:
+            EVENTS.drop(self)
+            return
+        ev.record(self.stream)
+        self.events.append(ev)
+        self.timers.append(timer)
+
+    def close(self) -> None:
+        self.mark()
+        if self.events is not None:
+            EVENTS.pend(self)
+
+
+class EventPool:
+    """The ``enable_timing`` events of every :class:`EventChain`, made
+    when none is free up to ``bound`` and reused once their chain is
+    resolved, and the closed chains the device has not yet run past:
+    at most ``bound`` events wait unresolved. A chain's close first
+    resolves the older chains the device has finished, oldest first (the
+    device is then busy with the work the closing chain recorded), and
+    so does a take that finds the pool spent; a chain leaves the pending
+    list under the lock that credits its intervals, so it counts once."""
+
+    def __init__(self, bound: int = 4096) -> None:
+        self.bound = bound
+        self._made = 0
+        self._free: Dict[Any, List[Any]] = {}  # device -> idle events
+        self._pending: List[EventChain] = []
+        self._lock = threading.Lock()
+
+    def take(self, device) -> Optional[Any]:
+        with self._lock:
+            free = self._free.get(device)
+            if not free and self._made >= self.bound:
+                self._reap_locked()
+                free = self._free.get(device)
+            if free:
+                return free.pop()
+            if self._made >= self.bound:
+                return None
+            self._made += 1
+        return _new_event()
+
+    def drop(self, chain: EventChain) -> None:
+        device_timer_dropped.add()
+        with self._lock:
+            self._free.setdefault(chain.device, []).extend(chain.events)
+        chain.events = None
+
+    def pend(self, chain: EventChain) -> None:
+        with self._lock:
+            self._reap_locked()
+            self._pending.append(chain)
+
+    def resolve(self) -> None:
+        """Credit every pending chain the device has run past."""
+        with self._lock:
+            self._pending = [c for c in self._pending
+                             if not self._resolved_locked(c)]
+
+    def forget(self, timer: DeviceTimer) -> None:
+        with self._lock:
+            for c in self._pending:
+                c.timers = [None if t is timer else t for t in c.timers]
+
+    def _reap_locked(self) -> None:
+        n = 0
+        for c in self._pending:
+            if not self._resolved_locked(c):
+                break
+            n += 1
+        del self._pending[:n]
+
+    def _resolved_locked(self, chain: EventChain) -> bool:
+        evs = chain.events
+        if not evs[-1].query():  # the chain ran in order on its stream
+            return False
+        for s, e, t in zip(evs, evs[1:], chain.timers):
+            if t is not None:
+                t.add(s.elapsed_time(e) / 1e3)  # ms -> s
+        self._free.setdefault(chain.device, []).extend(evs)
+        return True
+
+
+EVENTS = EventPool()
+
+
 class PvarRegistry:
     def __init__(self) -> None:
         self._pvars: Dict[str, Pvar] = {}
@@ -228,6 +366,13 @@ def timer(name: str, help: str = "") -> Pvar:
     return PVARS.register(name, PvarClass.TIMER, help)
 
 
+def device_timer(name: str, help: str = "") -> DeviceTimer:
+    with PVARS._lock:
+        pv = PVARS._pvars.setdefault(name, DeviceTimer(name, help))
+    assert isinstance(pv, DeviceTimer), f"{name} registered as {pv.pclass}"
+    return pv
+
+
 def highwatermark(name: str, help: str = "") -> Pvar:
     return PVARS.register(name, PvarClass.HIGHWATERMARK, help)
 
@@ -242,3 +387,12 @@ def aggregate(name: str, help: str = "") -> Aggregate:
     pv = PVARS.register(name, PvarClass.AGGREGATE, help)
     assert isinstance(pv, Aggregate), f"{name} registered as {pv.pclass}"
     return pv
+
+
+#: chains of CUDA events left untimed because :data:`EVENTS` was spent:
+#: a device-seconds pvar then reads low by their intervals
+device_timer_dropped = counter(
+    "device_timer_dropped",
+    "chains of CUDA events (a site's timed steps) left untimed because "
+    "the pool of events was spent: device-seconds pvars read low",
+)

@@ -158,11 +158,11 @@ def is_enabled() -> bool:
 
 def record(op: str, layer: str, t_start: float, dt: float,
            nbytes: int = 0, peer: int = -1, comm_id: int = -1,
-           flow: int = 0, flow_side: str = "") -> Span:
+           flow: int = 0, flow_side: str = "", name: str = "") -> Span:
     """Emit-point helper: journal one span. Callers gate on
     ``obs.enabled`` themselves so the off cost stays one attr check."""
     return journal.record(op, layer, t_start, dt, nbytes, peer, comm_id,
-                          flow, flow_side)
+                          flow, flow_side, name)
 
 
 # the always-on switch: env var wins, then the MCA cvar

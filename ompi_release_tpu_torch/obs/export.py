@@ -43,6 +43,8 @@ def span_event(s: Dict[str, Any], pid: int, tid: int,
     if s.get("flow"):
         args["flow"] = s["flow"]
         args["flow_side"] = s.get("fs", "")
+    if s.get("name"):
+        args["range"] = s["name"]  # the mpi.* profiler range's name
     ev: Dict[str, Any] = {
         "name": s["op"], "cat": s["layer"], "pid": pid, "tid": tid,
         # trace_event wants microseconds

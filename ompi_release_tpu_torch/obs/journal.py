@@ -9,11 +9,14 @@ can detect wrap/loss. Recording never allocates beyond the span
 object and never blocks on IO — exporters (``obs/export.py``) read a
 snapshot and format offline.
 
-Timestamps are ``time.perf_counter()`` seconds. For XLA-dispatched
-work ``dt`` is *dispatch-side* time (jax dispatch is async; blocking
-for device completion inside an emit point would change program
-behavior); peruse-bridge spans carry the event's element count in the
-``nbytes`` slot, as fired.
+Timestamps are ``time.perf_counter()`` seconds. For work on the card
+``dt`` is *enqueue-side* time: a CUDA kernel or copy returns once it
+is queued on its stream, and blocking for device completion inside an
+emit point would change program behavior (device seconds are the
+CUDA-event pvars of ``obs/spans.py``). Peruse-bridge spans carry the
+event's element count in the ``nbytes`` slot, as fired. A span that
+``obs/spans.py`` wrote also carries ``name``, the ``mpi.<layer>.<op>``
+profiler range it was recorded under.
 
 **Cross-rank flow context**: a span may carry a ``flow`` id plus a
 ``flow_side`` ("s" = this span produced the message, "t" = this span
@@ -50,12 +53,12 @@ def flow_id(*parts) -> int:
 
 class Span:
     __slots__ = ("seq", "op", "layer", "t_start", "dt", "nbytes",
-                 "peer", "comm_id", "flow", "flow_side")
+                 "peer", "comm_id", "flow", "flow_side", "name")
 
     def __init__(self, seq: int, op: str, layer: str, t_start: float,
                  dt: float, nbytes: int = 0, peer: int = -1,
                  comm_id: int = -1, flow: int = 0,
-                 flow_side: str = "") -> None:
+                 flow_side: str = "", name: str = "") -> None:
         self.seq = seq
         self.op = op
         self.layer = layer
@@ -66,6 +69,7 @@ class Span:
         self.comm_id = comm_id
         self.flow = flow
         self.flow_side = flow_side
+        self.name = name
 
     def asdict(self) -> Dict[str, Any]:
         d = {"seq": self.seq, "op": self.op, "layer": self.layer,
@@ -74,6 +78,8 @@ class Span:
         if self.flow:
             d["flow"] = self.flow
             d["fs"] = self.flow_side
+        if self.name:
+            d["name"] = self.name
         return d
 
     def __repr__(self) -> str:
@@ -110,12 +116,12 @@ class Journal:
 
     def record(self, op: str, layer: str, t_start: float, dt: float,
                nbytes: int = 0, peer: int = -1, comm_id: int = -1,
-               flow: int = 0, flow_side: str = "") -> Span:
+               flow: int = 0, flow_side: str = "", name: str = "") -> Span:
         with self._lock:
             seq = self._next_seq
             self._next_seq = seq + 1
             sp = Span(seq, op, layer, t_start, dt, nbytes, peer, comm_id,
-                      flow, flow_side)
+                      flow, flow_side, name)
             slot = seq % self._size
             if self._buf[slot] is not None:
                 self._wrapped += 1

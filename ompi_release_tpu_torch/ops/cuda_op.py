@@ -34,7 +34,9 @@ allocate the output with ``torch.empty_like`` and never write in place
 wrapper, the flash ones included, launches through :func:`_launch`, which
 does per call only what the call needs (the host time of one hop of the
 chain is its whole cost), checks the C entry's return code and counts
-the launch in ``LAUNCHES``.
+the launch in ``LAUNCHES``; a ``stream_axpy`` launch also counts the
+bytes it moves in ``BYTES``. Both are MPI_T pvars (``op_<wrapper>_launches``,
+``op_stream_axpy_bytes``).
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..mca import component as mca_component
+from ..mca import pvar as _pvar
 from ..mca import var as mca_var
 from ..utils.errors import ErrorCode, MPIError
 
@@ -74,6 +77,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"sum": 0, "axpy": 0, "scale": 0,
                             "transpose": 0, "chain": 0, "flash_fwd": 0,
                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+#: bytes the ``stream_axpy`` launches moved, ``sum_`` and ``axpy`` alike:
+#: 3 × n × itemsize a launch (two operands read, one written), counted and
+#: moved to a graph's replays as ``LAUNCHES`` is
+BYTES: Dict[str, int] = {"stream_axpy_bytes": 0}
+
+for _k in LAUNCHES:
+    _pvar.PVARS.register(
+        f"op_{_k}_launches", _pvar.PvarClass.COUNTER,
+        f"kernel launches of the {_k} wrapper (a captured graph's once "
+        "per replay)", getter=lambda k=_k: LAUNCHES[k])
+_pvar.PVARS.register(
+    "op_stream_axpy_bytes", _pvar.PvarClass.COUNTER,
+    "bytes stream_axpy launches moved: 3 x n x itemsize a launch (a "
+    "captured graph's once per replay)",
+    getter=lambda: BYTES["stream_axpy_bytes"])
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _F32 = torch.float32
@@ -88,25 +106,37 @@ _launcher: Optional[Tuple[ctypes.PyDLL, Callable[[], int],
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, BYTES):
+        for k in d:
+            d[k] = 0
+
+
+def counts() -> Dict[str, int]:
+    """A copy of ``LAUNCHES`` and ``BYTES``: the mark :func:`take_launches`
+    measures from."""
+    return {**LAUNCHES, **BYTES}
 
 
 def take_launches(before: Dict[str, int]) -> Dict[str, int]:
-    """The launches counted since ``before`` (a copy of ``LAUNCHES``),
-    taken back out of the counts: a graph capture records its kernels,
-    it does not run them."""
-    delta = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
-             if LAUNCHES[k] != before[k]}
-    for k, v in delta.items():
-        LAUNCHES[k] -= v
+    """The launches and bytes counted since ``before`` (a copy from
+    :func:`counts`; a key it lacks is left where it is), taken back out
+    of the counts: a graph capture records its kernels, it does not run
+    them."""
+    delta: Dict[str, int] = {}
+    for d in (LAUNCHES, BYTES):
+        for k in d:
+            v = d[k] - before.get(k, d[k])
+            if v:
+                delta[k] = v
+                d[k] -= v
     return delta
 
 
 def count_replay(launches: Dict[str, int]) -> None:
-    """Count one replay of a graph that captured ``launches``."""
+    """Count one replay of a graph that captured ``launches`` (a
+    :func:`take_launches` delta)."""
     for k, v in launches.items():
-        LAUNCHES[k] += v
+        (BYTES if k in BYTES else LAUNCHES)[k] += v
 
 
 def _nvcc() -> str:
@@ -340,6 +370,7 @@ def _launch_axpy(a, acc, c: float, plain_add: bool,
     _launch("stream_axpy", wrapper, a.get_device(), _DTYPE_CODE[a.dtype],
             a.data_ptr(), acc.data_ptr(), out.data_ptr(), float(c),
             int(plain_add), n)
+    BYTES["stream_axpy_bytes"] += 3 * n * a.element_size()
     return out
 
 

@@ -6,8 +6,10 @@ relinking via weak PMPI symbols (``ompi/mpi/c/init.c:32``) and ships
 communicator in :func:`wrap` and every collective/p2p call is recorded
 (name, wall time, payload bytes) to an event list, optional JSONL
 sink, and per-operation timing pvars — without touching the wrapped
-object or the call sites. ``profiler_trace`` bridges to the JAX
-profiler (XPlane) for device-side timelines.
+object or the call sites. ``profiler_trace`` bridges to
+``torch.profiler`` for device-side timelines: its Chrome trace holds
+the port's ``mpi.<layer>.<op>`` ranges (``obs/spans.py``) beside the
+CUDA kernels and copies they launched.
 """
 
 from __future__ import annotations
@@ -135,8 +137,10 @@ def wrap(comm, sink_path: Optional[str] = None) -> TracingComm:
 def profiler_trace(logdir: str):
     """Device-side profiling via ``torch.profiler`` (a Chrome trace of
     host and CUDA activity written under ``logdir``), the VampirTrace
-    analogue for the compiled data plane. The profiler stays on the
-    CPU when no card is present."""
+    analogue for the compiled data plane. While it collects, the port's
+    layers emit their ``mpi.*`` ranges (``obs/spans.py``), each beside
+    the device work it launched. The profiler stays on the CPU when no
+    card is present."""
     import os
 
     import torch

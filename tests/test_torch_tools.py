@@ -415,7 +415,16 @@ INFO_DIFFERS = {
     "variables": {"coll_tuning_db_dir", "runtime_virtual_ranks"},
     "pvars": {"tuning_db_resolves", "vprotocol_logged_recvs",
               "vprotocol_logged_sends", "wire_native_device_staged_bytes",
-              "wire_native_reaped_bytes"},
+              "wire_native_reaped_bytes",
+              # the port's device-time spans and kernel counters
+              "coll_plan_copy_device_seconds", "coll_plan_copy_bytes",
+              "coll_plan_launch_seconds", "coll_runner_device_seconds",
+              "coll_fusion_pack_device_seconds", "device_timer_dropped",
+              "op_stream_axpy_bytes",
+              "op_sum_launches", "op_axpy_launches", "op_scale_launches",
+              "op_transpose_launches", "op_chain_launches",
+              "op_flash_fwd_launches", "op_flash_bwd_dq_launches",
+              "op_flash_bwd_dkv_launches"},
 }
 
 
