@@ -17,7 +17,11 @@ Run from the repository root on a machine with a card:
    partition's vector, its block and a grid of many blocks
    (``cuda_op.stream_boundary_sizes``), aligned and at offset 1; the
    transpose bitwise at (8192, 8192) int32, (4097, 1000) f32 and (1, 1);
-   the chain hop bitwise against ``x + 1``;
+   the chain hop bitwise against ``x + 1``; the tuned ring allreduce's
+   ``ring_fold`` kernel bitwise its plain twin and the interpreted ring
+   of the plain, pipelined and segmented bodies at 2, 3, 5, 8, 9 and 16
+   ranks, f32 and bf16, aligned and at offset 1, and not taken under op
+   ^cuda;
    the flash-attention forward causal and not, S in {1, 100, 129, 2048},
    D in {8, 64, 128}, f32 and bf16, at the model's (64, 2048, 64) and,
    in 128-wide heads, (32, 2048, 128) bf16 causal, and with the bf16
@@ -99,8 +103,9 @@ Run from the repository root on a machine with a card:
      reduce_scatter_block at 256 MiB, bcast/allgather/alltoall at 64
      MiB) against closed forms and op ^cuda; a tuning-database entry
      that makes a 16 MiB tuned allreduce take ring, bitwise equal to
-     ring forced. ``stream_axpy[sum]`` must launch on fusion's and
-     ml's calls. Then its timings: pack/unpack of a darray piece beside
+     ring forced. ``stream_axpy[sum]`` or the tuned ring's ``ring_fold``
+     must launch on fusion's calls, ``stream_axpy[sum]`` on ml's. Then
+     its timings: pack/unpack of a darray piece beside
      ``index_select``, the dropless alltoallv, the gradient list fused
      two ways and per tensor, ml against tuned at 256 MiB, scan at 64
      MiB;
@@ -116,8 +121,8 @@ Run from the repository root on a machine with a card:
      hits); the main path's families (allreduce at 8 B-256 MiB, bcast,
      allgather, reduce_scatter_block, alltoall) capture as graphs on
      tuned, fused, ml and basic (none "bad"), each replay bitwise the
-     interpreted leg; a profiler window sees the SUM kernel in every
-     replay; a replay after the index cache is cleared and its memory
+     interpreted leg; a profiler window sees the tuned ring's
+     ``ring_fold`` kernel in every replay; a replay after the index cache is cleared and its memory
      overwritten gives the same bits; a tuned cvar write re-captures at
      the next fire and follows the forced algorithm; BASELINE config 5's
      int32 alltoall at 8 MiB a rank on the (4, 2) periodic cart comm
@@ -145,8 +150,9 @@ Run from the repository root on a machine with a card:
      element of a (8, 2^20) window against the closed form; SHMEM on a
      tuned comm of its own: a (8, 16 MiB) f32 heap through the bulk path
      equals the per-call path on every PE, ``sum_to_all`` at 64 MiB a PE
-     equals the op ^cuda call and must launch ``stream_axpy[sum]``, 4
-     threads contending for one lock keep 100 increments; a File of 8 x
+     equals the op ^cuda call and must launch the tuned ring's
+     ``ring_fold``, 4 threads contending for one lock keep 100
+     increments; a File of 8 x
      32 MiB card blocks under a vector view and a 256 MiB sharded array
      read back bitwise. Then its timings: epoch-close ms, host µs and
      ``osc_orchestration_seconds`` per close, replayed against
@@ -391,7 +397,9 @@ Run from the repository root on a machine with a card:
    time in a profiler window, the two backward kernels beside SDPA's
    backward, timed only; the three streaming rows also in bf16 at the
    same bytes, the SUM also at 2^20, 2^22 and 2^24 f32 elements beside
-   ``torch.add``), every wrapper's host µs per launch beside
+   ``torch.add``; ``ring_fold`` at 8 ranks x 256 MiB in 1 MiB segments,
+   f32 and bf16, beside its twin and the interpreted segmented ring it
+   replaces), every wrapper's host µs per launch beside
    ``torch.add(x, 1)``'s (10,000 back-to-back calls at small shapes),
    and the tuned allreduce per size (time and bus bandwidth 2(n-1)/n *
    bytes / t); a torch.profiler window per size says where the
@@ -407,6 +415,10 @@ Run from the repository root on a machine with a card:
    five BASELINE configs) in-process and prints its lines, then the MFU
    line (``transformer_fwdbwd_step``), the headline
    ``op_sum_256MiB_f32_hbm_bw`` last among them.
+
+``python3 chip_smoke.py --ring-fold`` builds the kernels and runs the
+ring kernel's checks, its timing and its host cost alone (no result
+line).
 
 Any mismatch or failure raises (exit code != 0) before the last line;
 no phase's failure is caught. The last
@@ -474,6 +486,24 @@ TRANSPOSE_N = 8192  # alltoall_i32_torus's (n, n) int32
 P2P_BYTES = 256 * MIB
 HOPS_TIMED = 1000  # dependent chain hops per timing window
 HOST_CALLS = 10000  # back-to-back calls per host-time window
+#: the tuned ring allreduce's one kernel (coll/spmd.py selects it for a
+#: SUM on the card); it replaces no Pallas kernel
+RING_FOLD_SOURCE = "ompi_release_tpu_torch/csrc/ring_ops.cu"
+RING_FOLD_REPLACES = ("none: the interpreted ring body, "
+                      "ompi_release_tpu_torch/coll/spmd.py _ring_passes")
+#: the large cell's top size, 256 MiB a rank over 8 ranks, in the tuned
+#: segmented ring's 1 MiB segments
+RING_FOLD_BYTES = 256 * MIB
+RING_FOLD_SEG_BYTES = MIB
+#: (body, elements a rank, segment parameter) of the ring kernel's
+#: checks: the plain ring, the pipelined ring (segment count) and the
+#: segmented ring (segment length), with lengths, chunks and segments
+#: that are and are not multiples of a 16-byte vector, and fewer
+#: elements than ranks
+RING_FOLD_CASES = (("ring", 1, 0), ("ring", 37, 0), ("ring", 20, 0),
+                   ("ring", 1 << 16, 0), ("pipelined", 1001, 3),
+                   ("segmented", 1001, 100), ("segmented", 96, 6),
+                   ("segmented", (1 << 18) + 8, 1 << 14))
 #: the SUM's smaller operand sizes on the main path (f32 elements): one
 #: below the streaming kernels' old capped grid (2,162,688) and two above
 SUM_SIZES = (1 << 20, 1 << 22, 1 << 24)
@@ -487,6 +517,13 @@ def log(msg):
 def check(cond, what):
     if not cond:
         raise AssertionError(f"chip_smoke: {what}")
+
+
+def sum_folds(cuda_op):
+    """Launches of the kernels that add on the card: ``stream_axpy``'s
+    SUM and ``ring_fold``, whose body folds the tuned ring allreduce's
+    SUM."""
+    return cuda_op.LAUNCHES["sum"] + cuda_op.LAUNCHES["ring_fold"]
 
 
 def card_line():
@@ -1417,6 +1454,132 @@ def time_kernels(cuda_op, torch, dev, launches):
     return rows
 
 
+def interpreted_sum():
+    """SUM's arithmetic under an op object the ring kernel does not
+    claim: the ring bodies keep their interpreted passes for it."""
+    from ompi_release_tpu_torch import ops
+
+    return ops.user_op("sum_interpreted", lambda a, b: a + b,
+                       identity=lambda d: 0)
+
+
+def ring_body(alg, x, op, n, param):
+    from ompi_release_tpu_torch.coll import pipeline, spmd
+
+    if alg == "ring":
+        return spmd.allreduce_ring(x, op, n)
+    if alg == "pipelined":
+        return pipeline.allreduce_ring_pipelined(x, op, n, param)
+    return spmd.allreduce_segmented_ring(x, op, n, param)
+
+
+def check_ring_fold(cuda_op, torch, dev):
+    """``ring_fold`` bitwise its plain twin and the interpreted ring of
+    each body on the card (``RING_FOLD_CASES`` at 2, 3, 5, 8, 9 and 16
+    ranks, f32 and bf16, random signed values of spread magnitudes,
+    aligned and at an element offset), each body taking the kernel once;
+    under op ^cuda a body keeps its interpreted passes."""
+    from ompi_release_tpu_torch import ops
+    from ompi_release_tpu_torch.mca import var as tmvar
+
+    interp = interpreted_sum()
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (2, 3, 5, 8, 9, 16):
+            for alg, total, param in RING_FOLD_CASES:
+                g = torch.Generator(device=dev).manual_seed(total * 31 + n)
+                base = torch.randn(n * total + 1, generator=g, device=dev)
+                base = (base * torch.exp2(torch.randint(
+                    -8, 9, base.shape, generator=g,
+                    device=dev).float())).to(dtype)
+                seg = max(param, n) if alg == "segmented" else total
+                if -(-total // seg) <= 1:
+                    seg = total
+                for x in (base[:-1].view(n, total), base[1:].view(n, total)):
+                    want = ring_body(alg, x, interp, n, param)
+                    before = cuda_op.LAUNCHES["ring_fold"]
+                    got = ring_body(alg, x, ops.SUM, n, param)
+                    twin = cuda_op._plain_ring_fold(x, n, seg, -(-seg // n))
+                    torch.cuda.synchronize()
+                    check(cuda_op.LAUNCHES["ring_fold"] - before == 1,
+                          f"ring_fold: the {alg} body did not take the "
+                          "kernel")
+                    check(bits_equal(got, want) and bits_equal(twin, want),
+                          f"ring_fold: {alg} {n} x {total} {dtype} "
+                          f"(offset {x.storage_offset()}) != the "
+                          "interpreted ring")
+                    n_cases += 1
+    x = base[:-1].view(n, total)
+    before = cuda_op.LAUNCHES["ring_fold"]
+    plain = with_op_excluded(tmvar, lambda: ring_body(alg, x, ops.SUM, n,
+                                                      param))
+    torch.cuda.synchronize()
+    check(cuda_op.LAUNCHES["ring_fold"] == before
+          and bits_equal(plain, ring_body(alg, x, interp, n, param)),
+          "ring_fold: op ^cuda took the kernel or changed the bits")
+    log(f"phase 2: ring_fold bitwise its twin and the interpreted ring "
+        f"in {n_cases} cases; none under op ^cuda")
+
+
+def time_ring_fold(cuda_op, torch, dev, launches):
+    """``ring_fold`` at the main path's shape (8 ranks x 256 MiB a rank,
+    1 MiB segments), f32 and bf16, in turns with its plain twin and the
+    interpreted segmented ring it replaces, all three bitwise equal."""
+    interp = interpreted_sum()
+    row = {"name": "ring_fold", "route": "cuda", "source": RING_FOLD_SOURCE,
+           "replaces": RING_FOLD_REPLACES, "launches": launches,
+           "bound_by": "bytes", "dtype": "float32"}
+    for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        item = torch.tensor([], dtype=dtype).element_size()
+        total = RING_FOLD_BYTES // item
+        seg = RING_FOLD_SEG_BYTES // item
+        chunk = -(-seg // N_RANKS)
+        g = torch.Generator(device=dev).manual_seed(25)
+        x = torch.randn(N_RANKS, total, generator=g, device=dev).to(dtype)
+        fns = {f"ms{sfx}": lambda: cuda_op.ring_fold(x, N_RANKS, seg, chunk),
+               f"plain_ms{sfx}": lambda: cuda_op._plain_ring_fold(
+                   x, N_RANKS, seg, chunk),
+               f"interpreted_ms{sfx}": lambda: ring_body(
+                   "segmented", x, interp, N_RANKS, seg)}
+        outs = [fn() for fn in fns.values()]
+        check(bits_equal(outs[0], outs[1]) and bits_equal(outs[0], outs[2]),
+              f"ring_fold {dtype} at 8 x 256 MiB != its twin or the "
+              "interpreted ring")
+        del outs
+        ms = turns_ms(fns, reps=5)
+        nbytes = 2 * N_RANKS * total * item
+        row.update(ms)
+        row[f"bound_ms{sfx}"] = nbytes / HBM_BYTES_PER_S * 1e3
+        row[f"GBps{sfx}"] = nbytes / (ms[f"ms{sfx}"] * 1e-3) / 1e9
+        row[f"shape{sfx}"] = [N_RANKS, total]
+        row[f"seg{sfx}"] = seg
+        del x, fns
+        torch.cuda.empty_cache()
+    return row
+
+
+def ring_fold_host_us(cuda_op, torch, dev):
+    """Host µs per ``ring_fold`` launch at (8, 512) f32 beside
+    ``torch.add(x, 1)`` on the chain's tile, as :func:`host_launch_us`
+    times every wrapper."""
+    x = torch.randn(N_RANKS, 512, device=dev)
+    tile = torch.randn(cuda_op.CHAIN_TILE, device=dev)
+    cases = {"ring_fold": lambda: cuda_op.ring_fold(x, N_RANKS, 512, 64),
+             "torch.add(x, 1)": lambda: torch.add(tile, 1)}
+    rounds = {name: [] for name in cases}
+    for r in range(3):
+        for name in (list(cases) if r % 2 == 0 else list(cases)[::-1]):
+            for _ in range(100):
+                cases[name]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                cases[name]()
+            rounds[name].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+            torch.cuda.synchronize()
+    return {name: statistics.median(r) for name, r in rounds.items()}
+
+
 def time_sum_at(cuda_op, torch, x, y):
     """The SUM kernel on f32 ``x`` and ``y`` in turns with
     ``torch.add(y, x)``: launched from Python (what the main path pays;
@@ -1657,6 +1820,7 @@ def host_launch_us(cuda_op, fa, torch, dev):
     t = torch.randint(-2**31, 2**31 - 1, (64, 64), generator=g, device=dev,
                       dtype=torch.int32)
     q = torch.randn(1, 64, 64, generator=g, device=dev).to(torch.bfloat16)
+    ring = torch.randn(N_RANKS, 512, generator=g, device=dev)
     out, lse = fa.flash_forward(q, q, q, True)
     args = (q, q, q, lse, q, fa._delta(out, q), True)
     cases = {  # the chain hop beside torch.add on the same tile
@@ -1669,6 +1833,7 @@ def host_launch_us(cuda_op, fa, torch, dev):
         "flash_fwd": lambda: fa.flash_forward(q, q, q, True),
         "flash_bwd_dq": lambda: fa._bwd_dq_kernel(*args),
         "flash_bwd_dkv": lambda: fa._bwd_dkv_kernel(*args),
+        "ring_fold": lambda: cuda_op.ring_fold(ring, N_RANKS, 512, 64),
     }
     rounds = {name: [] for name in cases}
     for r in range(3):  # reversed every other round
@@ -2235,9 +2400,9 @@ def s6_fusion(tuned, tmvar, cuda_op, torch, dev):
     info = {}
     for case in FUSION_CASES:
         before = [tpvar.PVARS.lookup(k).read() for k in names]
-        s0 = cuda_op.LAUNCHES["sum"]
+        s0 = sum_folds(cuda_op)
         outs = fused_grads(tuned, ints, case)
-        sums = cuda_op.LAUNCHES["sum"] - s0
+        sums = sum_folds(cuda_op) - s0
         after = [tpvar.PVARS.lookup(k).read() for k in names]
         for x, o in zip(ints, outs):
             check(bits_equal(o, (x * N_RANKS).contiguous()),
@@ -2254,7 +2419,7 @@ def s6_fusion(tuned, tmvar, cuda_op, torch, dev):
                         "threshold": FUSION_CASES[case][0],
                         "capacity": FUSION_CASES[case][1], **info[case]}))
     check(info["b"]["sum_launches"] > 0,
-          "fusion (b): the SUM kernel did not launch")
+          "fusion (b): neither the SUM kernel nor the ring kernel launched")
     log(f"slice 6: fusion buffer: {len(ints)} gradient tensors "
         f"({sum(x[0].numel() for x in ints) * 4 / 1e6:.1f} MB a rank); "
         "(a) and (b) give 8 x exactly and the op ^cuda buckets' bits")
@@ -2680,17 +2845,18 @@ def s7_plans(world, tuned, tmvar, torch, dev):
 def s7_replay_profile(world, tmvar, torch, dev):
     """A profiler window over a fresh signature's four fires (the
     interpreted capture, the graph capture and replay, two replays): the
-    SUM kernel runs in every one of them, replays included. Then a window
-    of replays alone (logged)."""
+    SUM runs in every one of them, replays included: at 16 MiB the tuned
+    segmented ring's one ``ring_fold`` kernel. Then a window of replays
+    alone (logged)."""
     from torch.profiler import ProfilerActivity, profile
 
     comm = comm_with(world, tmvar, "tuned")
     x = torch.randn(N_RANKS, 16 * MIB // 4, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(74))
 
-    def axpy_count(prof):
+    def fold_count(prof):
         return sum(e.count for e in prof.key_averages()
-                   if "axpy_kernel" in e.key
+                   if "ring_fold_kernel" in e.key
                    and str(getattr(e, "device_type", "")).endswith("CUDA"))
 
     torch.cuda.synchronize()
@@ -2699,13 +2865,14 @@ def s7_replay_profile(world, tmvar, torch, dev):
         outs = [comm.allreduce(x) for _ in range(4)]
         torch.cuda.synchronize()
     (entry,) = plan_entries(comm).values()
-    per_fire = entry["frozen"].launches.get("sum", 0)
-    seen = axpy_count(prof)
+    per_fire = entry["frozen"].launches.get("ring_fold", 0)
+    seen = fold_count(prof)
     log(json.dumps({"profile_capture_and_replays": {
-        "axpy_kernel_launches": seen, "per_fire": per_fire, "fires": 4}}))
+        "ring_fold_kernel_launches": seen, "per_fire": per_fire,
+        "fires": 4}}))
     check(per_fire > 0 and seen == 4 * per_fire,
-          f"profiler window shows {seen} axpy_kernel launches for 4 fires "
-          f"of {per_fire}")
+          f"profiler window shows {seen} ring_fold_kernel launches for 4 "
+          f"fires of {per_fire}")
     check(all(bits_equal(o, outs[0]) for o in outs), "replays differ")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2713,7 +2880,7 @@ def s7_replay_profile(world, tmvar, torch, dev):
             comm.allreduce(x)
         torch.cuda.synchronize()
     log(json.dumps({"profile_replays_only": {
-        "axpy_kernel_launches": axpy_count(prof), "per_fire": per_fire,
+        "ring_fold_kernel_launches": fold_count(prof), "per_fire": per_fire,
         "fires": 2}}))
     comm.free()
 
@@ -3241,13 +3408,14 @@ def s8_shmem(comm, tmvar, cuda_op, torch, dev):
     del per_call, bulk
     x = torch.randn(N_RANKS, 64 * MIB // 4, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(93))
-    before = cuda_op.LAUNCHES["sum"]
+    before = sum_folds(cuda_op)
     outs = [ctx.sum_to_all(x) for _ in range(3)]
-    sum_launches = cuda_op.LAUNCHES["sum"] - before
+    sum_launches = sum_folds(cuda_op) - before
     plain = with_op_excluded(tmvar, lambda: ctx.sum_to_all(x))
     check(all(bits_equal(o, plain) for o in outs),
           "sum_to_all at 64 MiB != the op ^cuda call")
-    check(sum_launches > 0, "sum_to_all launched no stream_axpy[sum]")
+    check(sum_launches > 0, "sum_to_all launched no stream_axpy[sum] and no "
+                            "ring_fold")
     del outs, plain, x
     lk = ctx.lock_create()
     counter = ctx.malloc((1,), torch.int32)
@@ -3281,7 +3449,8 @@ def s8_shmem(comm, tmvar, cuda_op, torch, dev):
     once = sum(p.prog is None for p in lock_plans)
     ctx.finalize()
     log(f"slice 8: SHMEM (8 x 16 MiB f32 heap) bulk == per-call on every PE; "
-        f"sum_to_all at 64 MiB == op ^cuda ({sum_launches} SUM launches); "
+        f"sum_to_all at 64 MiB == op ^cuda ({sum_launches} SUM or ring_fold "
+        "launches); "
         "4-thread lock contention kept 100 increments; lock-word plans: "
         f"{len(lock_plans) - once} graphs, {once} batches of racing CASes "
         "closed once")
@@ -3345,8 +3514,8 @@ def phase_slice8(world, tmvar, cuda_op, torch, dev):
     torch.cuda.synchronize()
     launches = dict(cuda_op.LAUNCHES)
     log(f"phase 3: slice-8 path launches {launches}")
-    check(launches["sum"] > 0, "kernel wrapper sum launched no time on the "
-                               "slice-8 path")
+    check(sum_folds(cuda_op) > 0, "neither the sum wrapper nor ring_fold "
+                                  "launched on the slice-8 path")
     log(json.dumps({"slice8_peak_memory_GiB":
                     torch.cuda.max_memory_allocated(dev) / 2 ** 30}))
     log(f"slice 8: checks took {time.perf_counter() - t0:.1f} s")
@@ -7942,6 +8111,17 @@ def main():
         log(f"chip_smoke {sys.argv[1]}: passed in "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
+    if sys.argv[1:] == ["--ring-fold"]:
+        # the ring kernel alone: the build, its checks, its row of the
+        # kernel table and its host cost; no result line
+        cuda_op.build()
+        check_ring_fold(cuda_op, torch, dev)
+        row = time_ring_fold(cuda_op, torch, dev, None)
+        row["host_us_per_launch"] = ring_fold_host_us(cuda_op, torch, dev)
+        log(json.dumps({"ring_fold": row}))
+        log(f"chip_smoke --ring-fold: passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     if sys.argv[1:] == ["--slice9"]:
         # a short run of slice 9 alone (the build, its phase and its
         # timings); it prints no result line
@@ -7962,6 +8142,7 @@ def main():
     hgmma = sass_report(cuda_op, so)
 
     phase_kernels(cuda_op, torch, dev)
+    check_ring_fold(cuda_op, torch, dev)
     phase_flash(fa, torch, dev)
     phase_flash_bwd(fa, torch, dev)
     check_bf16_reduction(torch, dev)
@@ -7979,6 +8160,7 @@ def main():
     bench = drive_bench_loops(cuda_op, torch, dev)
     torch.cuda.synchronize()
     launches = {name: cuda_op.LAUNCHES[name] for name in KERNELS}
+    launches["ring_fold"] = cuda_op.LAUNCHES["ring_fold"]
     log(f"phase 3: main-path launches {launches}")
     for name, count in launches.items():
         check(count > 0, f"kernel wrapper {name} launched no time on the "
@@ -8057,6 +8239,7 @@ def main():
     torch.cuda.empty_cache()
 
     rows = time_kernels(cuda_op, torch, dev, launches)
+    rows.append(time_ring_fold(cuda_op, torch, dev, launches["ring_fold"]))
     rows.append(time_flash(fa, torch, dev, launches["flash_fwd"], hgmma))
     rows.extend(time_flash_bwd(fa, torch, dev, launches, hgmma))
     for row in rows:

@@ -89,8 +89,8 @@ def allreduce_ring_pipelined(x: torch.Tensor, op: Op, n: int,
     matrix; bitwise-identical to :func:`spmd.allreduce_ring`."""
     if n == 1:
         return x.clone()
-    if nseg <= 1:
-        return spmd.allreduce_ring(x, op, n)
+    if nseg <= 1 or spmd.ring_on_kernel(x, op):
+        return spmd.allreduce_ring(x, op, n)  # the kernel: the same bits
     flat = x.reshape(n, -1)
     total = flat.shape[1]
     chunk = -(-total // n)  # ceil — the monolithic ring's row assignment

@@ -17,10 +17,13 @@ tensor whose row r is rank r's buffer:
   ~nseg x fewer launches).
 
 Every combine goes through the ``Op`` the caller passes — the resolved
-op, so large f32/bf16 SUMs run the CUDA streaming kernel — and every
-algorithm keeps the reference's per-element reduction order, so the
-results are bitwise-identical to the JAX package's. Inputs are never
-written: bodies that update in place do so on their own copies.
+op, so large f32/bf16 SUMs run the CUDA streaming kernel — except in the
+ring allreduce of a SUM on the card (:func:`ring_on_kernel`), whose two
+passes run as one ``ring_fold`` kernel (``ops/cuda_op.py``) with no
+per-round gathers or combines. Every algorithm keeps the reference's
+per-element reduction order, that kernel included, so the results are
+bitwise-identical to the JAX package's. Inputs are never written:
+bodies that update in place do so on their own copies.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ..ops import cuda_op
 from ..ops.op import Op
 
 
@@ -244,6 +248,21 @@ def allreduce_recursive_doubling(x: torch.Tensor, op: Op,
     return xf.reshape(shape)
 
 
+def ring_on_kernel(x: torch.Tensor, op: Op) -> bool:
+    """Whether a ring allreduce of ``x`` under ``op`` runs as one
+    ``ring_fold`` kernel rather than the interpreted :func:`_ring_passes`:
+    a CUDA tensor, and the op layer's claim (``cuda_op.claims_ring``:
+    SUM by object in f32 or bf16, the CUDA op component not excluded).
+    The CPU keeps the interpreted passes."""
+    return x.is_cuda and cuda_op.claims_ring(op, x.dtype)
+
+
+def _ring_fold(x: torch.Tensor, n: int, seg: int) -> torch.Tensor:
+    """The ring's two passes as one kernel, chunk index ``(p % seg) //
+    ceil(seg / n)`` at position ``p`` of a rank's buffer."""
+    return cuda_op.ring_fold(x.contiguous(), n, seg, -(-seg // n))
+
+
 def _ring_passes(chunks: torch.Tensor, op: Op, n: int) -> torch.Tensor:
     """The two ring passes (reduce-scatter + allgather) over a chunked
     ``(n ranks, n chunks, *rest)`` buffer, updated in place. A chunk's
@@ -270,6 +289,8 @@ def allreduce_ring(x: torch.Tensor, op: Op, n: int) -> torch.Tensor:
         return x.clone()
     flat = x.reshape(n, -1)
     total = flat.shape[1]
+    if ring_on_kernel(x, op):
+        return _ring_fold(x, n, max(total, 1))
     chunk = -(-total // n)
     ident = op.identity_for(x.dtype)
     chunks = _pad_to(flat, chunk * n, ident).reshape(n, n, chunk)
@@ -292,6 +313,8 @@ def allreduce_segmented_ring(x: torch.Tensor, op: Op, n: int,
     nseg = -(-total // seg)
     if nseg <= 1:
         return allreduce_ring(x, op, n)
+    if ring_on_kernel(x, op):
+        return _ring_fold(x, n, seg)
     ident = op.identity_for(x.dtype)
     chunk = -(-seg // n)
     segs = _pad_to(flat, nseg * seg, ident).reshape(n * nseg, seg)

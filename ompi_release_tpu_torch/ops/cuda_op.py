@@ -5,9 +5,11 @@ reduction hot loop is a C elementwise loop per (op x dtype)
 (``ompi/mca/op/base/op_base_functions.c``); its ``op`` MCA framework
 exists so accelerated components can override those loops. This is that
 component for an NVIDIA H100, plus the kernels of the bench loops: four
-hand-written kernels in ``csrc/stream_ops.cu``. :func:`build` compiles
-every ``csrc/*.cu`` (these four and the flash-attention forward and
-backward kernels of ``ops/flash_attention.py``, whose bf16 routes run on
+hand-written kernels in ``csrc/stream_ops.cu``, and the tuned ring
+allreduce's body as one kernel (``csrc/ring_ops.cu``, :func:`ring_fold`).
+:func:`build` compiles every ``csrc/*.cu`` (these five and the
+flash-attention forward and backward kernels of
+``ops/flash_attention.py``, whose bf16 routes run on
 the tensor cores and share ``csrc/wgmma_sm90.cuh``) for ``sm_90a`` with
 ``nvcc`` at first use into one library under
 ``ompi_release_tpu_torch/build/``, loaded with ``ctypes``. The library is
@@ -23,7 +25,10 @@ named by :func:`library_name`, a hash of every ``csrc/*.cu`` and
 - ``tile_transpose_32``: the (rows, cols) -> (cols, rows) transpose of
   32-bit words (``transpose``, the ``make_transpose_loop`` body);
 - ``chain_add_one``: ``x + 1`` on one (8, 128) f32 tile (``chain_hop``,
-  the ``make_chain_loop`` body).
+  the ``make_chain_loop`` body);
+- ``ring_fold``: the ring allreduce's reduce-scatter and allgather
+  passes over a rank-stacked buffer, SUM only, each element's partial
+  kept in registers (:func:`ring_fold`; ``coll/spmd.py`` selects it).
 
 Each kernel's wrapper launches it for CUDA tensors and takes its plain
 PyTorch twin (``_plain_*``, same arithmetic: f32 math, bf16 widened and
@@ -57,6 +62,7 @@ from ..mca import component as mca_component
 from ..mca import pvar as _pvar
 from ..mca import var as mca_var
 from ..utils.errors import ErrorCode, MPIError
+from .op import OP_FRAMEWORK, SUM
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -67,7 +73,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel launches per wrapper (``sum_``, ``axpy``, ``scale``,
-#: ``transpose``, ``chain_hop`` here; ``flash_forward`` and
+#: ``transpose``, ``chain_hop``, ``ring_fold`` here; ``flash_forward`` and
 #: ``flash_backward``'s two kernels in ``flash_attention.py``), bumped only
 #: where the wrapper launches its kernel. A launch captured into a CUDA
 #: graph counts once, at capture; replays do not pass through the
@@ -76,7 +82,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: :func:`count_replay`)
 LAUNCHES: Dict[str, int] = {"sum": 0, "axpy": 0, "scale": 0,
                             "transpose": 0, "chain": 0, "flash_fwd": 0,
-                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                            "ring_fold": 0}
 #: bytes the ``stream_axpy`` launches moved, ``sum_`` and ``axpy`` alike:
 #: 3 × n × itemsize a launch (two operands read, one written), counted and
 #: moved to a graph's replays as ``LAUNCHES`` is
@@ -250,6 +257,10 @@ def _load() -> ctypes.PyDLL:
             lib.tile_transpose_32.restype = ctypes.c_int
             lib.chain_add_one.argtypes = [vp, vp, vp]
             lib.chain_add_one.restype = ctypes.c_int
+            lib.ring_fold.argtypes = [ctypes.c_int, vp, vp, ctypes.c_int,
+                                      ctypes.c_longlong, ctypes.c_longlong,
+                                      ctypes.c_longlong, vp]
+            lib.ring_fold.restype = ctypes.c_int
             lib.flash_fwd.argtypes = [ctypes.c_int, vp, vp, vp, vp, vp,
                                       ctypes.c_longlong, ctypes.c_longlong,
                                       ctypes.c_int, ctypes.c_float,
@@ -354,6 +365,20 @@ def _plain_transpose(x: torch.Tensor) -> torch.Tensor:
 
 def _plain_chain_hop(x: torch.Tensor) -> torch.Tensor:
     return x + 1
+
+
+def _plain_ring_fold(x: torch.Tensor, n: int, seg: int,
+                     chunk: int) -> torch.Tensor:
+    """The ring's fold written out: position ``p`` of a rank's buffer is
+    in chunk ``j = (p % seg) // chunk``, completed as ``acc = x[j]``,
+    then ``acc = x[(j + t) % n] + acc`` for t = 1..n-1 (the SUM
+    combiner's rounding at every step), and copied to every rank."""
+    flat = x.reshape(n, -1)
+    j = (torch.arange(flat.shape[1], device=x.device) % seg) // chunk
+    acc = flat.gather(0, j[None])
+    for t in range(1, n):
+        acc = _plain_sum(flat.gather(0, ((j + t) % n)[None]), acc)
+    return acc.expand(n, -1).reshape(x.shape).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -482,6 +507,33 @@ def chain_hop(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def ring_fold(x: torch.Tensor, n: int, seg: int, chunk: int) -> torch.Tensor:
+    """The ring allreduce of SUM over the ``n`` rank rows of ``x``
+    (``(n, ...)``, f32 or bf16), both passes in one kernel
+    (``csrc/ring_ops.cu``), bitwise ``coll/spmd.py``'s interpreted
+    ring: position ``p`` of a rank's buffer is in chunk ``(p % seg) //
+    chunk``, and the chunk's index alone fixes the order its ``n``
+    values are added in. ``seg`` is the segmented ring's segment length,
+    the buffer's length for the plain ring; ``chunk`` is ``ceil(seg /
+    n)``. A new tensor; ``x`` is never written."""
+    if x.dim() == 0 or x.shape[0] != n or n < 2 or seg < 1 or chunk < 1 \
+            or chunk * n < seg:
+        raise MPIError(ErrorCode.ERR_ARG,
+                       f"ring_fold: needs an (n, ...) buffer, n >= 2 and "
+                       f"chunk * n >= seg (shape {tuple(x.shape)}, n {n}, "
+                       f"seg {seg}, chunk {chunk})")
+    if x.is_cpu:
+        return _plain_ring_fold(x, n, seg, chunk)
+    _check("ring_fold", x)
+    out = torch.empty_like(x)
+    total = x.numel() // n
+    if total == 0:
+        return out
+    _launch("ring_fold", "ring_fold", x.get_device(), _DTYPE_CODE[x.dtype],
+            x.data_ptr(), out.data_ptr(), n, total, seg, chunk)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # op-framework component
 # ---------------------------------------------------------------------------
@@ -507,6 +559,23 @@ def make_cuda_sum():
         _cuda_sum_op = Op("sum[cuda]", _cuda_sum_fn, commutative=True,
                           identity=lambda d: 0)
     return _cuda_sum_op
+
+
+def claims_ring(op, dtype) -> bool:
+    """Whether :func:`ring_fold` may run a ring allreduce under ``op`` in
+    ``dtype``: the ring kernel's claim, made here as
+    :meth:`CudaOpComponent.lookup` makes the streaming kernel's. SUM —
+    the built-in ``SUM`` or this component's ``sum[cuda]``, by object,
+    never by name, since the kernel hard-wires SUM's arithmetic — in f32
+    or bf16, while the component is available: ``--mca op ^cuda`` keeps
+    every ring on its interpreted passes. No size threshold:
+    ``op_cuda_threshold`` is where one streaming add beats PyTorch's,
+    and the kernel replaces a whole interpreted ring at every size."""
+    if dtype not in _DTYPE_CODE or (op is not SUM
+                                    and op is not make_cuda_sum()):
+        return False
+    return any(comp.NAME == CudaOpComponent.NAME
+               for _prio, comp, _module in OP_FRAMEWORK.available())
 
 
 class CudaOpComponent(mca_component.Component):

@@ -10,7 +10,9 @@ multiply then an add, or one multiply per element, in f32 with explicit
 round-to-nearest intrinsics and no FMA, bf16 widened and rounded once,
 on both sides), also at the sizes around their partition's vector, its
 block and a grid of many blocks; ``transpose`` and ``chain_hop`` bitwise
-(a move of 32-bit words; one IEEE add). ``flash_fwd``: ``out`` f32
+(a move of 32-bit words; one IEEE add); ``ring_fold`` bitwise its twin
+and the interpreted ring (the same adds in the same order, bf16 rounded
+after every step on every side). ``flash_fwd``: ``out`` f32
 rtol/atol 2e-5 (the JAX suite's
 own, ``tests/test_pallas.py``), bf16 within 1 bf16 ulp plus that atol,
 ``lse`` atol 1e-5; kernel and twin both compute in f32, in another
@@ -89,7 +91,8 @@ def test_launches_counted_per_wrapper(dev):
     fa._plain_flash_backward(q, q, q, out, lse, q, True)
     assert cuda_op.LAUNCHES == {"sum": 1, "axpy": 2, "scale": 1,
                                 "transpose": 1, "chain": 1, "flash_fwd": 3,
-                                "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+                                "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                                "ring_fold": 0}
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(dev):
@@ -424,7 +427,9 @@ def _plans(comm):
 def test_plan_replays_bitwise_and_counts_launches(tuned, nbytes):
     """The second call captures the tuned allreduce's body as a graph;
     every replay is bitwise the interpreted leg, and each replay counts
-    the SUM launches its graph captured."""
+    the launches its graph captured: from 64 KiB a rank the ring's one
+    ``ring_fold`` (plain, pipelined at 4 MiB, segmented at 16 MiB), no
+    SUM launch of its own; at 8 B recursive doubling's plain adds."""
     from ompi_release_tpu_torch import ops
 
     x = torch.randn(8, nbytes // 4, device=tuned.device)
@@ -432,11 +437,13 @@ def test_plan_replays_bitwise_and_counts_launches(tuned, nbytes):
     outs = [tuned.allreduce(x) for _ in range(3)]
     (entry,) = _plans(tuned)
     assert entry["frozen"].graph is not None
-    captured = entry["frozen"].launches.get("sum", 0)
-    assert (captured > 0) == (nbytes >= 4 << 20)  # the SUM kernel's claim
-    before = cuda_op.LAUNCHES["sum"]
+    captured = entry["frozen"].launches
+    assert captured.get("sum", 0) == 0
+    assert captured.get("ring_fold", 0) == (1 if nbytes >= 64 << 10 else 0)
+    before = dict(cuda_op.LAUNCHES)
     outs.append(tuned.allreduce(x))
-    assert cuda_op.LAUNCHES["sum"] - before == captured
+    for k in ("sum", "ring_fold"):
+        assert cuda_op.LAUNCHES[k] - before[k] == captured.get(k, 0)
     for o in outs:
         assert torch.equal(o.view(torch.int32), want.view(torch.int32))
 
@@ -663,3 +670,129 @@ def test_mesh_a_flash_launches(dev):
     assert cuda_op.LAUNCHES["flash_bwd_dq"] == per_fwd
     assert cuda_op.LAUNCHES["flash_bwd_dkv"] == per_fwd
     assert abs(float(loss) - np.log(cfg.vocab)) < 1.0
+
+
+# ---------------------------------------------------------------------------
+# ring_fold: the tuned ring allreduce's two passes as one kernel
+# ---------------------------------------------------------------------------
+
+def _interpreted_sum():
+    """SUM's arithmetic under another op object: the ring bodies keep
+    their interpreted passes for it (``spmd.ring_on_kernel`` claims by
+    object)."""
+    from ompi_release_tpu_torch import ops
+
+    return ops.user_op("sum_interpreted", lambda a, b: a + b,
+                       identity=lambda d: 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 3, 5, 8, 9, 16])
+@pytest.mark.parametrize("alg,total,param", [
+    ("ring", 1, 0), ("ring", 7, 0), ("ring", 37, 0), ("ring", 1001, 0),
+    ("ring", 20, 0), ("ring", 1 << 16, 0), ("pipelined", 37, 2),
+    ("pipelined", 1001, 3), ("segmented", 37, 5), ("segmented", 1001, 100),
+    ("segmented", 1001, 16), ("segmented", 64, 3), ("segmented", 96, 6),
+    ("segmented", (1 << 18) + 8, 1 << 14)])
+def test_ring_fold_is_its_twin_and_the_interpreted_ring(dev, alg, total,
+                                                        param, n, dtype):
+    """The kernel against its twin and against the interpreted ring of
+    the same body on the card, bitwise, through the bodies (which must
+    take the kernel: one launch each) and called directly, aligned and
+    at an element offset (the scalar path)."""
+    from ompi_release_tpu_torch import ops
+    from ompi_release_tpu_torch.coll import pipeline, spmd
+
+    def body(x, op):
+        if alg == "ring":
+            return spmd.allreduce_ring(x, op, n)
+        if alg == "pipelined":
+            return pipeline.allreduce_ring_pipelined(x, op, n, param)
+        return spmd.allreduce_segmented_ring(x, op, n, param)
+
+    g = torch.Generator(device=dev).manual_seed(total * 31 + n)
+    base = torch.randn(n * total + 1, generator=g, device=dev)
+    base = (base * torch.exp2(torch.randint(-8, 9, base.shape, generator=g,
+                                            device=dev).float())).to(dtype)
+    seg = max(param, n) if alg == "segmented" else total
+    if -(-total // seg) <= 1:
+        seg = total
+    view = torch.int32 if dtype is torch.float32 else torch.int16
+    for x in (base[:-1].view(n, total), base[1:].view(n, total)):
+        want = body(x, _interpreted_sum())
+        twin = cuda_op._plain_ring_fold(x, n, seg, -(-seg // n))
+        before = cuda_op.LAUNCHES["ring_fold"]
+        got = body(x, ops.SUM)
+        direct = cuda_op.ring_fold(x.contiguous(), n, seg, -(-seg // n))
+        torch.cuda.synchronize()
+        assert cuda_op.LAUNCHES["ring_fold"] - before == 2
+        for t in (got, direct, twin):
+            assert t.dtype is dtype and t.shape == x.shape
+            assert torch.equal(t.view(view), want.view(view))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nbytes", [64 << 10, 4 << 20, (16 << 20) + 64])
+def test_ring_fold_in_a_frozen_plan_replay(tuned, dtype, nbytes):
+    """The tuned allreduce's frozen plan replays the kernel: every replay
+    is bitwise the interpreted ring of the same body (SUM's arithmetic
+    under an op the kernel does not claim), and ``op_ring_fold_launches``
+    rises by one a replayed call."""
+    from ompi_release_tpu_torch.mca import pvar as tpvar
+
+    g = torch.Generator(device=tuned.device).manual_seed(nbytes)
+    x = torch.randn(8, nbytes // 4, generator=g,
+                    device=tuned.device).to(dtype)
+    want = tuned.allreduce(x, _interpreted_sum())
+    outs = [tuned.allreduce(x) for _ in range(2)]  # interpreted, capture
+    frozen = [e["frozen"] for e in _plans(tuned)
+              if e.get("frozen") is not None
+              and e["frozen"].graph is not None
+              and e["frozen"].launches.get("ring_fold")]
+    assert len(frozen) == 1 and frozen[0].graph is not None
+    pv = tpvar.PVARS.lookup("op_ring_fold_launches")
+    for _ in range(3):
+        before = pv.read()
+        outs.append(tuned.allreduce(x))
+        assert pv.read() - before == 1
+    view = torch.int32 if dtype is torch.float32 else torch.int16
+    for o in outs:
+        assert torch.equal(o.view(view), want.view(view))
+
+
+@pytest.mark.parametrize("nbytes", [64 << 10, (16 << 20) + 64])
+def test_op_excluded_ring_takes_no_kernel(tuned, nbytes):
+    """``--mca op ^cuda`` keeps the tuned ring on its interpreted passes
+    (the op layer's claim, ``cuda_op.claims_ring``): no ``ring_fold``
+    launch in the interpreted call, the capture or a replay, and the
+    plain passes give the kernel's bits."""
+    g = torch.Generator(device=tuned.device).manual_seed(nbytes)
+    x = torch.randn(8, nbytes // 4, generator=g, device=tuned.device)
+    before = cuda_op.LAUNCHES["ring_fold"]
+    kernel = tuned.allreduce(x)
+    assert cuda_op.LAUNCHES["ring_fold"] - before == 1
+    before = cuda_op.LAUNCHES["ring_fold"]
+    plain = _op_excluded(lambda: [tuned.allreduce(x) for _ in range(3)])
+    torch.cuda.synchronize()
+    assert cuda_op.LAUNCHES["ring_fold"] == before
+    for o in plain:
+        assert torch.equal(o.view(torch.int32), kernel.view(torch.int32))
+
+
+def test_ring_fold_raises_on_what_the_kernel_does_not_take(dev):
+    x = torch.ones(8, 64, device=dev)
+    with pytest.raises(MPIError, match="contiguous"):
+        cuda_op.ring_fold(x.t().contiguous().t(), 8, 64, 8)
+    with pytest.raises(MPIError, match="float32/bfloat16"):
+        cuda_op.ring_fold(torch.ones(8, 64, dtype=torch.int32, device=dev),
+                          8, 64, 8)
+    with pytest.raises(MPIError, match="ring_fold"):
+        cuda_op.ring_fold(x, 4, 64, 16)  # leading axis is not n
+    with pytest.raises(MPIError, match="ring_fold"):
+        cuda_op.ring_fold(x, 8, 64, 7)  # chunks do not cover the segment
+    # a CPU tensor takes the twin: no launch
+    cuda_op.reset_launches()
+    cpu = torch.arange(16.0).view(8, 2)
+    assert torch.equal(cuda_op.ring_fold(cpu, 8, 2, 1),
+                       cuda_op._plain_ring_fold(cpu, 8, 2, 1))
+    assert cuda_op.LAUNCHES["ring_fold"] == 0

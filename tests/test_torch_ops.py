@@ -111,9 +111,11 @@ def test_cpu_tensors_never_count_launches():
     q = torch.ones(2, 10, 8)
     out, lse = flash_attention.flash_forward(q, q, q, True)
     flash_attention.flash_backward(q, q, q, out, lse, q, True)
+    cuda_op.ring_fold(torch.ones(4, 10), 4, 10, 3)
     assert cuda_op.LAUNCHES == {"sum": 0, "axpy": 0, "scale": 0,
                                 "transpose": 0, "chain": 0, "flash_fwd": 0,
-                                "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                                "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                                "ring_fold": 0}
 
 
 def test_bench_loops_match_pallas_loops():

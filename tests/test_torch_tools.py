@@ -424,7 +424,7 @@ INFO_DIFFERS = {
               "op_sum_launches", "op_axpy_launches", "op_scale_launches",
               "op_transpose_launches", "op_chain_launches",
               "op_flash_fwd_launches", "op_flash_bwd_dq_launches",
-              "op_flash_bwd_dkv_launches"},
+              "op_flash_bwd_dkv_launches", "op_ring_fold_launches"},
 }
 
 
