@@ -1,14 +1,17 @@
 """The control of the correctness check: the reference put in the
-program's place and computed in bfloat16, the precision below the
-configurations' float32. Every seed must come out not correct; the
-smallest ``max_abs_gap`` it reads is the check's upper reading.
+program's place and computed in the precision below the one the
+configuration states: bfloat16 for the collectives' float32, and for a
+train step the cell reference's ``CONTROL`` (fp8 for bfloat16, every
+product's operands rounded to it). Every seed must come out not
+correct; the smallest reading of a number it fails is that number's
+upper reading.
 
     python3 benchmark/control.py --workload <name> --seeds 1 2 3 \\
         [--seconds 1]
 
 Prints one JSON line a seed. Needs a card, as ``run.py`` does; the
 tests run the same control on the CPU at a tiny size
-(``tests/test_harness_control.py``).
+(``tests/test_harness_control.py``, ``tests/test_harness_step.py``).
 """
 
 import time
@@ -22,6 +25,29 @@ from pathlib import Path  # noqa: E402
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+
+
+def control_step(world, model):
+    """The model's reference in the place of the port's train step:
+    its loss and gradient in the reference's ``CONTROL`` precision, the
+    one below the model's, then the run's optimizer step."""
+    import torch
+
+    import trainstep
+
+    low = getattr(torch, model.reference.CONTROL)
+
+    def step(params, opt, tokens, targets):
+        opt.zero_grad(set_to_none=True)
+        f32 = trainstep.tree_map(lambda p: p.detach().float(), params)
+        loss, grads = model.reference.loss_and_grads(
+            model.block, f32, tokens, targets, low)
+        for p, g in zip(trainstep.leaves(params), trainstep.leaves(grads)):
+            p.grad = g.to(p.dtype)
+        opt.step()
+        return torch.tensor(loss)
+
+    return step
 
 
 def control_program(world, collective):
@@ -47,10 +73,12 @@ def main(argv=None) -> int:
     import harness
     from ompi_release_tpu_torch.runtime import runtime
 
+    _, _, mix = harness.find_cell(harness.load_benchmark(), args.workload)
+    program = control_step if "step" in mix else control_program
     t_start = T_START
     for seed in args.seeds:
         result = harness.run(args.workload, seed, args.seconds, False,
-                             t_start=t_start, program=control_program)
+                             t_start=t_start, program=program)
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "correct": result["correct"],
                           "failed": result["failed"],

@@ -4,12 +4,14 @@ metrics and the correctness check.
 Everything a cell needs is found by name from ``BENCHMARK.json``: its
 configuration file, its traffic mix (``traffic/<name>.json``, turned
 into work by ``generator.py``), the reference of its collective
-(``reference/<collective>.py``) and the readers of its per-layer
+(``reference/<collective>.py``) or of its model
+(``reference/<configuration>.py``) and the readers of its per-layer
 metrics (``metrics/<name>.py``). The program under test is
 ``ompi_release_tpu_torch``: WORLD comes up through its public ``init``
 with the configuration's MCA settings, and the window drives the
 communicator's collectives (or its fusion buffer) exactly as an
-application does.
+application does. A cell whose mix is a train step runs the
+configuration's model instead (``trainstep.py``).
 """
 
 from __future__ import annotations
@@ -157,10 +159,11 @@ def _quantile(values: List[float], q: float) -> float:
     return s[lo] + (s[hi] - s[lo]) * (pos - lo)
 
 
-def end_to_end(name: str, run: dict) -> float:
+def end_to_end(name: str, run: dict) -> Optional[float]:
     """The harness's own end-to-end readings (host clock and the
     allocator's peak). A suffix after the first dot names the cells a
-    split metric is kept apart for; it reads the same."""
+    split metric is kept apart for; it reads the same. ``mfu`` reads
+    None where the card has no published peak (the CPU)."""
     name = name.split(".")[0]
     if name == "busbw_GBps":
         return run["bus_bytes"] / run["window_s"] / 1e9
@@ -172,7 +175,90 @@ def end_to_end(name: str, run: dict) -> float:
         return run["memory_peak_bytes"] / 2**30
     if name == "setup_s":
         return run["setup_s"]
+    if name == "tokens_per_s":
+        return run["tokens"] / sum(run["latencies"])
+    if name == "mfu":
+        if not run["peak_flops"]:
+            return None
+        return (100.0 * run["model_flops"] / sum(run["latencies"])
+                / run["peak_flops"])
     raise RunError(f"no reading for end-to-end metric {name!r}")
+
+
+def open_device(cell: dict, device: str):
+    """The device a run uses: ``cuda:0`` when the cell's cards are
+    present (RunError when they are not), else the CPU of the tests."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RunError("no CUDA device: this benchmark runs on the card "
+                           "only")
+        if torch.cuda.device_count() < int(cell["chips"]):
+            raise RunError(f"{cell['name']} needs {cell['chips']} cards, "
+                           f"{torch.cuda.device_count()} present")
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def init_world(config: dict, dev, ranks: int):
+    """(the port's package, WORLD) brought up through its public
+    ``init`` with the configuration's MCA settings; RunError unless
+    WORLD has ``ranks`` ranks."""
+    import ompi_release_tpu_torch as mpi
+
+    cli = []
+    for k, v in config.get("mca", {}).items():
+        cli += ["--mca", k, str(v)]
+    world = mpi.init(cli_args=cli, device=None if dev.type == "cuda"
+                     else "cpu")
+    if world.size != ranks:
+        raise RunError(f"WORLD has {world.size} ranks, the configuration "
+                       f"{ranks}")
+    return mpi, world
+
+
+def device_info(dev, cell: dict, peak: int) -> dict:
+    """The result line's ``device``: platform, the card's name, the
+    cards the cell uses and the allocator's peak."""
+    import torch
+
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    return {"platform": "gpu" if dev.type == "cuda" else "cpu",
+            "kind": name, "count": int(cell["chips"]),
+            "memory_peak_bytes": int(peak)}
+
+
+def end_to_end_metrics(bench: dict, workload: str, readings: dict,
+                       dev) -> Dict[str, dict]:
+    """The cell's end-to-end metrics from the run's readings. A reading
+    the card gives none of is a RunError; on the CPU it is left out."""
+    out = {}
+    for m in metrics_of(bench, workload, "end_to_end"):
+        value = end_to_end(m["name"], readings)
+        if value is None:
+            if dev.type == "cuda":
+                raise RunError(f"no reading of {m['name']} on this card")
+            continue
+        out[m["name"]] = {"value": float(value), "unit": m["unit"]}
+    return out
+
+
+def per_layer_metrics(bench: dict, workload: str, ctx: dict
+                      ) -> Dict[str, dict]:
+    """The cell's per-layer metrics that their readers found something
+    to read for in ``ctx``."""
+    import metrics as readers
+
+    out = {}
+    for m in metrics_of(bench, workload, "per_layer"):
+        value = readers.load(m["name"]).read(ctx)
+        if value is not None:
+            out[m["name"]] = {"value": float(value), "unit": m["unit"]}
+    return out
 
 
 def run(workload: str, seed: int, seconds: float, trace: bool, *,
@@ -183,9 +269,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
 
     ``device="cpu"``, ``overrides`` (keys ``config`` and ``traffic``,
     merged over the files) and ``program`` (a function of the world and
-    the collective's name that returns the call to time in place of
-    the port's) are for the tests and the control; the command line
-    never sets them."""
+    the collective's name, or for a train step of the world and the
+    ``trainstep.Model``, that returns the call to time in place of the
+    port's) are for the tests and the control; the command line never
+    sets them."""
     import devtrace
     import generator
     import reference
@@ -196,32 +283,20 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     cell, config, mix = find_cell(bench, workload)
     for key, extra in (overrides or {}).items():
         {"config": config, "traffic": mix}[key].update(extra)
+    dev = open_device(cell, device)
     traffic = generator.build(mix, config, seed)
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RunError("no CUDA device: this benchmark runs on the card "
-                           "only")
-        if torch.cuda.device_count() < int(cell["chips"]):
-            raise RunError(f"{workload} needs {cell['chips']} cards, "
-                           f"{torch.cuda.device_count()} present")
-        dev = torch.device("cuda", 0)
-        torch.cuda.set_device(dev)
+    if isinstance(traffic, generator.StepTraffic):
+        import trainstep
+
+        return trainstep.run(bench, cell, config, traffic, seed, seconds,
+                             trace, t_start=t_start, dev=dev,
+                             program=program)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    import ompi_release_tpu_torch as mpi
-
-    cli = []
-    for k, v in config.get("mca", {}).items():
-        cli += ["--mca", k, str(v)]
-    world = mpi.init(cli_args=cli, device=None if dev.type == "cuda"
-                     else "cpu")
-    if world.size != traffic.ranks:
-        raise RunError(f"WORLD has {world.size} ranks, the configuration "
-                       f"{traffic.ranks}")
+    mpi, world = init_world(config, dev, traffic.ranks)
     ref = reference.for_collective(traffic.collective)
     call = (program or program_for)(world, traffic.collective)
     t_init = time.perf_counter()
@@ -306,37 +381,26 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *,
     readings = {"bus_bytes": bus_bytes, "window_s": window_s,
                 "latencies": latencies, "memory_peak_bytes": peak,
                 "setup_s": setup_s}
-    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-            else "cpu")
-    device_info = {"platform": "gpu" if dev.type == "cuda" else "cpu",
-                   "kind": name, "count": int(cell["chips"]),
-                   "memory_peak_bytes": int(peak)}
+    info = device_info(dev, cell, peak)
     result = {"correct": False, "attempted": len(latencies), "failed": 0,
-              "metrics": {}, "device": device_info}
+              "metrics": {}, "device": info}
     if trace:
-        import metrics as readers
         import peaks
 
         summary = devtrace.reduce(*devtrace.events_of(prof))
         ctx = {"pvars": _pvar_delta(before, after), "ops": summary["ops"],
                "busy_s": summary["busy_s"], "window_s": summary["window_s"],
                "steps": len(latencies), "least_bytes": least_bytes,
-               "hbm_bytes_per_s": peaks.hbm_bytes_per_s(name)}
-        for m in metrics_of(bench, workload, "per_layer"):
-            value = readers.load(m["name"]).read(ctx)
-            if value is not None:
-                result["metrics"][m["name"]] = {"value": float(value),
-                                                "unit": m["unit"]}
-        device_info["busy_s"] = summary["busy_s"]
-        device_info["window_s"] = summary["window_s"]
+               "hbm_bytes_per_s": peaks.hbm_bytes_per_s(info["kind"])}
+        result["metrics"] = per_layer_metrics(bench, workload, ctx)
+        info["busy_s"] = summary["busy_s"]
+        info["window_s"] = summary["window_s"]
         result["breakdown"] = summary["breakdown"]
         del prof
     else:
-        for m in metrics_of(bench, workload, "end_to_end"):
-            result["metrics"][m["name"]] = {
-                "value": float(end_to_end(m["name"], readings)),
-                "unit": m["unit"]}
-    device_info["power_limit"] = power_limit(dev)
+        result["metrics"] = end_to_end_metrics(bench, workload, readings,
+                                               dev)
+    info["power_limit"] = power_limit(dev)
 
     # the correctness check, once the window has closed, the peak is
     # read and the program's state is freed: every kept output against

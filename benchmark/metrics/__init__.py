@@ -10,7 +10,12 @@ the traced window; an aggregate as ``{"sum", "count"}``), ``ops``
 length), ``steps`` (calls, or gradient syncs, the harness issued),
 ``least_bytes`` (the window's collectives' least HBM traffic: every
 rank's input read once and output written once) and ``hbm_bytes_per_s``
-(the card's published bandwidth, None on an unknown card).
+(the card's published bandwidth, None on an unknown card). In a
+train-step cell ``steps`` counts optimizer steps, ``least_bytes`` is 0,
+and ``tokens`` and ``model_flops`` (the window's steps' tokens and
+model FLOPs, ``reference/<configuration>.py``'s ``step_flops``) and
+``peak_flops`` (the card's published dense peak in the model's dtype,
+None on an unknown card) are there besides.
 """
 
 import importlib.util

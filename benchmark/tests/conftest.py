@@ -2,32 +2,56 @@
 
 They run the harness on the CPU at tiny sizes (the command line never
 does: it needs a card). Tests marked ``cuda`` need an NVIDIA card and
-skip without one."""
+skip without one.
 
+Each cell's tiny stand-in sizes are ``tiny/<workload>.json`` (keys
+``config`` and ``traffic``, merged over the cell's files), and each
+per-layer metric's case on the synthetic profiler table is
+``metric_cases/<metric>.json``: a cell or a metric added as files
+brings its own."""
+
+import json
 import sys
 from pathlib import Path
 
 import pytest
 
-BENCH = Path(__file__).resolve().parent.parent
+HERE = Path(__file__).resolve().parent
+BENCH = HERE.parent
 ROOT = BENCH.parent
 for p in (str(ROOT), str(BENCH)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-#: tiny stand-ins for the mixes' sizes and the BERT parameter list
-TINY = {
-    "allreduce_large.nccl_tests_8r": {
-        "traffic": {"sizes_bytes_per_rank": [4096, 65536, 1 << 20]}},
-    "allreduce_mid.nccl_tests_8r": {
-        "traffic": {"sizes_bytes_per_rank": [1024, 8192, 65536]}},
-    "alltoall_large.nccl_tests_8r": {
-        "traffic": {"sizes_bytes_per_rank": [4096, 65536, 1 << 20]}},
-    "gradsync.bert_large_ddp_8r": {
-        "config": {"parameters": [["a", [64, 32]], ["b", [32]],
-                                  ["c", [300, 128]], ["d", [7]],
-                                  ["e", [128, 128]], ["f", [5, 3]]]}},
-}
+
+def _load_dir(path: Path) -> dict:
+    return {p.name[:-len(".json")]: json.loads(p.read_text())
+            for p in sorted(path.glob("*.json"))}
+
+
+#: tiny stand-ins for the cells' sizes, by workload name
+TINY = _load_dir(HERE / "tiny")
+#: per-layer metric cases, by metric name
+METRIC_CASES = _load_dir(HERE / "metric_cases")
+
+
+def cells() -> list:
+    """The names of ``BENCHMARK.json``'s workloads."""
+    import harness
+
+    return [w["name"] for w in harness.load_benchmark()["workloads"]]
+
+
+def kind_of(workload: str) -> str:
+    """``"step"`` for a train-step cell, else ``"collective"``."""
+    import harness
+
+    _, _, mix = harness.find_cell(harness.load_benchmark(), workload)
+    return "step" if "step" in mix else "collective"
+
+
+def collective_cells() -> list:
+    return [w for w in cells() if kind_of(w) == "collective"]
 
 
 def pytest_configure(config):

@@ -1,26 +1,29 @@
 """The check fails its control and each fault it is there to catch.
 
-The control is the reference put in the program's place in bfloat16,
-the precision below the configurations' float32 (``control.py``). The
-faults are planted underneath the timed path, in the communicator the
-harness drives (the fusion buffer calls the same methods), and the rest
-of the run is the harness's own."""
+The control is the reference put in the program's place in the
+precision below the configuration's (``control.py``): bfloat16 for a
+collective cell's float32, the cell reference's ``CONTROL`` for a train
+step. The collectives' faults are planted underneath the timed path, in
+the communicator the harness drives (the fusion buffer calls the same
+methods), and the rest of the run is the harness's own; a train step's
+are in ``test_harness_step.py``."""
 
 import pytest
 import torch
 
 import control
-from conftest import TINY
-
-CELLS = sorted(TINY)
+from conftest import TINY, cells, collective_cells, kind_of
 
 
-@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("workload", cells())
 def test_control_is_not_correct(run_cpu, workload):
+    step = kind_of(workload) == "step"
+    program = control.control_step if step else control.control_program
     for seed in (11, 12, 2**31 + 13):
-        r = run_cpu(workload, seed=seed, program=control.control_program)
-        assert not r["correct"]
-        assert r["checks"]["max_abs_gap"]["value"] >= 1.0
+        r = run_cpu(workload, seed=seed, program=program)
+        assert not r["correct"], r["checks"]
+        if not step:
+            assert r["checks"]["max_abs_gap"]["value"] >= 1.0
 
 
 def _stale(orig):
@@ -60,7 +63,7 @@ FAULTS = {"stale": _stale, "half": _half, "no_exchange": _no_exchange,
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("workload", collective_cells())
 def test_planted_fault_is_not_correct(run_cpu, workload, fault):
     import harness
 

@@ -1,10 +1,13 @@
-"""The metric arithmetic on a synthetic profiler table."""
+"""The metric arithmetic on a synthetic profiler table: each per-layer
+metric's case (``metric_cases/<name>.json``, additions to the table's
+ctx and the value the reader must give) found by the metric's name."""
 
 import pytest
 
 import devtrace
 import harness
 import metrics
+from conftest import METRIC_CASES
 
 
 def _synthetic():
@@ -30,41 +33,57 @@ def test_busy_is_a_union_and_gaps_are_labelled():
     assert s["breakdown"]["device_ops"][0][0] == "indexSelectLargeIndex"
 
 
-def _ctx():
+def _ctx(extra=None):
+    """The synthetic table's ctx, a case's additions merged over it (a
+    dict-valued key one level deep)."""
     s = devtrace.reduce(*_synthetic())
-    return {"pvars": {"coll_invocations": 4,
-                      "coll_orchestration_seconds": 0.0002,
-                      "coll_plan_cache_hits": {"sum": 3.0, "count": 4}},
-            "ops": s["ops"], "busy_s": s["busy_s"],
-            "window_s": s["window_s"], "steps": 2,
-            "least_bytes": 3.35e12 * 0.0009, "hbm_bytes_per_s": 3.35e12}
+    ctx = {"pvars": {"coll_invocations": 4,
+                     "coll_orchestration_seconds": 0.0002,
+                     "coll_plan_cache_hits": {"sum": 3.0, "count": 4}},
+           "ops": s["ops"], "busy_s": s["busy_s"],
+           "window_s": s["window_s"], "steps": 2,
+           "least_bytes": 3.35e12 * 0.0009, "hbm_bytes_per_s": 3.35e12}
+    for k, v in (extra or {}).items():
+        ctx[k] = {**ctx[k], **v} if isinstance(ctx.get(k), dict) else v
+    return ctx
+
+
+def test_every_listed_metric_has_a_reader_and_a_case():
+    for m in harness.load_benchmark()["per_layer"]:
+        assert (metrics.DIR / f"{m['name']}.py").exists(), m["name"]
+        assert m["name"] in METRIC_CASES, m["name"]
+
+
+@pytest.mark.parametrize("kind", ["end_to_end", "per_layer"])
+def test_every_metric_that_lists_cells_lists_cells_that_exist(kind):
+    bench = harness.load_benchmark()
+    cells = {w["name"] for w in bench["workloads"]}
+    for m in bench[kind]:
+        if "workloads" in m:
+            assert m["workloads"], m["name"]
+            assert set(m["workloads"]) <= cells, m["name"]
 
 
 def test_every_listed_reader_on_the_synthetic_table():
-    want = {
-        "dispatch_us.mid": 50.0,
-        "fused_calls_per_sync": 2.0,
-        "plan_hit_ratio.mid": 0.75,
-        "runner_copy_ms_per_call": (0.002 + 0.001 + 0.0005) / 4 * 1e3,
-        "launches_per_call.mid": 1.0,
-        "sum_kernel_ms_per_call": 0.0015 / 4 * 1e3,
-        "coll_roofline": 100 * 0.0009 / 0.0045,
-        "device_idle_pct.bw": 55.0,
-        "device_idle_pct.lat": 55.0,
-    }
-    for name in ("runner_copy_ms_per_call", "sum_kernel_ms_per_call",
-                 "coll_roofline"):
-        want[name + ".sync"] = want[name]
-    want["device_idle_pct.sync"] = 55.0
-    bench = harness.load_benchmark()
-    assert {m["name"] for m in bench["per_layer"]} == set(want)
-    for name, value in want.items():
-        assert metrics.load(name).read(_ctx()) == pytest.approx(value), name
+    for m in harness.load_benchmark()["per_layer"]:
+        case = METRIC_CASES[m["name"]]
+        got = metrics.load(m["name"]).read(_ctx(case["ctx"]))
+        assert got == pytest.approx(case["value"]), m["name"]
+
+
+def test_sum_kernel_reads_the_ring_kernel_and_axpy():
+    ring = "void (anonymous namespace)::ring_fold_kernel<float>(float*)"
+    ctx = _ctx({"ops": {ring: (0.001, 1)}})
+    read = metrics.load("sum_kernel_ms_per_call").read
+    assert read(ctx) == pytest.approx((0.0015 + 0.001) / 4 * 1e3)
+    del ctx["ops"]["void axpy_kernel<float>"]
+    assert read(ctx) == pytest.approx(0.001 / 4 * 1e3)
 
 
 def test_readers_return_nothing_when_there_is_nothing_to_read():
     empty = {"pvars": {}, "ops": {}, "busy_s": 0.0, "window_s": 0.0,
-             "steps": 0, "least_bytes": 0.0, "hbm_bytes_per_s": None}
+             "steps": 0, "least_bytes": 0.0, "hbm_bytes_per_s": None,
+             "tokens": 0, "model_flops": 0, "peak_flops": None}
     for m in harness.load_benchmark()["per_layer"]:
         assert metrics.load(m["name"]).read(empty) is None, m["name"]
 

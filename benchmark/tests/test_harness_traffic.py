@@ -1,11 +1,16 @@
 """The traffic generator: the same seed gives the same work, every seed
-the same multiset of sizes."""
+the same multiset of sizes, each kind of mix its own invariants, and
+the collective mixes the work they gave before train steps came
+(``golden_traffic.json``)."""
+
+import json
+import math
 
 import generator
 import harness
-from conftest import TINY
+from conftest import HERE, collective_cells
 
-CELLS = sorted(TINY)
+CELLS = collective_cells()
 
 
 def _built(workload, seed):
@@ -17,8 +22,37 @@ def _built(workload, seed):
 def test_every_cell_builds_from_its_files():
     bench = harness.load_benchmark()
     for cell in bench["workloads"]:
+        _, config, mix = harness.find_cell(bench, cell["name"])
         t = _built(cell["name"], 7)
-        assert t.units and t.ranks == 8 and t.dtype == "float32"
+        if "step" in mix:
+            model = config["model"]
+            assert isinstance(t, generator.StepTraffic)
+            assert t.tokens == mix["batch"] * mix["seq"] > 0
+            assert t.vocab == model["config"]["vocab"]
+            assert t.ranks == math.prod(model["mesh"].values())
+            assert t.seq <= model["config"]["max_seq"]
+        else:
+            assert t.units and t.ranks == config.get(
+                "ranks", config.get("workers"))
+            assert t.dtype == config["dtype"]
+            assert all(s[0] == t.ranks for u in t.units for s in u.shapes)
+
+
+def test_the_collective_mixes_build_as_before():
+    golden = json.loads((HERE / "golden_traffic.json").read_text())
+    for key, want in golden.items():
+        name, seed = key.split("@")
+        t = _built(name, int(seed))
+        got = {"collective": t.collective, "ranks": t.ranks,
+               "dtype": t.dtype,
+               "units": [[[list(s) for s in u.shapes], u.bytes_per_rank]
+                         for u in t.units],
+               "blocks": [t.block(i) for i in range(12)],
+               "sample_start": [t.sample_start[i]
+                                for i in range(len(t.units))],
+               "sample_len": t.sample_len, "sample_span": t.sample_span,
+               "trace_blocks": t.trace_blocks, "min_blocks": t.min_blocks()}
+        assert got == want, key
 
 
 def test_same_seed_same_blocks_and_samples():
